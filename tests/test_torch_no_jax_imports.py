@@ -1,0 +1,127 @@
+"""Hygiene of the PyTorch port: tgsr_tpu_torch and chip_smoke.py import
+nothing of JAX or tgsr_tpu, the port's weights carry exactly the reference
+state-dict keys and shapes that tgsr_tpu's exporter emits, and the ctypes
+signatures agree with the kernels' C interfaces."""
+
+import ast
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from tgsr_tpu.checkpoints import export_torch
+from tgsr_tpu_torch.checkpoints.from_jax import init_seeded, state_dicts_from_jax
+from tgsr_tpu_torch.ops import _build
+from tgsr_tpu_torch.models.generator import GSRNetLow
+from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
+from tgsr_tpu_torch.models.text_encoder import TextEncoder
+from tests.torch_parity import VOCAB, configs, jax_trees
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tgsr_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "tgsr_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+                and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_no_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture(scope="module")
+def trees():
+    jcfg, tcfg = configs()
+    return jcfg, tcfg, jax_trees(jcfg)
+
+
+def _shapes(sd):
+    return {k: tuple(np.shape(v)) for k, v in sd.items()}
+
+
+def _modules(tcfg):
+    E = tcfg.TEXT.EMBEDDING_DIM
+    return (TextEncoder(VOCAB, 300, E),
+            GSRNetLow(tcfg.GAN.GF_DIM, E, tcfg.GAN.CONDITION_DIM, tcfg.n_stages,
+                      tcfg.GAN.R_NUM),
+            NetGHighWeight(tcfg.GAN.GF_DIM))
+
+
+@pytest.mark.parametrize("which", ["text", "netg", "netgh"])
+def test_state_dict_keys_match_exporter(trees, which):
+    """state_dicts_from_jax gives the keys and shapes of tgsr_tpu's
+    export_text_encoder / export_netg_low / export_netgh_weight, and they
+    load strict=True into the port's modules."""
+    _, tcfg, (text_v, netg_v, netgh_v) = trees
+    i = ("text", "netg", "netgh").index(which)
+    ref = (export_torch.export_text_encoder(text_v),
+           export_torch.export_netg_low(netg_v),
+           export_torch.export_netgh_weight(netgh_v))[i]
+    got = state_dicts_from_jax(text_v, netg_v, netgh_v)[i]
+    assert _shapes(got) == _shapes(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+    module = _modules(tcfg)[i]
+    module.load_state_dict(got, strict=True)
+    assert _shapes(module.state_dict()) == _shapes(ref)
+
+
+def test_init_seeded_loads_strict_and_moves_bn():
+    _, tcfg = configs()
+    sds = init_seeded(tcfg, VOCAB, torch.Generator().manual_seed(0))
+    for module, sd in zip(_modules(tcfg), sds[:3]):
+        module.load_state_dict(sd, strict=True)
+    var = [v for k, v in sds[1].items() if k.endswith("running_var")]
+    mean = [v for k, v in sds[1].items() if k.endswith("running_mean")]
+    assert all((v != 1).all() for v in var) and all((m != 0).all() for m in mean)
+    again = init_seeded(tcfg, VOCAB, torch.Generator().manual_seed(0))
+    assert all(torch.equal(sds[1][k], again[1][k]) for k in sds[1])
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_ctypes_signatures_match_sources(name):
+    """The argtypes that `_build.library` sets name every extern "C"
+    function of the kernel's source, with its number of parameters."""
+    with open(_build.CSRC / f"{name}.cu") as f:
+        src = f.read()
+    found = {m.group(1): len([p for p in m.group(2).split(",") if p.strip()])
+             for m in re.finditer(r'extern "C"[^(]*?\b(\w+)\(([^)]*)\)', src)}
+    want = {fn: len(argtypes) for fn, (argtypes, _) in _build.SIGNATURES[name].items()}
+    assert found == want
+
+
+def test_chip_smoke_alone_prints_no_result(tmp_path):
+    """chip_smoke.py in a directory that holds nothing else of the repo must
+    exit non-zero without its result line (here for want of a card, on a
+    card for want of the package)."""
+    import shutil
+    import subprocess
+    import sys
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

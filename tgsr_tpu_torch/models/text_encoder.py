@@ -1,0 +1,64 @@
+"""Bidirectional LSTM text encoder (counterpart of
+tgsr_tpu/models/text_encoder.py; = RNN_ENCODER, util.py:175-260).
+
+The recurrence is a masked loop over the T caption slots, as the JAX
+package's masked scan: the forward direction stops updating at t >= len,
+the backward direction treats t >= len as no-ops, and word outputs are zero
+beyond len. No sorting, and no `pack_padded_sequence`, which rejects the
+len == 0 of an empty caption. The `nn.LSTM` only holds the weights, under
+the reference's state-dict names (`rnn.weight_ih_l0[_reverse]`, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+
+def _masked_lstm(xs, lens, w_ih, w_hh, b, reverse: bool):
+    """xs [B, T, I], lens [B] -> (outputs [B, T, H] zero-padded, final h [B, H]).
+    Gate order i, f, g, o (torch convention)."""
+    bsz, steps, _ = xs.shape
+    hidden = w_hh.shape[1]
+    xw = xs @ w_ih.t() + b  # [B, T, 4H], input projection for every step
+    h = xs.new_zeros(bsz, hidden)
+    c = xs.new_zeros(bsz, hidden)
+    outs = [None] * steps
+    for t in (reversed(range(steps)) if reverse else range(steps)):
+        i, f, g, o = (xw[:, t] + h @ w_hh.t()).chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        valid = (t < lens)[:, None]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        outs[t] = torch.where(valid, h_new, torch.zeros_like(h_new))
+    return torch.stack(outs, dim=1), h
+
+
+class TextEncoder(nn.Module):
+    """RNN_ENCODER(ntoken, ninput=300, nhidden) with a bidirectional LSTM;
+    the per-direction hidden size is nhidden // 2 (util.py:191)."""
+
+    def __init__(self, vocab_size: int, emb_dim: int = 300, nhidden: int = 256):
+        super().__init__()
+        self.encoder = nn.Embedding(vocab_size, emb_dim)
+        self.rnn = nn.LSTM(emb_dim, nhidden // 2, 1, batch_first=True,
+                           bidirectional=True)
+
+    def forward(self, captions: torch.Tensor,
+                cap_lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """captions [B, T] token ids (0 = pad), cap_lens [B] ->
+        (words [B, T, nhidden], sent [B, nhidden]); the feature axis is
+        [forward half, backward half]."""
+        emb = self.encoder(captions)
+        outs, finals = [], []
+        for suffix, reverse in (("", False), ("_reverse", True)):
+            p = {n: getattr(self.rnn, f"{n}_l0{suffix}")
+                 for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+            o, hf = _masked_lstm(emb, cap_lens, p["weight_ih"], p["weight_hh"],
+                                 p["bias_ih"] + p["bias_hh"], reverse)
+            outs.append(o)
+            finals.append(hf)
+        return torch.cat(outs, dim=-1), torch.cat(finals, dim=-1)
