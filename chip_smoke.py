@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from tgsr_tpu_torch/csrc/ with nvcc (sm_90a),
-holds each kernel against its plain PyTorch version at the shapes of the x8
-face-SR serving path, then drives that path (SRPipeline at the face S8
-geometry, full width, seeded weights, float32) and checks that it went
-through the kernels and agrees with the same pipeline on the CPU, where
-every kernel site runs its plain version. Prints one JSON line
-of per-kernel numbers, then, as the last line,
+Builds the port's three CUDA kernels from tgsr_tpu_torch/csrc/ with nvcc
+(sm_90a), holds each kernel against its plain PyTorch version at the shapes
+of the x8 face-SR serving path, in float32 and in bfloat16, then drives that
+path twice (SRPipeline at the face S8 geometry, full width, seeded weights):
+in float32, where it must go through the attention and up-head kernels and
+agree with the same pipeline on the CPU (every kernel site there runs its
+plain version), and in bfloat16, where it must go through the attention and
+packed up-head kernels and hold >= 40 dB against that float32 reference.
+Prints one JSON line of per-kernel numbers, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
 is no CUDA card, when the package is missing, or when any check fails.
 """
@@ -25,6 +27,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bfloat16 tensor-core peak
 B = 64  # batch of the kernel phases
 T, C = 18, 32  # caption slots and attention width of the face S8 path
 FAILURES: list = []
@@ -60,12 +63,26 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
+    """The least time for the work: bytes at the memory rate or operations
+    at the peak rate of their type, whichever is larger, and which it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sums(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "nbytes", "flops")):
+    """Per-site numbers summed over one forward's sites; max of the errors."""
+    tot = {k: sum(r[k] for r in rows) for k in keys if k in rows[0]}
+    tot["max_abs_err"] = max(r["err"] for r in rows)
+    return tot
+
+
 def attention_phase(torch, rng):
+    """The attention kernel against its plain version at the three sites of
+    one forward, in float32 and in bfloat16. The bfloat16 kernel is held
+    against the plain version in float32 on the same bfloat16 inputs: it
+    computes in float32 and rounds each output once, so |err| <= 2^-8 |ref|
+    + 1e-5 elementwise."""
     import torch.nn.functional as F
 
     from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain
@@ -74,44 +91,71 @@ def attention_phase(torch, rng):
     lens = rng.integers(1, T + 1, B)
     lens[1] = 0  # one caption with every token padded
     mask = torch.as_tensor(np.arange(T)[None, :] >= lens[:, None], device="cuda")
-    words = torch.randn(B, T, C, device="cuda")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, nbytes=0, flops=0)
-    for hw in (32, 64, 128):
-        px = torch.randn(B, hw, hw, C, device="cuda")
-        ctx_p, attn_p = plain(px, words, mask)
-        ctx_k, attn_k = word_pixel_attention(px, words, mask)
-        torch.cuda.synchronize()
-        err = max((ctx_k - ctx_p).abs().max().item(), (attn_k - attn_p).abs().max().item())
-        check(err <= 1e-4, f"attention kernel == plain at [{B},{hw},{hw},{C}] T {T} "
-                           f"(max abs err {err:.3e} <= 1e-4)")
-        q, kv = px.reshape(B, hw * hw, C), words
-        keep = ~mask[:, None, :]
-        ms = cuda_ms(lambda: word_pixel_attention(px, words, mask, return_attn=False))
-        p_ms = cuda_ms(lambda: plain(px, words, mask, return_attn=False))
-        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep, scale=1.0))
-        n = B * hw * hw
-        nbytes = 4 * (2 * n * C + B * T * C) + B * T  # pixels in, ctx out, words, mask
-        flops = n * (4 * T * C + 5 * T)  # two T x C products + softmax
-        bms, by = bound_ms(nbytes, flops)
-        print(f"  attention {hw}x{hw}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"sdpa {l_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-        for key, val in (("ms", ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                         ("bound_ms", bms), ("nbytes", nbytes), ("flops", flops)):
-            tot[key] += val
-        tot["err"] = max(tot["err"], err)
-    return {"name": "word_pixel_attention", "route": "cuda",
-            "source": "tgsr_tpu_torch/csrc/word_pixel_attention.cu",
-            "replaces": "tgsr_tpu/ops/pallas_attention.py:30",
-            "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": bound_ms(tot["nbytes"], tot["flops"])[1],
-            "library_ms": tot["library_ms"],
-            "shapes": f"B {B}, C {C}, T {T}, HW 32^2+64^2+128^2 (one forward's three sites)"}
+    words32 = torch.randn(B, T, C, device="cuda")
+    out = {}
+    for dtype, esize, rate in ((torch.float32, 4, F32_FLOP_PER_S),
+                               (torch.bfloat16, 2, BF16_FLOP_PER_S)):
+        tag = str(dtype).split(".")[-1]
+        words = words32.to(dtype)
+        rows = []
+        for hw in (32, 64, 128):
+            px = torch.randn(B, hw, hw, C, device="cuda").to(dtype)
+            ctx_k, attn_k = word_pixel_attention(px, words, mask)
+            if dtype == torch.float32:
+                ctx_p, attn_p = plain(px, words, mask)
+                torch.cuda.synchronize()
+                err = max((ctx_k - ctx_p).abs().max().item(), (attn_k - attn_p).abs().max().item())
+                check(err <= 1e-4, f"attention kernel == plain at [{B},{hw},{hw},{C}] T {T} "
+                                   f"(max abs err {err:.3e} <= 1e-4)")
+            else:
+                ctx_p, attn_p = plain(px.float(), words.float(), mask)
+                torch.cuda.synchronize()
+                err = max((ctx_k.float() - ctx_p).abs().max().item(),
+                          (attn_k.float() - attn_p).abs().max().item())
+                excess = max(((ctx_k.float() - ctx_p).abs() - 2 ** -8 * ctx_p.abs()).max().item(),
+                             ((attn_k.float() - attn_p).abs() - 2 ** -8 * attn_p.abs()).max().item())
+                check(excess <= 1e-5, f"attention kernel bf16 == plain in f32 on the same "
+                                      f"inputs at [{B},{hw},{hw},{C}] T {T} (max abs err "
+                                      f"{err:.3e}, |err| - 2^-8 |ref| <= {excess:.2e} <= 1e-5)")
+            q, kv = px.reshape(B, hw * hw, C), words
+            keep = ~mask[:, None, :]
+            ms = cuda_ms(lambda: word_pixel_attention(px, words, mask, return_attn=False))
+            p_ms = cuda_ms(lambda: plain(px, words, mask, return_attn=False))
+            l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep, scale=1.0))
+            n = B * hw * hw
+            nbytes = esize * (2 * n * C + B * T * C) + B * T  # pixels in, ctx out, words, mask
+            flops = n * (4 * T * C + 5 * T)  # two T x C products + softmax
+            bms, by = bound_ms(nbytes, flops, rate)
+            print(f"  attention {tag} {hw}x{hw}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"sdpa {l_ms:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached)",
+                  flush=True)
+            rows.append(dict(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
+                             nbytes=nbytes, flops=flops, err=err))
+        tot = sums(rows)
+        tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), rate)[1]
+        out[tag] = tot
+    entry = {"name": "word_pixel_attention", "route": "cuda",
+             "source": "tgsr_tpu_torch/csrc/word_pixel_attention.cu",
+             "replaces": "tgsr_tpu/ops/pallas_attention.py:30", **out["float32"],
+             "bfloat16": out["bfloat16"],
+             "shapes": f"B {B}, C {C}, T {T}, HW 32^2+64^2+128^2 (one forward's three "
+                       "sites); top level float32, 'bfloat16' the bf16 instance"}
+    return entry
 
 
 def up_head_phase(torch):
+    """At both up-head sites of one forward (B = 64, 128 -> 256 px): row 2
+    (`fused_up_head`, float32) against its plain version; row 3
+    (`fused_up_head_packed`) in float32 against its plain version with
+    row 2's gate, and in bfloat16 against its plain version on the same
+    bfloat16 inputs (float32 sums; a GLU value may round to the neighbouring
+    bfloat16: |err| <= 2e-2 * max(1, |ref|max)). Row 2 and row 3 are timed on
+    the same float32 inputs."""
+    from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
     from tgsr_tpu_torch.ops.up_head import fold_bn, fused_up_head, reference_up_head
+    from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
 
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, nbytes=0, flops=0)
+    rows2, rows3 = [], {"float32": [], "bfloat16": []}
     h = w = 128
     for cin, c2, k, use_tanh, blend, site in (
             (64, 64, 3, False, False, "h_net3.upsample+img_net3"),
@@ -153,20 +197,58 @@ def up_head_phase(torch):
               f"bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached), "
               f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work "
               f"({issued / ms / 1e9:.1f} as the kernel issues it, 9 taps)", flush=True)
-        for key, val in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", bms),
-                         ("nbytes", nbytes), ("flops", flops)):
-            tot[key] += val
-        tot["err"] = max(tot["err"], err)
-    return {"name": "up_head", "route": "cuda",
-            "source": "tgsr_tpu_torch/csrc/up_head.cu",
-            "replaces": "tgsr_tpu/ops/pallas_up_head.py:78",
-            "max_abs_err": tot["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": bound_ms(tot["nbytes"], tot["flops"])[1],
-            "library_ms": None,
-            "shapes": f"B {B}, 128->256 px, both sites of one forward"}
+        rows2.append(dict(ms=ms, plain_ms=p_ms, bound_ms=bms, nbytes=nbytes,
+                          flops=flops, err=err))
+
+        for dtype, esize, rate, gate in ((torch.float32, 4, F32_FLOP_PER_S, 1e-4),
+                                         (torch.bfloat16, 2, BF16_FLOP_PER_S, 2e-2)):
+            tag = str(dtype).split(".")[-1]
+            wts = pack_up_head(w_up, mul, add, w_head, dtype=dtype)
+            args3 = (x.to(dtype), wts, srb.to(dtype), a.to(dtype))
+            ref3 = packed_up_head(*args3, **kw)
+            got3 = fused_up_head_packed(*args3, **kw)
+            torch.cuda.synchronize()
+            err3 = (got3 - ref3).abs().max().item()
+            scale3 = ref3.abs().max().item()
+            check(err3 <= gate * max(1.0, scale3),
+                  f"packed up-head kernel {tag} == plain at {site} (max abs err "
+                  f"{err3:.3e} <= {gate:g} * max(1, {scale3:.3f}))")
+            ms3 = cuda_ms(lambda: fused_up_head_packed(*args3, **kw), iters=5)
+            p_ms3 = cuda_ms(lambda: packed_up_head(*args3, **kw), iters=5)
+            nbytes3 = (esize * (x.numel() + wts.w_up.numel() + wts.w_head.numel()
+                                + (3 * n_out if blend else 0))
+                       + 4 * (2 * c2 + 3 * n_out))  # BN and the image are float32
+            bms3, by3 = bound_ms(nbytes3, flops, rate)
+            print(f"  packed up-head {tag} {site}: kernel {ms3:.4f} ms, plain {p_ms3:.4f} ms, "
+                  f"bound {bms3:.4f} ms ({by3}, {bms3 / ms3:.1%} of it reached), "
+                  f"{flops / ms3 / 1e9:.1f} TFLOP/s of the function's work"
+                  + (f"; row 2 on the same inputs {ms:.4f} ms" if dtype == torch.float32 else ""),
+                  flush=True)
+            rows3[tag].append(dict(ms=ms3, plain_ms=p_ms3, bound_ms=bms3, nbytes=nbytes3,
+                                   flops=flops, err=err3, up_head_ms=ms))
+    row2 = sums(rows2)
+    row2["bound_by"] = bound_ms(row2.pop("nbytes"), row2.pop("flops"))[1]
+    row3 = {}
+    for tag, rate in (("float32", F32_FLOP_PER_S), ("bfloat16", BF16_FLOP_PER_S)):
+        row3[tag] = sums(rows3[tag], keys=("ms", "plain_ms", "bound_ms", "nbytes", "flops",
+                                           "up_head_ms"))
+        row3[tag]["bound_by"] = bound_ms(row3[tag].pop("nbytes"), row3[tag].pop("flops"), rate)[1]
+        row3[tag]["library_ms"] = None
+    shapes = f"B {B}, 128->256 px, both sites of one forward"
+    return [{"name": "up_head", "route": "cuda", "source": "tgsr_tpu_torch/csrc/up_head.cu",
+             "replaces": "tgsr_tpu/ops/pallas_up_head.py:78", **row2, "library_ms": None,
+             "shapes": shapes + ", float32"},
+            {"name": "up_head_packed", "route": "cuda",
+             "source": "tgsr_tpu_torch/csrc/up_head_packed.cu",
+             "replaces": "tgsr_tpu/ops/pallas_up_head.py:244", **row3["bfloat16"],
+             "float32": row3["float32"],
+             "shapes": shapes + "; top level bfloat16 (the main path's), 'float32' "
+                                "the f32 instance, up_head_ms row 2 on the same inputs"}]
 
 
 def pipeline_phase(torch, rng, card):
+    """Drives the main path in float32 and in bfloat16, each with the launch
+    counts set to 0 just before and read just after; returns those counts."""
     from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
     from tgsr_tpu_torch.config import face_s8_config
     from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
@@ -175,9 +257,8 @@ def pipeline_phase(torch, rng, card):
     cfg = face_s8_config()
     vocab = 41
     sds = init_seeded(cfg, vocab, torch.Generator().manual_seed(0))
-    kern = SRPipeline(cfg, vocab, *sds, device="cuda")
-    # the reference: the same weights on the CPU, where every kernel site
-    # runs its plain version
+    # the reference: the same weights on the CPU in float32, where every
+    # kernel site runs its plain version
     plain = SRPipeline(cfg, vocab, *sds, device="cpu")
 
     def batch(n):
@@ -193,47 +274,68 @@ def pipeline_phase(torch, rng, card):
     t0 = time.perf_counter()
     ref = plain(lr8f, cap8, lens8)["sr"]
     print(f"  plain reference on the CPU, B=8: {time.perf_counter() - t0:.1f} s", flush=True)
-    _build.reset_launches()
-    got = kern(lr8f, cap8, lens8)["sr"]
-    torch.cuda.synchronize()
-    counts = dict(_build.LAUNCHES)
-    check(counts == {"word_pixel_attention": 3, "up_head": 2},
-          f"one forward launches 3 attention and 2 up-head kernels ({counts})")
-    check(tuple(got.shape) == (8, 256, 256, 3) and bool(torch.isfinite(got).all()),
-          f"SR is finite, shape {tuple(got.shape)}")
-    err = (got.cpu() - ref).abs().max().item()
-    check(err <= 1e-3, f"SR of the card's kernels == plain on the CPU, f32 "
-                       f"(max abs err {err:.3e} <= 1e-3)")
-    du8 = (to_uint8(got).cpu().int() - to_uint8(ref).int()).abs().max().item()
-    check(du8 <= 1, f"uint8 SR kernels vs plain differ by at most 1 (max {du8})")
-    one = kern(lr8f[:1], cap8[:1], lens8[:1])["sr"]
-    err1 = (one[0] - got[0]).abs().max().item()
-    check(err1 <= 1e-4, f"row 0 of the mixed-length batch == its B=1 result "
-                        f"(max abs err {err1:.3e} <= 1e-4)")
-    check(float(got.std()) > 1e-3, f"SR is not constant (std {float(got.std()):.4f})")
-
     n, mb = 100, 64
     lr, cap, lens = batch(n)
-    kern.sr_batched(lr, cap, lens, microbatch=mb)  # warm-up at the same shapes
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    out = kern.sr_batched(lr, cap, lens, microbatch=mb)
-    dt = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    m = -(-n // mb)
-    check(launches == {"word_pixel_attention": 3 * m, "up_head": 2 * m},
-          f"sr_batched N={n} microbatch {mb}: {m} forwards went through the kernels ({launches})")
-    check(out.shape == (n, 256, 256, 3) and out.dtype.name == "uint8" and out.std() > 1,
-          f"sr_batched output uint8 {out.shape}")
-    print(f"  sr_batched N={n} microbatch {mb}: {dt:.4f} s, {n / dt:.2f} img/s "
-          f"(f32, seeded weights) on {card}", flush=True)
-    profile_forward(torch, kern, lr[None, :mb], cap[None, :mb], lens[None, :mb])
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32
+        per_forward = {"word_pixel_attention": 3, "up_head": 2 if f32 else 0,
+                       "up_head_packed": 0 if f32 else 2}
+        kern = SRPipeline(cfg, vocab, *sds, device="cuda", compute_dtype=dtype)
+        _build.reset_launches()
+        got = kern(lr8f, cap8, lens8)["sr"]
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        check(counts == per_forward, f"one {tag} forward launches {per_forward} ({counts})")
+        check(tuple(got.shape) == (8, 256, 256, 3) and got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()),
+              f"{tag} SR is finite float32, shape {tuple(got.shape)}")
+        du8 = (to_uint8(got).cpu().int() - to_uint8(ref).int()).abs()
+        one = kern(lr8f[:1], cap8[:1], lens8[:1])["sr"]
+        if f32:
+            err = (got.cpu() - ref).abs().max().item()
+            check(err <= 1e-3, f"SR of the card's kernels == plain on the CPU, f32 "
+                               f"(max abs err {err:.3e} <= 1e-3)")
+            check(du8.max().item() <= 1, f"uint8 SR kernels vs plain differ by at most 1 "
+                                         f"(max {du8.max().item()})")
+            err1 = (one[0] - got[0]).abs().max().item()
+            check(err1 <= 1e-4, f"row 0 of the mixed-length batch == its B=1 result "
+                                f"(max abs err {err1:.3e} <= 1e-4)")
+        else:
+            mse = max(du8.double().square().mean().item(), 1e-12)
+            psnr = 10 * np.log10(255.0 ** 2 / mse)
+            check(psnr >= 40, f"uint8 SR bf16 on the card vs f32 plain on the CPU: "
+                              f"PSNR {psnr:.2f} dB >= 40 (max {du8.max().item()} levels)")
+            d1 = (to_uint8(one[0]).int() - to_uint8(got[0]).int()).abs().max().item()
+            check(d1 <= 2, f"row 0 of the mixed-length batch within 2 uint8 levels of "
+                           f"its B=1 result, bf16 (max {d1})")
+        check(float(got.std()) > 1e-3, f"{tag} SR is not constant (std {float(got.std()):.4f})")
+
+        kern.sr_batched(lr, cap, lens, microbatch=mb)  # warm-up at the same shapes
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = kern.sr_batched(lr, cap, lens, microbatch=mb)
+        dt = time.perf_counter() - t0
+        launches[tag] = dict(_build.LAUNCHES)
+        m = -(-n // mb)
+        want = {key: v * m for key, v in per_forward.items()}
+        check(launches[tag] == want,
+              f"sr_batched {tag} N={n} microbatch {mb}: {m} forwards went through the "
+              f"kernels ({launches[tag]})")
+        check(out.shape == (n, 256, 256, 3) and out.dtype.name == "uint8" and out.std() > 1,
+              f"sr_batched {tag} output uint8 {out.shape}")
+        print(f"  sr_batched {tag} N={n} microbatch {mb}: {dt:.4f} s, {n / dt:.2f} img/s "
+              f"(seeded weights) on {card}", flush=True)
+        profile_forward(torch, kern, lr[None, :mb], cap[None, :mb], lens[None, :mb], tag)
+        del kern
     return launches
 
 
-def profile_forward(torch, pipe, lr, cap, lens, top: int = 12) -> None:
-    """Device time of one B=64 forward by kernel (torch.profiler, CUPTI)."""
+def profile_forward(torch, pipe, lr, cap, lens, tag: str, top: int = 12) -> None:
+    """Device time of one B=64 forward by kernel (torch.profiler, CUPTI),
+    and the share of cuDNN's layout conversions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -248,9 +350,13 @@ def profile_forward(torch, pipe, lr, cap, lens, top: int = 12) -> None:
     if not events:
         print("  profile: no device time recorded (not measured)", flush=True)
         return
-    print(f"  profile of one forward at B={lr.shape[1]}: device {dev:.3f} ms, "
+    print(f"  profile of one {tag} forward at B={lr.shape[1]}: device {dev:.3f} ms, "
           f"wall {wall:.3f} ms under the profiler, idle share "
           f"{max(0.0, 1 - dev / wall):.3f}", flush=True)
+    conv = [e for e in events if "nchwToNhwc" in e.key or "nhwcToNchw" in e.key]
+    conv_ms = sum(e.self_device_time_total for e in conv) / 1e3
+    print(f"    layout conversions: {sum(e.count for e in conv)} launches, "
+          f"{conv_ms:.3f} ms, {conv_ms / dev:.1%}", flush=True)
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"    {ms:9.3f} ms {ms / dev:6.1%} x{e.count:<4d} {e.key[:90]}", flush=True)
@@ -288,13 +394,17 @@ def main() -> int:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     t0 = time.perf_counter()
-    kernels = [attention_phase(torch, rng), up_head_phase(torch)]
+    kernels = [attention_phase(torch, rng), *up_head_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches = pipeline_phase(torch, rng, card)
-    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"pipeline phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    # launches: the main path's runs, f32 and bf16 (counted apart per dtype)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(run[k["name"]] for run in launches.values())
+        for tag in ("float32", "bfloat16"):
+            if tag in k:
+                k[tag]["launches"] = launches[tag][k["name"]]
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

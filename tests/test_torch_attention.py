@@ -122,6 +122,36 @@ def test_module_matches_jax_module():
                                rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape,lens", [
+    ((2, 8, 8, 8, 6), [6, 0]),           # one all-padded caption
+    ((3, 16, 16, 32, 18), [18, 12, 0]),  # face S8 width, mixed lengths
+])
+def test_plain_bf16_matches_xla_bf16(shape, lens):
+    """bfloat16 in: the plain version (and the wrapper on CPU tensors)
+    computes as the JAX XLA path does in bfloat16, products in bfloat16 and a
+    where-fill softmax, and returns bfloat16. Gate: max abs difference at most
+    one bfloat16 step at the output's largest magnitude, 2^-7 * max(1,
+    |ref|max): the two frameworks round their sums and the softmax at other
+    places, and a ctx sum that cancels to near 0 keeps the absolute error of
+    its terms."""
+    b, h, w, c, t = shape
+    px, wd, mask = _inputs(b, h, w, c, t, lens, seed=5)
+    pxb, wdb = torch.from_numpy(px).bfloat16(), torch.from_numpy(wd).bfloat16()
+    ctx_r, attn_r = jax_wpa(jnp.asarray(pxb.float().numpy(), jnp.bfloat16),
+                            jnp.asarray(wdb.float().numpy(), jnp.bfloat16),
+                            jnp.asarray(mask))
+    assert ctx_r.dtype == attn_r.dtype == jnp.bfloat16
+    for fn in (plain_wpa, word_pixel_attention):
+        ctx, attn = fn(pxb, wdb, torch.from_numpy(mask))
+        assert ctx.dtype == attn.dtype == torch.bfloat16
+        for got, ref in ((ctx, ctx_r), (attn, attn_r)):
+            ref = np.asarray(ref, np.float32)
+            err = np.abs(got.float().numpy() - ref).max()
+            assert err <= 2 ** -7 * max(1.0, np.abs(ref).max()), err
+    # the all-padded caption attends uniformly
+    np.testing.assert_allclose(attn[-1].float().numpy(), 1 / t, rtol=2 ** -7)
+
+
 def test_wrapper_has_no_path_for_other_devices():
     """CPU tensors take the plain version; any device but CUDA raises."""
     px = torch.empty(1, 4, 4, 8, device="meta")

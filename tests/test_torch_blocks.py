@@ -79,3 +79,48 @@ def test_resblock():
     with torch.no_grad():
         got = _nhwc(m(_to_nchw(x)))
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+def _bf16_pair(which):
+    """(JAX module, its variables, port module) of one block, BN perturbed."""
+    if which == "upblock":
+        x = _x((2, 8, 8, 16), seed=5)
+        jm, m = jb.UpBlock(8), tb.UpBlock(16, 8)
+    else:
+        x = _x((2, 6, 6, 16), seed=6)
+        jm, m = jb.ResBlock(16), tb.ResBlock(16)
+    v = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    v = _perturb(unfreeze(jax.tree.map(np.asarray, v)), np.random.default_rng(7))
+    sd = {}
+    if which == "upblock":
+        _put_conv_bn(sd, "up", v["params"], v["batch_stats"], conv_idx=1, bn_idx=2)
+        sd = {k[len("up."):]: t for k, t in sd.items()}
+    else:
+        _put_resblock(sd, "block", v["params"], v["batch_stats"])
+    m.load_state_dict(sd, strict=True)
+    return x, jm, v, m.eval()
+
+
+@pytest.mark.parametrize("which", ["upblock", "resblock"])
+def test_blocks_bf16_match_jax_bf16(which):
+    """The blocks and GLU run in bfloat16 on the CPU (conv, eval BN on
+    bfloat16 statistics, GLU, nearest upsample) with every float parameter
+    and buffer cast, as the bfloat16 pipeline casts them, against the JAX
+    block on its bfloat16-cast variables. Gate: max abs difference at most
+    2^-5 * max(1, |ref|max), a few bfloat16 steps: the frameworks round the
+    conv sums, BN and GLU at other places."""
+    from tgsr_tpu.engine.precision import cast_floats as jax_cast
+    from tgsr_tpu_torch.engine.precision import cast_floats
+
+    x, jm, v, m = _bf16_pair(which)
+    xb = torch.from_numpy(x).bfloat16()
+    xj = jnp.asarray(xb.float().numpy(), jnp.bfloat16)
+    cast_floats(m, torch.bfloat16)
+    with torch.no_grad():
+        got = m(xb.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    for out, ref in ((got, jm.apply(jax_cast(v, jnp.bfloat16), xj)),
+                     (tb.glu(xb), jb.glu(xj))):
+        assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+        ref = np.asarray(ref, np.float32)
+        err = np.abs(out.float().numpy() - ref).max()
+        assert err <= 2 ** -5 * max(1.0, np.abs(ref).max()), err

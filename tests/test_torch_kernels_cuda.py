@@ -12,6 +12,16 @@ softmax and two C = 32 sums in another order); up-head rtol = atol = 1e-4
 (two float32 convolutions summed in another order, the gate of
 tests/test_pallas_up_head.py); pipeline rtol = 1e-3, atol = 2e-4 on the
 pyramid (tests/test_generator_parity.py).
+
+bfloat16: attention against the plain version in float32 on the same
+bfloat16 inputs, rtol = 2^-8, atol = 1e-5 (the kernel computes in float32
+and rounds each output once to bfloat16, half an ulp = 2^-9 relative); the
+packed up-head against its plain version on the same bfloat16 inputs,
+|err| <= 2e-2 * max(1, |ref|max) (float32 sums in another order can flip
+the bfloat16 rounding of a GLU value, one ulp = 2^-8 relative, which the
+head sums over 9 taps x C channels); the bfloat16 pipeline against the
+float32 one on the CPU, PSNR >= 40 dB on [-1, 1] (the JAX package's own
+bfloat16 reads 65 dB against its float32 on seeded weights).
 """
 
 import numpy as np
@@ -24,7 +34,9 @@ from tgsr_tpu_torch.engine.inference import SRPipeline
 from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain_wpa
 from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
+from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
 from tgsr_tpu_torch.ops.up_head import fold_bn, fused_up_head, reference_up_head
+from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
 
 pytestmark = pytest.mark.cuda
 
@@ -104,8 +116,90 @@ def test_pipeline_kernels_match_plain(cuda_device):
     _build.reset_launches()
     got = kern(lr, cap, lens)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES == {"word_pixel_attention": 3, "up_head": 2}
+    assert _build.LAUNCHES == {"word_pixel_attention": 3, "up_head": 2,
+                               "up_head_packed": 0}
     for p, pr in zip(got["pyramid"], ref["pyramid"]):
         torch.testing.assert_close(p.cpu(), pr, rtol=1e-3, atol=2e-4)
     for at, ar in zip(got["attn"], ref["attn"]):
         torch.testing.assert_close(at.cpu(), ar, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [32, 128])
+def test_attention_kernel_bf16_matches_plain(cuda_device, hw):
+    """bfloat16 in and out, main-path shapes, one all-padded caption."""
+    b, c, t = 4, 32, 18
+    rng = np.random.default_rng(hw + 1)
+    px = torch.from_numpy(rng.normal(size=(b, hw, hw, c)).astype(np.float32))
+    wd = torch.from_numpy(rng.normal(size=(b, t, c)).astype(np.float32))
+    mask = torch.arange(t)[None, :] >= torch.tensor([18, 7, 0, 1])[:, None]
+    px, wd, mask = (v.to(cuda_device) for v in (px.bfloat16(), wd.bfloat16(), mask))
+    ctx_p, attn_p = plain_wpa(px.float(), wd.float(), mask)
+    before = _build.LAUNCHES["word_pixel_attention"]
+    ctx_k, attn_k = word_pixel_attention(px, wd, mask)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["word_pixel_attention"] == before + 1
+    assert ctx_k.dtype == attn_k.dtype == torch.bfloat16
+    torch.testing.assert_close(ctx_k.float(), ctx_p, rtol=2 ** -8, atol=1e-5)
+    torch.testing.assert_close(attn_k.float(), attn_p, rtol=2 ** -8, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg", [
+    # (b, h, w, cin, c2, k, tanh, blend)
+    (2, 128, 128, 64, 64, 3, False, False),  # h_net3.upsample + img_net3
+    (2, 128, 128, 32, 64, 5, True, True),    # upscale8x + conv_output + a*srb
+    (2, 12, 20, 16, 32, 5, True, False),     # ragged tiles, H != W
+    (1, 5, 7, 8, 16, 3, False, True),        # smaller than one tile
+])
+def test_up_head_packed_kernel_matches_plain(cuda_device, cfg, dtype):
+    """The packed kernel against its plain version on the same inputs (in
+    float32 also against row 2's plain version, the unpacked chain)."""
+    b, h, w, cin, c2, k, use_tanh, blend = cfg
+    g = torch.Generator().manual_seed(h * cin + k)
+    r = lambda *s, sd=1.0: (torch.randn(*s, generator=g) * sd).to(cuda_device)  # noqa: E731
+    x, w_up, w_head = r(b, h, w, cin), r(3, 3, cin, c2, sd=0.2), r(k, k, c2 // 2, 3, sd=0.2)
+    mul, add = fold_bn(1 + r(c2, sd=0.1), r(c2, sd=0.1), r(c2, sd=0.1),
+                       (1 + r(c2, sd=0.2)).abs())
+    srb, a = r(b, 2 * h, 2 * w, 3), torch.tensor(0.3, device=cuda_device)
+    kw = dict(use_tanh=use_tanh, blend=blend)
+    wts = pack_up_head(w_up, mul, add, w_head, dtype=dtype)
+    args = (x.to(dtype), wts, srb.to(dtype), a.to(dtype))
+    ref = packed_up_head(*args, **kw)
+    before = _build.LAUNCHES["up_head_packed"]
+    got = fused_up_head_packed(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["up_head_packed"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, 2 * h, 2 * w, 3)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        unpacked = reference_up_head(x, w_up, mul, add, w_head, srb, a, **kw)
+        torch.testing.assert_close(got, unpacked, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got - ref).abs().max().item()
+        assert err <= 2e-2 * max(1.0, ref.abs().max().item()), err
+
+
+def test_pipeline_bf16_card_matches_f32_cpu(cuda_device):
+    """The bfloat16 pipeline on the card (3 attention and 2 packed up-head
+    launches per forward, no row-2 launch) against the float32 pipeline on
+    the CPU on the same weights; outputs come back float32."""
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(8, 10, 2), TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    kern = SRPipeline(cfg, 41, *sds, device=cuda_device, return_attn=True,
+                      compute_dtype=torch.bfloat16)
+    plain = SRPipeline(cfg, 41, *sds, device="cpu", return_attn=True)
+    rng = np.random.default_rng(0)
+    lr = rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (2, 6))
+    cap[0, :] = 0
+    cap[1, 4:] = 0
+    lens = np.array([0, 4])
+    ref = plain(lr, cap, lens)
+    _build.reset_launches()
+    got = kern(lr, cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"word_pixel_attention": 3, "up_head": 0,
+                               "up_head_packed": 2}
+    assert all(p.dtype == torch.float32 for p in got["pyramid"] + got["attn"])
+    mse = ((got["sr"].cpu().double() - ref["sr"].double()) ** 2).mean().item()
+    assert 10 * np.log10(4 / mse) >= 40

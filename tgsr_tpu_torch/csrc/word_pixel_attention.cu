@@ -1,4 +1,6 @@
-// Word -> pixel cross-attention for the generator stages, float32.
+// Word -> pixel cross-attention for the generator stages, float32 or
+// bfloat16 in and out (pixels, words, ctx and attn in one element type),
+// float32 inside: logits, softmax and sums.
 //
 // Replaces the TPU kernel tgsr_tpu/ops/pallas_attention.py `_attn_kernel`
 // (entered through `_attention_flat` / `word_pixel_attention_pallas`):
@@ -31,26 +33,41 @@
 // loop over a register array is as fast as the memory allows and keeps the
 // masked softmax exact in float32.
 //
+// bfloat16: the same kernel, instantiated for __nv_bfloat16. Each element is
+// widened to float32 as it is staged in shared memory and rounded to
+// bfloat16 once, as it is stored, so the bfloat16 instance moves half the
+// bytes and computes what the float32 one computes on the widened inputs.
+//
 // The mask is a where-fill (-1e9 replaces the logit), as in the JAX XLA
 // path tgsr_tpu/ops/attention.py `masked_softmax`, and not the Pallas
 // kernel's additive `mask * -1e9`: the two differ for a caption whose every
 // token is padding, where the where-fill gives a uniform 1/T.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 constexpr int TILE = 128;   // pixels per block = threads per block
 constexpr int TMAX = 32;    // largest caption length the kernel takes
 constexpr float NEG_FILL = -1e9f;
 
+template <typename T>
 __global__ void __launch_bounds__(TILE)
-word_pixel_attention_kernel(const float* __restrict__ pixels,   // [B, HW, C]
-                            const float* __restrict__ words,    // [B, T, C]
+word_pixel_attention_kernel(const T* __restrict__ pixels,   // [B, HW, C]
+                            const T* __restrict__ words,    // [B, T, C]
                             const unsigned char* __restrict__ mask,  // [B, T] or null
-                            float* __restrict__ ctx,            // [B, HW, C]
-                            float* __restrict__ attn,           // [B, T, HW] or null
+                            T* __restrict__ ctx,            // [B, HW, C]
+                            T* __restrict__ attn,           // [B, T, HW] or null
                             int hw, int c, int t) {
   extern __shared__ float smem[];
   float* w_s = smem;                  // [T, C]
@@ -63,11 +80,11 @@ word_pixel_attention_kernel(const float* __restrict__ pixels,   // [B, HW, C]
   const int npix = min(TILE, hw - p0);
   const int cs = c + 1;
 
-  const float* wb = words + (size_t)b * t * c;
-  for (int i = tid; i < t * c; i += TILE) w_s[i] = wb[i];
+  const T* wb = words + (size_t)b * t * c;
+  for (int i = tid; i < t * c; i += TILE) w_s[i] = to_f(wb[i]);
   if (tid < t) m_s[tid] = mask ? (int)mask[(size_t)b * t + tid] : 0;
-  const float* pb = pixels + ((size_t)b * hw + p0) * c;
-  for (int i = tid; i < npix * c; i += TILE) p_s[(i / c) * cs + i % c] = pb[i];
+  const T* pb = pixels + ((size_t)b * hw + p0) * c;
+  for (int i = tid; i < npix * c; i += TILE) p_s[(i / c) * cs + i % c] = to_f(pb[i]);
   __syncthreads();
 
   if (tid < npix) {
@@ -100,10 +117,10 @@ word_pixel_attention_kernel(const float* __restrict__ pixels,   // [B, HW, C]
     for (int k = 0; k < TMAX; ++k)
       if (k < t) l[k] *= inv;
     if (attn) {
-      float* ab = attn + (size_t)b * t * hw + p0 + tid;
+      T* ab = attn + (size_t)b * t * hw + p0 + tid;
 #pragma unroll
       for (int k = 0; k < TMAX; ++k)
-        if (k < t) ab[(size_t)k * hw] = l[k];
+        if (k < t) ab[(size_t)k * hw] = from_f<T>(l[k]);
     }
     // the thread's own row is free again: overwrite it with the ctx row
     for (int ci = 0; ci < c; ++ci) {
@@ -115,26 +132,39 @@ word_pixel_attention_kernel(const float* __restrict__ pixels,   // [B, HW, C]
     }
   }
   __syncthreads();
-  float* cb = ctx + ((size_t)b * hw + p0) * c;
-  for (int i = tid; i < npix * c; i += TILE) cb[i] = p_s[(i / c) * cs + i % c];
+  T* cb = ctx + ((size_t)b * hw + p0) * c;
+  for (int i = tid; i < npix * c; i += TILE) cb[i] = from_f<T>(p_s[(i / c) * cs + i % c]);
+}
+
+template <typename T>
+int launch(const void* pixels, const void* words, const unsigned char* mask,
+           void* ctx, void* attn, int b, int hw, int c, int t,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)t * c + (size_t)TILE * (c + 1));
+  cudaError_t err = cudaFuncSetAttribute(
+      word_pixel_attention_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((hw + TILE - 1) / TILE, b);
+  word_pixel_attention_kernel<T><<<grid, TILE, smem, stream>>>(
+      static_cast<const T*>(pixels), static_cast<const T*>(words), mask,
+      static_cast<T*>(ctx), static_cast<T*>(attn), hw, c, t);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// dtype 0: float32, 1: bfloat16 (pixels, words, ctx and attn alike).
 // Returns the CUDA error code of the launch (0 = success). The launch is
 // asynchronous on `stream`; nothing is allocated and nothing synchronises.
 extern "C" int word_pixel_attention_launch(
-    const float* pixels, const float* words, const unsigned char* mask,
-    float* ctx, float* attn, int b, int hw, int c, int t, void* stream) {
+    const void* pixels, const void* words, const unsigned char* mask,
+    void* ctx, void* attn, int b, int hw, int c, int t, int dtype, void* stream) {
   if (t < 1 || t > TMAX || c < 1 || hw < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)t * c + (size_t)TILE * (c + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      word_pixel_attention_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((hw + TILE - 1) / TILE, b);
-  word_pixel_attention_kernel<<<grid, TILE, smem, (cudaStream_t)stream>>>(
-      pixels, words, mask, ctx, attn, hw, c, t);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return launch<float>(pixels, words, mask, ctx, attn, b, hw, c, t, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(pixels, words, mask, ctx, attn, b, hw, c, t, s);
+  return (int)cudaErrorInvalidValue;
 }

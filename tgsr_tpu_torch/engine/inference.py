@@ -11,20 +11,35 @@ On the card the three attention sites and the two up-head sites launch the
 port's CUDA kernels; on the CPU they run the plain versions, so a pipeline
 built with device="cpu" on the same weights is the reference the card's is
 held against.
+
+`compute_dtype` is float32 or bfloat16, with the JAX pipeline's casts
+(tgsr_tpu/engine/inference.py `_forward_fn`, `forward_scan`): the text
+encoder runs in float32 and its outputs are cast; the LR image and every
+floating-point parameter and buffer of both generators (BN statistics and
+the blend `a` included) are cast; sr, the pyramid and the attention maps
+come back float32, and uint8 egress rounds the float32 of the last image.
+The up-head sites run `fused_up_head` (float32) or `fused_up_head_packed`
+(bfloat16), whose weights are folded and packed once from the float32
+weights before the cast.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from functools import partial
+from typing import Any, Callable, Dict, Mapping, Union
 
 import numpy as np
 import torch
 
 from tgsr_tpu_torch.config import Config
+from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats
 from tgsr_tpu_torch.models.generator import GSRNetLow
 from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
+from tgsr_tpu_torch.ops.packed_tail import pack_up_head
+from tgsr_tpu_torch.ops.up_head import up_head_site
+from tgsr_tpu_torch.ops.up_head_packed import up_head_packed_site
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -52,14 +67,19 @@ class SRPipeline:
                  text_sd: Mapping[str, Any], netg_sd: Mapping[str, Any],
                  netgh_sd: Mapping[str, Any], a: float = 0.5,
                  device: Union[str, torch.device] = "cuda",
-                 return_attn: bool = False):
+                 return_attn: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         if cfg.TREE.BRANCH_NUM != 4 or cfg.RNN_TYPE != "LSTM":
             raise NotImplementedError(
                 "the port serves the x8 geometry (BRANCH_NUM 4) with an LSTM "
                 "text encoder")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype}: the port serves "
+                             f"{COMPUTE_DTYPES}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.return_attn = return_attn
+        self.compute_dtype = compute_dtype
         emb = cfg.TEXT.EMBEDDING_DIM
         self.text_encoder = TextEncoder(vocab_size, 300, emb)
         self.netg = GSRNetLow(cfg.GAN.GF_DIM, emb, cfg.GAN.CONDITION_DIM,
@@ -70,38 +90,48 @@ class SRPipeline:
             module.load_state_dict(sd, strict=True)
             module.to(self.device).eval()
         self.netgh.a.fill_(float(a))
-        if self.device.type == "cuda":
-            self.netg.to(memory_format=torch.channels_last)
-            self.netgh.to(memory_format=torch.channels_last)
-        # the two up-head sites' folded BN and HWIO weights, made once
-        self.netg_up_head = self.netg.up_head_weights()
-        self.netgh_up_head = self.netgh.up_head_weights()
+        # the two up-head sites, folded (and packed) once from the float32
+        # weights; the text encoder stays float32
+        self.netg_up_head = self._up_head_site(self.netg)
+        self.netgh_up_head = self._up_head_site(self.netgh)
+        for module in (self.netg, self.netgh):
+            cast_floats(module, compute_dtype)
+            if self.device.type == "cuda":
+                module.to(memory_format=torch.channels_last)
+
+    def _up_head_site(self, generator) -> Callable[..., torch.Tensor]:
+        wts = generator.up_head_weights()
+        if self.compute_dtype == torch.float32:
+            return partial(up_head_site, wts)
+        return partial(up_head_packed_site, pack_up_head(*wts, dtype=self.compute_dtype))
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
     def _forward(self, lr: torch.Tensor, captions: torch.Tensor,
                  cap_lens: torch.Tensor, need_attn: bool):
-        """lr [B, h, w, 3] float on the device -> (NCHW pyramid, attn maps)."""
+        """lr [B, h, w, 3] float32 on the device -> (NCHW pyramid and attn
+        maps, in the compute dtype)."""
+        cdt = self.compute_dtype
         words, sent = self.text_encoder(captions, cap_lens)
         mask = captions == 0
-        lr_c = nchw(lr.contiguous())
-        fake, att, _, _ = self.netg(lr_c, sent, words, mask, need_attn,
-                                    up_head=self.netg_up_head)
+        lr_c = nchw(lr.contiguous()).to(cdt)
+        fake, att, _, _ = self.netg(lr_c, sent.to(cdt), words.to(cdt), mask,
+                                    need_attn, up_head=self.netg_up_head)
         return self.netgh(lr_c, fake, up_head=self.netgh_up_head), att
 
     @torch.inference_mode()
     def __call__(self, lr, captions, cap_lens) -> Dict[str, Any]:
-        """Returns {'sr': [B, H, W, 3], 'pyramid': [64, 128, 256 px] NHWC,
-        and 'attn': [B, T, H, W] per stage when return_attn}."""
+        """Returns float32 {'sr': [B, H, W, 3], 'pyramid': [64, 128, 256 px]
+        NHWC, and 'attn': [B, T, H, W] per stage when return_attn}."""
         fine, att = self._forward(self._tensor(lr, torch.float32),
                                   self._tensor(captions, torch.long),
                                   self._tensor(cap_lens, torch.long),
                                   self.return_attn)
-        pyramid = [nhwc(f) for f in fine]
+        pyramid = [nhwc(f).float() for f in fine]
         out = {"sr": pyramid[-1], "pyramid": pyramid}
         if self.return_attn:
-            out["attn"] = att
+            out["attn"] = [a.float() for a in att]
         return out
 
     @torch.inference_mode()
@@ -121,7 +151,7 @@ class SRPipeline:
             if lr_i.dtype == torch.uint8:
                 lr_i = lr_i.float() / 127.5 - 1.0
             fine, _ = self._forward(lr_i.float(), captions[i], cap_lens[i], False)
-            out[i] = nhwc(to_uint8(fine[-1]))
+            out[i] = nhwc(to_uint8(fine[-1].float()))
         return out
 
     def sr_batched(self, lr, captions, cap_lens, microbatch: int) -> np.ndarray:

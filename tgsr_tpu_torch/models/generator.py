@@ -3,13 +3,16 @@ tgsr_tpu/models/generator.py; = CA_NET, INIT_STAGE_GImgup, NEXT_STAGE_G,
 GET_IMAGE_G_noAct and G_SR_NET_low, util.py / model.py:34-78).
 
 NCHW inside; module names are the reference's state-dict keys. The last
-stage's upsample feeds only its image head, so it runs as one fused
-`up_head` site and its 2x features never reach device memory.
+stage's upsample feeds only its image head, so it runs as one fused up-head
+site (`ops/up_head.py` `up_head_site` in float32, `ops/up_head_packed.py`
+`up_head_packed_site` in bfloat16) and its 2x features never reach device
+memory.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from functools import partial
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
@@ -86,9 +89,10 @@ class GSRNetLow(nn.Module):
 
     forward(lr NCHW, sent [B, cdf], words [B, T, cdf], mask [B, T]) ->
     (pyramid of NCHW images, attention maps [B, T, H, W] (empty unless
-    need_attn), mu, logvar). `up_head` is the last stage's
-    `up_head_weights()`, folded once by the caller; without it each forward
-    folds them again."""
+    need_attn), mu, logvar). `up_head` is the last stage's site function,
+    `site(features) -> NCHW image`, made once by the caller from
+    `up_head_weights()`; without it each forward folds them again and runs
+    `up_head_site`."""
 
     def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100,
                  n_stages: int = 3, r_num: int = 2):
@@ -109,7 +113,7 @@ class GSRNetLow(nn.Module):
 
     def forward(self, lr, sent, words, mask: Optional[torch.Tensor],
                 need_attn: bool = False,
-                up_head: Optional[UpHeadWeights] = None):
+                up_head: Optional[Callable[..., torch.Tensor]] = None):
         mu, logvar = self.ca_net(sent)
         fake_imgs: List[torch.Tensor] = []
         att_maps: List[torch.Tensor] = []
@@ -123,8 +127,8 @@ class GSRNetLow(nn.Module):
             else:
                 feats, att = stage.features(h, words, mask, need_attn)
                 if up_head is None:
-                    up_head = self.up_head_weights()
-                fake_imgs.append(up_head_site(up_head, feats))
+                    up_head = partial(up_head_site, self.up_head_weights())
+                fake_imgs.append(up_head(feats))
             if need_attn:
                 att_maps.append(att)
         return fake_imgs, att_maps, mu, logvar

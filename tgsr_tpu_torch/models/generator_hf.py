@@ -5,14 +5,16 @@ the LR image as input (INPUT_NETGH 'lr') and no weight map.
 ims_s = conv_output(feat_s) + a * srb_s at 64, 128 and 256 px. The blend
 weight `a` is not in the reference's state dict (model.py:246-248), so it is
 a non-persistent buffer here, set from the JAX tree's params['a']. The
-256 px scale runs as one fused `up_head` site: upscale8x's features feed only
+256 px scale runs as one fused up-head site (`up_head_site` in float32,
+`up_head_packed_site` in bfloat16): upscale8x's features feed only
 conv_output. upscale2x and upscale4x stay plain, because their features also
 feed residual24 / residual48.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from functools import partial
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
@@ -48,17 +50,19 @@ class NetGHighWeight(nn.Module):
         return fold_up_head(self.upscale8x, self.conv_output[0])
 
     def forward(self, lr: torch.Tensor, srb: List[torch.Tensor],
-                up_head: Optional[UpHeadWeights] = None) -> List[torch.Tensor]:
+                up_head: Optional[Callable[..., torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
         """lr NCHW, srb the low-frequency pyramid (NCHW) -> refined pyramid.
-        `up_head` is `up_head_weights()`, folded once by the caller; without
-        it each forward folds them again."""
+        `up_head` is the 256 px site function, `site(features, srb=, a=,
+        use_tanh=) -> NCHW image`, made once by the caller from
+        `up_head_weights()`; without it each forward folds them again and
+        runs `up_head_site`."""
         out = self.residual(self.convin(lr))
         out = self.upscale2x(out)
         ims2 = self.conv_output(out) + self.a * srb[0]
         out = self.upscale4x(self.residual24(out))
         ims4 = self.conv_output(out) + self.a * srb[1]
         if up_head is None:
-            up_head = self.up_head_weights()
-        ims8 = up_head_site(up_head, self.residual48(out), srb=srb[2], a=self.a,
-                            use_tanh=True)
+            up_head = partial(up_head_site, self.up_head_weights())
+        ims8 = up_head(self.residual48(out), srb=srb[2], a=self.a, use_tanh=True)
         return [ims2, ims4, ims8]

@@ -19,22 +19,32 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("word_pixel_attention", "up_head")
+KERNELS = ("word_pixel_attention", "up_head", "up_head_packed")
+# element type codes of the kernels that take more than float32
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C functions of each library: (argtypes, restype), set once at load
 SIGNATURES = {
     "word_pixel_attention": {
-        # pixels, words, mask, ctx, attn, B, HW, C, T, stream
-        "word_pixel_attention_launch": ([_P] * 5 + [_I] * 4 + [_P], _I),
+        # pixels, words, mask, ctx, attn, B, HW, C, T, dtype, stream
+        "word_pixel_attention_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     },
     "up_head": {
         # x, w_up, bn_mul, bn_add, w_head, srb, a, out, B, H, W, Cin, C2, k,
         # tanh, stream
         "up_head_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
         "up_head_smem_bytes": ([_I] * 3, ctypes.c_longlong),
+    },
+    "up_head_packed": {
+        # x, w_up, bn_mul, bn_add, w_head, srb, a, out, B, H, W, Cin, C2,
+        # tanh, dtype, stream
+        "up_head_packed_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
+        "up_head_packed_smem_bytes": ([_I] * 3, ctypes.c_longlong),
     },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -42,7 +42,10 @@ def word_pixel_attention(
     gives pixel rows another sample's mask, and the JAX package fixes that
     deliberately (tgsr_tpu/ops/attention.py word_pixel_attention).
 
-    Returns (ctx [B, H, W, C], attn [B, T, H, W] or None)."""
+    In bfloat16 it computes as the JAX XLA path does: the products in
+    bfloat16, the where-fill softmax on bfloat16 logits.
+
+    Returns (ctx [B, H, W, C], attn [B, T, H, W] or None), in pixels' dtype."""
     logits = torch.einsum("bhwc,btc->bhwt", pixels, words)
     m = mask[:, None, None, :] if mask is not None else None
     attn = masked_softmax(logits, m, dim=-1)

@@ -88,6 +88,23 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def depth_to_space(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Pixel shuffle of an NHWC tensor in torch's pixel order: channel
+    b1 * bs * C' + b2 * C' + c' goes to pixel offset (b1, b2), channel c'."""
+    n, h, w, c = x.shape
+    bs = block_size
+    x = x.reshape(n, h, w, bs, bs, c // (bs * bs)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * bs, w * bs, c // (bs * bs))
+
+
+def space_to_depth(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Inverse of `depth_to_space`."""
+    n, h, w, c = x.shape
+    bs = block_size
+    x = x.reshape(n, h // bs, bs, w // bs, bs, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // bs, w // bs, bs * bs * c)
+
+
 def conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
     """A conv's OIHW weight as a contiguous HWIO tensor (the kernels' layout)."""
     return conv.weight.permute(2, 3, 1, 0).contiguous()

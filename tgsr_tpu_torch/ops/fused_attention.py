@@ -3,8 +3,10 @@ tgsr_tpu/ops/pallas_attention.py).
 
 `word_pixel_attention` takes the JAX package's layout. On a CPU tensor it
 runs the plain version (`ops/attention.py`); on a CUDA tensor it launches
-`csrc/word_pixel_attention.cu` or raises. The kernel writes the attention
-map only when `return_attn` is set.
+`csrc/word_pixel_attention.cu` or raises. The kernel takes float32 or
+bfloat16 (pixels and words in one dtype), computes the logits, the softmax
+and ctx in float32, and returns ctx, and the attention map when
+`return_attn` is set, in the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ T_MAX = 32  # the kernel's register array (csrc/word_pixel_attention.cu TMAX)
 
 
 def word_pixel_attention(
-    pixels: torch.Tensor,  # [B, H, W, C] float32
-    words: torch.Tensor,  # [B, T, C] float32
+    pixels: torch.Tensor,  # [B, H, W, C] float32 or bfloat16
+    words: torch.Tensor,  # [B, T, C] in pixels' dtype
     mask: Optional[torch.Tensor],  # [B, T] bool, True = padded
     return_attn: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -47,17 +49,20 @@ def word_pixel_attention(
         if x.device != pixels.device or not x.is_contiguous():
             raise ValueError("word_pixel_attention: inputs must be contiguous "
                              "and on one device")
-    if pixels.dtype != torch.float32 or words.dtype != torch.float32:
-        raise TypeError("word_pixel_attention: the kernel takes float32 only")
+    if pixels.dtype not in _build.DTYPE_CODES or words.dtype != pixels.dtype:
+        raise TypeError(f"word_pixel_attention: pixels {pixels.dtype}, words "
+                        f"{words.dtype}; the kernel takes float32 or bfloat16, "
+                        "both in one dtype")
     ctx = torch.empty_like(pixels)
-    attn = (torch.empty((b, t, h, w), dtype=torch.float32, device=pixels.device)
+    attn = (torch.empty((b, t, h, w), dtype=pixels.dtype, device=pixels.device)
             if return_attn else None)
     launch = _build.library(NAME).word_pixel_attention_launch
     with torch.cuda.device(pixels.device):
         err = launch(pixels.data_ptr(), words.data_ptr(),
                      mask.data_ptr() if mask is not None else None,
                      ctx.data_ptr(), attn.data_ptr() if attn is not None else None,
-                     b, h * w, c, t, torch.cuda.current_stream().cuda_stream)
+                     b, h * w, c, t, _build.DTYPE_CODES[pixels.dtype],
+                     torch.cuda.current_stream().cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return ctx, attn
