@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from tgsr_tpu_torch/csrc/ with nvcc
-(sm_90a), holds each kernel against its plain PyTorch version at the shapes
-of the x8 face-SR serving path, in float32 and in bfloat16, then drives that
-path twice (SRPipeline at the face S8 geometry, full width, seeded weights):
-in float32, where it must go through the attention and up-head kernels and
-agree with the same pipeline on the CPU (every kernel site there runs its
-plain version), and in bfloat16, where it must go through the attention and
-packed up-head kernels and hold >= 40 dB against that float32 reference.
-Prints one JSON line of per-kernel numbers, then, as the last line,
-{"ok": true, "device": {...}}. Exits non-zero without that line when there
-is no CUDA card, when the package is missing, or when any check fails.
+Builds the port's CUDA kernels from tgsr_tpu_torch/csrc/ with nvcc
+(sm_90a, one nvcc per source, all at once), holds each kernel against its
+plain PyTorch version at the shapes of the x8 face-SR serving path (float32,
+bfloat16, int8), then drives that path three times (SRPipeline at the face
+S8 geometry, full width, seeded weights): in float32, where it must go
+through the attention and up-head kernels and agree with the same pipeline
+on the CPU (every kernel site there runs its plain version); in bfloat16,
+where it must go through the attention and packed up-head kernels and hold
+>= 40 dB against that float32 reference; and in int8 (scales calibrated on
+the card by the port's calibrate_quant), where it must go through the
+attention, int8 conv and GLU-requant kernels, hold >= 40 dB against the same
+int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR against the
+float32 reference. Prints one JSON line of per-kernel numbers, then, as the
+last line, {"ok": true, "device": {...}}. Exits non-zero without that line
+when there is no CUDA card, when the package is missing, or when any check
+fails.
 """
 
 from __future__ import annotations
@@ -28,9 +33,54 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bfloat16 tensor-core peak
+INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 B = 64  # batch of the kernel phases
 T, C = 18, 32  # caption slots and attention width of the face S8 path
+# uint8 PSNR floor of the int8 SR on the card against the float32 SR on the
+# CPU, seeded weights: the CPU's own int8-versus-float32 PSNR, which this
+# script prints (45.36 dB on an H100 machine's CPU), less 1 dB (PERF.md)
+INT8_PSNR_FLOOR = 44.3
 FAILURES: list = []
+
+# one full-width int8 forward's convs, all with a bfloat16 output: (site, H,
+# W, Cin, Cout, k, up2, BN, residual, calls per forward); H, W the input's
+# size
+INT8_CONVS = (
+    ("h_net1/im2f_conv", 32, 32, 3, 64, 3, False, False, False, 1),
+    ("h_net1/residual_*/conv1", 32, 32, 64, 128, 3, False, True, False, 2),
+    ("h_net1/residual_*/conv2", 32, 32, 64, 64, 3, False, True, True, 2),
+    ("h_net1/upsample/conv", 32, 32, 64, 64, 3, True, True, False, 1),
+    ("img_net1/conv", 64, 64, 32, 3, 3, False, False, False, 1),
+    ("h_net2/residual_*/conv1", 64, 64, 64, 128, 3, False, True, False, 2),
+    ("h_net2/residual_*/conv2", 64, 64, 64, 64, 3, False, True, True, 2),
+    ("h_net2/upsample/conv", 64, 64, 64, 64, 3, True, True, False, 1),
+    ("img_net2/conv", 128, 128, 32, 3, 3, False, False, False, 1),
+    ("h_net3/residual_*/conv1", 128, 128, 64, 128, 3, False, True, False, 2),
+    ("h_net3/residual_*/conv2", 128, 128, 64, 64, 3, False, True, True, 2),
+    ("h_net3/upsample/conv", 128, 128, 64, 64, 3, True, True, False, 1),
+    ("img_net3/conv", 256, 256, 32, 3, 3, False, False, False, 1),
+    ("convin/conv", 32, 32, 3, 64, 3, False, False, False, 1),
+    ("residual_*/conv1", 32, 32, 32, 64, 3, False, True, False, 6),
+    ("residual_*/conv2", 32, 32, 32, 32, 3, False, True, True, 6),
+    ("upscale2x/conv", 32, 32, 32, 64, 3, True, True, False, 1),
+    ("conv_output/conv 64", 64, 64, 32, 3, 5, False, False, False, 1),
+    ("residual24/conv1", 64, 64, 32, 64, 3, False, True, False, 1),
+    ("residual24/conv2", 64, 64, 32, 32, 3, False, True, False, 1),
+    ("upscale4x/conv", 64, 64, 32, 64, 3, True, True, False, 1),
+    ("conv_output/conv 128", 128, 128, 32, 3, 5, False, False, False, 1),
+    ("residual48/conv1", 128, 128, 32, 64, 3, False, True, False, 1),
+    ("residual48/conv2", 128, 128, 32, 32, 3, False, True, False, 1),
+    ("upscale8x/conv", 128, 128, 32, 64, 3, True, True, False, 1),
+    ("conv_output/conv 256", 256, 256, 32, 3, 5, False, False, False, 1),
+)
+# one int8 forward's GLU+requantize sites: (site, H, W, c, calls per forward)
+GLU_SITES = (
+    ("h_net1/residual_*", 32, 32, 64, 2), ("h_net2/residual_*", 64, 64, 64, 2),
+    ("h_net3/residual_*", 128, 128, 64, 2), ("netgh residual_*", 32, 32, 32, 6),
+    ("residual24", 64, 64, 32, 1), ("residual48", 128, 128, 32, 1),
+    ("h_net3/upsample -> img_net3", 256, 256, 32, 1),
+    ("upscale8x -> conv_output", 256, 256, 32, 1),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -246,9 +296,124 @@ def up_head_phase(torch):
                                 "the f32 instance, up_head_ms row 2 on the same inputs"}]
 
 
+def int8_conv_phase(torch):
+    """`int8_conv` against its plain version (float64 convolution on the
+    int8 values, exact) at every conv shape of one full-width B = 64 int8
+    forward: the int32 sums and the float32 epilogue bit for bit, the
+    bfloat16 output within one bfloat16 ulp. Times are summed over the
+    forward's calls (weighted by calls per forward)."""
+    import torch.nn.functional as F
+
+    from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for site, h, w, cin, cout, k, up2, bn, res, n in INT8_CONVS:
+        ho, wo = (2 * h, 2 * w) if up2 else (h, w)
+        x = torch.randint(-127, 128, (B, h, w, cin), generator=g, device="cuda",
+                          dtype=torch.int8)
+        wt = pack_int8_weight(torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                                            device="cuda", dtype=torch.int8))
+        scale = torch.rand(cout, generator=g, device="cuda") * 1e-5 + 1e-6
+        affine = ((1 + 0.1 * torch.randn(cout, generator=g, device="cuda"),
+                   0.1 * torch.randn(cout, generator=g, device="cuda")) if bn else None)
+        resid = (torch.randn(B, ho, wo, cout, generator=g, device="cuda").bfloat16()
+                 if res else None)
+        # the int32 sums, through a float32 output with scale 1 (exact: |sum| < 2^24)
+        one = torch.ones(cout, device="cuda")
+        acc_k = int8_conv(x, wt, one, out_dtype=torch.float32, up2=up2)
+        acc_p = int8_conv_plain(x, wt, one, out_dtype=torch.float32, up2=up2)
+        f32_k = int8_conv(x, wt, scale, bn=affine, out_dtype=torch.float32, up2=up2)
+        f32_p = int8_conv_plain(x, wt, scale, bn=affine, out_dtype=torch.float32, up2=up2)
+        args = (x, wt, scale, affine, resid, torch.bfloat16, up2)
+        got, ref = int8_conv(*args), int8_conv_plain(*args)
+        torch.cuda.synchronize()
+        exact = torch.equal(acc_k, acc_p) and torch.equal(f32_k, f32_p)
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+        ulps = ((got.float() - ref.float()).abs() / ulp).max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        check(exact and ulps <= 1, f"int8_conv == plain at {site} [{B},{h},{w},{cin}]->{cout} "
+                                   f"k{k}{' up2' if up2 else ''}: int32 sums and f32 epilogue "
+                                   f"{'equal' if exact else 'DIFFER'}, bf16 {ulps:.2f} ulp <= 1")
+        del acc_k, acc_p, f32_k, f32_p, got, ref
+        ms = cuda_ms(lambda: int8_conv(*args), iters=5)
+        p_ms = cuda_ms(lambda: int8_conv_plain(*args), iters=2, warmup=1)
+        xb = x.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
+        if up2:
+            xb = F.interpolate(xb, scale_factor=2, mode="nearest")
+        wb = torch.randn(cout, cin, k, k, device="cuda").bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        c_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2), iters=5)
+        del xb, wb
+        nbytes = (x.numel() + k * k * cin * cout + 4 * cout * (3 if bn else 1)
+                  + B * ho * wo * cout * (2 + (2 if res else 0)))  # bf16 out [+ residual]
+        ops = 2 * B * ho * wo * cout * k * k * cin
+        bms, by = bound_ms(nbytes, ops, INT8_OP_PER_S)
+        print(f"  int8_conv {site} x{n}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN bf16 "
+              f"conv (for scale, not the same function) {c_ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}, {bms / ms:.1%} of it reached), {ops / ms / 1e9:.1f} TOP/s", flush=True)
+        rows.append(dict(ms=n * ms, plain_ms=n * p_ms, cudnn_bf16_ms=n * c_ms, bound_ms=n * bms,
+                         nbytes=n * nbytes, flops=n * ops, err=err))
+    tot = sums(rows, keys=("ms", "plain_ms", "cudnn_bf16_ms", "bound_ms", "nbytes", "flops"))
+    tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), INT8_OP_PER_S)[1]
+    return {"name": "int8_conv", "route": "cuda", "source": "tgsr_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "tgsr_tpu/engine/quant.py:164 (XLA int8 conv; no Pallas kernel)",
+            **tot, "library_ms": None,
+            "shapes": f"B {B}, the 42 convs of one int8 forward (26 shapes); cudnn_bf16_ms is "
+                      "cuDNN's bf16 conv on the same shapes, for scale, not the same function"}
+
+
+def glu_requant_phase(torch):
+    """Both `glu_requant` instances against their plain version at one int8
+    forward's sites (B = 64): int8 equal except one step in at most 0.1 %
+    of the elements (a gate or product on a bfloat16 rounding boundary)."""
+    from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {name: [] for name in INSTANCES.values()}
+    for site, h, w, c, n in GLU_SITES:
+        x = (1.5 * torch.randn(B, h, w, 2 * c, generator=g, device="cuda")).bfloat16()
+        scale = 2.0
+        got, ref = glu_requant(x, scale), glu_requant_plain(x, scale)
+        torch.cuda.synchronize()
+        d = (got.int() - ref.int()).abs()
+        dmax, frac = d.max().item(), (d > 0).double().mean().item()
+        name = INSTANCES[c]
+        check(dmax <= 1 and frac <= 1e-3, f"{name} == plain at {site} [{B},{h},{w},{2 * c}] "
+                                          f"(max {dmax} step, {frac:.2e} of elements differ)")
+        ms = cuda_ms(lambda: glu_requant(x, scale), iters=10)
+        p_ms = cuda_ms(lambda: glu_requant_plain(x, scale), iters=5)
+        nbytes = x.numel() * 2 + x.numel() // 2  # bf16 in, int8 out
+        ops = 10 * (x.numel() // 2)  # sigmoid, product, divide, clip, round per output
+        bms, by = bound_ms(nbytes, ops)
+        print(f"  {name} {site} x{n}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, {bms / ms:.1%} of it reached)", flush=True)
+        rows[name].append(dict(ms=n * ms, plain_ms=n * p_ms, bound_ms=n * bms,
+                               nbytes=n * nbytes, flops=n * ops, err=float(dmax)))
+    out = []
+    for (line, c), name in zip(((72, 64), (96, 32)), ("glu_requant_one", "glu_requant_pair")):
+        tot = sums(rows[name])
+        tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"))[1]
+        out.append({"name": name, "route": "cuda", "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
+                    "replaces": f"examples/glu_pallas_probe.py:{line}", **tot,
+                    "library_ms": None,
+                    "shapes": f"B {B}, c {c}, the sites of one int8 forward; max_abs_err in "
+                              "int8 steps"})
+    return out
+
+
+def psnr_u8(a, b) -> float:
+    """uint8 PSNR of two [-1, 1] float images (tensors on any device)."""
+    from tgsr_tpu_torch.engine.inference import to_uint8
+
+    d = to_uint8(a.float().cpu()).double() - to_uint8(b.float().cpu()).double()
+    return 10 * np.log10(255.0 ** 2 / max(d.square().mean().item(), 1e-12))
+
+
 def pipeline_phase(torch, rng, card):
-    """Drives the main path in float32 and in bfloat16, each with the launch
-    counts set to 0 just before and read just after; returns those counts."""
+    """Drives the main path in float32, bfloat16 and int8, each with the
+    launch counts set to 0 just before and read just after; returns those
+    counts."""
     from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
     from tgsr_tpu_torch.config import face_s8_config
     from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
@@ -274,15 +439,22 @@ def pipeline_phase(torch, rng, card):
     t0 = time.perf_counter()
     ref = plain(lr8f, cap8, lens8)["sr"]
     print(f"  plain reference on the CPU, B=8: {time.perf_counter() - t0:.1f} s", flush=True)
+    del plain
     n, mb = 100, 64
     lr, cap, lens = batch(n)
-    launches = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = str(dtype).split(".")[-1]
-        f32 = dtype == torch.float32
-        per_forward = {"word_pixel_attention": 3, "up_head": 2 if f32 else 0,
-                       "up_head_packed": 0 if f32 else 2}
-        kern = SRPipeline(cfg, vocab, *sds, device="cuda", compute_dtype=dtype)
+    lrc, capc, lensc = batch(16)  # int8 calibration batch
+    launches, scales = {}, None
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+    for tag in ("float32", "bfloat16", "int8"):
+        f32 = tag == "float32"
+        per_forward = dict(zero, word_pixel_attention=3)
+        per_forward.update({"float32": {"up_head": 2}, "bfloat16": {"up_head_packed": 2},
+                            "int8": {"int8_conv": 42, "glu_requant_one": 6,
+                                     "glu_requant_pair": 10}}[tag])
+        kw = dict(compute_dtype=torch.float32 if f32 else torch.bfloat16)
+        if tag == "int8":
+            kw["quant_scales"] = scales
+        kern = SRPipeline(cfg, vocab, *sds, device="cuda", **kw)
         _build.reset_launches()
         got = kern(lr8f, cap8, lens8)["sr"]
         torch.cuda.synchronize()
@@ -293,6 +465,7 @@ def pipeline_phase(torch, rng, card):
               f"{tag} SR is finite float32, shape {tuple(got.shape)}")
         du8 = (to_uint8(got).cpu().int() - to_uint8(ref).int()).abs()
         one = kern(lr8f[:1], cap8[:1], lens8[:1])["sr"]
+        d1 = (to_uint8(one[0]).int() - to_uint8(got[0]).int()).abs().max().item()
         if f32:
             err = (got.cpu() - ref).abs().max().item()
             check(err <= 1e-3, f"SR of the card's kernels == plain on the CPU, f32 "
@@ -302,14 +475,31 @@ def pipeline_phase(torch, rng, card):
             err1 = (one[0] - got[0]).abs().max().item()
             check(err1 <= 1e-4, f"row 0 of the mixed-length batch == its B=1 result "
                                 f"(max abs err {err1:.3e} <= 1e-4)")
-        else:
-            mse = max(du8.double().square().mean().item(), 1e-12)
-            psnr = 10 * np.log10(255.0 ** 2 / mse)
+        elif tag == "bfloat16":
+            psnr = psnr_u8(got, ref)
             check(psnr >= 40, f"uint8 SR bf16 on the card vs f32 plain on the CPU: "
                               f"PSNR {psnr:.2f} dB >= 40 (max {du8.max().item()} levels)")
-            d1 = (to_uint8(one[0]).int() - to_uint8(got[0]).int()).abs().max().item()
             check(d1 <= 2, f"row 0 of the mixed-length batch within 2 uint8 levels of "
                            f"its B=1 result, bf16 (max {d1})")
+        else:
+            # the same int8 pipeline and scales on the CPU, every kernel site plain
+            cpu = SRPipeline(cfg, vocab, *sds, device="cpu", **kw)
+            t0 = time.perf_counter()
+            cref = cpu(lr8f[:4], cap8[:4], lens8[:4])["sr"]
+            print(f"  int8 plain reference on the CPU, B=4: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            del cpu
+            psnr_cpu = psnr_u8(got[:4], cref)
+            check(psnr_cpu >= 40, f"uint8 SR int8 on the card vs int8 plain on the CPU, same "
+                                  f"scales: PSNR {psnr_cpu:.2f} dB >= 40")
+            floor_cpu = psnr_u8(cref, ref[:4])
+            psnr = psnr_u8(got, ref)
+            print(f"  int8 vs f32, both on the CPU (B=4): uint8 PSNR {floor_cpu:.2f} dB",
+                  flush=True)
+            check(psnr >= INT8_PSNR_FLOOR, f"uint8 SR int8 on the card vs f32 plain on the "
+                                           f"CPU: PSNR {psnr:.2f} dB >= {INT8_PSNR_FLOOR}")
+            check(d1 <= 2, f"row 0 of the mixed-length batch within 2 uint8 levels of "
+                           f"its B=1 result, int8 (max {d1})")
         check(float(got.std()) > 1e-3, f"{tag} SR is not constant (std {float(got.std()):.4f})")
 
         kern.sr_batched(lr, cap, lens, microbatch=mb)  # warm-up at the same shapes
@@ -329,6 +519,11 @@ def pipeline_phase(torch, rng, card):
         print(f"  sr_batched {tag} N={n} microbatch {mb}: {dt:.4f} s, {n / dt:.2f} img/s "
               f"(seeded weights) on {card}", flush=True)
         profile_forward(torch, kern, lr[None, :mb], cap[None, :mb], lens[None, :mb], tag)
+        if tag == "bfloat16":
+            t0 = time.perf_counter()
+            scales = kern.calibrate_quant(lrc.astype("float32") / 127.5 - 1.0, capc, lensc)
+            print(f"  calibrate_quant on the card, B=16: {time.perf_counter() - t0:.1f} s, "
+                  f"{sum(len(v) for v in scales.values())} scales", flush=True)
         del kern
     return launches
 
@@ -394,14 +589,17 @@ def main() -> int:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     t0 = time.perf_counter()
-    kernels = [attention_phase(torch, rng), *up_head_phase(torch)]
+    kernels = [attention_phase(torch, rng), *up_head_phase(torch), *glu_requant_phase(torch),
+               int8_conv_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches = pipeline_phase(torch, rng, card)
     print(f"pipeline phases: {time.perf_counter() - t0:.1f} s", flush=True)
-    # launches: the main path's runs, f32 and bf16 (counted apart per dtype)
+    # launches: the main path's runs, f32, bf16 and int8 (counted apart per
+    # path; "launches" is their sum)
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in launches.values())
+        k["launches_by_path"] = {tag: run[k["name"]] for tag, run in launches.items()}
         for tag in ("float32", "bfloat16"):
             if tag in k:
                 k[tag]["launches"] = launches[tag][k["name"]]

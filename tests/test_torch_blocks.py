@@ -13,12 +13,25 @@ import torch
 from flax.core import unfreeze
 
 from tgsr_tpu.ops import blocks as jb
-from tgsr_tpu_torch.checkpoints.from_jax import _put_conv_bn, _put_resblock
+from tgsr_tpu_torch.checkpoints.from_jax import (_put_bn, _put_convs, _put_resblock_bn,
+                                                 _resblock_sites)
 from tgsr_tpu_torch.ops import blocks as tb
 from tests.torch_parity import _perturb
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _put_conv_bn(sd, prefix, params, stats, conv_idx, bn_idx):
+    """An UpBlock's own tree -> `prefix.{conv_idx}.weight` and its BN."""
+    _put_convs(sd, {"b": params}, {"b/conv": f"{prefix}.{conv_idx}"})
+    _put_bn(sd, f"{prefix}.{bn_idx}", params["bn"], stats["bn"])
+
+
+def _put_resblock(sd, prefix, params, stats):
+    """A ResBlock's own tree -> Sequential(conv, BN, GLU, conv, BN) keys."""
+    _put_convs(sd, {"b": params}, _resblock_sites("b", prefix))
+    _put_resblock_bn(sd, prefix, params, stats)
 
 
 def _x(shape, seed=0):

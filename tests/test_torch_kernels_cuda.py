@@ -13,6 +13,14 @@ softmax and two C = 32 sums in another order); up-head rtol = atol = 1e-4
 tests/test_pallas_up_head.py); pipeline rtol = 1e-3, atol = 2e-4 on the
 pyramid (tests/test_generator_parity.py).
 
+int8: `int8_conv` against its plain version (a float64 convolution of the
+int8 values, exact) bit for bit in the int32 sums and the float32 epilogue,
+within one bfloat16 ulp in bfloat16; both `glu_requant` instances against
+their plain version, int8 equal except one step in at most 0.1 % of the
+elements (a gate or product on a bfloat16 rounding boundary); the int8
+pipeline on the card against the same pipeline and scales on the CPU,
+uint8 PSNR >= 40 dB.
+
 bfloat16: attention against the plain version in float32 on the same
 bfloat16 inputs, rtol = 2^-8, atol = 1e-5 (the kernel computes in float32
 and rounds each output once to bfloat16, half an ulp = 2^-9 relative); the
@@ -30,15 +38,18 @@ import torch
 
 from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
 from tgsr_tpu_torch.config import Config, GanConfig, TextConfig, TreeConfig
-from tgsr_tpu_torch.engine.inference import SRPipeline
+from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
 from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain_wpa
 from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
+from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
+from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
 from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
 from tgsr_tpu_torch.ops.up_head import fold_bn, fused_up_head, reference_up_head
 from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
 
 pytestmark = pytest.mark.cuda
+ZERO = {name: 0 for name in _build.LAUNCH_NAMES}
 
 
 @pytest.fixture
@@ -116,8 +127,7 @@ def test_pipeline_kernels_match_plain(cuda_device):
     _build.reset_launches()
     got = kern(lr, cap, lens)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES == {"word_pixel_attention": 3, "up_head": 2,
-                               "up_head_packed": 0}
+    assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, up_head=2)
     for p, pr in zip(got["pyramid"], ref["pyramid"]):
         torch.testing.assert_close(p.cpu(), pr, rtol=1e-3, atol=2e-4)
     for at, ar in zip(got["attn"], ref["attn"]):
@@ -198,8 +208,87 @@ def test_pipeline_bf16_card_matches_f32_cpu(cuda_device):
     _build.reset_launches()
     got = kern(lr, cap, lens)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES == {"word_pixel_attention": 3, "up_head": 0,
-                               "up_head_packed": 2}
+    assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, up_head_packed=2)
     assert all(p.dtype == torch.float32 for p in got["pyramid"] + got["attn"])
     mse = ((got["sr"].cpu().double() - ref["sr"].double()) ** 2).mean().item()
     assert 10 * np.log10(4 / mse) >= 40
+
+
+@pytest.mark.parametrize("cfg", [
+    # (b, h, w, cin, cout, k, up2, bn, residual)
+    (2, 32, 32, 3, 64, 3, False, False, False),     # im2f_conv / convin (Cin padded to 4)
+    (2, 32, 32, 64, 128, 3, False, True, False),    # GSRNetLow ResBlock conv1
+    (2, 32, 32, 64, 64, 3, False, True, True),      # its conv2, + x
+    (2, 17, 23, 32, 64, 3, True, True, False),      # an UpBlock, ragged tiles
+    (2, 40, 40, 32, 3, 5, False, False, False),     # conv_output
+    (1, 9, 7, 32, 3, 3, False, False, False),       # an image head, smaller than a tile
+])
+def test_int8_conv_matches_plain(cuda_device, cfg):
+    b, h, w, cin, cout, k, up2, bn, res = cfg
+    g = torch.Generator(device=cuda_device).manual_seed(h * cin + k)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    wt = pack_int8_weight(torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                                        device=cuda_device, dtype=torch.int8))
+    scale = torch.rand(cout, generator=g, device=cuda_device) * 1e-5 + 1e-6
+    affine = ((1 + 0.1 * torch.randn(cout, generator=g, device=cuda_device),
+               0.1 * torch.randn(cout, generator=g, device=cuda_device)) if bn else None)
+    ho, wo = (2 * h, 2 * w) if up2 else (h, w)
+    resid = torch.randn(b, ho, wo, cout, generator=g, device=cuda_device).bfloat16() if res else None
+    one = torch.ones(cout, device=cuda_device)
+    before = _build.LAUNCHES["int8_conv"]
+    acc = int8_conv(x, wt, one, out_dtype=torch.float32, up2=up2)
+    f32 = int8_conv(x, wt, scale, bn=affine, out_dtype=torch.float32, up2=up2)
+    bf = int8_conv(x, wt, scale, bn=affine, residual=resid, up2=up2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["int8_conv"] == before + 3
+    assert torch.equal(acc, int8_conv_plain(x, wt, one, out_dtype=torch.float32, up2=up2))
+    assert torch.equal(f32, int8_conv_plain(x, wt, scale, bn=affine, out_dtype=torch.float32,
+                                            up2=up2))
+    ref = int8_conv_plain(x, wt, scale, bn=affine, residual=resid, up2=up2).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert ((bf.float() - ref).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("c", sorted(INSTANCES))
+@pytest.mark.parametrize("n", [2 * 64 * 64, 4097])
+def test_glu_requant_matches_plain(cuda_device, c, n):
+    """Both instances; n = 4097 leaves a ragged last row in the pair layout."""
+    g = torch.Generator(device=cuda_device).manual_seed(c + n)
+    h = (1.5 * torch.randn(n, 2 * c, generator=g, device=cuda_device)).bfloat16()
+    name = INSTANCES[c]
+    before = _build.LAUNCHES[name]
+    got = glu_requant(h, 2.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.dtype == torch.int8 and got.shape == (n, c)
+    d = (got.int() - glu_requant_plain(h, 2.0).int()).abs()
+    assert d.max().item() <= 1 and (d > 0).double().mean().item() <= 1e-3
+
+
+def test_pipeline_int8_card_matches_cpu(cuda_device):
+    """The int8 pipeline (GF_DIM 32, so that the GLU widths are the kernel's
+    64 and 32) on the card against the same pipeline and scales on the CPU:
+    42 int8 convs, 6 + 10 GLU-requant passes and 3 attention launches per
+    forward, no up-head."""
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(32, 10, 2), TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    lr = rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (2, 6))
+    cap[0, :] = 0
+    cap[1, 4:] = 0
+    lens = np.array([0, 4])
+    bf16 = SRPipeline(cfg, 41, *sds, device=cuda_device, compute_dtype=torch.bfloat16)
+    scales = bf16.calibrate_quant(lr, cap, lens)
+    kw = dict(compute_dtype=torch.bfloat16, quant_scales=scales)
+    kern = SRPipeline(cfg, 41, *sds, device=cuda_device, **kw)
+    plain = SRPipeline(cfg, 41, *sds, device="cpu", **kw)
+    ref = plain(lr, cap, lens)
+    _build.reset_launches()
+    got = kern(lr, cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, int8_conv=42,
+                                   glu_requant_one=6, glu_requant_pair=10)
+    d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
+    assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40

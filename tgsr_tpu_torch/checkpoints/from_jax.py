@@ -11,6 +11,10 @@ for runs without JAX. Layout rules, as the JAX exporter's:
     (+ num_batches_tracked = 0, which eval never reads);
   LSTM w_ih [in, 4H] -> weight_ih_l0 [4H, in]; bwd -> `_reverse` keys.
 The blend `a` is not a reference state-dict entry; it is returned apart.
+Conv weights are placed through one table of JAX conv paths (the keys of
+`tgsr_tpu`'s calibrated int8 scales, `h_net1/residual_0/conv1`) to port
+module paths (`h_net1.residual.0.block.0`): `netg_conv_sites`,
+`netgh_conv_sites`, `conv_sites`.
 """
 
 from __future__ import annotations
@@ -44,45 +48,92 @@ def _put_bn(out: StateDict, prefix: str, params: Mapping, stats: Mapping) -> Non
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
-def _put_resblock(out: StateDict, prefix: str, params: Mapping,
-                  stats: Mapping) -> None:
-    """Sequential(conv, BN, GLU, conv, BN) at indices 0, 1, 3, 4."""
-    out[f"{prefix}.0.weight"] = _conv(params["conv1"]["kernel"])
+def _put_resblock_bn(out: StateDict, prefix: str, params: Mapping,
+                     stats: Mapping) -> None:
+    """The BNs of Sequential(conv, BN, GLU, conv, BN), at indices 1 and 4."""
     _put_bn(out, f"{prefix}.1", params["bn1"], stats["bn1"])
-    out[f"{prefix}.3.weight"] = _conv(params["conv2"]["kernel"])
     _put_bn(out, f"{prefix}.4", params["bn2"], stats["bn2"])
 
 
-def _put_conv_bn(out: StateDict, prefix: str, params: Mapping, stats: Mapping,
-                 conv_idx: int, bn_idx: int) -> None:
-    out[f"{prefix}.{conv_idx}.weight"] = _conv(params["conv"]["kernel"])
-    _put_bn(out, f"{prefix}.{bn_idx}", params["bn"], stats["bn"])
+def _resblock_sites(key: str, path: str) -> Dict[str, str]:
+    """conv1 / conv2 of a block run as Sequential(conv, BN, GLU, conv, BN):
+    Sequential indices 0 and 3."""
+    return {f"{key}/conv1": f"{path}.0", f"{key}/conv2": f"{path}.3"}
+
+
+def netg_conv_sites(n_stages: int, r_num: int) -> Dict[str, str]:
+    """GSRNetLow: JAX conv path (the key of a calibrated-scales group and of
+    `conv_kernel_sites`) -> the port's module path of that conv."""
+    sites = {"h_net1/im2f_conv": "h_net1.im2f.0"}
+    for k in range(1, n_stages + 1):
+        for j in range(r_num):
+            sites.update(_resblock_sites(f"h_net{k}/residual_{j}",
+                                         f"h_net{k}.residual.{j}.block"))
+        sites[f"h_net{k}/upsample/conv"] = f"h_net{k}.upsample.1"
+        sites[f"img_net{k}/conv"] = f"img_net{k}.img.0"
+    return sites
+
+
+def netgh_conv_sites(n_res: int) -> Dict[str, str]:
+    """NetGHighWeight (low 'lr', no weight map): JAX conv path -> the port's
+    module path."""
+    sites = {"convin/conv": "convin.0"}
+    for j in range(n_res):
+        sites.update(_resblock_sites(f"residual_{j}", f"residual.{j}.block"))
+    for scale in ("2x", "4x", "8x"):
+        sites[f"upscale{scale}/conv"] = f"upscale{scale}.1"
+    for name in ("residual24", "residual48"):
+        sites.update(_resblock_sites(name, name))
+    sites["conv_output/conv"] = "conv_output.0"
+    return sites
+
+
+def conv_sites(netg: nn.Module, netgh: nn.Module) -> Dict[str, Dict[str, str]]:
+    """{"netg": {...}, "netgh": {...}} for the port's two generators: the
+    one table from JAX conv paths to port modules that the state dicts,
+    calibration, `check_scales` and `weights_fingerprint` all use."""
+    return {"netg": netg_conv_sites(netg.n_stages, len(netg.h_net1.residual)),
+            "netgh": netgh_conv_sites(len(netgh.residual))}
+
+
+def _at(tree: Mapping, key: str) -> Mapping:
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def _put_convs(out: StateDict, params: Mapping, sites: Mapping[str, str]) -> None:
+    for key, path in sites.items():
+        out[f"{path}.weight"] = _conv(_at(params, key)["kernel"])
+
+
+def _count(params: Mapping, fmt: str, start: int = 0) -> int:
+    n = start
+    while fmt.format(n) in params:
+        n += 1
+    return n - start
 
 
 def netg_state_dict(variables: Mapping) -> StateDict:
     """GSRNetLow tree -> G_SR_NET_low state dict."""
     params, stats = variables["params"], variables["batch_stats"]
+    n_stages = _count(params, "h_net{}", start=1)
     out: StateDict = {
         "ca_net.fc.weight": _t(np.asarray(params["ca_net"]["fc"]["kernel"]).T),
         "ca_net.fc.bias": _t(params["ca_net"]["fc"]["bias"]),
     }
-    k = 1
-    while f"h_net{k}" in params:
+    _put_convs(out, params, netg_conv_sites(
+        n_stages, _count(params["h_net1"], "residual_{}")))
+    _put_bn(out, "h_net1.im2f.1", params["h_net1"]["im2f_bn"],
+            stats["h_net1"]["im2f_bn"])
+    for k in range(1, n_stages + 1):
         hp, hs = params[f"h_net{k}"], stats[f"h_net{k}"]
         w = np.asarray(hp["att"]["conv_context"]["kernel"]).T  # [idf, cdf]
         out[f"h_net{k}.att.conv_context.weight"] = _t(w[:, :, None, None])
-        if k == 1:
-            out["h_net1.im2f.0.weight"] = _conv(hp["im2f_conv"]["kernel"])
-            _put_bn(out, "h_net1.im2f.1", hp["im2f_bn"], hs["im2f_bn"])
-        j = 0
-        while f"residual_{j}" in hp:
-            _put_resblock(out, f"h_net{k}.residual.{j}.block",
-                          hp[f"residual_{j}"], hs[f"residual_{j}"])
-            j += 1
-        _put_conv_bn(out, f"h_net{k}.upsample", hp["upsample"], hs["upsample"],
-                     conv_idx=1, bn_idx=2)
-        out[f"img_net{k}.img.0.weight"] = _conv(params[f"img_net{k}"]["conv"]["kernel"])
-        k += 1
+        for j in range(_count(hp, "residual_{}")):
+            _put_resblock_bn(out, f"h_net{k}.residual.{j}.block",
+                             hp[f"residual_{j}"], hs[f"residual_{j}"])
+        _put_bn(out, f"h_net{k}.upsample.2", hp["upsample"]["bn"], hs["upsample"]["bn"])
     return out
 
 
@@ -90,19 +141,18 @@ def netgh_state_dict(variables: Mapping) -> Tuple[StateDict, float]:
     """NetGHighWeight tree (low 'lr', no weight map) -> (NetG_highweight
     state dict, blend weight a)."""
     params, stats = variables["params"], variables["batch_stats"]
+    n_res = _count(params, "residual_{}")
     out: StateDict = {}
-    _put_conv_bn(out, "convin", params["convin"], stats["convin"], 0, 1)
-    j = 0
-    while f"residual_{j}" in params:
-        _put_resblock(out, f"residual.{j}.block", params[f"residual_{j}"],
-                      stats[f"residual_{j}"])
-        j += 1
+    _put_convs(out, params, netgh_conv_sites(n_res))
+    _put_bn(out, "convin.1", params["convin"]["bn"], stats["convin"]["bn"])
+    for j in range(n_res):
+        _put_resblock_bn(out, f"residual.{j}.block", params[f"residual_{j}"],
+                         stats[f"residual_{j}"])
     for scale in ("2x", "4x", "8x"):
-        _put_conv_bn(out, f"upscale{scale}", params[f"upscale{scale}"],
-                     stats[f"upscale{scale}"], conv_idx=1, bn_idx=2)
+        _put_bn(out, f"upscale{scale}.2", params[f"upscale{scale}"]["bn"],
+                stats[f"upscale{scale}"]["bn"])
     for name in ("residual24", "residual48"):
-        _put_resblock(out, name, params[name], stats[name])
-    out["conv_output.0.weight"] = _conv(params["conv_output"]["conv"]["kernel"])
+        _put_resblock_bn(out, name, params[name], stats[name])
     return out, float(np.asarray(params["a"]).reshape(-1)[0])
 
 

@@ -21,20 +21,35 @@ come back float32, and uint8 egress rounds the float32 of the last image.
 The up-head sites run `fused_up_head` (float32) or `fused_up_head_packed`
 (bfloat16), whose weights are folded and packed once from the float32
 weights before the cast.
+
+int8 serving (`quant_scales`, bfloat16 compute only in this port; see
+engine/quant.py and models/quantized.py): the scales are checked against the
+float32 weights (keys, and the weights fingerprint when they carry one), and
+each generator with a non-empty scales group is served by a quantized copy
+made after the cast, as JAX quantizes the cast variables. Its convs launch
+`int8_conv` and its GLU+requantize passes `glu_requant`; its last stage and
+256 px scale run as modules (the quantized UpBlock, then the int8 head), so
+the up-head kernels do not run. `calibrate_quant` records the scales on the
+plain, unfused modules.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Callable, Dict, Mapping, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from tgsr_tpu_torch.checkpoints.from_jax import conv_sites
 from tgsr_tpu_torch.config import Config
 from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats
+from tgsr_tpu_torch.engine.quant import (SPLIT_RES_GLU_SITES, check_scales,
+                                         effective_split_glu, record_absmax,
+                                         split_scales_meta)
 from tgsr_tpu_torch.models.generator import GSRNetLow
 from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
+from tgsr_tpu_torch.models.quantized import quantize_generator
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
 from tgsr_tpu_torch.ops.packed_tail import pack_up_head
@@ -61,14 +76,17 @@ class SRPipeline:
     """Text-guided SR inference: (LR, captions, cap_lens) -> SR.
 
     Construct from reference-named state dicts (`checkpoints.from_jax`) and
-    the blend weight `a`, which the reference state dict does not carry."""
+    the blend weight `a`, which the reference state dict does not carry.
+    `quant_scales` ({"netg": {...}, "netgh": {...}}, optionally with
+    '_meta') selects int8 serving."""
 
     def __init__(self, cfg: Config, vocab_size: int,
                  text_sd: Mapping[str, Any], netg_sd: Mapping[str, Any],
                  netgh_sd: Mapping[str, Any], a: float = 0.5,
                  device: Union[str, torch.device] = "cuda",
                  return_attn: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 quant_scales: Optional[Mapping[str, Any]] = None):
         if cfg.TREE.BRANCH_NUM != 4 or cfg.RNN_TYPE != "LSTM":
             raise NotImplementedError(
                 "the port serves the x8 geometry (BRANCH_NUM 4) with an LSTM "
@@ -76,6 +94,9 @@ class SRPipeline:
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the port serves "
                              f"{COMPUTE_DTYPES}")
+        if quant_scales and compute_dtype == torch.float32:
+            raise NotImplementedError("int8 serving with float32 compute is not "
+                                      "ported; use compute_dtype=torch.bfloat16")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.return_attn = return_attn
@@ -90,16 +111,32 @@ class SRPipeline:
             module.load_state_dict(sd, strict=True)
             module.to(self.device).eval()
         self.netgh.a.fill_(float(a))
-        # the two up-head sites, folded (and packed) once from the float32
-        # weights; the text encoder stays float32
-        self.netg_up_head = self._up_head_site(self.netg)
-        self.netgh_up_head = self._up_head_site(self.netgh)
+        self.quant_scales, self.quant_meta = split_scales_meta(quant_scales or {})
+        check_scales(self.quant_scales, self.netg, self.netgh, meta=self.quant_meta)
+        # the up-head sites of the generators served unquantized, folded (and
+        # packed) once from the float32 weights; the text encoder stays
+        # float32
+        self.netg_up_head = self._up_head_site(self.netg, "netg")
+        self.netgh_up_head = self._up_head_site(self.netgh, "netgh")
         for module in (self.netg, self.netgh):
             cast_floats(module, compute_dtype)
             if self.device.type == "cuda":
                 module.to(memory_format=torch.channels_last)
+        # the modules that serve: int8 copies where a scales group is given,
+        # quantized from the cast weights (after the layout change, which
+        # would otherwise restride their int8 buffers)
+        sites = conv_sites(self.netg, self.netgh)
+        self.serve_netg, self.serve_netgh = (
+            quantize_generator(module, sites[group], self.quant_scales[group],
+                               effective_split_glu(self.quant_scales[group]),
+                               SPLIT_RES_GLU_SITES)
+            if self.quant_scales.get(group) else module
+            for group, module in (("netg", self.netg), ("netgh", self.netgh)))
 
-    def _up_head_site(self, generator) -> Callable[..., torch.Tensor]:
+    def _up_head_site(self, generator, group: str
+                      ) -> Optional[Callable[..., torch.Tensor]]:
+        if self.quant_scales.get(group):
+            return None  # int8: the UpBlock and its head run as quantized modules
         wts = generator.up_head_weights()
         if self.compute_dtype == torch.float32:
             return partial(up_head_site, wts)
@@ -116,9 +153,30 @@ class SRPipeline:
         words, sent = self.text_encoder(captions, cap_lens)
         mask = captions == 0
         lr_c = nchw(lr.contiguous()).to(cdt)
-        fake, att, _, _ = self.netg(lr_c, sent.to(cdt), words.to(cdt), mask,
-                                    need_attn, up_head=self.netg_up_head)
-        return self.netgh(lr_c, fake, up_head=self.netgh_up_head), att
+        fake, att, _, _ = self.serve_netg(lr_c, sent.to(cdt), words.to(cdt), mask,
+                                          need_attn, up_head=self.netg_up_head)
+        return self.serve_netgh(lr_c, fake, up_head=self.netgh_up_head), att
+
+    @torch.inference_mode()
+    def calibrate_quant(self, lr, captions, cap_lens, margin: float = 1.1
+                        ) -> Dict[str, Dict[str, float]]:
+        """int8 activation scales from representative inputs (counterpart of
+        tgsr_tpu's `SRPipeline.calibrate_quant`): one forward of the plain
+        generators in the compute dtype, through their unfused modules, with
+        every conv input's absmax recorded; netgh is calibrated on netg's
+        unquantized pyramid. Returns {"netg": {...}, "netgh": {...}} of
+        absmax * margin, keyed by the JAX conv paths, for `quant_scales=`."""
+        cdt = self.compute_dtype
+        captions = self._tensor(captions, torch.long)
+        words, sent = self.text_encoder(captions, self._tensor(cap_lens, torch.long))
+        lr_c = nchw(self._tensor(lr, torch.float32).contiguous()).to(cdt)
+        sites = conv_sites(self.netg, self.netgh)
+        with record_absmax(self.netg, sites["netg"]) as rec_g:
+            fake, _, _, _ = self.netg(lr_c, sent.to(cdt), words.to(cdt), captions == 0)
+        with record_absmax(self.netgh, sites["netgh"]) as rec_gh:
+            self.netgh(lr_c, fake)
+        return {group: {k: float(v) * margin for k, v in rec.items()}
+                for group, rec in (("netg", rec_g), ("netgh", rec_gh))}
 
     @torch.inference_mode()
     def __call__(self, lr, captions, cap_lens) -> Dict[str, Any]:

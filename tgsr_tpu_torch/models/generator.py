@@ -3,15 +3,16 @@ tgsr_tpu/models/generator.py; = CA_NET, INIT_STAGE_GImgup, NEXT_STAGE_G,
 GET_IMAGE_G_noAct and G_SR_NET_low, util.py / model.py:34-78).
 
 NCHW inside; module names are the reference's state-dict keys. The last
-stage's upsample feeds only its image head, so it runs as one fused up-head
-site (`ops/up_head.py` `up_head_site` in float32, `ops/up_head_packed.py`
-`up_head_packed_site` in bfloat16) and its 2x features never reach device
-memory.
+stage's upsample feeds only its image head, so the float32 and bfloat16
+serving paths run it as one fused up-head site (`ops/up_head.py`
+`up_head_site` in float32, `ops/up_head_packed.py` `up_head_packed_site` in
+bfloat16) and its 2x features never reach device memory. Without a site
+(int8 serving, whose UpBlock and head are quantized modules; calibration)
+the stage runs its modules one after another.
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Callable, List, Optional
 
 import torch
@@ -19,7 +20,7 @@ from torch import nn
 
 from tgsr_tpu_torch.ops.attention import WordPixelAttention
 from tgsr_tpu_torch.ops.blocks import GLU, ResBlock, UpBlock, batch_norm, conv3x3, glu
-from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head, up_head_site
+from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
 
 
 class CANet(nn.Module):
@@ -91,8 +92,8 @@ class GSRNetLow(nn.Module):
     (pyramid of NCHW images, attention maps [B, T, H, W] (empty unless
     need_attn), mu, logvar). `up_head` is the last stage's site function,
     `site(features) -> NCHW image`, made once by the caller from
-    `up_head_weights()`; without it each forward folds them again and runs
-    `up_head_site`."""
+    `up_head_weights()`; without it the last stage runs `upsample`, then
+    its head."""
 
     def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100,
                  n_stages: int = 3, r_num: int = 2):
@@ -121,13 +122,11 @@ class GSRNetLow(nn.Module):
         for s in range(1, self.n_stages + 1):
             stage = getattr(self, f"h_net{s}")
             head = getattr(self, f"img_net{s}")
-            if s < self.n_stages:
+            if s < self.n_stages or up_head is None:
                 h, att = stage(h, words, mask, need_attn)
                 fake_imgs.append(head(h))
             else:
                 feats, att = stage.features(h, words, mask, need_attn)
-                if up_head is None:
-                    up_head = partial(up_head_site, self.up_head_weights())
                 fake_imgs.append(up_head(feats))
             if need_attn:
                 att_maps.append(att)

@@ -4,23 +4,23 @@ the LR image as input (INPUT_NETGH 'lr') and no weight map.
 
 ims_s = conv_output(feat_s) + a * srb_s at 64, 128 and 256 px. The blend
 weight `a` is not in the reference's state dict (model.py:246-248), so it is
-a non-persistent buffer here, set from the JAX tree's params['a']. The
-256 px scale runs as one fused up-head site (`up_head_site` in float32,
-`up_head_packed_site` in bfloat16): upscale8x's features feed only
-conv_output. upscale2x and upscale4x stay plain, because their features also
-feed residual24 / residual48.
+a non-persistent buffer here, set from the JAX tree's params['a']. In float32
+and bfloat16 serving the 256 px scale runs as one fused up-head site
+(`up_head_site` in float32, `up_head_packed_site` in bfloat16): upscale8x's
+features feed only conv_output. upscale2x and upscale4x stay plain, because
+their features also feed residual24 / residual48. Without a site (int8
+serving, calibration) upscale8x and conv_output run one after the other.
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Callable, List, Optional
 
 import torch
 from torch import nn
 
 from tgsr_tpu_torch.ops.blocks import GLU, ResBlock, UpBlock, batch_norm, conv3x3
-from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head, up_head_site
+from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
 
 
 def _residual_seq(ngf: int) -> nn.Sequential:
@@ -55,14 +55,16 @@ class NetGHighWeight(nn.Module):
         """lr NCHW, srb the low-frequency pyramid (NCHW) -> refined pyramid.
         `up_head` is the 256 px site function, `site(features, srb=, a=,
         use_tanh=) -> NCHW image`, made once by the caller from
-        `up_head_weights()`; without it each forward folds them again and
-        runs `up_head_site`."""
+        `up_head_weights()`; without it upscale8x and conv_output run as
+        modules."""
         out = self.residual(self.convin(lr))
         out = self.upscale2x(out)
         ims2 = self.conv_output(out) + self.a * srb[0]
         out = self.upscale4x(self.residual24(out))
         ims4 = self.conv_output(out) + self.a * srb[1]
+        out = self.residual48(out)
         if up_head is None:
-            up_head = partial(up_head_site, self.up_head_weights())
-        ims8 = up_head(self.residual48(out), srb=srb[2], a=self.a, use_tanh=True)
+            ims8 = self.conv_output(self.upscale8x(out)) + self.a * srb[2]
+        else:
+            ims8 = up_head(out, srb=srb[2], a=self.a, use_tanh=True)
         return [ims2, ims4, ims8]

@@ -24,10 +24,14 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("word_pixel_attention", "up_head", "up_head_packed")
+KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv")
+# the kernels a run counts: one name per library, but the two instances of
+# glu_requant.cu (c = 64 and c = 32) apart
+LAUNCH_NAMES = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant_one",
+                "glu_requant_pair", "int8_conv")
 # element type codes of the kernels that take more than float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C functions of each library: (argtypes, restype), set once at load
 SIGNATURES = {
     "word_pixel_attention": {
@@ -46,13 +50,22 @@ SIGNATURES = {
         "up_head_packed_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
         "up_head_packed_smem_bytes": ([_I] * 3, ctypes.c_longlong),
     },
+    "glu_requant": {
+        # h, q, n_pixels, c, step, stream
+        "glu_requant_launch": ([_P, _P, ctypes.c_longlong, _I, _F, _P], _I),
+    },
+    "int8_conv": {
+        # x, w, scale, mul, add, residual, out, B, H, W, Cin, Cout, k, up2,
+        # out dtype, stream
+        "int8_conv_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
