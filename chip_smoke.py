@@ -14,10 +14,13 @@ where it must go through the attention and packed up-head kernels and hold
 the card by the port's calibrate_quant), where it must go through the
 attention, int8 conv and GLU-requant kernels, hold >= 40 dB against the same
 int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR against the
-float32 reference. Prints one JSON line of per-kernel numbers, then, as the
-last line, {"ok": true, "device": {...}}. Exits non-zero without that line
-when there is no CUDA card, when the package is missing, or when any check
-fails.
+float32 reference. Then drives the conv probe path
+(tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose four
+tensor-core kernels (tap9, im2col, pair5, dotceil) are first held against
+their plain versions within one bfloat16 ulp. Prints one JSON line of
+per-kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
+Exits non-zero without that line when there is no CUDA card, when the
+package is missing, or when any check fails.
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ GLU_SITES = (
     ("h_net3/upsample -> img_net3", 256, 256, 32, 1),
     ("upscale8x -> conv_output", 256, 256, 32, 1),
 )
+# the conv probe's kernels: (formulation, line of its TPU function in
+# examples/pallas_conv_probe.py)
+CONV_PROBE = (("tap9", 85), ("im2col", 132), ("pair5", 172), ("dotceil", 196))
 
 
 def check(ok: bool, what: str) -> None:
@@ -402,6 +408,72 @@ def glu_requant_phase(torch):
     return out
 
 
+def conv_probe_phase(torch):
+    """The conv probe path at full size (B = 64, 128 x 128 px, h_net3's
+    ResBlock conv1): first each kernel against its plain version on the
+    probe's own inputs, within one bfloat16 ulp (`conv_probe.max_ulps`:
+    float32 sums in another order, each output rounded once); then the path
+    itself, `probes.conv_probe.main`, with the launch counts set to 0 just
+    before and read just after. Returns the four kernel rows and those
+    counts."""
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.ops import conv_probe as cp
+    from tgsr_tpu_torch.probes import conv_probe as path
+
+    h = w = 128
+    x, wt, wp, p = path.make_inputs("cuda", B, h, w)
+    args = {"tap9": (x, wt), "im2col": (x, wp), "pair5": (x, wp), "dotceil": (p, wp)}
+    errs = {}
+    for name, _ in CONV_PROBE:
+        got = getattr(cp, name)(*args[name])
+        ref = getattr(cp, f"{name}_plain")(*args[name])
+        torch.cuda.synchronize()
+        ulps = cp.max_ulps(got, ref)
+        errs[name] = (got.float() - ref.float()).abs().max().item()
+        check(ulps <= 1, f"conv probe {name} == plain at {tuple(args[name][0].shape)} "
+                         f"(max abs err {errs[name]:.3e}, {ulps:.2f} bf16 ulp <= 1)")
+        del got, ref
+    torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    res = path.main(device="cuda", b=B, h=h, w=w)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    probe_names = {f"conv_{name}" for name, _ in CONV_PROBE}
+    check(all(counts[n] > 0 for n in probe_names)
+          and not any(v for n, v in counts.items() if n not in probe_names),
+          f"the conv probe path launched its four kernels and nothing else ({counts})")
+
+    n_px, rows = B * h * w, []
+    for name, line in CONV_PROBE:
+        row = res["rows"][name]
+        if name == "dotceil":
+            m = p.numel() // cp.KP
+            nbytes, flops = 2 * (p.numel() + wp.numel() + m * cp.COUT), 2 * m * cp.KP * cp.COUT
+        else:
+            weight = wt if name == "tap9" else wp
+            nbytes = 2 * (n_px * (cp.CIN + cp.COUT) + weight.numel())
+            flops = path.conv_flops(B, h, w)  # the conv's work; im2col and pair5 compute 640/576 of it
+        bms, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        print(f"  conv probe {name}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), "
+              f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, {bms / row['ms']:.1%} of it reached)", flush=True)
+        rows.append({"name": f"conv_{name}", "route": "cuda",
+                     "source": "tgsr_tpu_torch/csrc/conv_probe.cu",
+                     "replaces": f"examples/pallas_conv_probe.py:{line}",
+                     "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": bms, "bound_by": by, "library_ms": row["library_ms"],
+                     "tflops": row["tflops"],
+                     "shapes": (f"p {tuple(p.shape)} @ wp (640, 128); library torch.matmul"
+                                if name == "dotceil" else
+                                f"x [{B},{h},{w},64] -> 128 channels, 3x3 SAME; library "
+                                "cuDNN bf16 conv (conv_library)")})
+    d = res["decision"]
+    print(f"  conv probe decision: {d['best']} {d['best_ms']:.4f} ms = {d['ratio']:.2f}x cuDNN's "
+          f"{d['library_ms']:.4f} ms -> {d['verdict']}", flush=True)
+    return rows, counts
+
+
 def psnr_u8(a, b) -> float:
     """uint8 PSNR of two [-1, 1] float images (tensors on any device)."""
     from tgsr_tpu_torch.engine.inference import to_uint8
@@ -595,15 +667,20 @@ def main() -> int:
     t0 = time.perf_counter()
     launches = pipeline_phase(torch, rng, card)
     print(f"pipeline phases: {time.perf_counter() - t0:.1f} s", flush=True)
-    # launches: the main path's runs, f32, bf16 and int8 (counted apart per
-    # path; "launches" is their sum)
+    t0 = time.perf_counter()
+    probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
+    kernels += probe_rows
+    print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # launches: the runs of each path, the serving forward in f32, bf16 and
+    # int8 and the conv probe (counted apart per path; "launches" is their sum)
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in launches.values())
         k["launches_by_path"] = {tag: run[k["name"]] for tag, run in launches.items()}
         for tag in ("float32", "bfloat16"):
             if tag in k:
                 k[tag]["launches"] = launches[tag][k["name"]]
-        check(k["launches"] > 0, f"{k['name']} launched on the main path")
+        paths = [tag for tag, n in k["launches_by_path"].items() if n]
+        check(k["launches"] > 0, f"{k['name']} launched on its path ({', '.join(paths)})")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:

@@ -21,6 +21,11 @@ elements (a gate or product on a bfloat16 rounding boundary); the int8
 pipeline on the card against the same pipeline and scales on the CPU,
 uint8 PSNR >= 40 dB.
 
+The conv probe's four tensor-core kernels (`tap9`, `im2col`, `pair5`,
+`dotceil`) against their plain versions on the same bfloat16 inputs: within
+one bfloat16 ulp elementwise (`conv_probe.max_ulps`: float32 sums in another
+order, each output rounded once).
+
 bfloat16: attention against the plain version in float32 on the same
 bfloat16 inputs, rtol = 2^-8, atol = 1e-5 (the kernel computes in float32
 and rounds each output once to bfloat16, half an ulp = 2^-9 relative); the
@@ -40,6 +45,7 @@ from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
 from tgsr_tpu_torch.config import Config, GanConfig, TextConfig, TreeConfig
 from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
 from tgsr_tpu_torch.ops import _build
+from tgsr_tpu_torch.ops import conv_probe
 from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain_wpa
 from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
 from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
@@ -292,3 +298,26 @@ def test_pipeline_int8_card_matches_cpu(cuda_device):
                                    glu_requant_one=6, glu_requant_pair=10)
     d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
     assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 8, 96)])
+@pytest.mark.parametrize("name", ["tap9", "im2col", "pair5", "dotceil"])
+def test_conv_probe_kernel_matches_plain(cuda_device, name, shape):
+    """The conv kernels at B, H, W = shape (4 x 32 pixel tiles, the halo
+    zero-padded at every image edge); dotceil on 2 * 512 and, for the second
+    shape, 3 * 100 rows (a ragged last block of 44 rows)."""
+    b, h, w = shape
+    g = torch.Generator().manual_seed(b * h * w)
+    r = lambda *s, sd: (torch.randn(*s, generator=g) * sd).bfloat16().to(cuda_device)  # noqa: E731
+    x, wt = r(b, h, w, 64, sd=0.1), r(3, 3, 64, 128, sd=0.05)
+    wp = conv_probe.pack_w(wt)
+    p = r(2, 512, 640, sd=0.1) if shape == (2, 32, 32) else r(3, 100, 640, sd=0.1)
+    args = {"tap9": (x, wt), "im2col": (x, wp), "pair5": (x, wp), "dotceil": (p, wp)}[name]
+    kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
+    before = _build.LAUNCHES[f"conv_{name}"]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"conv_{name}"] == before + 1
+    ref = plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert conv_probe.max_ulps(got, ref) <= 1

@@ -24,11 +24,13 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv")
+KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv",
+           "conv_probe")
 # the kernels a run counts: one name per library, but the two instances of
-# glu_requant.cu (c = 64 and c = 32) apart
+# glu_requant.cu (c = 64 and c = 32) and the four kernels of conv_probe.cu apart
 LAUNCH_NAMES = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant_one",
-                "glu_requant_pair", "int8_conv")
+                "glu_requant_pair", "int8_conv", "conv_tap9", "conv_im2col", "conv_pair5",
+                "conv_dotceil")
 # element type codes of the kernels that take more than float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,6 +60,14 @@ SIGNATURES = {
         # x, w, scale, mul, add, residual, out, B, H, W, Cin, Cout, k, up2,
         # out dtype, stream
         "int8_conv_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    },
+    "conv_probe": {
+        # x, w (HWIO) or wp (packed), out, B, H, W, stream
+        "conv_tap9_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "conv_im2col_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "conv_pair5_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        # p, wp, out, rows of p, stream
+        "conv_dotceil_launch": ([_P] * 3 + [ctypes.c_longlong, _P], _I),
     },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
