@@ -35,6 +35,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor-core peak
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bfloat16 tensor-core peak
 INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 B = 64  # batch of the kernel phases
@@ -115,6 +116,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls with the
+    host's launch gaps hidden: the calls are queued behind a spin kernel
+    (`torch.cuda._sleep`) that keeps the card busy until all of them are
+    enqueued, so the CUDA events time the card's work alone. For calls
+    shorter than the host needs to launch them, where cuda_ms times the
+    host. Raises if the card reached the calls before they were queued."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # tens of ms at the card's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    if start.query():
+        raise RuntimeError("device_ms: the card reached the calls before the host queued them")
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -201,14 +225,17 @@ def attention_phase(torch, rng):
 
 def up_head_phase(torch):
     """At both up-head sites of one forward (B = 64, 128 -> 256 px): row 2
-    (`fused_up_head`, float32) against its plain version; row 3
+    (`fused_up_head`, float32, 3xTF32 on the tensor cores, the combined
+    weight made once as the main path makes it) against its plain version
+    within 1e-4 * max(1, |ref|max); row 3
     (`fused_up_head_packed`) in float32 against its plain version with
     row 2's gate, and in bfloat16 against its plain version on the same
     bfloat16 inputs (float32 sums; a GLU value may round to the neighbouring
     bfloat16: |err| <= 2e-2 * max(1, |ref|max)). Row 2 and row 3 are timed on
     the same float32 inputs."""
     from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
-    from tgsr_tpu_torch.ops.up_head import fold_bn, fused_up_head, reference_up_head
+    from tgsr_tpu_torch.ops.up_head import (fold_bn, prepare_up_head, reference_up_head,
+                                            up_head_folded)
     from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
 
     rows2, rows3 = [], {"float32": [], "bfloat16": []}
@@ -227,34 +254,41 @@ def up_head_phase(torch):
         a = torch.tensor(0.5, device="cuda")
         args = (x, w_up, mul, add, w_head, srb, a)
         kw = dict(use_tanh=use_tanh, blend=blend)
+        wts = prepare_up_head(w_up, mul, add, w_head)
         ref = reference_up_head(*args, **kw)
-        got = fused_up_head(*args, **kw)
+        got = up_head_folded(wts, x, srb, a, **kw)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         check(err <= 1e-4 * max(1.0, scale),
               f"up-head kernel == plain at {site} [{B},{h},{w},{cin}] C2 {c2} k {k} "
               f"(max abs err {err:.3e}, output max {scale:.3f})")
-        ms = cuda_ms(lambda: fused_up_head(*args, **kw), iters=5)
+        ms = cuda_ms(lambda: up_head_folded(wts, x, srb, a, **kw), iters=5)
         p_ms = cuda_ms(lambda: reference_up_head(*args, **kw), iters=5)
         n_out = B * 4 * h * w
         # The function's work per output pixel: after a nearest x2 upsample
         # each output parity class sees only 2 x 2 distinct source pixels, so
-        # the up-conv needs 4 taps of combined weights (as
-        # fused_up_head_packed computes it), not 9; then the k x k head and
-        # BN + GLU.
-        flops = n_out * (2 * 4 * cin * c2 + 2 * k * k * (c2 // 2) * 3 + 8 * c2)
-        # the kernel's own algorithm runs all 9 taps of the up-conv
-        issued = n_out * (2 * 9 * cin * c2 + 2 * k * k * (c2 // 2) * 3 + 8 * c2)
+        # the up-conv needs 4 taps of combined weights, not 9; then the k x k
+        # head and BN + GLU.
+        up_flops = n_out * 2 * 4 * cin * c2
+        rest_flops = n_out * (2 * k * k * (c2 // 2) * 3 + 8 * c2)
+        flops = up_flops + rest_flops
         nbytes = 4 * (x.numel() + w_up.numel() + w_head.numel() + 2 * c2
                       + 3 * n_out * (2 if blend else 1))
-        bms, by = bound_ms(nbytes, flops)
+        # the least time at float32 accuracy: the up-conv as three TF32
+        # products on the tensor cores, the rest on the CUDA cores; beside it
+        # the CUDA-core bound of the first kernel (all of it at 67 TFLOP/s)
+        t_ops = 3 * up_flops / TF32_FLOP_PER_S + rest_flops / F32_FLOP_PER_S
+        bms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops else "operations"
+        bms_cc = bound_ms(nbytes, flops)[0]
         print(f"  up-head {site}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work "
-              f"({issued / ms / 1e9:.1f} as the kernel issues it, 9 taps)", flush=True)
-        rows2.append(dict(ms=ms, plain_ms=p_ms, bound_ms=bms, nbytes=nbytes,
-                          flops=flops, err=err))
+              f"3xTF32 bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached; "
+              f"CUDA-core bound {bms_cc:.4f} ms), {flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"function's work ({(3 * up_flops + rest_flops) / ms / 1e9:.1f} as issued, "
+              f"3 TF32 products)", flush=True)
+        rows2.append(dict(ms=ms, plain_ms=p_ms, bound_ms=bms, bound_ms_cuda_cores=bms_cc,
+                          nbytes=nbytes, flops=flops, err=err))
 
         for dtype, esize, rate, gate in ((torch.float32, 4, F32_FLOP_PER_S, 1e-4),
                                          (torch.bfloat16, 2, BF16_FLOP_PER_S, 2e-2)):
@@ -282,8 +316,11 @@ def up_head_phase(torch):
                   flush=True)
             rows3[tag].append(dict(ms=ms3, plain_ms=p_ms3, bound_ms=bms3, nbytes=nbytes3,
                                    flops=flops, err=err3, up_head_ms=ms))
-    row2 = sums(rows2)
-    row2["bound_by"] = bound_ms(row2.pop("nbytes"), row2.pop("flops"))[1]
+    row2 = sums(rows2, keys=("ms", "plain_ms", "bound_ms", "bound_ms_cuda_cores", "nbytes",
+                             "flops"))
+    t_bytes = row2.pop("nbytes") / HBM_BYTES_PER_S * 1e3
+    row2["bound_by"] = "bytes" if t_bytes >= row2["bound_ms"] else "operations"
+    row2.pop("flops")
     row3 = {}
     for tag, rate in (("float32", F32_FLOP_PER_S), ("bfloat16", BF16_FLOP_PER_S)):
         row3[tag] = sums(rows3[tag], keys=("ms", "plain_ms", "bound_ms", "nbytes", "flops",
@@ -293,7 +330,9 @@ def up_head_phase(torch):
     shapes = f"B {B}, 128->256 px, both sites of one forward"
     return [{"name": "up_head", "route": "cuda", "source": "tgsr_tpu_torch/csrc/up_head.cu",
              "replaces": "tgsr_tpu/ops/pallas_up_head.py:78", **row2, "library_ms": None,
-             "shapes": shapes + ", float32"},
+             "shapes": shapes + ", float32; bound_ms at float32 accuracy (up-conv as 3 TF32 "
+                                "products at 495 TFLOP/s, head/BN/GLU at 67), "
+                                "bound_ms_cuda_cores all at 67"},
             {"name": "up_head_packed", "route": "cuda",
              "source": "tgsr_tpu_torch/csrc/up_head_packed.cu",
              "replaces": "tgsr_tpu/ops/pallas_up_head.py:244", **row3["bfloat16"],
@@ -307,7 +346,12 @@ def int8_conv_phase(torch):
     int8 values, exact) at every conv shape of one full-width B = 64 int8
     forward: the int32 sums and the float32 epilogue bit for bit, the
     bfloat16 output within one bfloat16 ulp. Times are summed over the
-    forward's calls (weighted by calls per forward)."""
+    forward's calls (weighted by calls per forward). `ms`, `plain_ms` and
+    `cudnn_bf16_ms` are CUDA-event times of back-to-back calls (`cuda_ms`),
+    as for every other kernel; `device_ms` and `cudnn_bf16_device_ms` are the
+    same calls with the host's launch gaps hidden (`device_ms`: many of these
+    convs take tens of microseconds, less than the host needs to launch
+    them back to back)."""
     import torch.nn.functional as F
 
     from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
@@ -343,30 +387,39 @@ def int8_conv_phase(torch):
                                    f"{'equal' if exact else 'DIFFER'}, bf16 {ulps:.2f} ulp <= 1")
         del acc_k, acc_p, f32_k, f32_p, got, ref
         ms = cuda_ms(lambda: int8_conv(*args), iters=5)
+        d_ms = device_ms(torch, lambda: int8_conv(*args))
         p_ms = cuda_ms(lambda: int8_conv_plain(*args), iters=2, warmup=1)
         xb = x.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
         if up2:
             xb = F.interpolate(xb, scale_factor=2, mode="nearest")
         wb = torch.randn(cout, cin, k, k, device="cuda").bfloat16().contiguous(
             memory_format=torch.channels_last)
-        c_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2), iters=5)
+        conv = lambda: F.conv2d(xb, wb, padding=k // 2)  # noqa: E731
+        c_ms, cd_ms = cuda_ms(conv, iters=5), device_ms(torch, conv)
         del xb, wb
         nbytes = (x.numel() + k * k * cin * cout + 4 * cout * (3 if bn else 1)
                   + B * ho * wo * cout * (2 + (2 if res else 0)))  # bf16 out [+ residual]
         ops = 2 * B * ho * wo * cout * k * k * cin
         bms, by = bound_ms(nbytes, ops, INT8_OP_PER_S)
-        print(f"  int8_conv {site} x{n}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN bf16 "
-              f"conv (for scale, not the same function) {c_ms:.4f} ms, bound {bms:.4f} ms "
-              f"({by}, {bms / ms:.1%} of it reached), {ops / ms / 1e9:.1f} TOP/s", flush=True)
-        rows.append(dict(ms=n * ms, plain_ms=n * p_ms, cudnn_bf16_ms=n * c_ms, bound_ms=n * bms,
-                         nbytes=n * nbytes, flops=n * ops, err=err))
-    tot = sums(rows, keys=("ms", "plain_ms", "cudnn_bf16_ms", "bound_ms", "nbytes", "flops"))
+        print(f"  int8_conv {site} x{n}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, cuDNN bf16 conv (for scale, not the same function) {c_ms:.4f} ms "
+              f"(device time {cd_ms:.4f}), bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it "
+              f"reached, {bms / d_ms:.1%} by device time), {ops / ms / 1e9:.1f} TOP/s "
+              f"({ops / d_ms / 1e9:.1f} by device time)", flush=True)
+        rows.append(dict(ms=n * ms, device_ms=n * d_ms, plain_ms=n * p_ms, cudnn_bf16_ms=n * c_ms,
+                         cudnn_bf16_device_ms=n * cd_ms, bound_ms=n * bms, nbytes=n * nbytes,
+                         flops=n * ops, err=err))
+    tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "cudnn_bf16_ms", "cudnn_bf16_device_ms",
+                           "bound_ms", "nbytes", "flops"))
     tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), INT8_OP_PER_S)[1]
     return {"name": "int8_conv", "route": "cuda", "source": "tgsr_tpu_torch/csrc/int8_conv.cu",
             "replaces": "tgsr_tpu/engine/quant.py:164 (XLA int8 conv; no Pallas kernel)",
             **tot, "library_ms": None,
-            "shapes": f"B {B}, the 42 convs of one int8 forward (26 shapes); cudnn_bf16_ms is "
-                      "cuDNN's bf16 conv on the same shapes, for scale, not the same function"}
+            "shapes": f"B {B}, the 42 convs of one int8 forward (26 shapes); ms, plain_ms and "
+                      "cudnn_bf16_ms by CUDA events, device_ms and cudnn_bf16_device_ms by "
+                      "CUDA events with the host's launches queued behind a spin kernel; "
+                      "cudnn_bf16_* is cuDNN's bf16 conv on the same shapes, "
+                      "for scale, not the same function"}
 
 
 def glu_requant_phase(torch):

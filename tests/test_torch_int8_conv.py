@@ -8,8 +8,8 @@ XLA int8 convolutions of tgsr_tpu/engine/quant.py, on seeded int8 inputs.
 - the dequantizing epilogue: within one ulp of the output dtype of
   `_int8_seg_fn` (with a folded BN, 3x3) and of `quant_conv` (no BN, 5x5),
   in float32 and bfloat16 (XLA may contract the BN's multiply-add);
-- the kernel layout of the weight (`pack_int8_weight`) and the wrapper's
-  refusals.
+- the kernel layout of the weight (`pack_int8_weight`: int8 rows [N, Kp],
+  K contiguous) and the wrapper's refusals.
 """
 
 import jax
@@ -22,8 +22,8 @@ from tgsr_tpu.engine import quant as jq
 from tgsr_tpu.ops.blocks import upsample_nearest2x
 from tgsr_tpu_torch.engine import quant as tq
 from tgsr_tpu_torch.ops import _build
-from tgsr_tpu_torch.ops.int8_conv import (dequant_epilogue, int8_conv, int8_conv_int32,
-                                          pack_int8_weight)
+from tgsr_tpu_torch.ops.int8_conv import (cin_pad, cout_pad, dequant_epilogue, int8_conv,
+                                          int8_conv_int32, pack_int8_weight)
 
 torch.set_num_threads(1)
 
@@ -108,19 +108,29 @@ def test_residual_is_added_after_the_cast():
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
-def test_packed_weight_layout():
-    """packed[ky, kx, g, co] holds channels 4g..4g+3 of (ky, kx, co), byte j
-    = channel 4g + j (little-endian), Cin zero-padded to a multiple of 4."""
+@pytest.mark.parametrize("k, cin, cout, n, kp", [
+    (3, 6, 5, 8, 288),     # Cin padded to 32 a tap, Cout to the N = 8 instance
+    (3, 3, 64, 64, 64),    # 3 channels: taps folded into K, 9 x 4 = 36 -> 64
+    (5, 32, 3, 8, 800),    # conv_output
+    (3, 64, 128, 128, 576),
+])
+def test_packed_weight_layout(k, cin, cout, n, kp):
+    """packed[co, (ky * k + kx) * Cin_p + ci] = q[ky, kx, ci, co]: int8 rows
+    [N, Kp] with K contiguous and tap-major, Cin_p = 4 (folded) or a multiple
+    of 32, zero beyond Cout, Cin and k * k * Cin_p."""
     rng = np.random.default_rng(2)
-    q = torch.from_numpy(_int8(rng, (3, 3, 6, 5)))
+    q = torch.from_numpy(_int8(rng, (k, k, cin, cout)))
     w = pack_int8_weight(q)
-    assert w.packed.dtype == torch.int32 and tuple(w.packed.shape) == (3, 3, 2, 5)
-    b = w.packed.contiguous().view(torch.uint8).reshape(3, 3, 2, 5, 4).to(torch.int32)
-    b = torch.where(b > 127, b - 256, b)  # bytes back to int8 values
-    unpacked = b.permute(0, 1, 2, 4, 3).reshape(3, 3, 8, 5)
-    assert torch.equal(unpacked[:, :, :6], q.to(torch.int32))
-    assert not unpacked[:, :, 6:].any()
-    assert torch.equal(w.q, q)
+    assert w.packed.dtype == torch.int8 and tuple(w.packed.shape) == (n, kp)
+    assert w.packed.is_contiguous() and torch.equal(w.q, q)
+    cp = cin_pad(cin)
+    assert cout_pad(cout) == n and (cp == 4) == (cin <= 4)
+    full = torch.zeros(n, kp, dtype=torch.int8)
+    for ky in range(k):
+        for kx in range(k):
+            col = (ky * k + kx) * cp
+            full[:cout, col:col + cin] = q[ky, kx].t()
+    assert torch.equal(w.packed, full)
 
 
 def test_wrapper_refuses_and_counts_nothing_on_the_cpu():

@@ -51,7 +51,8 @@ from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
 from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
 from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
 from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
-from tgsr_tpu_torch.ops.up_head import fold_bn, fused_up_head, reference_up_head
+from tgsr_tpu_torch.ops.up_head import (fold_bn, fused_up_head, prepare_up_head,
+                                        reference_up_head, up_head_folded)
 from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
 
 pytestmark = pytest.mark.cuda
@@ -97,8 +98,12 @@ def test_attention_kernel_matches_plain(cuda_device, hw):
     (2, 128, 128, 32, 64, 5, True, True),    # upscale8x + conv_output + a*srb
     (2, 12, 12, 16, 32, 5, True, False),     # ragged tiles: 24 px output
     (1, 8, 8, 32, 64, 3, False, True),       # one tile
+    (1, 13, 21, 32, 64, 5, True, True),      # B = 1, 26 x 42 output: ragged both ways
+    (3, 9, 17, 8, 16, 3, False, True),       # C2 16 (the narrow test tree), ragged
 ])
 def test_up_head_kernel_matches_plain(cuda_device, cfg):
+    """The 3xTF32 kernel, given the combined weight made once and without it,
+    against the plain float32 chain."""
     b, h, w, cin, c2, k, use_tanh, blend = cfg
     g = torch.Generator().manual_seed(h * cin + k)
     r = lambda *s, sd=1.0: (torch.randn(*s, generator=g) * sd).to(cuda_device)  # noqa: E731
@@ -110,9 +115,11 @@ def test_up_head_kernel_matches_plain(cuda_device, cfg):
     ref = reference_up_head(x, w_up, mul, add, w_head, srb, a, **kw)
     before = _build.LAUNCHES["up_head"]
     got = fused_up_head(x, w_up, mul, add, w_head, srb, a, **kw)
+    got_f = up_head_folded(prepare_up_head(w_up, mul, add, w_head), x, srb, a, **kw)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["up_head"] == before + 1
+    assert _build.LAUNCHES["up_head"] == before + 2
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got_f, got)
 
 
 def test_pipeline_kernels_match_plain(cuda_device):
@@ -228,8 +235,15 @@ def test_pipeline_bf16_card_matches_f32_cpu(cuda_device):
     (2, 17, 23, 32, 64, 3, True, True, False),      # an UpBlock, ragged tiles
     (2, 40, 40, 32, 3, 5, False, False, False),     # conv_output
     (1, 9, 7, 32, 3, 3, False, False, False),       # an image head, smaller than a tile
+    (1, 13, 19, 64, 64, 3, True, True, True),       # up2 with BN and a residual, B = 1
+    (2, 20, 36, 3, 64, 5, False, True, False),      # Cin 3 -> 4 folded, k 5 (K 100 -> 128)
+    (2, 16, 40, 32, 32, 3, False, True, True),      # NetGHighWeight ResBlock conv2, + x
+    (1, 11, 45, 32, 128, 5, False, False, True),    # Cout 128, k 5, + residual, ragged
 ])
 def test_int8_conv_matches_plain(cuda_device, cfg):
+    """The int8 tensor-core kernel: int32 sums and the float32 epilogue bit
+    for bit, bfloat16 within one ulp (ragged tiles, folded 3-channel input,
+    Cout 3 / 32 / 64 / 128, k 3 and 5, up2, BN, residual, B = 1)."""
     b, h, w, cin, cout, k, up2, bn, res = cfg
     g = torch.Generator(device=cuda_device).manual_seed(h * cin + k)
     x = torch.randint(-127, 128, (b, h, w, cin), generator=g, device=cuda_device,

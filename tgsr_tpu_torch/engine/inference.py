@@ -140,7 +140,8 @@ class SRPipeline:
         wts = generator.up_head_weights()
         if self.compute_dtype == torch.float32:
             return partial(up_head_site, wts)
-        return partial(up_head_packed_site, pack_up_head(*wts, dtype=self.compute_dtype))
+        return partial(up_head_packed_site, pack_up_head(
+            wts.w_up, wts.bn_mul, wts.bn_add, wts.w_head, dtype=self.compute_dtype))
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device, dtype=dtype)

@@ -33,23 +33,37 @@ BN = Tuple[torch.Tensor, torch.Tensor]
 @dataclass(frozen=True)
 class Int8Weight:
     """An int8 conv weight in both layouts: `q` HWIO [k, k, Cin, Cout] for the
-    plain version, `packed` int32 [k, k, ceil(Cin / 4), Cout] for the kernel
-    (4 consecutive input channels a word, byte j = channel 4g + j, Cin
-    zero-padded to a multiple of 4)."""
+    plain version, `packed` int8 [N, Kp] for the kernel: one row a padded
+    output channel (`cout_pad`), K contiguous and tap-major, column
+    (ky * k + kx) * Cin_p + ci with Cin padded to `cin_pad`, zero beyond
+    Cout and beyond k * k * Cin_p (Kp, a multiple of 32)."""
 
     q: torch.Tensor
     packed: torch.Tensor
 
 
+def cin_pad(cin: int) -> int:
+    """The input channels the kernel reads: 4 (taps folded into K) for up to
+    4, else a multiple of 32 (one or more 32-byte k steps a tap)."""
+    return 4 if cin <= 4 else -(-cin // 32) * 32
+
+
+def cout_pad(cout: int) -> int:
+    """The weight rows the kernel takes: its instances N = 8, 32, 64, 128."""
+    for n in (8, 32, 64, 128):
+        if cout <= n:
+            return n
+    raise ValueError(f"int8_conv: Cout {cout} > 128")
+
+
 def pack_int8_weight(q: torch.Tensor) -> Int8Weight:
     """HWIO int8 [k, k, Cin, Cout] -> `Int8Weight`."""
-    if q.dtype != torch.int8 or q.dim() != 4:
-        raise ValueError("pack_int8_weight: needs an int8 HWIO weight")
-    k1, k2, cin, cout = q.shape
-    pad = -cin % 4
-    qp = F.pad(q, (0, 0, 0, pad)) if pad else q
-    packed = (qp.reshape(k1, k2, (cin + pad) // 4, 4, cout).permute(0, 1, 2, 4, 3)
-              .contiguous().view(torch.int32).reshape(k1, k2, (cin + pad) // 4, cout))
+    if q.dtype != torch.int8 or q.dim() != 4 or q.shape[0] != q.shape[1]:
+        raise ValueError("pack_int8_weight: needs an int8 HWIO k x k weight")
+    k, _, cin, cout = q.shape
+    n, cp = cout_pad(cout), cin_pad(cin)
+    rows = F.pad(q, (0, n - cout, 0, cp - cin)).permute(3, 0, 1, 2).reshape(n, k * k * cp)
+    packed = F.pad(rows, (0, -(k * k * cp) % 32)).contiguous()
     return Int8Weight(q.contiguous(), packed)
 
 
@@ -104,11 +118,12 @@ def int8_conv(
     if cin_w != cin or k not in (3, 5) or w.q.shape[1] != k:
         raise ValueError(f"int8_conv: weight {tuple(w.q.shape)} against x {tuple(x.shape)} "
                          "(k 3 or 5)")
-    if cin % 4:
-        x = F.pad(x, (0, -cin % 4))
+    cp = cin_pad(cin)
+    if cp != cin:
+        x = F.pad(x, (0, cp - cin))
     ho, wo = (2 * h, 2 * wd) if up2 else (h, wd)
-    tensors = [(x, torch.int8, (b, h, wd, cin + (-cin % 4))),
-               (w.packed, torch.int32, (k, k, (cin + 3) // 4, cout)),
+    tensors = [(x, torch.int8, (b, h, wd, cp)),
+               (w.packed, torch.int8, (cout_pad(cout), -(-k * k * cp // 32) * 32)),
                (scale, torch.float32, (cout,))]
     if bn is not None:
         tensors += [(bn[0], torch.float32, (cout,)), (bn[1], torch.float32, (cout,))]
@@ -120,9 +135,9 @@ def int8_conv(
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"int8_conv: a {t.dtype} {tuple(t.shape)} input where the "
                              f"kernel takes {dtype} {shape}")
-    if x.data_ptr() % 4:
-        raise ValueError("int8_conv: x must be 4-byte aligned (the kernel reads "
-                         "4 channels a word)")
+    if any(t.data_ptr() % 16 for t, _, _ in tensors if t.dim() > 1):
+        raise ValueError("int8_conv: x, the weight and the residual must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
     out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library(NAME).int8_conv_launch(
