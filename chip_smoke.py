@@ -150,6 +150,17 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def packed_tc_issued_flops(b: int, h: int, w: int, cin: int, c2: int) -> float:
+    """Operations the bfloat16 packed up-head kernel issues on the tensor
+    cores (csrc/up_head_packed.cu): per 8 x 16 packed tile and parity class,
+    the up-conv over 192 rows (180 GLU positions, in 12 m16 tiles) x 4 taps x
+    Cin (rounded up to 16) x C2, and the head over 128 packed pixels x 9 taps
+    x C (rounded up to 16) x 16 (12 outputs)."""
+    tiles = b * -(-h // 8) * -(-w // 16)
+    kp, cp = -(-cin // 16) * 16, -(-(c2 // 2) // 16) * 16
+    return 2.0 * tiles * 4 * (192 * 4 * kp * c2 + 128 * 9 * cp * 16)
+
+
 def sums(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "nbytes", "flops")):
     """Per-site numbers summed over one forward's sites; max of the errors."""
     tot = {k: sum(r[k] for r in rows) for k in keys if k in rows[0]}
@@ -199,19 +210,26 @@ def attention_phase(torch, rng):
                                       f"{err:.3e}, |err| - 2^-8 |ref| <= {excess:.2e} <= 1e-5)")
             q, kv = px.reshape(B, hw * hw, C), words
             keep = ~mask[:, None, :]
-            ms = cuda_ms(lambda: word_pixel_attention(px, words, mask, return_attn=False))
+            # 50 calls: at the small sites each call takes the host longer than
+            # the card, and one slow launch would move a mean of 10
+            ms = cuda_ms(lambda: word_pixel_attention(px, words, mask, return_attn=False),
+                         iters=50, warmup=5)
+            d_ms = device_ms(torch, lambda: word_pixel_attention(px, words, mask,
+                                                                 return_attn=False), iters=20)
             p_ms = cuda_ms(lambda: plain(px, words, mask, return_attn=False))
             l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep, scale=1.0))
             n = B * hw * hw
             nbytes = esize * (2 * n * C + B * T * C) + B * T  # pixels in, ctx out, words, mask
             flops = n * (4 * T * C + 5 * T)  # two T x C products + softmax
             bms, by = bound_ms(nbytes, flops, rate)
-            print(f"  attention {tag} {hw}x{hw}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, "
+            print(f"  attention {tag} {hw}x{hw}: kernel {ms:.4f} ms (device time {d_ms:.4f}), "
+                  f"plain {p_ms:.4f} ms, "
                   f"sdpa {l_ms:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached)",
                   flush=True)
-            rows.append(dict(ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
+            rows.append(dict(ms=ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
                              nbytes=nbytes, flops=flops, err=err))
-        tot = sums(rows)
+        tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "nbytes",
+                               "flops"))
         tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), rate)[1]
         out[tag] = tot
     entry = {"name": "word_pixel_attention", "route": "cuda",
@@ -219,7 +237,9 @@ def attention_phase(torch, rng):
              "replaces": "tgsr_tpu/ops/pallas_attention.py:30", **out["float32"],
              "bfloat16": out["bfloat16"],
              "shapes": f"B {B}, C {C}, T {T}, HW 32^2+64^2+128^2 (one forward's three "
-                       "sites); top level float32, 'bfloat16' the bf16 instance"}
+                       "sites); top level float32, 'bfloat16' the bf16 instance; ms by CUDA "
+                       "events, device_ms with the host's launches queued behind a spin "
+                       "kernel (the small sites take less than the host's launch)"}
     return entry
 
 
@@ -228,15 +248,16 @@ def up_head_phase(torch):
     (`fused_up_head`, float32, 3xTF32 on the tensor cores, the combined
     weight made once as the main path makes it) against its plain version
     within 1e-4 * max(1, |ref|max); row 3
-    (`fused_up_head_packed`) in float32 against its plain version with
-    row 2's gate, and in bfloat16 against its plain version on the same
-    bfloat16 inputs (float32 sums; a GLU value may round to the neighbouring
-    bfloat16: |err| <= 2e-2 * max(1, |ref|max)). Row 2 and row 3 are timed on
-    the same float32 inputs."""
-    from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
+    (`fused_up_head_packed`) in float32 (CUDA cores) against its plain
+    version with row 2's gate, and in bfloat16 (tensor cores, its weights in
+    fragment order made once as the main path makes them) against its plain
+    version on the same bfloat16 inputs (float32 sums; a GLU value may round
+    to the neighbouring bfloat16: |err| <= 2e-2 * max(1, |ref|max)). Row 2
+    and row 3 are timed on the same float32 inputs."""
+    from tgsr_tpu_torch.ops.packed_tail import packed_up_head
     from tgsr_tpu_torch.ops.up_head import (fold_bn, prepare_up_head, reference_up_head,
                                             up_head_folded)
-    from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
+    from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, prepare_up_head_packed
 
     rows2, rows3 = [], {"float32": [], "bfloat16": []}
     h = w = 128
@@ -293,7 +314,8 @@ def up_head_phase(torch):
         for dtype, esize, rate, gate in ((torch.float32, 4, F32_FLOP_PER_S, 1e-4),
                                          (torch.bfloat16, 2, BF16_FLOP_PER_S, 2e-2)):
             tag = str(dtype).split(".")[-1]
-            wts = pack_up_head(w_up, mul, add, w_head, dtype=dtype)
+            # as the main path: packed once (bfloat16: fragment order too)
+            wts = prepare_up_head_packed(w_up, mul, add, w_head, dtype=dtype)
             args3 = (x.to(dtype), wts, srb.to(dtype), a.to(dtype))
             ref3 = packed_up_head(*args3, **kw)
             got3 = fused_up_head_packed(*args3, **kw)
@@ -309,13 +331,17 @@ def up_head_phase(torch):
                                 + (3 * n_out if blend else 0))
                        + 4 * (2 * c2 + 3 * n_out))  # BN and the image are float32
             bms3, by3 = bound_ms(nbytes3, flops, rate)
+            f32 = dtype == torch.float32
+            issued = flops if f32 else packed_tc_issued_flops(B, h, w, cin, c2)
             print(f"  packed up-head {tag} {site}: kernel {ms3:.4f} ms, plain {p_ms3:.4f} ms, "
                   f"bound {bms3:.4f} ms ({by3}, {bms3 / ms3:.1%} of it reached), "
                   f"{flops / ms3 / 1e9:.1f} TFLOP/s of the function's work"
-                  + (f"; row 2 on the same inputs {ms:.4f} ms" if dtype == torch.float32 else ""),
+                  + (f"; row 2 on the same inputs {ms:.4f} ms" if f32 else
+                     f", {issued / ms3 / 1e9:.1f} TFLOP/s as issued on the tensor cores "
+                     f"({issued / flops:.2f}x the work: GLU halo, K and N padding)"),
                   flush=True)
             rows3[tag].append(dict(ms=ms3, plain_ms=p_ms3, bound_ms=bms3, nbytes=nbytes3,
-                                   flops=flops, err=err3, up_head_ms=ms))
+                                   flops=flops, issued=issued, err=err3, up_head_ms=ms))
     row2 = sums(rows2, keys=("ms", "plain_ms", "bound_ms", "bound_ms_cuda_cores", "nbytes",
                              "flops"))
     t_bytes = row2.pop("nbytes") / HBM_BYTES_PER_S * 1e3
@@ -324,7 +350,8 @@ def up_head_phase(torch):
     row3 = {}
     for tag, rate in (("float32", F32_FLOP_PER_S), ("bfloat16", BF16_FLOP_PER_S)):
         row3[tag] = sums(rows3[tag], keys=("ms", "plain_ms", "bound_ms", "nbytes", "flops",
-                                           "up_head_ms"))
+                                           "issued", "up_head_ms"))
+        row3[tag]["tflops_issued"] = row3[tag].pop("issued") / row3[tag]["ms"] / 1e9
         row3[tag]["bound_by"] = bound_ms(row3[tag].pop("nbytes"), row3[tag].pop("flops"), rate)[1]
         row3[tag]["library_ms"] = None
     shapes = f"B {B}, 128->256 px, both sites of one forward"
@@ -337,8 +364,10 @@ def up_head_phase(torch):
              "source": "tgsr_tpu_torch/csrc/up_head_packed.cu",
              "replaces": "tgsr_tpu/ops/pallas_up_head.py:244", **row3["bfloat16"],
              "float32": row3["float32"],
-             "shapes": shapes + "; top level bfloat16 (the main path's), 'float32' "
-                                "the f32 instance, up_head_ms row 2 on the same inputs"}]
+             "shapes": shapes + "; top level bfloat16 (the main path's, tensor cores; "
+                                "tflops_issued counts the products the kernel issues, "
+                                "halo and padding included), 'float32' the f32 instance "
+                                "(CUDA cores), up_head_ms row 2 on the same inputs"}]
 
 
 def int8_conv_phase(torch):

@@ -53,7 +53,7 @@ from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_w
 from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
 from tgsr_tpu_torch.ops.up_head import (fold_bn, fused_up_head, prepare_up_head,
                                         reference_up_head, up_head_folded)
-from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed
+from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, prepare_up_head_packed
 
 pytestmark = pytest.mark.cuda
 ZERO = {name: 0 for name in _build.LAUNCH_NAMES}
@@ -200,6 +200,94 @@ def test_up_head_packed_kernel_matches_plain(cuda_device, cfg, dtype):
     else:
         err = (got - ref).abs().max().item()
         assert err <= 2e-2 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("cfg", [
+    # (h, w, cin, c2, k, tanh, blend): packed 24 x 40 leaves a partial column
+    # of 8 x 16 tiles; 128 x 128 is the main path's
+    (24, 40, 64, 64, 3, False, False),   # h_net3.upsample + img_net3
+    (24, 40, 32, 64, 5, True, True),     # upscale8x + conv_output + a*srb
+    (128, 128, 64, 64, 3, False, True),  # site A's convs, blend on
+    (128, 128, 32, 64, 5, True, False),  # site B's convs, blend off
+])
+def test_up_head_packed_tensor_cores_bf16(cuda_device, cfg):
+    """The bfloat16 tensor-core kernel at B = 3 against its plain version on
+    the same inputs, with the fragment-ordered weights made once and per
+    call (the same bits)."""
+    h, w, cin, c2, k, use_tanh, blend = cfg
+    b = 3
+    g = torch.Generator().manual_seed(h * w + cin + k)
+    r = lambda *s, sd=1.0: (torch.randn(*s, generator=g) * sd).to(cuda_device)  # noqa: E731
+    x, w_up, w_head = r(b, h, w, cin), r(3, 3, cin, c2, sd=0.2), r(k, k, c2 // 2, 3, sd=0.2)
+    mul, add = fold_bn(1 + r(c2, sd=0.1), r(c2, sd=0.1), r(c2, sd=0.1),
+                       (1 + r(c2, sd=0.2)).abs())
+    srb, a = r(b, 2 * h, 2 * w, 3).bfloat16(), torch.tensor(0.3, device=cuda_device).bfloat16()
+    kw = dict(use_tanh=use_tanh, blend=blend)
+    wts = prepare_up_head_packed(w_up, mul, add, w_head, dtype=torch.bfloat16)
+    assert wts.w_up_frag is not None and wts.w_head_frag is not None
+    xb = x.bfloat16()
+    ref = packed_up_head(xb, wts, srb, a, **kw)
+    before = _build.LAUNCHES["up_head_packed"]
+    got = fused_up_head_packed(xb, wts, srb, a, **kw)
+    per_call = fused_up_head_packed(xb, wts._replace(w_up_frag=None, w_head_frag=None), srb, a,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["up_head_packed"] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (b, 2 * h, 2 * w, 3)
+    assert torch.equal(per_call, got)
+    err = (got - ref).abs().max().item()
+    assert err <= 2e-2 * max(1.0, ref.abs().max().item()), err
+
+
+def test_up_head_packed_bf16_refuses_what_it_cannot_load(cuda_device):
+    """The tensor-core kernel copies 16 bytes at a time: Cin % 8 and a
+    16-byte-aligned x, or the wrapper raises before any launch."""
+    wts = prepare_up_head_packed(torch.randn(3, 3, 16, 32, device=cuda_device),
+                                 torch.ones(32, device=cuda_device),
+                                 torch.zeros(32, device=cuda_device),
+                                 torch.randn(3, 3, 16, 3, device=cuda_device),
+                                 dtype=torch.bfloat16)
+    before = _build.LAUNCHES["up_head_packed"]
+    flat = torch.zeros(2 * 4 * 4 * 16 + 1, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_up_head_packed(flat[1:].view(2, 4, 4, 16), wts)
+    odd = prepare_up_head_packed(torch.randn(3, 3, 12, 32, device=cuda_device), wts.bn_mul,
+                                 wts.bn_add, torch.randn(3, 3, 16, 3, device=cuda_device),
+                                 dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Cin % 8"):
+        fused_up_head_packed(torch.zeros(2, 4, 4, 12, device=cuda_device, dtype=torch.bfloat16),
+                             odd)
+    assert _build.LAUNCHES["up_head_packed"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 7, 18, 32])
+def test_attention_kernel_ragged_tile_any_t(cuda_device, t, dtype):
+    """20 x 20 pixels (not a multiple of the block's 128), T of every
+    register bucket, mixed lengths with one all-padded caption (a uniform
+    1 / T), attention map on and off; float32 against the plain version at
+    1e-5, bfloat16 against the plain version in float32 on the same inputs
+    (2^-8 relative + 1e-5)."""
+    b, c = 3, 32
+    rng = np.random.default_rng(t)
+    px = torch.from_numpy(rng.normal(size=(b, 20, 20, c)).astype(np.float32))
+    wd = torch.from_numpy(rng.normal(size=(b, t, c)).astype(np.float32))
+    mask = torch.arange(t)[None, :] >= torch.tensor([t, 0, (t + 1) // 2])[:, None]
+    px, wd, mask = (v.to(cuda_device) for v in (px.to(dtype), wd.to(dtype), mask))
+    ctx_p, attn_p = plain_wpa(px.float(), wd.float(), mask)
+    before = _build.LAUNCHES["word_pixel_attention"]
+    ctx_k, attn_k = word_pixel_attention(px, wd, mask)
+    ctx_n, attn_n = word_pixel_attention(px, wd, mask, return_attn=False)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["word_pixel_attention"] == before + 2
+    assert attn_n is None and ctx_k.dtype == attn_k.dtype == dtype
+    assert attn_k.shape == (b, t, 20, 20)
+    assert torch.equal(ctx_n, ctx_k)
+    torch.testing.assert_close(attn_k[1].float(), torch.full_like(attn_p[1], 1 / t),
+                               rtol=2 ** -8, atol=0)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -8, atol=1e-5)
+    torch.testing.assert_close(ctx_k.float(), ctx_p, **tol)
+    torch.testing.assert_close(attn_k.float(), attn_p, **tol)
 
 
 def test_pipeline_bf16_card_matches_f32_cpu(cuda_device):

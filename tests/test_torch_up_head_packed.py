@@ -36,7 +36,10 @@ from tgsr_tpu_torch.ops.packed_tail import (pack_head_kernel, pack_up_head,
                                             packed_bn_glu, packed_head_conv,
                                             packed_up_head, upconv2x_packed)
 from tgsr_tpu_torch.ops.up_head import fold_bn
-from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, up_head_packed_site
+from tgsr_tpu_torch.ops.up_head_packed import (fused_up_head_packed, pack_head_frag,
+                                               pack_upconv_frag, prepare_up_head_packed,
+                                               unpack_head_frag, unpack_upconv_frag,
+                                               up_head_packed_site)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -215,6 +218,79 @@ def test_site_returns_working_dtype():
     ref = fused_up_head_packed(_bf16(x), wts, _bf16(srb), a, use_tanh=True, blend=True)
     torch.testing.assert_close(y.permute(0, 2, 3, 1).float(),
                                ref.bfloat16().float(), rtol=0, atol=0)
+
+
+FRAG_CASES = [
+    # (cin, c2, head_k): both main-path sites at both head sizes, then the
+    # padded layouts (K of a tap and the head's C rounded up to 16)
+    (32, 64, 3), (32, 64, 5), (64, 64, 3), (64, 64, 5), (8, 16, 3), (24, 32, 5),
+]
+
+
+@pytest.mark.parametrize("cin,c2,head_k", FRAG_CASES)
+def test_frag_packing_round_trips_exactly(cin, c2, head_k):
+    """The bfloat16 kernel's fragment-ordered weights, made once by
+    `prepare_up_head_packed`, unpack to `fuse_upconv_kernel` and
+    `pack_head_kernel` (cast to bfloat16) exactly; the K and N padding is
+    zero."""
+    _, w_up, bn, w_head, _ = _inputs(1, 2, 2, cin, c2, head_k, seed=cin + head_k)
+    mul, add = fold_bn(*map(_t, bn))
+    wts = prepare_up_head_packed(_t(w_up), mul, add, _t(w_head), dtype=torch.bfloat16)
+    fused = fuse_upconv_kernel(_t(w_up)).bfloat16()
+    head = pack_head_kernel(_t(w_head)).bfloat16()
+    assert torch.equal(wts.w_up, fused) and torch.equal(wts.w_head, head)
+    kp, cp = -(-cin // 16) * 16, -(-(c2 // 2) // 16) * 16
+    assert wts.w_up_frag.shape == (4, 4, kp // 16, c2 // 16, 32, 8)
+    assert wts.w_head_frag.shape == (4, 9, cp // 16, 32, 8)
+    assert wts.w_up_frag.dtype == wts.w_head_frag.dtype == torch.bfloat16
+    assert torch.equal(unpack_upconv_frag(wts.w_up_frag, cin), fused)
+    assert torch.equal(unpack_head_frag(wts.w_head_frag, c2 // 2), head)
+    # the padding: as many zeros as the padded layouts add
+    n_up = int((wts.w_up_frag == 0).sum()) - int((fused == 0).sum())
+    n_head = int((wts.w_head_frag == 0).sum()) - int((head == 0).sum())
+    assert n_up == 4 * 4 * (kp - cin) * c2
+    assert n_head == 4 * 9 * (cp * 16 - (c2 // 2) * 12)
+
+
+def test_frag_order_is_the_mma_register_order():
+    """Independently of the inverse: lane 4 g + t of k16 step s and n pair q
+    holds B[16s + 2t + {0, 1, 8, 9}][16q + g], then the same at column 16q +
+    8 + g (the b0, b1 registers of `mma.m16n8k16` for n tiles 2q, 2q + 1);
+    for the up-conv B[k][n] = w_up[m, n', k, p * C2 + n] at tap (m, n'), for
+    the head B[k][o] = w_head[u, v, p * C + k, o]."""
+    cin, c2 = 32, 32
+    w_up = torch.arange(4 * cin * 4 * c2, dtype=torch.float32).reshape(2, 2, cin, 4 * c2)
+    w_head = torch.arange(9 * 2 * c2 * 12, dtype=torch.float32).reshape(3, 3, 2 * c2, 12)
+    fu, fh = pack_upconv_frag(w_up), pack_head_frag(w_head)
+    c = c2 // 2
+    for p in range(4):
+        for tap in range(9):
+            for s in range(2):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    ks = [16 * s + 2 * t + d for d in (0, 1, 8, 9)]
+                    if tap < 4 and 16 * s < cin:
+                        for q in range(c2 // 16):
+                            want = [w_up[tap // 2, tap % 2, k, p * c2 + n]
+                                    for n in (16 * q + g, 16 * q + 8 + g) for k in ks]
+                            assert fu[p, tap, s, q, lane].tolist() == want
+                    if 16 * s < c:
+                        want = [w_head[tap // 3, tap % 3, p * c + k, o] if o < 12 else 0.0
+                                for o in (g, 8 + g) for k in ks]
+                        assert fh[p, tap, s, lane].tolist() == want
+
+
+def test_prepare_makes_frags_for_the_bf16_kernel_only():
+    """float32 keeps the plain packed weights (its kernel reads those);
+    shapes the bfloat16 kernel does not take get none."""
+    _, w_up, bn, w_head, _ = _inputs(1, 2, 2, 16, 32, 3)
+    mul, add = fold_bn(*map(_t, bn))
+    f32 = prepare_up_head_packed(_t(w_up), mul, add, _t(w_head))
+    assert f32.w_up_frag is None and f32.w_head_frag is None
+    plain = pack_up_head(_t(w_up), mul, add, _t(w_head))
+    assert all(torch.equal(u, v) for u, v in zip(f32[:4], plain[:4]))
+    odd = prepare_up_head_packed(_t(w_up)[:, :, :12], mul, add, _t(w_head), dtype=torch.bfloat16)
+    assert odd.w_up_frag is None and odd.w_head_frag is None
 
 
 def test_wrapper_refuses_other_devices_and_dtypes():

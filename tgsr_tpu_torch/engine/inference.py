@@ -52,9 +52,8 @@ from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
 from tgsr_tpu_torch.models.quantized import quantize_generator
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
-from tgsr_tpu_torch.ops.packed_tail import pack_up_head
 from tgsr_tpu_torch.ops.up_head import up_head_site
-from tgsr_tpu_torch.ops.up_head_packed import up_head_packed_site
+from tgsr_tpu_torch.ops.up_head_packed import prepare_up_head_packed, up_head_packed_site
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -140,7 +139,7 @@ class SRPipeline:
         wts = generator.up_head_weights()
         if self.compute_dtype == torch.float32:
             return partial(up_head_site, wts)
-        return partial(up_head_packed_site, pack_up_head(
+        return partial(up_head_packed_site, prepare_up_head_packed(
             wts.w_up, wts.bn_mul, wts.bn_add, wts.w_head, dtype=self.compute_dtype))
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:

@@ -20,6 +20,7 @@ from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain_word_pixe
 
 NAME = "word_pixel_attention"
 T_MAX = 32  # the kernel's register array (csrc/word_pixel_attention.cu TMAX)
+C_MAX = 128  # the kernel's pixel tile fits in shared memory up to here
 
 
 def word_pixel_attention(
@@ -53,6 +54,14 @@ def word_pixel_attention(
         raise TypeError(f"word_pixel_attention: pixels {pixels.dtype}, words "
                         f"{words.dtype}; the kernel takes float32 or bfloat16, "
                         "both in one dtype")
+    # the kernel moves pixels and ctx 16 bytes at a time and indexes a
+    # pixel's 16-byte pieces by shift and mask
+    pieces = c * pixels.element_size() // 16
+    if c * pixels.element_size() % 16 or pieces & (pieces - 1) or c > C_MAX:
+        raise ValueError(f"word_pixel_attention: C {c} in {pixels.dtype} must be 16 bytes "
+                         f"times a power of two, and at most {C_MAX}")
+    if pixels.data_ptr() % 16:
+        raise ValueError("word_pixel_attention: pixels must be 16-byte aligned")
     ctx = torch.empty_like(pixels)
     attn = (torch.empty((b, t, h, w), dtype=pixels.dtype, device=pixels.device)
             if return_attn else None)

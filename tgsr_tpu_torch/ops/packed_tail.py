@@ -57,11 +57,15 @@ def pack_head_kernel(wh: torch.Tensor) -> torch.Tensor:
 
 
 class PackedUpHeadWeights(NamedTuple):
-    """One up-head site's weights in the packed layout (the JAX package's)."""
+    """One up-head site's weights in the packed layout (the JAX package's),
+    and for the bfloat16 kernel the same weights in its mma fragment order
+    (ops/up_head_packed.py `prepare_up_head_packed`; None: made per call)."""
     w_up: torch.Tensor  # [2, 2, Cin, 4 * C2] fused up-conv, class-major
     bn_mul: torch.Tensor  # [C2] folded eval BN, float32
     bn_add: torch.Tensor  # [C2]
     w_head: torch.Tensor  # [3, 3, 4 * (C2 // 2), 12] class-remapped head
+    w_up_frag: Optional[torch.Tensor] = None  # pack_upconv_frag(w_up)
+    w_head_frag: Optional[torch.Tensor] = None  # pack_head_frag(w_head)
 
 
 def pack_up_head(w_up: torch.Tensor, bn_mul: torch.Tensor, bn_add: torch.Tensor,
