@@ -12,9 +12,9 @@ on the CPU (every kernel site there runs its plain version); in bfloat16,
 where it must go through the attention and packed up-head kernels and hold
 >= 40 dB against that float32 reference; and in int8 (scales calibrated on
 the card by the port's calibrate_quant), where it must go through the
-attention, int8 conv and GLU-requant kernels, hold >= 40 dB against the same
-int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR against the
-float32 reference. Then drives the conv probe path
+attention, int8 conv, GLU-requant and requant kernels, hold >= 40 dB against
+the same int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR
+against the float32 reference. Then drives the conv probe path
 (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose four
 tensor-core kernels (tap9, im2col, pair5, dotceil) are first held against
 their plain versions within one bfloat16 ulp. Prints one JSON line of
@@ -77,6 +77,17 @@ INT8_CONVS = (
     ("upscale8x/conv", 128, 128, 32, 64, 3, True, True, False, 1),
     ("conv_output/conv 256", 256, 256, 32, 3, 5, False, False, False, 1),
 )
+# the int8 convs whose input arrives as int8 from a GLU-requant (the ResBlock
+# conv2s, and the heads after a head-feeding UpBlock); every other conv's
+# bfloat16 input is requantized by `requant` (X2): (site, H, W, Cin, calls
+# per forward), 26 calls
+GLU_FED = ("conv2", "img_net3/conv", "conv_output/conv 256")
+REQUANT_SITES = tuple((site, h, w, cin, n) for site, h, w, cin, _, _, _, _, _, n in INT8_CONVS
+                      if not any(f in site for f in GLU_FED))
+# int8 steps of the exhaustive requant check: a power of two (exact ties), a
+# calibrated-looking one, and one where a multiply by 1 / step without the
+# kernel's guard misrounds
+REQUANT_SCALES = (127.0 / 64, 3.0, 14.741072019324145)
 # one int8 forward's GLU+requantize sites: (site, H, W, c, calls per forward)
 GLU_SITES = (
     ("h_net1/residual_*", 32, 32, 64, 2), ("h_net2/residual_*", 64, 64, 64, 2),
@@ -120,6 +131,13 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_median(fn, repeats: int = 5, iters: int = 20) -> float:
+    """The median of `repeats` cuda_ms means: the same per-call time, but a
+    host stall of a few ms inside one 20-call mean (seen at the small
+    GLU-requant sites) moves it no more than a fifth of the time."""
+    return float(np.median([cuda_ms(fn, iters=iters) for _ in range(repeats)]))
+
+
 def device_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     """Mean device time of fn() over `iters` back-to-back calls with the
     host's launch gaps hidden: the calls are queued behind a spin kernel
@@ -159,6 +177,23 @@ def packed_tc_issued_flops(b: int, h: int, w: int, cin: int, c2: int) -> float:
     tiles = b * -(-h // 8) * -(-w // 16)
     kp, cp = -(-cin // 16) * 16, -(-(c2 // 2) // 16) * 16
     return 2.0 * tiles * 4 * (192 * 4 * kp * c2 + 128 * 9 * cp * 16)
+
+
+def finite_bf16(torch):
+    """Every finite bfloat16 (65,280 bit patterns) on the card."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    bits = bits[((bits >> 7) & 0xFF) != 0xFF]
+    return torch.from_numpy((bits << 16).view(np.float32)).bfloat16().cuda()
+
+
+def copy_floor_ms(torch, x, word):
+    """The memory floor of a pass that reads x (bfloat16) and writes a
+    quarter (GLU, word int64) or half (requant, word int32) of its bytes:
+    one PyTorch elementwise cast over the same storage, each `word` of x
+    narrowed to an int16, the same bytes in and out with no arithmetic. Not
+    the same function; timed for the floor, used nowhere in the port."""
+    src = x.reshape(-1).view(word)
+    return cuda_ms_median(lambda: src.to(torch.int16))
 
 
 def sums(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "nbytes", "flops")):
@@ -452,11 +487,32 @@ def int8_conv_phase(torch):
 
 
 def glu_requant_phase(torch):
-    """Both `glu_requant` instances against their plain version at one int8
-    forward's sites (B = 64): int8 equal except one step in at most 0.1 %
-    of the elements (a gate or product on a bfloat16 rounding boundary)."""
+    """Both `glu_requant` instances against their plain version, first over
+    every finite bfloat16 gate (against four values) and every finite
+    bfloat16 value (against four gates), then at one int8 forward's sites
+    (B = 64): int8 equal except one step in at most 0.1 % of the elements (a
+    gate or product on a bfloat16 rounding boundary). `ms`, `plain_ms` and
+    `copy_floor_ms` (the same bytes through one PyTorch cast) by CUDA
+    events, the median of five means (`cuda_ms_median`); `device_ms` with
+    the host's launches queued behind a spin kernel (the small sites take
+    less than the host's launch)."""
     from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
 
+    every = finite_bf16(torch)
+    for c, name in sorted(INSTANCES.items()):
+        grid = every.reshape(-1, c)
+        for sweep, few, scale in (("gate", (1.0, -0.75, 0.3, 2.5), 1.0),
+                                  ("value", (0.0, 1.5, -2.0, 8.0), 3.0)):
+            rows = []
+            for f in few:
+                const = torch.full_like(grid, f)
+                rows.append(torch.cat((const, grid) if sweep == "gate" else (grid, const), 1))
+            h = torch.cat(rows).contiguous()
+            d = (glu_requant(h, scale).int() - glu_requant_plain(h, scale).int()).abs()
+            n_diff, dmax = int((d > 0).sum()), d.max().item()
+            check(dmax <= 1 and n_diff <= 1e-3 * d.numel(),
+                  f"{name} == plain over every finite bf16 {sweep} x {len(few)}: {n_diff} of "
+                  f"{d.numel()} differ, max {dmax} step")
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {name: [] for name in INSTANCES.values()}
     for site, h, w, c, n in GLU_SITES:
@@ -469,25 +525,85 @@ def glu_requant_phase(torch):
         name = INSTANCES[c]
         check(dmax <= 1 and frac <= 1e-3, f"{name} == plain at {site} [{B},{h},{w},{2 * c}] "
                                           f"(max {dmax} step, {frac:.2e} of elements differ)")
-        ms = cuda_ms(lambda: glu_requant(x, scale), iters=10)
-        p_ms = cuda_ms(lambda: glu_requant_plain(x, scale), iters=5)
+        ms = cuda_ms_median(lambda: glu_requant(x, scale))
+        d_ms = device_ms(torch, lambda: glu_requant(x, scale), iters=20)
+        p_ms = cuda_ms_median(lambda: glu_requant_plain(x, scale), iters=5)
+        f_ms = copy_floor_ms(torch, x, torch.int64)
         nbytes = x.numel() * 2 + x.numel() // 2  # bf16 in, int8 out
         ops = 10 * (x.numel() // 2)  # sigmoid, product, divide, clip, round per output
         bms, by = bound_ms(nbytes, ops)
-        print(f"  {name} {site} x{n}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}, {bms / ms:.1%} of it reached)", flush=True)
-        rows[name].append(dict(ms=n * ms, plain_ms=n * p_ms, bound_ms=n * bms,
-                               nbytes=n * nbytes, flops=n * ops, err=float(dmax)))
+        print(f"  {name} {site} x{n}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, copy floor {f_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+              f"{bms / ms:.1%} of it reached, {bms / d_ms:.1%} by device time)", flush=True)
+        rows[name].append(dict(ms=n * ms, device_ms=n * d_ms, plain_ms=n * p_ms,
+                               copy_floor_ms=n * f_ms, bound_ms=n * bms, nbytes=n * nbytes,
+                               flops=n * ops, err=float(dmax)))
     out = []
     for (line, c), name in zip(((72, 64), (96, 32)), ("glu_requant_one", "glu_requant_pair")):
-        tot = sums(rows[name])
+        tot = sums(rows[name], keys=("ms", "device_ms", "plain_ms", "copy_floor_ms", "bound_ms",
+                                     "nbytes", "flops"))
         tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"))[1]
         out.append({"name": name, "route": "cuda", "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
                     "replaces": f"examples/glu_pallas_probe.py:{line}", **tot,
                     "library_ms": None,
                     "shapes": f"B {B}, c {c}, the sites of one int8 forward; max_abs_err in "
-                              "int8 steps"})
+                              "int8 steps; ms, plain_ms, copy_floor_ms by CUDA events (median "
+                              "of five 20-call means), device_ms with the host's launches "
+                              "queued behind a spin kernel; copy_floor_ms the same bytes "
+                              "through one PyTorch int64 -> int16 cast"})
     return out
+
+
+def requant_phase(torch):
+    """`requant` (X2, the int8 path's input quantization) against
+    `requant_plain` (`quantize_act`, the five torch ops the int8 path ran
+    before) bit for bit: over every finite bfloat16 at three steps, then at
+    the 26 requantized conv inputs of one B = 64 int8 forward, with inputs
+    spread as activations and a calibrated-looking scale (the absmax less
+    a tenth, so the tail clips). Times as `glu_requant_phase`."""
+    from tgsr_tpu_torch.ops.glu_requant import requant, requant_plain
+
+    every = finite_bf16(torch)
+    for scale in REQUANT_SCALES:
+        check(torch.equal(requant(every, scale), requant_plain(every, scale)),
+              f"requant == quantize_act over every finite bf16, step {scale}/127")
+    check(sum(n for *_, n in REQUANT_SITES) == 26,
+          f"26 requantized conv inputs a forward ({sum(n for *_, n in REQUANT_SITES)})")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for site, h, w, cin, n in REQUANT_SITES:
+        x = (torch.randn(B, h, w, cin, generator=g, device="cuda")
+             * torch.rand(cin, generator=g, device="cuda") * 4).bfloat16()
+        scale = 0.9 * x.float().abs().max().item()
+        got, ref = requant(x, scale), requant_plain(x, scale)
+        torch.cuda.synchronize()
+        err = (got.int() - ref.int()).abs().max().item()
+        check(torch.equal(got, ref), f"requant == quantize_act at {site} [{B},{h},{w},{cin}] "
+                                     f"(max {err} step)")
+        ms = cuda_ms_median(lambda: requant(x, scale))
+        d_ms = device_ms(torch, lambda: requant(x, scale), iters=20)
+        p_ms = cuda_ms_median(lambda: requant_plain(x, scale), iters=5)
+        f_ms = copy_floor_ms(torch, x, torch.int32)
+        nbytes = 3 * x.numel()  # bf16 in, int8 out
+        ops = 4 * x.numel()  # divide, clip, round
+        bms, by = bound_ms(nbytes, ops)
+        print(f"  requant {site} x{n}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, copy floor {f_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+              f"{bms / ms:.1%} of it reached, {bms / d_ms:.1%} by device time)", flush=True)
+        rows.append(dict(ms=n * ms, device_ms=n * d_ms, plain_ms=n * p_ms, copy_floor_ms=n * f_ms,
+                         bound_ms=n * bms, nbytes=n * nbytes, flops=n * ops, err=float(err)))
+    tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "copy_floor_ms", "bound_ms", "nbytes",
+                           "flops"))
+    tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"))[1]
+    return {"name": "requant", "route": "cuda", "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
+            "replaces": "tgsr_tpu/engine/quant.py:137 (quantize_act; XLA, no Pallas kernel)",
+            **tot, "library_ms": None,
+            "shapes": f"B {B}, the 26 requantized conv inputs of one int8 forward (18 shapes); "
+                      "plain_ms the five torch ops of quantize_act; max_abs_err in int8 steps; "
+                      "ms, plain_ms, copy_floor_ms by CUDA events (median of five 20-call "
+                      "means), device_ms with the host's launches queued behind a spin "
+                      "kernel; copy_floor_ms the same bytes through one PyTorch int32 -> "
+                      "int16 cast"}
 
 
 def conv_probe_phase(torch):
@@ -604,7 +720,7 @@ def pipeline_phase(torch, rng, card):
         per_forward = dict(zero, word_pixel_attention=3)
         per_forward.update({"float32": {"up_head": 2}, "bfloat16": {"up_head_packed": 2},
                             "int8": {"int8_conv": 42, "glu_requant_one": 6,
-                                     "glu_requant_pair": 10}}[tag])
+                                     "glu_requant_pair": 10, "requant": 26}}[tag])
         kw = dict(compute_dtype=torch.float32 if f32 else torch.bfloat16)
         if tag == "int8":
             kw["quant_scales"] = scales
@@ -744,7 +860,7 @@ def main() -> int:
     torch.manual_seed(0)
     t0 = time.perf_counter()
     kernels = [attention_phase(torch, rng), *up_head_phase(torch), *glu_requant_phase(torch),
-               int8_conv_phase(torch)]
+               requant_phase(torch), int8_conv_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches = pipeline_phase(torch, rng, card)

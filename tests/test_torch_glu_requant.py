@@ -24,6 +24,14 @@ v * s rounded to bf16, divided by the step, rounded half to even. Gates:
   elsewhere; under jit, at most two steps apart, at most 10 % of the
   elements differ and at most 1e-4 by two steps (measured: 7-8 % and
   1e-5).
+
+`requant` (the requantization alone, the int8 path's `quantize_act`) is
+held equal to tgsr_tpu's `quantize_act`, eager and under jit, bit for bit
+over every finite bfloat16. The kernel divides by multiplying with the
+reciprocal of the step and falls back to IEEE division near a half-integer
+(csrc/glu_requant.cu `quant`); that rule, written here in numpy float32, is
+held equal to division-then-rint over every finite bfloat16 at several
+steps.
 """
 
 import functools
@@ -40,11 +48,37 @@ import torch
 from tgsr_tpu.engine.quant import quantize_act
 from tgsr_tpu_torch.engine.quant import act_step
 from tgsr_tpu_torch.ops import _build
-from tgsr_tpu_torch.ops.glu_requant import glu_requant, glu_requant_plain
+from tgsr_tpu_torch.ops.glu_requant import glu_requant, glu_requant_plain, requant, requant_plain
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4096  # pixels
+# scales whose step = scale / 127 is a power of two (2^-6: every tie lands
+# exactly) and calibrated-looking ones
+POW2_SCALE, CAL_SCALE = 127.0 / 64, 3.0
+# a scale at which p * (1 / step) alone, without the guard, rounds 4 finite
+# bfloat16 to another int8 than division does (found by search)
+MISROUND_SCALE = 14.741072019324145
+
+
+def _finite_bf16():
+    """Every finite bfloat16 (65,280 of the 65,536 bit patterns), as float32."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    bits = bits[((bits >> 7) & 0xFF) != 0xFF]
+    return (bits << 16).view(np.float32)
+
+
+def _guarded_quotient(p, step):
+    """csrc/glu_requant.cu `quant` in numpy float32: t = p * r with r = 1 /
+    step rounded once; IEEE p / step where |t| < 256 and |t| lies within
+    2^-20 |t| of a half-integer. Returns the quotient and where it divided."""
+    p, step = p.astype(np.float32), np.float32(step)
+    with np.errstate(over="ignore", invalid="ignore"):
+        t = p * (np.float32(1) / step)
+        a = np.abs(t)
+        near = (a < 256) & (np.abs((a - np.floor(a)) - np.float32(0.5))
+                            <= a * np.float32(2.0 ** -20))
+        return np.where(near, p / step, t), near
 
 
 @pytest.fixture(scope="module")
@@ -146,3 +180,49 @@ def test_wrapper_refuses_and_counts_nothing_on_the_cpu():
         glu_requant(h.float(), 1.0)
     with pytest.raises(ValueError, match="no kernel"):
         glu_requant(h.to("meta"), 1.0)
+
+
+@pytest.mark.parametrize("jit", [False, True])
+@pytest.mark.parametrize("scale", [POW2_SCALE, CAL_SCALE])
+def test_requant_matches_jax_quantize_act_on_every_bf16(scale, jit):
+    x = _finite_bf16()
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    fn = (lambda v: quantize_act(v, scale)[0])
+    want = np.asarray((jax.jit(fn) if jit else fn)(xj))
+    got = requant(torch.from_numpy(x).bfloat16(), scale)
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.min() == -127 and want.max() == 127 and np.any(want == 0)
+
+
+@pytest.mark.parametrize("scale", [POW2_SCALE, CAL_SCALE, MISROUND_SCALE, 0.7316, 255.0])
+def test_divide_guard_equals_ieee_division(scale):
+    """The kernel's multiply-with-guard gives the bits of division then
+    rint over every finite bfloat16 (the GLU product p is a bfloat16 too),
+    and divides for a small share of them."""
+    p = _finite_bf16()
+    step = np.float32(act_step(scale))
+    t, near = _guarded_quotient(p, step)
+    with np.errstate(over="ignore", invalid="ignore"):
+        exact = p / step
+        want = np.rint(np.clip(exact, -127, 127)).astype(np.int8)
+        ties = np.abs(exact - np.floor(exact)) == 0.5
+    np.testing.assert_array_equal(np.rint(np.clip(t, -127, 127)).astype(np.int8), want)
+    assert near.mean() < 0.01
+    if scale == POW2_SCALE:  # exact ties exist and take the division
+        assert ties.any() and near[ties].all()
+    if scale == MISROUND_SCALE:  # the guard is needed
+        with np.errstate(over="ignore"):
+            bare = np.rint(np.clip(p * (np.float32(1) / step), -127, 127)).astype(np.int8)
+        assert (bare != want).sum() == 4
+
+
+def test_requant_wrapper_refuses_and_counts_nothing_on_the_cpu():
+    before = dict(_build.LAUNCHES)
+    x = torch.linspace(-3, 3, 21).bfloat16().reshape(3, 7)  # 21: not a multiple of 8
+    np.testing.assert_array_equal(requant(x, 2.0).numpy(), requant_plain(x, 2.0).numpy())
+    assert _build.LAUNCHES == before  # the CPU runs the plain version
+    with pytest.raises(TypeError, match="bfloat16"):
+        requant(x.float(), 2.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        requant(x.to("meta"), 2.0)

@@ -17,8 +17,10 @@ int8: `int8_conv` against its plain version (a float64 convolution of the
 int8 values, exact) bit for bit in the int32 sums and the float32 epilogue,
 within one bfloat16 ulp in bfloat16; both `glu_requant` instances against
 their plain version, int8 equal except one step in at most 0.1 % of the
-elements (a gate or product on a bfloat16 rounding boundary); the int8
-pipeline on the card against the same pipeline and scales on the CPU,
+elements (a gate or product on a bfloat16 rounding boundary), at main-path
+widths and over every finite bfloat16 gate and value; `requant` against
+`requant_plain` (`quantize_act`) bit for bit over every finite bfloat16; the
+int8 pipeline on the card against the same pipeline and scales on the CPU,
 uint8 PSNR >= 40 dB.
 
 The conv probe's four tensor-core kernels (`tap9`, `im2col`, `pair5`,
@@ -48,7 +50,8 @@ from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops import conv_probe
 from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain_wpa
 from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
-from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
+from tgsr_tpu_torch.ops.glu_requant import (INSTANCES, glu_requant, glu_requant_plain, requant,
+                                            requant_plain)
 from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
 from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
 from tgsr_tpu_torch.ops.up_head import (fold_bn, fused_up_head, prepare_up_head,
@@ -57,6 +60,16 @@ from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, prepare_up_h
 
 pytestmark = pytest.mark.cuda
 ZERO = {name: 0 for name in _build.LAUNCH_NAMES}
+# int8 steps: a power of two (exact ties), a calibrated-looking one, and one
+# where a multiply by 1 / step without the kernel's guard misrounds
+REQUANT_SCALES = [127.0 / 64, 3.0, 14.741072019324145]
+
+
+def finite_bf16(device):
+    """Every finite bfloat16 (65,280 bit patterns), ascending by bits."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    bits = bits[((bits >> 7) & 0xFF) != 0xFF]
+    return torch.from_numpy((bits << 16).view(np.float32)).bfloat16().to(device)
 
 
 @pytest.fixture
@@ -374,11 +387,57 @@ def test_glu_requant_matches_plain(cuda_device, c, n):
     assert d.max().item() <= 1 and (d > 0).double().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("c", sorted(INSTANCES))
+@pytest.mark.parametrize("sweep", ["gate", "value"])
+def test_glu_requant_every_bf16(cuda_device, c, sweep):
+    """Every finite bfloat16 gate against four values, and every finite
+    bfloat16 value against four gates: today's gate against the plain
+    version (one step, at most 0.1 % of the elements)."""
+    every = finite_bf16(cuda_device).reshape(-1, c)
+    few = torch.tensor([1.0, -0.75, 0.3, 2.5] if sweep == "gate" else [0.0, 1.5, -2.0, 8.0],
+                       device=cuda_device).bfloat16()
+    rows = []
+    for f in few:
+        pair = (f.expand_as(every), every) if sweep == "gate" else (every, f.expand_as(every))
+        rows.append(torch.cat(pair, dim=1))
+    h = torch.cat(rows).contiguous()
+    scale = 1.0 if sweep == "gate" else 3.0
+    before = _build.LAUNCHES[INSTANCES[c]]
+    got = glu_requant(h, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[INSTANCES[c]] == before + 1
+    d = (got.int() - glu_requant_plain(h, scale).int()).abs()
+    print(f"glu_requant c {c}, every {sweep}: {int((d > 0).sum())} of {d.numel()} differ")
+    assert d.max().item() <= 1 and (d > 0).double().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("scale", REQUANT_SCALES)
+def test_requant_every_bf16(cuda_device, scale):
+    """The kernel equals `quantize_act` bit for bit over every finite
+    bfloat16, also on a ragged count (the tail done element by element) and
+    on a view 16 bytes in; a view that breaks 16-byte alignment raises."""
+    x = finite_bf16(cuda_device)
+    before = _build.LAUNCHES["requant"]
+    for v in (x, x[:-3], x[8:], x[8:-5].reshape(-1, 1)):
+        got = requant(v, scale)
+        assert got.dtype == torch.int8 and got.shape == v.shape
+        assert torch.equal(got, requant_plain(v, scale))
+    assert _build.LAUNCHES["requant"] == before + 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        requant(x[1:], scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        requant(x[:64].reshape(8, 8).t(), scale)
+    with pytest.raises(TypeError, match="bfloat16"):
+        requant(x.float(), scale)
+    assert _build.LAUNCHES["requant"] == before + 4
+
+
 def test_pipeline_int8_card_matches_cpu(cuda_device):
     """The int8 pipeline (GF_DIM 32, so that the GLU widths are the kernel's
     64 and 32) on the card against the same pipeline and scales on the CPU:
-    42 int8 convs, 6 + 10 GLU-requant passes and 3 attention launches per
-    forward, no up-head."""
+    42 int8 convs, 6 + 10 GLU-requant passes, 26 requantized conv inputs
+    (every int8 conv but the 14 conv2 and 2 heads fed by a GLU-requant) and
+    3 attention launches per forward, no up-head."""
     cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(32, 10, 2), TEXT=TextConfig(32, 6))
     sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
@@ -397,7 +456,7 @@ def test_pipeline_int8_card_matches_cpu(cuda_device):
     got = kern(lr, cap, lens)
     torch.cuda.synchronize()
     assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, int8_conv=42,
-                                   glu_requant_one=6, glu_requant_pair=10)
+                                   glu_requant_one=6, glu_requant_pair=10, requant=26)
     d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
     assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
 

@@ -38,9 +38,9 @@ import torch
 from torch import nn
 
 from tgsr_tpu_torch.engine.quant import (FUSED_UP_OUT_CONSUMER, act_step, bn_affine,
-                                         quantize_act, quantize_kernel)
+                                         quantize_kernel)
 from tgsr_tpu_torch.ops.blocks import UpBlock, glu, nchw, nhwc
-from tgsr_tpu_torch.ops.glu_requant import glu_requant
+from tgsr_tpu_torch.ops.glu_requant import glu_requant, requant
 from tgsr_tpu_torch.ops.int8_conv import Int8Weight, int8_conv, pack_int8_weight
 
 
@@ -66,9 +66,10 @@ class _Int8Conv(nn.Module):
         return Int8Weight(self.q, self.packed)
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW input -> int8 NHWC (an int8 input is taken as it is)."""
+        """NCHW input -> int8 NHWC (an int8 input is taken as it is; the
+        compute dtype's input goes through `requant`, the kernel on the card)."""
         x = nhwc(x)
-        return x if x.dtype == torch.int8 else quantize_act(x, self.in_scale)[0]
+        return x if x.dtype == torch.int8 else requant(x, self.in_scale)
 
 
 class QuantConv(_Int8Conv):

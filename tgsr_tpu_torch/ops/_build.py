@@ -26,11 +26,12 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv",
            "conv_probe")
-# the kernels a run counts: one name per library, but the two instances of
-# glu_requant.cu (c = 64 and c = 32) and the four kernels of conv_probe.cu apart
+# the kernels a run counts: one name per library, but the three instances of
+# glu_requant.cu (GLU at c = 64 and c = 32, requantization alone) and the four
+# kernels of conv_probe.cu apart
 LAUNCH_NAMES = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant_one",
-                "glu_requant_pair", "int8_conv", "conv_tap9", "conv_im2col", "conv_pair5",
-                "conv_dotceil")
+                "glu_requant_pair", "requant", "int8_conv", "conv_tap9", "conv_im2col",
+                "conv_pair5", "conv_dotceil")
 # element type codes of the kernels that take more than float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -55,6 +56,8 @@ SIGNATURES = {
     "glu_requant": {
         # h, q, n_pixels, c, step, stream
         "glu_requant_launch": ([_P, _P, ctypes.c_longlong, _I, _F, _P], _I),
+        # x, q, n, step, stream
+        "requant_launch": ([_P, _P, ctypes.c_longlong, _F, _P], _I),
     },
     "int8_conv": {
         # x, w, scale, mul, add, residual, out, B, H, W, Cin, Cout, k, up2,
