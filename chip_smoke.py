@@ -16,8 +16,9 @@ attention, int8 conv, GLU-requant and requant kernels, hold >= 40 dB against
 the same int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR
 against the float32 reference. Then drives the conv probe path
 (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose four
-tensor-core kernels (tap9, im2col, pair5, dotceil) are first held against
-their plain versions within one bfloat16 ulp. Prints one JSON line of
+tensor-core kernels (tap9 and dotceil on mma.sync, im2col and pair5 on
+wgmma fed by TMA) are first held against their plain versions within one
+bfloat16 ulp. Prints one JSON line of
 per-kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
 package is missing, or when any check fails.
@@ -606,14 +607,31 @@ def requant_phase(torch):
                       "int16 cast"}
 
 
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers and spill bytes of `kernel` in a `ptxas -v` log."""
+    lines = log.splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if "Compiling entry function" in line and kernel in line)
+    out = {}
+    for line in lines[start + 1:start + 6]:
+        if "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out["stack_bytes"], out["spill_store_bytes"], out["spill_load_bytes"] = nums[:3]
+        elif "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
 def conv_probe_phase(torch):
     """The conv probe path at full size (B = 64, 128 x 128 px, h_net3's
     ResBlock conv1): first each kernel against its plain version on the
     probe's own inputs, within one bfloat16 ulp (`conv_probe.max_ulps`:
     float32 sums in another order, each output rounded once); then the path
     itself, `probes.conv_probe.main`, with the launch counts set to 0 just
-    before and read just after. Returns the four kernel rows and those
-    counts."""
+    before and read just after. Beside the path's CUDA-event times, each
+    kernel's and cuDNN's `device_ms` (the calls queued behind a spin
+    kernel), and the `ptxas -v` registers and spills of the two `wgmma`
+    kernels (im2col, pair5). Returns the four kernel rows and those counts."""
     from tgsr_tpu_torch.ops import _build
     from tgsr_tpu_torch.ops import conv_probe as cp
     from tgsr_tpu_torch.probes import conv_probe as path
@@ -642,9 +660,17 @@ def conv_probe_phase(torch):
           and not any(v for n, v in counts.items() if n not in probe_names),
           f"the conv probe path launched its four kernels and nothing else ({counts})")
 
+    log = _build.build_log("conv_probe")
+    usage = {name: ptxas_usage(log, f"conv_{name}_kernel") for name in ("im2col", "pair5")}
+    for name, u in usage.items():
+        print(f"  conv probe {name} ptxas: {u['registers']} registers, {u['spill_store_bytes']} "
+              f"bytes spill stores, {u['spill_load_bytes']} bytes spill loads", flush=True)
+    lib_dms = device_ms(torch, lambda: cp.conv_library(x, wt), iters=10)
+    mm_dms = device_ms(torch, lambda: torch.matmul(p, wp), iters=10)
     n_px, rows = B * h * w, []
     for name, line in CONV_PROBE:
         row = res["rows"][name]
+        d_ms = device_ms(torch, lambda: getattr(cp, name)(*args[name]), iters=10)
         if name == "dotceil":
             m = p.numel() // cp.KP
             nbytes, flops = 2 * (p.numel() + wp.numel() + m * cp.COUT), 2 * m * cp.KP * cp.COUT
@@ -653,19 +679,24 @@ def conv_probe_phase(torch):
             nbytes = 2 * (n_px * (cp.CIN + cp.COUT) + weight.numel())
             flops = path.conv_flops(B, h, w)  # the conv's work; im2col and pair5 compute 640/576 of it
         bms, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
-        print(f"  conv probe {name}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), "
-              f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}, {bms / row['ms']:.1%} of it reached)", flush=True)
+        l_dms = mm_dms if name == "dotceil" else lib_dms
+        print(f"  conv probe {name}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s; device "
+              f"time {d_ms:.4f}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+              f"(device time {l_dms:.4f}), bound {bms:.4f} ms ({by}, {bms / row['ms']:.1%} of it "
+              f"reached, {bms / d_ms:.1%} by device time)", flush=True)
         rows.append({"name": f"conv_{name}", "route": "cuda",
                      "source": "tgsr_tpu_torch/csrc/conv_probe.cu",
                      "replaces": f"examples/pallas_conv_probe.py:{line}",
-                     "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
-                     "bound_ms": bms, "bound_by": by, "library_ms": row["library_ms"],
-                     "tflops": row["tflops"],
+                     "max_abs_err": errs[name], "ms": row["ms"], "device_ms": d_ms,
+                     "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
+                     "library_ms": row["library_ms"], "library_device_ms": l_dms,
+                     "tflops": row["tflops"], **usage.get(name, {}),
                      "shapes": (f"p {tuple(p.shape)} @ wp (640, 128); library torch.matmul"
                                 if name == "dotceil" else
                                 f"x [{B},{h},{w},64] -> 128 channels, 3x3 SAME; library "
-                                "cuDNN bf16 conv (conv_library)")})
+                                "cuDNN bf16 conv (conv_library)")
+                               + "; ms by CUDA events, device_ms with the host's launches "
+                                 "queued behind a spin kernel"})
     d = res["decision"]
     print(f"  conv probe decision: {d['best']} {d['best_ms']:.4f} ms = {d['ratio']:.2f}x cuDNN's "
           f"{d['library_ms']:.4f} ms -> {d['verdict']}", flush=True)

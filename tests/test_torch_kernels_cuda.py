@@ -461,18 +461,23 @@ def test_pipeline_int8_card_matches_cpu(cuda_device):
     assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 8, 96)])
+@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 8, 96), (1, 4, 32), (5, 64, 96),
+                                   (2, 4, 64)])
 @pytest.mark.parametrize("name", ["tap9", "im2col", "pair5", "dotceil"])
 def test_conv_probe_kernel_matches_plain(cuda_device, name, shape):
     """The conv kernels at B, H, W = shape (4 x 32 pixel tiles, the halo
-    zero-padded at every image edge); dotceil on 2 * 512 and, for the second
-    shape, 3 * 100 rows (a ragged last block of 44 rows)."""
+    zero-padded at every image edge): one tile (1, 4, 32); 240 tiles, more
+    than one wave of the persistent im2col and pair5 with a ragged last one
+    (5, 64, 96); H = 4, the halo out of the image above and below (2, 4,
+    64). dotceil on 2 * 512 and 3 * 100 rows (a ragged last block of 44
+    rows) for the first two shapes, on B x H * W rows for the others."""
     b, h, w = shape
     g = torch.Generator().manual_seed(b * h * w)
     r = lambda *s, sd: (torch.randn(*s, generator=g) * sd).bfloat16().to(cuda_device)  # noqa: E731
     x, wt = r(b, h, w, 64, sd=0.1), r(3, 3, 64, 128, sd=0.05)
     wp = conv_probe.pack_w(wt)
-    p = r(2, 512, 640, sd=0.1) if shape == (2, 32, 32) else r(3, 100, 640, sd=0.1)
+    p = {(2, 32, 32): (2, 512), (3, 8, 96): (3, 100)}.get(shape, (b, h * w))
+    p = r(*p, 640, sd=0.1)
     args = {"tap9": (x, wt), "im2col": (x, wp), "pair5": (x, wp), "dotceil": (p, wp)}[name]
     kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
     before = _build.LAUNCHES[f"conv_{name}"]
@@ -482,3 +487,64 @@ def test_conv_probe_kernel_matches_plain(cuda_device, name, shape):
     ref = plain(*args)
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     assert conv_probe.max_ulps(got, ref) <= 1
+
+
+def _probe_inputs(device, b=2, h=8, w=64, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sd: (torch.randn(*s, generator=g) * sd).bfloat16().to(device)  # noqa: E731
+    return r(b, h, w, 64, sd=0.1), conv_probe.pack_w(r(3, 3, 64, 128, sd=0.05)), r
+
+
+@pytest.mark.parametrize("name", ["im2col", "pair5"])
+def test_conv_probe_multiplies_the_tenth_half(cuda_device, name):
+    """Rows 576-639 of wp (the duplicated tap 8, zero in `pack_w`) are not
+    zero here: the kernels multiply them, as the TPU kernels do, and agree
+    with the plain versions, which do too."""
+    x, wp, r = _probe_inputs(cuda_device)
+    wp[576:] = r(64, 128, sd=0.05)
+    kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
+    got = kernel(x, wp)
+    torch.cuda.synchronize()
+    ref = plain(x, wp)
+    assert conv_probe.max_ulps(got, ref) <= 1
+    wp0 = wp.clone()
+    wp0[576:] = 0
+    assert conv_probe.max_ulps(plain(x, wp0), ref) > 8  # the tenth half counts
+
+
+@pytest.mark.parametrize("name", ["im2col", "pair5"])
+def test_conv_probe_offset_view(cuda_device, name):
+    """x and wp as 16-byte aligned views at an offset inside larger tensors:
+    the tensor maps take their base addresses from the views."""
+    x0, wp0, _ = _probe_inputs(cuda_device)
+    xs = torch.zeros(x0.numel() + 24, dtype=torch.bfloat16, device=cuda_device)
+    ws = torch.zeros(wp0.numel() + 40, dtype=torch.bfloat16, device=cuda_device)
+    x = xs[8:8 + x0.numel()].view(x0.shape)
+    wp = ws[24:24 + wp0.numel()].view(wp0.shape)
+    x.copy_(x0)
+    wp.copy_(wp0)
+    assert x.data_ptr() % 16 == 0 and x.data_ptr() % 128 and wp.data_ptr() % 128
+    kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
+    got = kernel(x, wp)
+    torch.cuda.synchronize()
+    assert conv_probe.max_ulps(got, plain(x0, wp0)) <= 1
+
+
+@pytest.mark.parametrize("name", ["im2col", "pair5"])
+def test_conv_probe_refuses_what_it_cannot_load(cuda_device, name):
+    """float32, a non-contiguous x and an x that is not 16-byte aligned
+    raise before any launch (TMA takes 16-byte aligned, dense bfloat16)."""
+    x, wp, _ = _probe_inputs(cuda_device, h=32, w=32)
+    kernel = getattr(conv_probe, name)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError):
+        kernel(x.float(), wp)
+    with pytest.raises(ValueError):
+        kernel(x.transpose(1, 2), wp)
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        kernel(flat[1:].view(x.shape), wp)
+    with pytest.raises(ValueError):
+        kernel(x, torch.zeros(wp.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+               .view(wp.shape))
+    assert _build.LAUNCHES == before

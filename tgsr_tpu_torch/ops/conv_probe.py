@@ -19,9 +19,12 @@ two 64-channel taps assumes them) and raise otherwise:
 Each plain version follows its own formulation in float32 from the bf16
 operands and rounds to bf16 once. On a CPU tensor a wrapper runs its plain
 version; on a CUDA tensor it launches its kernel in `csrc/conv_probe.cu`
-(tensor cores, `mma.sync` bf16) or raises. The conv kernels take H a
-multiple of 4 and W of 32 (a block's 4 x 32 pixel tile); the wrappers ask
-the same on either device. `conv_library` (cuDNN's bf16 conv) is the
+(tensor cores: `mma.sync` bf16 for tap9 and dotceil, `wgmma` fed by TMA
+for im2col and pair5, whose tensor maps are encoded at each call) or
+raises, also when the driver cannot encode a tensor map. Every CUDA input
+must be contiguous and 16-byte aligned (TMA's rule). The conv kernels take
+H a multiple of 4 and W of 32 (a 4 x 32 pixel tile); the wrappers ask the
+same on either device. `conv_library` (cuDNN's bf16 conv) is the
 conv rows' yardstick, timed beside the kernels and called by nothing else
 in the package.
 """
