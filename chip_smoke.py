@@ -16,9 +16,9 @@ attention, int8 conv, GLU-requant and requant kernels, hold >= 40 dB against
 the same int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR
 against the float32 reference. Then drives the conv probe path
 (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose four
-tensor-core kernels (tap9 and dotceil on mma.sync, im2col and pair5 on
-wgmma fed by TMA) are first held against their plain versions within one
-bfloat16 ulp. Prints one JSON line of
+tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
+TMA-fed operands) are first held against their plain versions within one
+bfloat16 ulp, and none of which may spill registers. Prints one JSON line of
 per-kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
 package is missing, or when any check fails.
@@ -630,8 +630,8 @@ def conv_probe_phase(torch):
     itself, `probes.conv_probe.main`, with the launch counts set to 0 just
     before and read just after. Beside the path's CUDA-event times, each
     kernel's and cuDNN's `device_ms` (the calls queued behind a spin
-    kernel), and the `ptxas -v` registers and spills of the two `wgmma`
-    kernels (im2col, pair5). Returns the four kernel rows and those counts."""
+    kernel), and the `ptxas -v` registers and spills of the four kernels,
+    none of which may spill. Returns the four kernel rows and those counts."""
     from tgsr_tpu_torch.ops import _build
     from tgsr_tpu_torch.ops import conv_probe as cp
     from tgsr_tpu_torch.probes import conv_probe as path
@@ -661,10 +661,11 @@ def conv_probe_phase(torch):
           f"the conv probe path launched its four kernels and nothing else ({counts})")
 
     log = _build.build_log("conv_probe")
-    usage = {name: ptxas_usage(log, f"conv_{name}_kernel") for name in ("im2col", "pair5")}
+    usage = {name: ptxas_usage(log, f"conv_{name}_kernel") for name, _ in CONV_PROBE}
     for name, u in usage.items():
-        print(f"  conv probe {name} ptxas: {u['registers']} registers, {u['spill_store_bytes']} "
-              f"bytes spill stores, {u['spill_load_bytes']} bytes spill loads", flush=True)
+        check(u["spill_store_bytes"] == 0 and u["spill_load_bytes"] == 0,
+              f"conv probe {name} ptxas: {u['registers']} registers, {u['spill_store_bytes']} "
+              f"bytes spill stores, {u['spill_load_bytes']} bytes spill loads (no spills)")
     lib_dms = device_ms(torch, lambda: cp.conv_library(x, wt), iters=10)
     mm_dms = device_ms(torch, lambda: torch.matmul(p, wp), iters=10)
     n_px, rows = B * h * w, []
@@ -690,7 +691,7 @@ def conv_probe_phase(torch):
                      "max_abs_err": errs[name], "ms": row["ms"], "device_ms": d_ms,
                      "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
                      "library_ms": row["library_ms"], "library_device_ms": l_dms,
-                     "tflops": row["tflops"], **usage.get(name, {}),
+                     "tflops": row["tflops"], **usage[name],
                      "shapes": (f"p {tuple(p.shape)} @ wp (640, 128); library torch.matmul"
                                 if name == "dotceil" else
                                 f"x [{B},{h},{w},64] -> 128 channels, 3x3 SAME; library "

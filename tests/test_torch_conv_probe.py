@@ -77,6 +77,16 @@ def test_pack_w_equals_probe_byte_for_byte(probe, inputs):
     assert not got[576:].any()  # the duplicated tap's half is zero
 
 
+def test_hwio_weight_is_pack_w_without_its_tenth_half(inputs):
+    """The HWIO weight seen as [576, 128] is `pack_w`'s first 576 rows byte
+    for byte (tap j in rows 64j .. 64j + 63 of both), the fact that lets tap9
+    and pair5 share one kernel body over 9 and 10 halves of the weight."""
+    w = _t(inputs[1])
+    got = w.reshape(576, 128).view(torch.int16)
+    want = cp.pack_w(w)[:576].view(torch.int16)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name", ["tap9", "im2col", "pair5", "dotceil"])
 def test_plain_matches_pallas_interpret(probe, inputs, name):
     x, w, p = inputs

@@ -63,6 +63,7 @@ ZERO = {name: 0 for name in _build.LAUNCH_NAMES}
 # int8 steps: a power of two (exact ties), a calibrated-looking one, and one
 # where a multiply by 1 / step without the kernel's guard misrounds
 REQUANT_SCALES = [127.0 / 64, 3.0, 14.741072019324145]
+CONV_NAMES = ["tap9", "im2col", "pair5", "dotceil"]  # the conv probe's formulations
 
 
 def finite_bf16(device):
@@ -463,7 +464,7 @@ def test_pipeline_int8_card_matches_cpu(cuda_device):
 
 @pytest.mark.parametrize("shape", [(2, 32, 32), (3, 8, 96), (1, 4, 32), (5, 64, 96),
                                    (2, 4, 64)])
-@pytest.mark.parametrize("name", ["tap9", "im2col", "pair5", "dotceil"])
+@pytest.mark.parametrize("name", CONV_NAMES)
 def test_conv_probe_kernel_matches_plain(cuda_device, name, shape):
     """The conv kernels at B, H, W = shape (4 x 32 pixel tiles, the halo
     zero-padded at every image edge): one tile (1, 4, 32); 240 tiles, more
@@ -490,9 +491,15 @@ def test_conv_probe_kernel_matches_plain(cuda_device, name, shape):
 
 
 def _probe_inputs(device, b=2, h=8, w=64, seed=5):
+    """Each formulation's two inputs ({name: (a, w)}: x and the HWIO weight
+    for tap9, x and wp = pack_w(it) for im2col and pair5, p [b * h * w, 640]
+    and wp for dotceil) and the seeded draw r."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, sd: (torch.randn(*s, generator=g) * sd).bfloat16().to(device)  # noqa: E731
-    return r(b, h, w, 64, sd=0.1), conv_probe.pack_w(r(3, 3, 64, 128, sd=0.05)), r
+    x, wt = r(b, h, w, 64, sd=0.1), r(3, 3, 64, 128, sd=0.05)
+    wp = conv_probe.pack_w(wt)
+    p = r(b * h * w, 640, sd=0.1)
+    return {"tap9": (x, wt), "im2col": (x, wp), "pair5": (x, wp), "dotceil": (p, wp)}, r
 
 
 @pytest.mark.parametrize("name", ["im2col", "pair5"])
@@ -500,7 +507,8 @@ def test_conv_probe_multiplies_the_tenth_half(cuda_device, name):
     """Rows 576-639 of wp (the duplicated tap 8, zero in `pack_w`) are not
     zero here: the kernels multiply them, as the TPU kernels do, and agree
     with the plain versions, which do too."""
-    x, wp, r = _probe_inputs(cuda_device)
+    args, r = _probe_inputs(cuda_device)
+    x, wp = args[name]
     wp[576:] = r(64, 128, sd=0.05)
     kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
     got = kernel(x, wp)
@@ -512,39 +520,78 @@ def test_conv_probe_multiplies_the_tenth_half(cuda_device, name):
     assert conv_probe.max_ulps(plain(x, wp0), ref) > 8  # the tenth half counts
 
 
-@pytest.mark.parametrize("name", ["im2col", "pair5"])
-def test_conv_probe_offset_view(cuda_device, name):
-    """x and wp as 16-byte aligned views at an offset inside larger tensors:
-    the tensor maps take their base addresses from the views."""
-    x0, wp0, _ = _probe_inputs(cuda_device)
-    xs = torch.zeros(x0.numel() + 24, dtype=torch.bfloat16, device=cuda_device)
-    ws = torch.zeros(wp0.numel() + 40, dtype=torch.bfloat16, device=cuda_device)
-    x = xs[8:8 + x0.numel()].view(x0.shape)
-    wp = ws[24:24 + wp0.numel()].view(wp0.shape)
-    x.copy_(x0)
-    wp.copy_(wp0)
-    assert x.data_ptr() % 16 == 0 and x.data_ptr() % 128 and wp.data_ptr() % 128
-    kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
-    got = kernel(x, wp)
+def test_conv_probe_tap9_every_tap_counts(cuda_device):
+    """tap9 with every tap's weight distinct and non-zero (tap j's values
+    offset by 0.01 (j + 1)) against `tap9_plain`. Zeroing any one tap moves
+    the plain result by more than 8 ulp, so a kernel that skipped a tap, or
+    read one tap's weight or shift for another's, would fail."""
+    args, r = _probe_inputs(cuda_device)
+    x = args["tap9"][0]
+    offset = 0.01 * torch.arange(1, 10, device=cuda_device).view(3, 3, 1, 1)
+    wt = (r(3, 3, 64, 128, sd=0.05).float() + offset).bfloat16()
+    got = conv_probe.tap9(x, wt)
     torch.cuda.synchronize()
-    assert conv_probe.max_ulps(got, plain(x0, wp0)) <= 1
+    ref = conv_probe.tap9_plain(x, wt)
+    assert conv_probe.max_ulps(got, ref) <= 1
+    for j in range(9):
+        w0 = wt.clone()
+        w0[j // 3, j % 3] = 0
+        assert conv_probe.max_ulps(conv_probe.tap9_plain(x, w0), ref) > 8
 
 
-@pytest.mark.parametrize("name", ["im2col", "pair5"])
+@pytest.mark.parametrize("m", [1, 44, 128, 200 * 128 + 77])
+def test_conv_probe_dotceil_rows(cuda_device, m):
+    """dotceil at M rows of p: one (the 128-row TMA box taller than the
+    tensor), 44 (one ragged tile), 128 (one whole tile) and 25,677 (201
+    tiles, more than one wave of 132 persistent blocks, a ragged last tile
+    of 77 rows)."""
+    g = torch.Generator().manual_seed(m)
+    p = (torch.randn(m, 640, generator=g) * 0.1).bfloat16().to(cuda_device)
+    wp = (torch.randn(640, 128, generator=g) * 0.05).bfloat16().to(cuda_device)
+    got = conv_probe.dotceil(p, wp)
+    torch.cuda.synchronize()
+    ref = conv_probe.dotceil_plain(p, wp)
+    assert got.shape == (m, 128)
+    assert conv_probe.max_ulps(got, ref) <= 1
+
+
+def _at_offset(t, offset):
+    """A copy of t as a view `offset` elements into a larger zero tensor."""
+    flat = torch.zeros(t.numel() + offset + 16, dtype=t.dtype, device=t.device)
+    v = flat[offset:offset + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("name", CONV_NAMES)
+def test_conv_probe_offset_view(cuda_device, name):
+    """Both inputs as 16-byte aligned views at an offset inside larger
+    tensors: the tensor maps take their base addresses from the views."""
+    args, _ = _probe_inputs(cuda_device)
+    a0, w0 = args[name]
+    a, w = _at_offset(a0, 8), _at_offset(w0, 24)
+    assert a.data_ptr() % 16 == 0 and a.data_ptr() % 128 and w.data_ptr() % 128
+    kernel, plain = getattr(conv_probe, name), getattr(conv_probe, f"{name}_plain")
+    got = kernel(a, w)
+    torch.cuda.synchronize()
+    assert conv_probe.max_ulps(got, plain(a0, w0)) <= 1
+
+
+@pytest.mark.parametrize("name", CONV_NAMES)
 def test_conv_probe_refuses_what_it_cannot_load(cuda_device, name):
-    """float32, a non-contiguous x and an x that is not 16-byte aligned
-    raise before any launch (TMA takes 16-byte aligned, dense bfloat16)."""
-    x, wp, _ = _probe_inputs(cuda_device, h=32, w=32)
+    """float32, a non-contiguous input and an input that is not 16-byte
+    aligned raise before any launch (TMA takes 16-byte aligned, dense
+    bfloat16)."""
+    args, _ = _probe_inputs(cuda_device, h=32, w=32)
+    a, w = args[name]
     kernel = getattr(conv_probe, name)
     before = dict(_build.LAUNCHES)
     with pytest.raises(TypeError):
-        kernel(x.float(), wp)
+        kernel(a.float(), w)
     with pytest.raises(ValueError):
-        kernel(x.transpose(1, 2), wp)
-    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        kernel(torch.cat([a, a], dim=-1)[..., :a.shape[-1]], w)  # rows twice as far apart
     with pytest.raises(ValueError):
-        kernel(flat[1:].view(x.shape), wp)
+        kernel(_at_offset(a, 1), w)
     with pytest.raises(ValueError):
-        kernel(x, torch.zeros(wp.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
-               .view(wp.shape))
+        kernel(a, _at_offset(w, 1))
     assert _build.LAUNCHES == before

@@ -7,44 +7,47 @@
 // 128, 64] -> 128 channels, bf16, float32 sums)?
 //
 //   conv_tap9_kernel     `tap9`    (:85):  9 shifted K = 64 products
-//   conv_im2col_kernel   `im2col`  (:132): a [pixels, 640] patch buffer in
-//                                          shared memory, then one K = 640 loop
+//   conv_im2col_kernel   `im2col`  (:132): a [pixels, 640] patch matrix, then
+//                                          one K = 640 loop
 //   conv_pair5_kernel    `pair5`   (:172): 5 paired K = 128 products, no patch
 //   conv_dotceil_kernel  `dotceil` (:196): a plain [M, 640] @ [640, 128] product
 //
 // out[b, y, x, n] = sum over (dy, dx, c) of x[b, y + dy - 1, x + dx - 1, c] *
 // w[dy, dx, c, n], SAME zero padding, Cin 64, Cout 128. The packed weight wp
 // [640, 128] (`pack_w`) holds tap 2p in rows 128p .. 128p + 63 and tap 2p + 1
-// in the next 64; the last 64 rows (the duplicated tap 8) are zero in
-// `pack_w`'s output, but every kernel multiplies them as given. Every
-// product runs on the tensor cores with float32 sums; each output is rounded
-// to bf16 once from its float32 sum.
+// in the next 64, so tap j is in rows 64j .. 64j + 63 exactly as in the HWIO
+// weight seen as [576, 128]; the last 64 rows (the duplicated tap 8) are zero
+// in `pack_w`'s output, but im2col, pair5 and dotceil multiply them as given.
+// Every product runs on the tensor cores with float32 sums; each output is
+// rounded to bf16 once from its float32 sum.
 //
 // Bound: at B = 64, 128 x 128 px the conv does 154.6 GFLOP against 402 MB
-// (x in, bf16 out), so it is bound by the operations (0.156 ms at 989
-// TFLOP/s; bytes 0.120 ms). dotceil reads its 1.34 GB patch tensor and is
-// bound by the bytes (0.481 ms at 3.35 TB/s): on this card the "ceiling" it
-// measures is memory, not the matrix unit.
+// (x in, bf16 out), so tap9, im2col and pair5 are bound by the operations
+// (0.156 ms at 989 TFLOP/s; bytes 0.120 ms). dotceil reads its 1.34 GB patch
+// tensor and is bound by the bytes (0.481 ms at 3.35 TB/s): on this card the
+// "ceiling" it measures is memory, not the matrix unit.
 //
-// tap9 and dotceil, the first port: `mma.sync.m16n8k16` bf16 with operands
-// from shared memory through `ldmatrix`, which reaches only part of the
-// card's peak. A block computes 128 output pixels x all 128 output channels
-// (8 warps, each 64 pixels x 32 channels: 4 x 4 mma tiles, 64 float32 sums a
-// thread). The weight is streamed through shared memory in K chunks of 64
-// rows (two buffers, cp.async), so one chunk loads while the last one feeds
-// the tensor cores. A tap9 block's pixels are a 4 x 32 tile of one image; its
-// input is a 6 x 34 x 64 halo tile in shared memory. Shared rows are padded
-// by 16 bytes (pixel stride 144 B, weight row 272 B), so the 8 rows of every
-// ldmatrix fall in distinct banks. The 128 x 128 bf16 output tile is staged
-// in shared memory and written out 16 bytes a thread.
-//
-// im2col and pair5 run on `wgmma` with TMA-fed operands in persistent,
-// warp-specialised blocks: see their section below.
+// All four run on `wgmma` m64n128k16 with TMA-fed operands in persistent,
+// warp-specialised blocks (see the section below). The weight is loaded once
+// a block and stays resident, so device memory sees each input about once
+// (a weight streamed per tile would read the 160 KB from L2 per 128 rows,
+// 1.34 GB at B = 64). What each does about its bound:
+//   tap9 and pair5 (operations): A by ldmatrix from the TMA halo at each
+//     tap's shift into registers, no patch copy, two warpgroups on alternate
+//     tiles so that one's epilogue runs under the other's products. tap9 is
+//     pair5's walk over the nine 64-row halves of the HWIO weight instead of
+//     the ten of wp.
+//   im2col (operations): the patch matrix built from the halo in shared
+//     memory and read through descriptors, at the cost of shared memory's
+//     bandwidth.
+//   dotceil (bytes): p streams through a ring of four TMA stages that runs
+//     across tiles, so the loads never wait on an epilogue; p and the output
+//     are its only device-memory traffic.
 //
 // Layouts: x bf16 NHWC [B, H, W, 64], H a multiple of 4 and W of 32; w bf16
 // HWIO [3, 3, 64, 128] (tap9: K = 576 rows tap by tap); wp bf16 [640, 128];
-// p bf16 [M, 640] (any M); out bf16 [B, H, W, 128] or [M, 128]; every
-// pointer 16-byte aligned (TMA's rule for im2col's and pair5's x and wp).
+// p bf16 [M, 640] (1 <= M < 2^31); out bf16 [B, H, W, 128] or [M, 128];
+// every input 16-byte aligned (TMA's rule).
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver function is fetched at run time
 #include <cuda_bf16.h>
@@ -56,216 +59,56 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int CIN = 64, COUT = 128, KP = 640;
-constexpr int BM = 128;               // output pixels (rows of the product) of a block
-constexpr int TH = 4, TW = 32;        // a conv block's pixels: TH rows x TW columns
-constexpr int THREADS = 256;           // tap9 and dotceil
+constexpr int TH = 4, TW = 32;        // im2col's tile: TH rows x TW columns of one image
 constexpr int HW2 = TW + 2;           // halo tile width
 constexpr int HALO_PIX = (TH + 2) * HW2;
-constexpr int HS = CIN + 8;           // halo pixel stride, bf16 (144 B)
-constexpr int WS = COUT + 8;          // weight row stride, bf16 (272 B)
-constexpr int AS = 64 + 8;            // dotceil's A chunk row stride, bf16 (144 B)
-constexpr int OS = COUT + 8;          // output staging row stride, bf16 (272 B)
-
-__host__ __device__ constexpr int w_bytes(int rows) { return 2 * rows * WS * 2; }  // two weight buffers
-constexpr int HALO_BYTES = HALO_PIX * HS * 2;                    // 29,376
-constexpr int SMEM_TAP9 = w_bytes(64) + HALO_BYTES;              // 64,192
-constexpr int SMEM_DOTCEIL = w_bytes(64) + 2 * BM * AS * 2;      // 71,680
-// the output tile is staged where the weight buffers were
-static_assert(BM * OS * 2 <= w_bytes(64), "output staging must fit the weight buffers");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
-// What each thread of a warp needs for its 64 x 32 part of the block's tile.
-struct Warp {
-    int lane, wm, wn;
-    __device__ Warp() : lane(threadIdx.x & 31), wm((threadIdx.x >> 5) & 1), wn(threadIdx.x >> 6) {}
-    // row of the block's tile whose A address this lane gives ldmatrix for m tile mi
-    __device__ int a_row(int mi) const { return wm * 64 + mi * 16 + (lane & 15); }
-    // this lane's ldmatrix column offset within a k16 step (A: 0 or 8)
-    __device__ int a_col() const { return (lane >> 4) * 8; }
-    // this lane's offset (bf16) into a weight chunk at k16 step 0, n tiles 0-1
-    __device__ int b_off() const {
-        return ((lane & 7) + ((lane >> 3) & 1) * 8) * WS + wn * 32 + (lane >> 4) * 8;
-    }
-};
-
-// One k16 step of the warp's 64 x 32 tile: A rows at a[mi] (shared byte
-// addresses of this lane's ldmatrix row), B from the weight chunk at b.
-__device__ __forceinline__ void mma_step(float (&acc)[4][4][4], const uint32_t (&a)[4], uint32_t b) {
-    uint32_t af[4][4], bf[4][2], r[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) ldsm_x4(af[mi], a[mi]);
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-        ldsm_x4_t(r, b + nj * 16 * 2);
-        bf[2 * nj][0] = r[0]; bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2]; bf[2 * nj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-}
-
-// rows [k0, k0 + ROWS) of a [K, 128] weight into a [ROWS][WS] buffer
-template <int ROWS>
-__device__ __forceinline__ void load_w(bf16* w_s, const bf16* __restrict__ w, int k0) {
-    for (int i = threadIdx.x; i < ROWS * 16; i += THREADS) {
-        const int r = i >> 4, c = (i & 15) * 8;
-        cp_async16(w_s + r * WS + c, w + (size_t)(k0 + r) * COUT + c, true);
-    }
-}
-
-// the (TH + 2) x (TW + 2) x 64 input halo of the tile at (y0, x0), zero outside the image
-__device__ __forceinline__ void load_halo(bf16* h_s, const bf16* __restrict__ x, int b, int y0,
-                                          int x0, int H, int W) {
-    for (int i = threadIdx.x; i < HALO_PIX * 8; i += THREADS) {
-        const int pix = i >> 3, c = (i & 7) * 8;
-        const int iy = y0 - 1 + pix / HW2, ix = x0 - 1 + pix % HW2;
-        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
-        cp_async16(h_s + pix * HS + c, ok ? x + (((size_t)b * H + iy) * W + ix) * CIN + c : x, ok);
-    }
-}
-
-// float32 sums -> bf16 (rounded once) in the staging tile o_s [BM][OS]
-__device__ __forceinline__ void stage_out(const float (&acc)[4][4][4], bf16* o_s, const Warp& wl) {
-    const int g = wl.lane >> 2, t = wl.lane & 3;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-            const int row = wl.wm * 64 + mi * 16 + g, col = wl.wn * 32 + ni * 8 + 2 * t;
-            *reinterpret_cast<__nv_bfloat162*>(o_s + row * OS + col) =
-                __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-            *reinterpret_cast<__nv_bfloat162*>(o_s + (row + 8) * OS + col) =
-                __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
-        }
-}
-
-// the staged tile of a conv block to out NHWC, 16 bytes a thread
-__device__ __forceinline__ void write_conv_tile(const bf16* o_s, bf16* __restrict__ out, int b,
-                                                int y0, int x0, int H, int W) {
-    for (int i = threadIdx.x; i < BM * 16; i += THREADS) {
-        const int r = i >> 4, c = (i & 15) * 8;
-        const size_t o = (((size_t)b * H + y0 + r / TW) * W + x0 + r % TW) * COUT + c;
-        *reinterpret_cast<int4*>(out + o) = *reinterpret_cast<const int4*>(o_s + r * OS + c);
-    }
-}
-
-// this lane's halo offsets (bf16) of its four A rows at tap (0, 0), channel 0
-__device__ __forceinline__ void halo_rows(int (&off)[4], const Warp& wl) {
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-        const int m = wl.a_row(mi);
-        off[mi] = ((m / TW) * HW2 + m % TW) * HS + wl.a_col();
-    }
-}
-
-__device__ __forceinline__ int tap_off(int tap) { return ((tap / 3) * HW2 + tap % 3) * HS; }
-
-// ---------------------------------------------------------------- tap9 --
-// 9 chunks of K = 64, one a tap: A read straight from the halo tile at the
-// tap's shift, all 9 accumulated into the same fragments.
-__global__ void __launch_bounds__(THREADS, 2)
-conv_tap9_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
-                 int H, int W) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* w_s = reinterpret_cast<bf16*>(smem);                 // [2][64][WS]
-    bf16* h_s = reinterpret_cast<bf16*>(smem + w_bytes(64));   // [HALO_PIX][HS]
-    const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-    const Warp wl;
-    int off[4];
-    halo_rows(off, wl);
-    const uint32_t h_base = smem_addr(h_s), w_base = smem_addr(w_s) + 2 * wl.b_off();
-    float acc[4][4][4] = {};
-
-    load_halo(h_s, x, b, y0, x0, H, W);
-    load_w<64>(w_s, w, 0);
-    cp_async_commit();
-    for (int tap = 0; tap < 9; ++tap) {
-        if (tap + 1 < 9) {
-            load_w<64>(w_s + ((tap + 1) & 1) * 64 * WS, w, (tap + 1) * 64);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const int shift = tap_off(tap);
-        const uint32_t wb = w_base + (tap & 1) * 64 * WS * 2;
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-            uint32_t a[4];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) a[mi] = h_base + 2 * (off[mi] + shift + ks * 16);
-            mma_step(acc, a, wb + ks * 16 * WS * 2);
-        }
-        __syncthreads();
-    }
-    stage_out(acc, w_s, wl);
-    __syncthreads();
-    write_conv_tile(w_s, out, b, y0, x0, H, W);
-}
-
-// ---------------------------------------------- im2col and pair5 on wgmma --
-// Both run on `wgmma.mma_async` m64n128k16 (bf16 operands, float32 sums) in
-// persistent blocks, one a streaming multiprocessor, that walk the output
-// tiles (32 pixels wide, of one image) from blockIdx.x in steps of
-// gridDim.x. A block has three roles, split once at the top and never joined
-// again: two consumer warpgroups (`setmaxnreg` 232), each computing 64
-// pixels x all 128 output channels at a time (64 float32 sums a thread, in
-// registers), and a producer warpgroup (`setmaxnreg` 40) of which one thread
-// works. It loads the whole packed weight once a block, then each tile's
-// input halo, both by TMA (`cp.async.bulk.tensor`, 128-byte swizzle) on
+// ---------------------------------------------------------------- wgmma --
+// All four run on `wgmma.mma_async` m64n128k16 (bf16 operands, float32 sums)
+// in persistent blocks, one a streaming multiprocessor, that walk the output
+// tiles from blockIdx.x in steps of gridDim.x. A block has three roles, split
+// once at the top and never joined again: two consumer warpgroups
+// (`setmaxnreg` 232), each computing 64 rows x all 128 output channels at a
+// time (64 float32 sums a thread, in registers), and a producer warpgroup
+// (`setmaxnreg` 40) of which one thread works. It loads the whole weight once
+// a block, then each tile's A operand (a conv's input halo, dotceil's chunks
+// of p), both by TMA (`cp.async.bulk.tensor`, 128-byte swizzle) on
 // mbarriers. The halo's tensor map spans x as {64, W, H, B} and each load
 // starts at (0, x0 - 1, y0 - 1, b): the zeros TMA fills in outside the
 // tensor are the SAME padding. B, the weight, is read by `wgmma` from shared
-// memory through descriptors: wp is N-contiguous, so each 64-column half
-// lands as a [640][128 B] swizzled block and `wgmma` reads it MN-major (its
-// transpose bit for 16-bit B; LBO the distance of the two halves, SBO 1024
-// B, eight K rows). In a 128-byte-swizzled buffer (1024-byte aligned) the
-// 16-byte chunk c of 128-byte line l sits at chunk c ^ (l & 7) of that line,
-// so one pixel's 64 channels are one line, and the 8 rows any ldmatrix or
-// patch copy touches fall in 8 distinct bank groups.
+// memory through descriptors: it is N-contiguous, so each 64-column half
+// lands as a [rows][128 B] swizzled block (64-row boxes; the halves 81,920 B
+// apart whatever the rows) and `wgmma` reads it MN-major (its transpose bit
+// for 16-bit B; LBO the distance of the two halves, SBO 1024 B, eight K
+// rows). In a 128-byte-swizzled buffer (1024-byte aligned) the 16-byte chunk
+// c of 128-byte line l sits at chunk c ^ (l & 7) of that line, so one
+// pixel's 64 channels are one line, and the 8 rows any ldmatrix or patch
+// copy touches fall in 8 distinct bank groups.
 //
-// pair5 (`pair5`, examples/pallas_conv_probe.py:172): A comes from registers,
-// loaded by ldmatrix straight from the halo at each tap's shift (a shifted
-// pixel is just another line; a descriptor would need the regular layout a
-// one-pixel shift breaks). Per tap pair, 8 k16 products on one A set while
-// the next pair's A loads into the other set (wgmma.wait_group 1 keeps one
-// group in flight). A tile is 2 x 32 pixels, one warpgroup's; the two
-// warpgroups take alternate tiles from a ring of three halo stages and take
-// turns on the tensor cores (a turn barrier each: a warpgroup issues its
-// tile's products after the other has issued its own), so one's epilogue
-// runs under the other's products.
-//   shared memory: weight 163,840 + 3 x 17,408 halo + barriers + 1,024 for
-//   alignment = 217,216 B of 232,448.
+// pair5 (`pair5`, examples/pallas_conv_probe.py:172) and tap9 (`tap9`, :85):
+// A comes from registers, loaded by ldmatrix straight from the halo at each
+// tap's shift (a shifted pixel is just another line; a descriptor would need
+// the regular layout a one-pixel shift breaks). Half j of the K walk is tap
+// min(j, 8) against weight rows 64j .. 64j + 63: ten halves of wp for pair5,
+// the nine of the HWIO weight for tap9. Per pair of halves, 8 k16 products
+// (4 for tap9's last, single half) on one A set while the next pair's A
+// loads into the other set (wgmma.wait_group 1 keeps one group in flight). A
+// tile is 2 x 32 pixels, one warpgroup's; the two warpgroups take alternate
+// tiles from a ring of three halo stages and take turns on the tensor cores
+// (a turn barrier each: a warpgroup issues its tile's products after the
+// other has issued its own), so one's epilogue runs under the other's
+// products.
+//   shared memory: weight 163,840 (tap9 fills 147,456 of it) + 3 x 17,408
+//   halo + barriers + 1,024 for alignment = 217,216 B of 232,448.
 // im2col (`im2col`, :132): every A operand comes from a patch matrix built
 // in shared memory and read through a descriptor. A tile is 4 x 32 pixels,
 // 64 rows a warpgroup. Each warpgroup builds its 64 rows x one 64-channel
@@ -276,17 +119,22 @@ conv_tap9_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* _
 // a stage's stores and the `wgmma` that reads it. The weight stays
 // resident; that leaves room for one halo stage, which the producer refills
 // once both warpgroups have built their last half, under the tile's last
-// products and its epilogue (a weight streamed in 32 KB chunks instead
-// would read the 160 KB weight from L2 per tile, 1.34 GB at B = 64, 128 x
-// 128). The patch copy and `wgmma`'s operand reads share the shared
-// memory's bandwidth, which pair5 does not spend on a copy.
+// products and its epilogue. The patch copy and `wgmma`'s operand reads
+// share the shared memory's bandwidth, which pair5 does not spend on a copy.
 //   shared memory: weight 163,840 + 26,624 halo + 4 x 8,192 patch +
 //   barriers + 1,024 = 224,384 B of 232,448.
-// Both multiply all 640 rows of wp as given (rows 576-639 too), as the TPU
-// kernels do, and round each float32 sum to bf16 once; the epilogue
-// transposes the bf16 pairs within each quad of lanes by shuffles and
-// writes 16 bytes a lane, a quarter of the store instructions. Bound (B = 64, 128 x 128): 154.6 GFLOP of the
-// conv at 989 TFLOP/s = 0.156 ms (both issue 640/576 of it); bytes 0.120 ms.
+// dotceil (`dotceil`, :196): im2col's consumer fed straight from p. A tile is
+// 128 rows of p; the producer streams it as ten {64 K, 128 rows} chunks (16
+// KB, the canonical K-major swizzled layout as TMA writes it) through a ring
+// of four stages on full and empty mbarriers, across tiles; each warpgroup
+// multiplies its 64 rows of a chunk. Rows past M are zero-filled by TMA and
+// not stored.
+//   shared memory: weight 163,840 + 4 x 16,384 + barriers + 1,024 = 230,528 B.
+// im2col, pair5 and dotceil multiply all 640 rows of wp as given (rows
+// 576-639 too), as the TPU kernels do, and each rounds its float32 sums to
+// bf16 once; the epilogue transposes the bf16 pairs within each quad of
+// lanes by shuffles and writes 16 bytes a lane, a quarter of the store
+// instructions.
 
 constexpr int WG_THREADS = 128;
 // two consumer warpgroups and a producer warpgroup, of which one thread works
@@ -294,18 +142,25 @@ constexpr int HOP_THREADS = 3 * WG_THREADS;
 constexpr int LINE = 128;                          // bytes: one pixel's 64 channels, one swizzle row
 constexpr int HALO_BOX = HALO_PIX * LINE;          // 26,112 B: one TMA halo load
 constexpr int HALO_STAGE = 26624;                  // the same, rounded up to 1024 B
-constexpr int W_HALF = KP * LINE;                  // 81,920 B: one 64-column half of wp
+constexpr int W_HALF = KP * LINE;                  // 81,920 B: one 64-column half of the weight
 constexpr int W_BYTES = 2 * W_HALF;                // 163,840 B
+constexpr int W_BOX = 64;                          // weight rows a TMA load
 constexpr int PATCH_STAGE = 64 * LINE;             // 8,192 B: a warpgroup's 64 rows x K 64
-constexpr int P_TH = 2;                            // pair5's tiles: 2 x 32 pixels, one warpgroup's
+constexpr int P_TH = 2;                            // pair5's and tap9's tiles: 2 x 32 pixels
 constexpr int P_HALO = (P_TH + 2) * HW2 * LINE;    // 17,408 B: one pair5 halo load and stage
 constexpr int P_STAGES = 3;
+constexpr int D_ROWS = 128;                        // dotceil's tile: rows of p, 64 a warpgroup
+constexpr int D_CHUNK = D_ROWS * LINE;             // 16,384 B: one TMA load of p, 64 K x 128 rows
+constexpr int D_STAGES = 4;
 constexpr int BARS = 128;                          // the mbarriers
 constexpr int SMEM_PAIR5 = 1024 + W_BYTES + P_STAGES * P_HALO + BARS;                // 217,216
 constexpr int SMEM_IM2COL = 1024 + W_BYTES + HALO_STAGE + 4 * PATCH_STAGE + BARS;     // 224,384
+constexpr int SMEM_DOTCEIL = 1024 + W_BYTES + D_STAGES * D_CHUNK + BARS;             // 230,528
 static_assert(HALO_BOX <= HALO_STAGE && HALO_STAGE % 1024 == 0 && P_HALO % 1024 == 0,
               "halo stages must stay aligned");
-static_assert(SMEM_PAIR5 <= 232448 && SMEM_IM2COL <= 232448, "over the 227 KB a block may have");
+static_assert(SMEM_PAIR5 <= 232448 && SMEM_IM2COL <= 232448 && SMEM_DOTCEIL <= 232448,
+              "over the 227 KB a block may have");
+static_assert(8 + 16 * D_STAGES + 16 <= BARS, "the barriers must fit their room");
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -436,7 +291,7 @@ __device__ __forceinline__ Tile tile_at(int t, int H, int W) {
 
 // Barriers at `bars`: the weight's, then full[STAGES] (the producer's
 // expect_tx), then empty[STAGES] (`readers` consumer threads each), then
-// pair5's two turns (a warpgroup's 128 threads each).
+// pair5's and tap9's two turns (a warpgroup's 128 threads each).
 template <int STAGES>
 __device__ __forceinline__ void init_barriers(uint32_t bars, int readers) {
     mbar_init(bars, 1);
@@ -449,17 +304,24 @@ __device__ __forceinline__ void init_barriers(uint32_t bars, int readers) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// The producer (one thread): the packed weight, each 64-column half as five
-// 128-row boxes, then the halo (ROWS + 2 lines of 34 pixels) of every tile
-// of this block, in order, into a ring of STAGES stages of `stage` bytes.
+// The weight's `rows` x 128 (N-contiguous) into its two resident 64-column
+// halves, W_BOX rows a load, on barrier `bar`.
+__device__ __forceinline__ void load_weight(const CUtensorMap* tm_w, uint32_t w_s, uint32_t bar,
+                                            int rows) {
+    mbar_expect_tx(bar, 2 * rows * LINE);
+    for (int h = 0; h < 2; ++h)
+        for (int r = 0; r < rows; r += W_BOX) tma_load_2d(w_s + h * W_HALF + r * LINE, tm_w, 64 * h, r, bar);
+}
+
+// The producer of a conv (one thread): the weight, then the halo (ROWS + 2
+// lines of 34 pixels) of every tile of this block, in order, into a ring of
+// STAGES stages of `stage` bytes.
 template <int STAGES, int ROWS>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
                                         uint32_t w_s, uint32_t h_s, uint32_t bars, int tiles,
-                                        int H, int W, int stage) {
+                                        int H, int W, int stage, int w_rows) {
     const uint32_t full = bars + 8, empty = bars + 8 + 8 * STAGES;
-    mbar_expect_tx(bars, W_BYTES);
-    for (int h = 0; h < 2; ++h)
-        for (int r = 0; r < KP; r += 128) tma_load_2d(w_s + h * W_HALF + r * LINE, tm_w, 64 * h, r, bars);
+    load_weight(tm_w, w_s, bars, w_rows);
     int i = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
         const int s = i % STAGES;
@@ -478,16 +340,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// A consumer's 64 x 128 float32 sums, each rounded once to bf16, to out NHWC.
-// Warp w's accumulators hold rows 16 w + g and + 8, columns 8 j + 2 t (+ 1)
-// (g = lane / 4, t = lane % 4). A transpose within each quad by shuffles
-// gives lane t the 8 columns of block j = 4 q + t, written as 16 bytes: a
-// quarter of the stores of writing the pairs as they lie.
-__device__ __forceinline__ void store_tile(const float (&d)[64], bf16* __restrict__ out, Tile tl,
-                                           int wg, int H, int W) {
-    const int lane = threadIdx.x & 31, t = lane & 3;
-    const int m = 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);  // m and m + 8: one row
-    bf16* o = out + (((size_t)tl.b * H + tl.y0 + m / TW) * W + tl.x0 + m % TW) * COUT;
+// The row of a consumer warpgroup's 64 whose sums this thread holds with
+// those of the row 8 below: 64 wg + 16 w + g (warp w, g = lane / 4).
+__device__ __forceinline__ int quad_row(int wg) {
+    return 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+
+// A consumer's 64 x 128 float32 sums, each rounded once to bf16: this
+// thread's rows (quad_row) to o and o + 8 rows of 128, the first `rows` of
+// the two. Warp w's accumulators hold rows 16 w + g and + 8, columns 8 j + 2
+// t (+ 1) (t = lane % 4). A transpose within each quad by shuffles gives
+// lane t the 8 columns of block j = 4 q + t, written as 16 bytes: a quarter
+// of the stores of writing the pairs as they lie.
+__device__ __forceinline__ void store_rows(const float (&d)[64], bf16* __restrict__ o, int rows) {
+    const int t = threadIdx.x & 3;
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
@@ -499,27 +365,42 @@ __device__ __forceinline__ void store_tile(const float (&d)[64], bf16* __restric
             // r[x]: from lane t ^ x, its columns of block 4 q + t
 #pragma unroll
             for (int x = 0; x < 4; ++x) r[x] = __shfl_xor_sync(0xffffffffu, pick4(v, t ^ x), x);
-            *reinterpret_cast<uint4*>(o + h * 8 * COUT + 8 * (4 * q + t)) =
-                make_uint4(pick4(r, t), pick4(r, t ^ 1), pick4(r, t ^ 2), pick4(r, t ^ 3));
+            if (h < rows)
+                *reinterpret_cast<uint4*>(o + h * 8 * COUT + 8 * (4 * q + t)) =
+                    make_uint4(pick4(r, t), pick4(r, t ^ 1), pick4(r, t ^ 2), pick4(r, t ^ 3));
         }
 }
 
-// this lane's A fragments of tap pair p (taps 2p and 2p + 1, tap 8 twice in
-// the last): 8 k16 steps, ldmatrix at the tap's shifted halo line
+// ... of a conv tile's 64 pixels (wg's of the tile) to out NHWC
+__device__ __forceinline__ void store_tile(const float (&d)[64], bf16* __restrict__ out, Tile tl,
+                                           int wg, int H, int W) {
+    const int m = quad_row(wg);  // m and m + 8: one image row
+    store_rows(d, out + (((size_t)tl.b * H + tl.y0 + m / TW) * W + tl.x0 + m % TW) * COUT, 2);
+}
+
+// this lane's A fragments of halves 2p and 2p + 1 (tap min(j, 8) for half j;
+// a half past NH is not loaded): 4 k16 steps each, ldmatrix at the tap's
+// shifted halo line
+template <int NH>
 __device__ __forceinline__ void load_pair(uint32_t (&a)[8][4], uint32_t halo, int line0, int hi,
                                           int p) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-        const int tap = 2 * p + half < 9 ? 2 * p + half : 8;
+        const int j = 2 * p + half, tap = j < 9 ? j : 8;
         const int line = line0 + (tap / 3) * HW2 + tap % 3;
+        if (j < NH) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[4 * half + kk], swz(halo, line, 2 * kk + hi));
+            for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[4 * half + kk], swz(halo, line, 2 * kk + hi));
+        }
     }
 }
 
-__global__ void __launch_bounds__(HOP_THREADS, 1)
-conv_pair5_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
-                  bf16* __restrict__ out, int H, int W, int tiles) {
+// pair5 (NH 10, wp) and tap9 (NH 9, the HWIO weight): a conv tile's K walk
+// over NH 64-row halves of the resident weight, by pairs of halves
+template <int NH>
+__device__ __forceinline__ void conv_halves(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                                            bf16* __restrict__ out, int H, int W, int tiles) {
+    constexpr int NP = (NH + 1) / 2;
     extern __shared__ unsigned char smem[];
     const uint32_t w_s = (smem_addr(smem) + 1023) & ~1023u;
     const uint32_t h_s = w_s + W_BYTES, bars = h_s + P_STAGES * P_HALO;
@@ -529,7 +410,7 @@ conv_pair5_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
     if (threadIdx.x >= 2 * WG_THREADS) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
         if (threadIdx.x == 2 * WG_THREADS)
-            produce<P_STAGES, P_TH>(&tm_x, &tm_w, w_s, h_s, bars, tiles, H, W, P_HALO);
+            produce<P_STAGES, P_TH>(tm_x, tm_w, w_s, h_s, bars, tiles, H, W, P_HALO, 64 * NH);
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
         const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
@@ -547,21 +428,22 @@ conv_pair5_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
             const int s = i % P_STAGES;
             const uint32_t halo = h_s + s * P_HALO;
             mbar_wait(full + 8 * s, (i / P_STAGES) & 1);
-            load_pair(a[0], halo, line0, hi, 0);
+            load_pair<NH>(a[0], halo, line0, hi, 0);
             // its turn: the other warpgroup has issued all its products of the tile before
             if (wg == 1 || k > 0) mbar_wait(turn + 8 * wg, (wg == 1 ? k : k - 1) & 1);
 #pragma unroll
-            for (int p = 0; p < 5; ++p) {
+            for (int p = 0; p < NP; ++p) {
+                const int steps = 2 * p + 1 < NH ? 8 : 4;
                 wg_fence();
                 fence_regs(d);
 #pragma unroll
-                for (int ks = 0; ks < 8; ++ks)
+                for (int ks = 0; ks < steps; ++ks)
                     wgmma_rs(d, a[p & 1][ks], w_desc(w_s, 128 * p + 16 * ks), p + ks > 0);
                 wg_commit();
-                if (p < 4) {
+                if (p + 1 < NP) {
                     wg_wait<1>();  // pair p - 1 done: its A set is free
                     fence_regs(a[(p + 1) & 1]);
-                    load_pair(a[(p + 1) & 1], halo, line0, hi, p + 1);
+                    load_pair<NH>(a[(p + 1) & 1], halo, line0, hi, p + 1);
                 }
             }
             mbar_arrive(turn + 8 * (1 - wg));  // the other's turn, under this one's epilogue
@@ -571,6 +453,18 @@ conv_pair5_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
             store_tile(d, out, tile_at<P_TH>(t, H, W), 0, H, W);
         }
     }
+}
+
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+conv_tap9_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                 bf16* __restrict__ out, int H, int W, int tiles) {
+    conv_halves<9>(&tm_x, &tm_w, out, H, W, tiles);
+}
+
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+conv_pair5_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                  bf16* __restrict__ out, int H, int W, int tiles) {
+    conv_halves<10>(&tm_x, &tm_w, out, H, W, tiles);
 }
 
 // Half j of this warpgroup's patch rows (tap min(j, 8)) from the halo into a
@@ -605,7 +499,7 @@ conv_im2col_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
     if (threadIdx.x >= 2 * WG_THREADS) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
         if (threadIdx.x == 2 * WG_THREADS)
-            produce<1, TH>(&tm_x, &tm_w, w_s, h_s, bars, tiles, H, W, HALO_STAGE);
+            produce<1, TH>(&tm_x, &tm_w, w_s, h_s, bars, tiles, H, W, HALO_STAGE, KP);
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
         const int wg = threadIdx.x >> 7;
@@ -643,6 +537,64 @@ conv_im2col_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
     }
 }
 
+// A [M, 640] @ [640, 128] product, 128 rows of p a tile: the producer loads
+// the weight once, then streams every tile's ten chunks of p through the
+// ring; each consumer warpgroup multiplies its 64 rows of each chunk and
+// frees the chunk's stage once its products are done.
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+conv_dotceil_kernel(const __grid_constant__ CUtensorMap tm_p, const __grid_constant__ CUtensorMap tm_w,
+                    bf16* __restrict__ out, int M, int tiles) {
+    extern __shared__ unsigned char smem[];
+    const uint32_t w_s = (smem_addr(smem) + 1023) & ~1023u;
+    const uint32_t a_s = w_s + W_BYTES, bars = a_s + D_STAGES * D_CHUNK;
+    const uint32_t full = bars + 8, empty = full + 8 * D_STAGES;
+    if (threadIdx.x == 0) init_barriers<D_STAGES>(bars, 2 * WG_THREADS);
+    __syncthreads();
+
+    if (threadIdx.x >= 2 * WG_THREADS) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (threadIdx.x == 2 * WG_THREADS) {
+            load_weight(&tm_w, w_s, bars, KP);
+            int i = 0;
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+                for (int c = 0; c < KP / 64; ++c, ++i) {
+                    const int s = i % D_STAGES;
+                    mbar_wait(empty + 8 * s, ((i / D_STAGES) & 1) ^ 1);
+                    mbar_expect_tx(full + 8 * s, D_CHUNK);
+                    tma_load_2d(a_s + s * D_CHUNK, &tm_p, 64 * c, D_ROWS * t, full + 8 * s);
+                }
+        }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        const int wg = threadIdx.x >> 7;
+        float d[64] = {};
+        mbar_wait(bars, 0);
+        int i = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+#pragma unroll
+            for (int c = 0; c < KP / 64; ++c, ++i) {
+                const int s = i % D_STAGES;
+                const uint32_t a = a_s + s * D_CHUNK + wg * (D_CHUNK / 2);
+                mbar_wait(full + 8 * s, (i / D_STAGES) & 1);
+                wg_fence();
+                fence_regs(d);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss(d, sw128_desc(a + 32 * kk, 16, 1024), w_desc(w_s, 64 * c + 16 * kk),
+                             c + kk > 0);
+                wg_commit();
+                wg_wait<1>();  // chunk i - 1 done: its stage is free
+                if (c > 0) mbar_arrive(empty + 8 * ((i - 1) % D_STAGES));
+            }
+            wg_wait<0>();
+            mbar_arrive(empty + 8 * ((i - 1) % D_STAGES));
+            fence_regs(d);
+            const long long r = (long long)t * D_ROWS + quad_row(wg);
+            store_rows(d, out + r * COUT, r >= M ? 0 : r + 8 >= M ? 1 : 2);
+        }
+    }
+}
+
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
 // -lcuda); null if the driver has none
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -666,156 +618,90 @@ EncodeTiled encode_tiled() {
     return fn;
 }
 
-// The halo map over x {64, W, H, B} (box 64 x 34 x (rows + 2) x 1) and the
-// weight map over wp {128, 640} (box 64 x 128), both 128-byte swizzled.
-int encode_maps(CUtensorMap* tm_x, CUtensorMap* tm_w, const void* x, const void* wp, int B, int H,
-                int W, int rows) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-    const cuuint64_t x_dim[4] = {CIN, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-    const cuuint64_t x_stride[3] = {CIN * 2, (cuuint64_t)W * CIN * 2, (cuuint64_t)H * W * CIN * 2};
-    const cuuint32_t x_box[4] = {CIN, HW2, (cuuint32_t)rows + 2, 1}, ones[4] = {1, 1, 1, 1};
-    const cuuint64_t w_dim[2] = {COUT, KP}, w_stride[1] = {COUT * 2};
-    const cuuint32_t w_box[2] = {64, 128};
-    if (encode(tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), x_dim, x_stride,
-               x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS
-        || encode(tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wp), w_dim, w_stride,
-                  w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return (int)cudaErrorInvalidValue;
-    return 0;
+// A 128-byte-swizzled bf16 map of `rank` dims (dim[0] contiguous).
+int encode(CUtensorMap* tm, const void* base, int rank, const cuuint64_t* dim,
+           const cuuint64_t* stride, const cuuint32_t* box, CUtensorMapL2promotion l2) {
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    const cuuint32_t ones[4] = {1, 1, 1, 1};
+    return fn(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dim, stride, box,
+              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, l2,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// a persistent launch over tiles of `rows` x 32 pixels: one block a
-// streaming multiprocessor, or one a tile if fewer
-template <typename Kernel>
-int launch_persistent(Kernel kernel, int smem, int rows, cudaStream_t stream, const void* x,
-                      const void* wp, void* out, int B, int H, int W) {
-    const long long tiles = (long long)B * (H / rows) * (W / TW);
+// the halo map over x {64, W, H, B}, box 64 x 34 x (rows + 2) x 1
+int encode_halo(CUtensorMap* tm, const void* x, int B, int H, int W, int rows) {
+    const cuuint64_t dim[4] = {CIN, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t stride[3] = {CIN * 2, (cuuint64_t)W * CIN * 2, (cuuint64_t)H * W * CIN * 2};
+    const cuuint32_t box[4] = {CIN, HW2, (cuuint32_t)rows + 2, 1};
+    return encode(tm, x, 4, dim, stride, box, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+// a map over a row-major [rows][cols] bf16 matrix, box 64 columns x box_rows
+int encode_rows(CUtensorMap* tm, const void* a, int cols, long long rows, int box_rows) {
+    const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, stride[1] = {(cuuint64_t)cols * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+    return encode(tm, a, 2, dim, stride, box, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+}
+
+// a persistent launch over `tiles` tiles: one block a streaming
+// multiprocessor, or one a tile if fewer; the kernel takes args..., tiles
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int smem, long long tiles, cudaStream_t stream, Args... args) {
     if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-    CUtensorMap tm_x, tm_w;
-    int err = encode_maps(&tm_x, &tm_w, x, wp, B, H, W, rows);
-    if (err) return err;
     int dev = 0, sms = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     const int grid = tiles < sms ? (int)tiles : sms;
-    kernel<<<grid, HOP_THREADS, smem, stream>>>(tm_x, tm_w, static_cast<bf16*>(out), H, W, (int)tiles);
+    kernel<<<grid, HOP_THREADS, smem, stream>>>(args..., (int)tiles);
     return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------- dotceil --
-// A plain [M, 640] @ [640, 128] product: A chunks of 128 rows x 64 columns
-// of p and weight chunks of 64 rows, both streamed from global memory with
-// two buffers each; no conv indexing. Rows past M read as zero and are not
-// written.
-__global__ void __launch_bounds__(THREADS, 2)
-conv_dotceil_kernel(const bf16* __restrict__ p, const bf16* __restrict__ wp_g, bf16* __restrict__ out,
-                    long long M) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* w_s = reinterpret_cast<bf16*>(smem);                 // [2][64][WS]
-    bf16* a_s = reinterpret_cast<bf16*>(smem + w_bytes(64));   // [2][BM][AS]
-    const long long m0 = (long long)blockIdx.x * BM;
-    const Warp wl;
-    const uint32_t a_base = smem_addr(a_s), w_base = smem_addr(w_s) + 2 * wl.b_off();
-    float acc[4][4][4] = {};
-
-    auto load_a = [&](int buf, int kc) {
-        for (int i = threadIdx.x; i < BM * 8; i += THREADS) {
-            const int r = i >> 3, c = (i & 7) * 8;
-            const bool ok = m0 + r < M;
-            cp_async16(a_s + (buf * BM + r) * AS + c,
-                       ok ? p + (size_t)(m0 + r) * KP + kc * 64 + c : p, ok);
-        }
-    };
-    load_a(0, 0);
-    load_w<64>(w_s, wp_g, 0);
-    cp_async_commit();
-    for (int kc = 0; kc < 10; ++kc) {
-        if (kc + 1 < 10) {
-            load_a((kc + 1) & 1, kc + 1);
-            load_w<64>(w_s + ((kc + 1) & 1) * 64 * WS, wp_g, (kc + 1) * 64);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const uint32_t wb = w_base + (kc & 1) * 64 * WS * 2;
-        const uint32_t ab = a_base + (kc & 1) * BM * AS * 2;
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-            uint32_t a[4];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) a[mi] = ab + 2 * (wl.a_row(mi) * AS + ks * 16 + wl.a_col());
-            mma_step(acc, a, wb + ks * 16 * WS * 2);
-        }
-        __syncthreads();
-    }
-    stage_out(acc, w_s, wl);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * 16; i += THREADS) {
-        const int r = i >> 4, c = (i & 15) * 8;
-        if (m0 + r < M)
-            *reinterpret_cast<int4*>(out + (size_t)(m0 + r) * COUT + c) =
-                *reinterpret_cast<const int4*>(w_s + r * OS + c);
-    }
-}
-
+// a conv over tiles of `rows` x 32 pixels, its weight's `w_rows` x 128 resident
 template <typename Kernel>
-int launch(Kernel kernel, int smem, dim3 grid, cudaStream_t stream, const void* a, const void* w,
-           void* out, int H, int W) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-                                            static_cast<bf16*>(out), H, W);
-    return (int)cudaGetLastError();
-}
-
-bool conv_shape_ok(int B, int H, int W) {
-    return B >= 1 && B <= 65535 && H >= TH && W >= TW && H % TH == 0 && W % TW == 0
-        && H / TH <= 65535;
+int launch_conv(Kernel kernel, int smem, int rows, int w_rows, void* stream, const void* x,
+                const void* w, void* out, int B, int H, int W) {
+    if (B < 1 || H < TH || W < TW || H % TH || W % TW) return (int)cudaErrorInvalidValue;
+    CUtensorMap tm_x, tm_w;
+    int err = encode_halo(&tm_x, x, B, H, W, rows);
+    if (!err) err = encode_rows(&tm_w, w, COUT, w_rows, W_BOX);
+    if (err) return err;
+    return launch_persistent(kernel, smem, (long long)B * (H / rows) * (W / TW),
+                             static_cast<cudaStream_t>(stream), tm_x, tm_w, static_cast<bf16*>(out),
+                             H, W);
 }
 
 }  // namespace
 
 // Each returns a cudaError_t; cudaErrorInvalidValue for a shape the kernel
-// does not take (B, H, W with H a multiple of 4 and W of 32; M >= 1) or, for
-// im2col and pair5, a tensor map the driver refuses to encode;
-// cudaErrorSymbolNotFound when the driver has no cuTensorMapEncodeTiled.
+// does not take (B, H, W with H a multiple of 4 and W of 32; 1 <= M < 2^31)
+// or a tensor map the driver refuses to encode; cudaErrorSymbolNotFound when
+// the driver has no cuTensorMapEncodeTiled.
 extern "C" int conv_tap9_launch(const void* x, const void* w, void* out, int B, int H, int W,
                                 void* stream) {
-    if (!conv_shape_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-    return launch(conv_tap9_kernel, SMEM_TAP9, dim3(W / TW, H / TH, B),
-                  static_cast<cudaStream_t>(stream), x, w, out, H, W);
+    return launch_conv(conv_tap9_kernel, SMEM_PAIR5, P_TH, 9 * CIN, stream, x, w, out, B, H, W);
 }
 
 extern "C" int conv_im2col_launch(const void* x, const void* wp, void* out, int B, int H, int W,
                                   void* stream) {
-    if (!conv_shape_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-    return launch_persistent(conv_im2col_kernel, SMEM_IM2COL, TH, static_cast<cudaStream_t>(stream),
-                             x, wp, out, B, H, W);
+    return launch_conv(conv_im2col_kernel, SMEM_IM2COL, TH, KP, stream, x, wp, out, B, H, W);
 }
 
 extern "C" int conv_pair5_launch(const void* x, const void* wp, void* out, int B, int H, int W,
                                  void* stream) {
-    if (!conv_shape_ok(B, H, W)) return (int)cudaErrorInvalidValue;
-    return launch_persistent(conv_pair5_kernel, SMEM_PAIR5, P_TH, static_cast<cudaStream_t>(stream),
-                             x, wp, out, B, H, W);
+    return launch_conv(conv_pair5_kernel, SMEM_PAIR5, P_TH, KP, stream, x, wp, out, B, H, W);
 }
 
 extern "C" int conv_dotceil_launch(const void* p, const void* wp, void* out, long long M,
                                    void* stream) {
-    const long long blocks = (M + BM - 1) / BM;
-    if (M < 1 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(conv_dotceil_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DOTCEIL);
-    if (err != cudaSuccess) return (int)err;
-    conv_dotceil_kernel<<<dim3((unsigned)blocks), THREADS, SMEM_DOTCEIL,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(p), static_cast<const bf16*>(wp), static_cast<bf16*>(out), M);
-    return (int)cudaGetLastError();
+    if (M < 1 || M > 2147483647LL) return (int)cudaErrorInvalidValue;
+    CUtensorMap tm_p, tm_w;
+    int err = encode_rows(&tm_p, p, KP, M, D_ROWS);
+    if (!err) err = encode_rows(&tm_w, wp, COUT, KP, W_BOX);
+    if (err) return err;
+    return launch_persistent(conv_dotceil_kernel, SMEM_DOTCEIL, (M + D_ROWS - 1) / D_ROWS,
+                             static_cast<cudaStream_t>(stream), tm_p, tm_w, static_cast<bf16*>(out),
+                             (int)M);
 }

@@ -19,14 +19,17 @@ two 64-channel taps assumes them) and raise otherwise:
 Each plain version follows its own formulation in float32 from the bf16
 operands and rounds to bf16 once. On a CPU tensor a wrapper runs its plain
 version; on a CUDA tensor it launches its kernel in `csrc/conv_probe.cu`
-(tensor cores: `mma.sync` bf16 for tap9 and dotceil, `wgmma` fed by TMA
-for im2col and pair5, whose tensor maps are encoded at each call) or
-raises, also when the driver cannot encode a tensor map. Every CUDA input
-must be contiguous and 16-byte aligned (TMA's rule). The conv kernels take
-H a multiple of 4 and W of 32 (a 4 x 32 pixel tile); the wrappers ask the
-same on either device. `conv_library` (cuDNN's bf16 conv) is the
-conv rows' yardstick, timed beside the kernels and called by nothing else
-in the package.
+or raises, also when the driver cannot encode a tensor map. All four
+kernels run on the bf16 tensor cores through `wgmma`, their operands
+brought in by TMA (tensor maps encoded at each call) in persistent blocks
+with the weight resident: tap9 and pair5 share one body (the HWIO weight
+seen as [576, 128] is `pack_w`'s first 576 rows), im2col builds its patch
+matrix in shared memory, dotceil streams p through a ring of TMA stages.
+Every CUDA input must be contiguous and 16-byte aligned (TMA's rule). The
+conv kernels take H a multiple of 4 and W of 32; the wrappers ask the same
+on either device. dotceil takes 1 <= M < 2^31 rows. `conv_library`
+(cuDNN's bf16 conv) is the conv rows' yardstick, timed beside the kernels
+and called by nothing else in the package.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ library's at the model's hottest conv: h_net3's ResBlock conv1, [B, 128,
 conv (cuDNN, `conv_library`) and the three hand-written formulations of
 `tgsr_tpu_torch/ops/conv_probe.py` (`tap9`, `im2col`, `pair5`), plus
 `dotceil`, a plain K = 640 product on a precomputed patch tensor, beside
-`torch.matmul` on the same inputs.
+`torch.matmul` on the same inputs. All four are hand-written `wgmma`
+kernels fed by TMA (`tgsr_tpu_torch/csrc/conv_probe.cu`).
 
 Decision: if the best of (tap9, im2col, pair5) takes at most GO_RATIO times
 the library conv's time, the fusion's savings in device memory traffic ride
