@@ -14,9 +14,16 @@ where it must go through the attention and packed up-head kernels and hold
 the card by the port's calibrate_quant), where it must go through the
 attention, int8 conv, GLU-requant and requant kernels, hold >= 40 dB against
 the same int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR
-against the float32 reference. Then drives the conv probe path
-(tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose four
-tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
+against the float32 reference. On the card sr_batched replays the forward
+captured as a CUDA graph, so those launch counts are the captured counts
+times the replays; each path is profiled eager and under replay. Then the
+serving phase, per path: replay bit for bit against the eager __call__,
+sr_arbitrary at ragged LR shapes against the plain pipelines on the CPU,
+B = 1 latency and img/s eager against replay, the memory plan (bfloat16:
+N = plan + 1 under its budget), an int8 bundle and a .pth checkpoint round
+trip, and BatchingServer (bfloat16, 8 threads, 256 requests). Then drives
+the conv probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128
+px), whose four tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
 TMA-fed operands) are first held against their plain versions within one
 bfloat16 ulp, and none of which may spill registers. Prints one JSON line of
 per-kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
@@ -26,6 +33,7 @@ package is missing, or when any check fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -804,41 +812,339 @@ def pipeline_phase(torch, rng, card):
                            f"its B=1 result, int8 (max {d1})")
         check(float(got.std()) > 1e-3, f"{tag} SR is not constant (std {float(got.std()):.4f})")
 
-        kern.sr_batched(lr, cap, lens, microbatch=mb)  # warm-up at the same shapes
+        kern.sr_batched(lr, cap, lens, microbatch=mb)  # captures the graph at B = 64
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.perf_counter()
         out = kern.sr_batched(lr, cap, lens, microbatch=mb)
         dt = time.perf_counter() - t0
-        launches[tag] = dict(_build.LAUNCHES)
-        m = -(-n // mb)
+        eager, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
+        launches[tag] = {key: eager[key] + replayed[key] for key in eager}
+        m, b = kern.plan_batches(n, mb)
         want = {key: v * m for key, v in per_forward.items()}
-        check(launches[tag] == want,
-              f"sr_batched {tag} N={n} microbatch {mb}: {m} forwards went through the "
-              f"kernels ({launches[tag]})")
+        check(eager == zero and replayed == want,
+              f"sr_batched {tag} N={n} microbatch {mb}: {m} replays of the graph captured at "
+              f"B = {b} went through the kernels (replayed {replayed}, eager {eager})")
         check(out.shape == (n, 256, 256, 3) and out.dtype.name == "uint8" and out.std() > 1,
               f"sr_batched {tag} output uint8 {out.shape}")
         print(f"  sr_batched {tag} N={n} microbatch {mb}: {dt:.4f} s, {n / dt:.2f} img/s "
               f"(seeded weights) on {card}", flush=True)
-        profile_forward(torch, kern, lr[None, :mb], cap[None, :mb], lens[None, :mb], tag)
+        lr_d, cap_d, lens_d = (torch.as_tensor(x[:mb], device="cuda") for x in (lr, cap, lens))
+        profile_forward(torch, lambda: kern._serve(lr_d, cap_d, lens_d), tag, "eager", mb)
+        profile_forward(torch, lambda: kern.forward_scan(lr[None, :mb], cap[None, :mb],
+                                                         lens[None, :mb]), tag, "replay", mb)
         if tag == "bfloat16":
             t0 = time.perf_counter()
             scales = kern.calibrate_quant(lrc.astype("float32") / 127.5 - 1.0, capc, lensc)
             print(f"  calibrate_quant on the card, B=16: {time.perf_counter() - t0:.1f} s, "
                   f"{sum(len(v) for v in scales.values())} scales", flush=True)
         del kern
+    return launches, scales
+
+
+def percentiles(ms) -> str:
+    return f"p50 {np.percentile(ms, 50):.4f} ms, p99 {np.percentile(ms, 99):.4f} ms"
+
+
+def serving_phase(torch, rng, card, scales):
+    """The serving engine at face S8 full width, seeded weights, per path
+    (float32, bfloat16, int8 with the calibrated scales): sr_batched at
+    B = 64 (graph replay) bit for bit the uint8 of the eager __call__, its
+    launches the captured counts times the replays; sr_arbitrary at ragged
+    LR shapes (40 x 56 native, 36 x 52 in buckets of 64) against the plain
+    pipelines on the CPU; B = 1 latency and img/s, eager against replay; the
+    memory plan (bf16: sr_batched(microbatch=None) at N = plan and plan + 1,
+    their peak reserved bytes under its budget); an int8 bundle and a .pth checkpoint round trip; BatchingServer
+    (bf16). Returns the kernel launches of its runs."""
+    import tempfile
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = face_s8_config()
+    vocab, s = 41, cfg.scale
+    sds = init_seeded(cfg, vocab, torch.Generator().manual_seed(0))
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+
+    def captions(n):
+        lens = rng.integers(1, T + 1, n)
+        lens[0] = 0  # an empty caption
+        cap = rng.integers(1, vocab, (n, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        return cap, lens
+
+    lr64 = rng.integers(0, 256, (64, 32, 32, 3)).astype("uint8")
+    cap64, lens64 = captions(64)
+    lr1 = lr64[:1].astype("float32") / 127.5 - 1.0
+    # ragged LR: (h, w, bucket); the CPU references, every kernel site plain
+    ragged = [(40, 56, None), (36, 52, 64)]
+    ragged_lr = {(h, w): rng.integers(0, 256, (1, h, w, 3)).astype("float32") / 127.5 - 1.0
+                 for h, w, _ in ragged}
+    cap_r, lens_r = captions(1)
+    cap_r[0, :5], lens_r[0] = rng.integers(1, vocab, 5), 5
+
+    def padded(lr, bucket):
+        if not bucket:
+            return lr
+        bh, bw = -(-lr.shape[1] // bucket) * bucket, -(-lr.shape[2] // bucket) * bucket
+        return np.pad(lr, ((0, 0), (0, bh - lr.shape[1]), (0, bw - lr.shape[2]), (0, 0)),
+                      mode="edge")
+
+    def cpu_refs(**kw):
+        pipe = SRPipeline(cfg, vocab, *sds, device="cpu", **kw)
+        return {(h, w): pipe(padded(ragged_lr[h, w], bk), cap_r, lens_r)["sr"][:, :h * s, :w * s]
+                for h, w, bk in ragged}
+
+    t0 = time.perf_counter()
+    ref_f32 = cpu_refs()
+    ref_int8 = cpu_refs(compute_dtype=torch.bfloat16, quant_scales=scales)
+    print(f"  serving: ragged references on the CPU (f32 and int8): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {}
+    for tag in ("float32", "bfloat16", "int8"):
+        per_forward = dict(zero, word_pixel_attention=3)
+        per_forward.update({"float32": {"up_head": 2}, "bfloat16": {"up_head_packed": 2},
+                            "int8": {"int8_conv": 42, "glu_requant_one": 6,
+                                     "glu_requant_pair": 10, "requant": 26}}[tag])
+        kw = dict(compute_dtype=torch.float32 if tag == "float32" else torch.bfloat16)
+        if tag == "int8":
+            kw["quant_scales"] = scales
+        kern = SRPipeline(cfg, vocab, *sds, device="cuda", **kw)
+        run = dict(zero)
+
+        def count():
+            for key in run:
+                run[key] += _build.LAUNCHES[key] + _build.REPLAYED[key]
+
+        # 1. replay against eager, B = 64
+        kern.sr_batched(lr64, cap64, lens64, microbatch=64)  # captures
+        _build.reset_launches()
+        out = kern.sr_batched(lr64, cap64, lens64, microbatch=64)
+        torch.cuda.synchronize()
+        graph = kern.graphs[(64, 32, 32, T, torch.uint8)]
+        check(_build.LAUNCHES == zero and _build.REPLAYED == per_forward == dict(graph.launches),
+              f"serving {tag}: one replay at B = 64 launched the captured counts "
+              f"({_build.REPLAYED}) and nothing eagerly")
+        count()
+        with torch.inference_mode():
+            lr_f = torch.as_tensor(lr64, device="cuda").float() / 127.5 - 1.0
+            eager = to_uint8(kern(lr_f, cap64, lens64)["sr"]).cpu().numpy()
+        check(np.array_equal(out, eager), f"serving {tag}: sr_batched at B = 64 (graph replay) "
+                                          f"== uint8 of the eager __call__, bit for bit "
+                                          f"({int((out != eager).sum())} values differ)")
+
+        # 2. ragged shapes, eager
+        for h, w, bucket in ragged:
+            lr_r = ragged_lr[h, w]
+            _build.reset_launches()
+            got = kern.sr_arbitrary(lr_r, cap_r, lens_r, bucket=bucket)
+            torch.cuda.synchronize()
+            check(_build.LAUNCHES == per_forward and _build.REPLAYED == zero,
+                  f"serving {tag}: sr_arbitrary {h}x{w} bucket {bucket} went through the "
+                  f"kernels eagerly ({_build.LAUNCHES})")
+            count()
+            check(got.shape == (1, h * s, w * s, 3), f"serving {tag}: sr_arbitrary {h}x{w} "
+                                                     f"bucket {bucket} shape {got.shape}")
+            ref = (ref_int8 if tag == "int8" else ref_f32)[h, w]
+            ref_u8 = to_uint8(ref).numpy().astype(int)
+            if tag == "float32":
+                got_f = kern(padded(lr_r, bucket), cap_r, lens_r)["sr"][:, :h * s, :w * s].cpu()
+                err = (got_f - ref).abs().max().item()
+                du8 = np.abs(got.astype(int) - ref_u8).max()
+                check(err <= 1e-3 and du8 <= 1,
+                      f"serving f32: sr_arbitrary {h}x{w} bucket {bucket} == plain on the CPU "
+                      f"(max abs err {err:.3e} <= 1e-3, uint8 within {du8} <= 1)")
+            else:
+                mse = max(float(np.mean((got.astype(int) - ref_u8) ** 2)), 1e-12)
+                psnr = 10 * np.log10(255.0 ** 2 / mse)
+                what = "int8 plain on the CPU, same scales" if tag == "int8" else "f32 plain"
+                check(psnr >= 40, f"serving {tag}: sr_arbitrary {h}x{w} bucket {bucket} (its "
+                                  f"uint8 output) vs {what}: PSNR {psnr:.2f} dB >= 40")
+
+        # 3. bundles and checkpoints
+        with tempfile.TemporaryDirectory() as tmp:
+            if tag == "int8":
+                kern.save_artifact(os.path.join(tmp, "bundle"))
+                loaded, _ = SRPipeline.load_artifact(os.path.join(tmp, "bundle"), device="cuda")
+                same = loaded.sr_batched(lr64, cap64, lens64, microbatch=64)
+                check(np.array_equal(same, out), "serving int8: save_artifact -> load_artifact "
+                                                 "on the card gives the same output bit for bit")
+                del loaded
+            if tag == "bfloat16":
+                paths = [os.path.join(tmp, name) for name in
+                         ("text_encoder.pth", "netG_epoch_7.pth", "netGH_epoch_7.pth")]
+                for path, sd in zip(paths, sds):
+                    torch.save(sd, path)
+                loaded = SRPipeline.from_reference_checkpoints(
+                    cfg, vocab, paths[1], text_encoder_path=paths[0], device="cuda", **kw)
+                same = loaded.sr_batched(lr64, cap64, lens64, microbatch=64)
+                check(np.array_equal(same, out), "serving bf16: .pth checkpoints through "
+                                                 "from_reference_checkpoints give the same "
+                                                 "output bit for bit")
+                del loaded
+
+        # 4. one request at B = 1 and img/s, eager against replay
+        def eager_one():
+            with torch.inference_mode():
+                return to_uint8(kern(lr1, cap64[:1], lens64[:1])["sr"]).cpu().numpy()
+
+        def replay_one():
+            return kern.sr_uint8(lr1, cap64[:1], lens64[:1])
+
+        lat = {}
+        for how, fn in (("eager", eager_one), ("replay", replay_one)):
+            fn()
+            ms = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                fn()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lat[how] = ms
+        check(np.array_equal(eager_one(), replay_one()),
+              f"serving {tag}: sr_uint8 at B = 1 (replay) == eager, bit for bit")
+        print(f"  serving {tag} one request at B = 1 (50 requests, host clock, seeded weights): "
+              f"eager {percentiles(lat['eager'])}; replay {percentiles(lat['replay'])} "
+              f"on {card}", flush=True)
+        n_img = 1024
+        lr_n = rng.integers(0, 256, (n_img, 32, 32, 3)).astype("uint8")
+        cap_n, lens_n = captions(n_img)
+
+        def eager_batched():
+            with torch.inference_mode():
+                lr_d, cap_d, lens_d = (torch.as_tensor(x, device="cuda").reshape(16, 64, *x.shape[1:])
+                                       for x in (lr_n, cap_n, lens_n))
+                return torch.stack([kern._serve(lr_d[i], cap_d[i], lens_d[i])
+                                    for i in range(16)]).cpu().numpy()
+
+        def replay_batched():
+            return kern.sr_batched(lr_n, cap_n, lens_n, microbatch=64)
+
+        def replay_on_card():  # the same replays, the uint8 SR left on the card
+            kern.forward_scan(lr_n.reshape(16, 64, 32, 32, 3), cap_n.reshape(16, 64, T),
+                              lens_n.reshape(16, 64))
+            torch.cuda.synchronize()
+
+        rate = {}
+        for how, fn in (("eager", eager_batched), ("replay", replay_batched),
+                        ("replay_on_card", replay_on_card)):
+            fn()
+            t0 = time.perf_counter()
+            fn()
+            rate[how] = n_img / (time.perf_counter() - t0)
+        print(f"  serving {tag} sr_batched N = {n_img}, microbatch 64: eager {rate['eager']:.2f} "
+              f"img/s, replay {rate['replay']:.2f} img/s (without the copy of the SR to the "
+              f"host: {rate['replay_on_card']:.2f}) (seeded weights) on {card}", flush=True)
+        profile_forward(torch, replay_one, tag, "replay", 1, top=4)
+
+        # 5. the memory plan
+        b_plan = kern.plan_microbatch()
+        plan = kern.memory_plan
+        print(f"  serving {tag} plan_microbatch: {b_plan} (need {plan.fixed_bytes} + "
+              f"{plan.per_image_bytes} x b bytes, held by other graphs "
+              f"{plan.held_per_image_bytes} x b, probes {plan.probes}, budget "
+              f"{plan.budget_bytes} bytes, {plan.budget_bytes / 2 ** 30:.2f} GiB) on {card}",
+              flush=True)
+        if tag == "bfloat16":
+            # one microbatch at the plan, then plan + 1 (two of about half):
+            # the allocator's peak reserved bytes, above what it reserved
+            # after the plan, held to the plan's budget
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved()
+            for n_big in (b_plan, b_plan + 1):
+                lr_b = rng.integers(0, 256, (n_big, 32, 32, 3)).astype("uint8")
+                cap_b, lens_b = captions(n_big)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                big = kern.sr_batched(lr_b, cap_b, lens_b)
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_reserved() - base
+                m, b = kern.plan_batches(n_big, b_plan)
+                check(big.shape == (n_big, 256, 256, 3) and peak <= plan.budget_bytes,
+                      f"serving bf16: sr_batched(microbatch=None) at N = {n_big} ({m} x {b}, "
+                      f"graph at {kern.graph_batch(b)}, capture included, {dt:.2f} s) peaked at "
+                      f"{peak} reserved bytes ({peak / 2 ** 30:.2f} GiB) <= the budget "
+                      f"{plan.budget_bytes}")
+                del big
+
+        # 6. BatchingServer
+        if tag == "bfloat16":
+            server_checks(torch, kern, card, rng, captions, per_forward, run)
+        launches[tag] = run
+        del kern
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
-def profile_forward(torch, pipe, lr, cap, lens, tag: str, top: int = 12) -> None:
-    """Device time of one B=64 forward by kernel (torch.profiler, CUPTI),
-    and the share of cuDNN's layout conversions."""
+def server_checks(torch, kern, card, rng, captions, per_forward, run) -> None:
+    """BatchingServer (max_batch 64) after warmup(): 8 threads submit 256
+    requests; each result within 2 uint8 levels of its B = 1 result (the
+    bf16 row gate of the pipeline phase)."""
+    import threading
+
+    from tgsr_tpu_torch.engine.serving import BatchingServer
+    from tgsr_tpu_torch.ops import _build
+
+    n = 256
+    lrs = rng.integers(0, 256, (n, 32, 32, 3)).astype("float32") / 127.5 - 1.0
+    caps, lens = captions(n)
+    results = [None] * n
+    with BatchingServer(kern, max_batch=64, max_delay_ms=5) as server:
+        t0 = time.perf_counter()
+        server.warmup(lr_shape=(32, 32, 3))
+        print(f"  serving bf16 BatchingServer warmup (graphs at {server.planned_sizes}): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        _build.reset_launches()
+
+        def worker(k):
+            futs = [(i, server.submit(lrs[i], caps[i], lens[i])) for i in range(k, n, 8)]
+            for i, fut in futs:
+                results[i] = fut.result(timeout=300)
+
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        dt = time.perf_counter() - t0
+        stats = server.stats_snapshot()
+        pct = server.latency_percentiles()
+    replayed = dict(_build.REPLAYED)
+    batches = stats["batches"]
+    for key in run:
+        run[key] += _build.LAUNCHES[key] + replayed[key]
+    check(not any(t.is_alive() for t in threads) and stats["requests"] == n
+          and _build.LAUNCHES == {k: 0 for k in run}
+          and replayed == {k: v * batches for k, v in per_forward.items()},
+          f"serving bf16 BatchingServer: {stats['requests']} of {n} requests in {batches} "
+          f"graph replays, nothing eager")
+    worst = 0
+    for i in range(n):
+        one = kern.sr_uint8(lrs[i:i + 1], caps[i:i + 1], lens[i:i + 1])[0]
+        worst = max(worst, int(np.abs(one.astype(int) - results[i].astype(int)).max()))
+    check(worst <= 2, f"serving bf16 BatchingServer: every result within 2 uint8 levels of "
+                      f"its B = 1 result (max {worst})")
+    print(f"  serving bf16 BatchingServer, 8 threads x 32 requests: {dt:.3f} s, "
+          f"{n / dt:.2f} img/s, batch histogram {dict(sorted(stats['batch_hist'].items()))}, "
+          f"latency p50 {pct['p50_ms']:.4f} ms, p99 {pct['p99_ms']:.4f} ms (host clock, "
+          f"seeded weights) on {card}", flush=True)
+
+
+def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> None:
+    """Device time of one B=64 forward, fn(), by kernel (torch.profiler,
+    CUPTI), and the share of cuDNN's layout conversions; `how` is "eager"
+    or "replay" (of the captured graph)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.forward_scan(lr, cap, lens)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -847,9 +1153,10 @@ def profile_forward(torch, pipe, lr, cap, lens, tag: str, top: int = 12) -> None
     if not events:
         print("  profile: no device time recorded (not measured)", flush=True)
         return
-    print(f"  profile of one {tag} forward at B={lr.shape[1]}: device {dev:.3f} ms, "
+    print(f"  profile of one {tag} forward at B={b}, {how}: device {dev:.3f} ms, "
           f"wall {wall:.3f} ms under the profiler, idle share "
-          f"{max(0.0, 1 - dev / wall):.3f}", flush=True)
+          f"{max(0.0, 1 - dev / wall):.3f}, {sum(e.count for e in events)} kernels",
+          flush=True)
     conv = [e for e in events if "nchwToNhwc" in e.key or "nhwcToNchw" in e.key]
     conv_ms = sum(e.self_device_time_total for e in conv) / 1e3
     print(f"    layout conversions: {sum(e.count for e in conv)} launches, "
@@ -895,8 +1202,12 @@ def main() -> int:
                requant_phase(torch), int8_conv_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches = pipeline_phase(torch, rng, card)
+    launches, scales = pipeline_phase(torch, rng, card)
     print(f"pipeline phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for tag, run in serving_phase(torch, rng, card, scales).items():
+        launches[f"serving {tag}"] = run
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows

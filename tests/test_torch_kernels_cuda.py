@@ -45,6 +45,7 @@ import torch
 
 from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
 from tgsr_tpu_torch.config import Config, GanConfig, TextConfig, TreeConfig
+from tgsr_tpu_torch.engine import inference
 from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
 from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops import conv_probe
@@ -595,3 +596,174 @@ def test_conv_probe_refuses_what_it_cannot_load(cuda_device, name):
     with pytest.raises(ValueError):
         kernel(a, _at_offset(w, 1))
     assert _build.LAUNCHES == before
+
+
+# -- the serving engine: captured forwards and ragged shapes -----------------
+
+# kernel launches of one forward in each serving path
+PATH_LAUNCHES = {
+    "float32": dict(word_pixel_attention=3, up_head=2),
+    "bfloat16": dict(word_pixel_attention=3, up_head_packed=2),
+    "int8": dict(word_pixel_attention=3, int8_conv=42, glu_requant_one=6, glu_requant_pair=10,
+                 requant=26),
+}
+
+
+def _serving_batch(b, seed=0, size=8, t=6):
+    """uint8 LR [b, size, size, 3], captions with mixed lengths (one empty)."""
+    rng = np.random.default_rng(seed)
+    lr = rng.integers(0, 256, (b, size, size, 3)).astype(np.uint8)
+    lens = rng.integers(1, t + 1, b)
+    lens[0] = 0
+    cap = rng.integers(1, 41, (b, t))
+    cap[np.arange(t)[None, :] >= lens[:, None]] = 0
+    return lr, cap, lens
+
+
+def _serving_pipe(device, path):
+    """A narrow x8 pipeline on the card in `path` (int8 at GF_DIM 32, the
+    kernel's GLU widths, with scales calibrated on the card's bf16
+    pipeline)."""
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(32 if path == "int8" else 8, 10, 2),
+                 TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    kw = {} if path == "float32" else dict(compute_dtype=torch.bfloat16)
+    if path == "int8":
+        lr, cap, lens = _serving_batch(4, seed=9)
+        bf16 = SRPipeline(cfg, 41, *sds, device=device, **kw)
+        kw["quant_scales"] = bf16.calibrate_quant(lr / 127.5 - 1.0, cap, lens)
+    return SRPipeline(cfg, 41, *sds, device=device, **kw)
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8"])
+def test_graph_replay_equals_eager(cuda_device, path, b):
+    """forward_scan (uint8 LR) and sr_uint8 (float LR) replay the forward
+    captured at graph_batch(B) (B = 3 at 4, padded by replicas), bit for
+    bit the uint8 of the eager __call__ on the same padded inputs, cropped
+    to B; a replay launches nothing eagerly and counts the captured
+    launches in REPLAYED."""
+    pipe = _serving_pipe(cuda_device, path)
+    lr, cap, lens = _serving_batch(b)
+    g = SRPipeline.graph_batch(b)
+    first = pipe.forward_scan(lr[None], cap[None], lens[None])[0].clone()  # captures
+    lrf = torch.as_tensor(lr, device=cuda_device).float() / 127.5 - 1.0
+    pipe.sr_uint8(lrf.cpu().numpy(), cap, lens)  # captures the float32 graph
+    _build.reset_launches()
+    got = pipe.forward_scan(lr[None], cap[None], lens[None])[0]
+    got_f = pipe.sr_uint8(lrf.cpu().numpy(), cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == ZERO
+    assert _build.REPLAYED == {k: 2 * v for k, v in dict(ZERO, **PATH_LAUNCHES[path]).items()}
+    assert pipe.graphs[(g, 8, 8, 6, torch.uint8)].launches == dict(ZERO, **PATH_LAUNCHES[path])
+    assert list(pipe.graphs) == [(g, 8, 8, 6, torch.uint8), (g, 8, 8, 6, torch.float32)]
+    sel = np.arange(g) % b
+    ref = to_uint8(pipe(lrf[sel], cap[sel], lens[sel])["sr"])[:b]
+    assert torch.equal(got, ref) and torch.equal(first, got)
+    ref_f = to_uint8(pipe(lrf.cpu().numpy()[sel], cap[sel], lens[sel])["sr"])[:b]
+    assert np.array_equal(got_f, ref_f.cpu().numpy())
+
+
+def test_second_graph_leaves_the_first(cuda_device):
+    """A forward_scan at a new B captures a second graph in the same pool;
+    the first graph's output survives the second's replay, and its next
+    replay gives the same bits."""
+    pipe = _serving_pipe(cuda_device, "bfloat16")
+    lr2, cap2, lens2 = _serving_batch(2)
+    lr3, cap3, lens3 = _serving_batch(3, seed=1)
+    a = pipe.forward_scan(lr2[None], cap2[None], lens2[None])
+    pipe.forward_scan(lr3[None], cap3[None], lens3[None])
+    assert sorted(k[0] for k in pipe.graphs) == [2, 4]  # B = 3 replays at 4
+    g2 = pipe.graphs[(2, 8, 8, 6, torch.uint8)]
+    torch.cuda.synchronize()
+    assert torch.equal(g2.out, a[0])
+    again = pipe.forward_scan(lr2[None], cap2[None], lens2[None])
+    assert torch.equal(again, a) and g2.replays == 2
+
+
+def test_sr_batched_keeps_few_graphs(cuda_device):
+    """sr_batched(microbatch=None) at every N = 1..200 (one microbatch of N
+    each) captures ten graphs, at 1, 2, 4, ..., 64, 128, 192 and 256, and
+    each N's result is the eager forward at its graph batch, cropped."""
+    pipe = _serving_pipe(cuda_device, "bfloat16")
+    lr, cap, lens = _serving_batch(200, seed=3)
+    outs = {n: pipe.sr_batched(lr[:n], cap[:n], lens[:n]) for n in range(1, 201)}
+    assert pipe.plan_microbatch() >= 256
+    assert sorted(k[0] for k in pipe.graphs) == [1, 2, 4, 8, 16, 32, 64, 128, 192, 256]
+    lrf = torch.as_tensor(lr, device=cuda_device).float() / 127.5 - 1.0
+    for n in (1, 3, 64, 65, 200):
+        sel = np.arange(SRPipeline.graph_batch(n)) % n
+        ref = to_uint8(pipe(lrf[:n][sel], cap[:n][sel], lens[:n][sel])["sr"])[:n]
+        assert np.array_equal(outs[n], ref.cpu().numpy()), n
+
+
+def test_graph_cache_drops_least_recent(cuda_device, monkeypatch):
+    """Past MAX_GRAPHS the least recently replayed graph goes; the kept
+    ones and a new capture in the freed room give the same bits as
+    before."""
+    monkeypatch.setattr(inference, "MAX_GRAPHS", 2)
+    pipe = _serving_pipe(cuda_device, "bfloat16")
+    lr, cap, lens = _serving_batch(4, seed=4)
+
+    def run(b):
+        return pipe.forward_scan(lr[None, :b], cap[None, :b], lens[None, :b])[0].clone()
+
+    one, two = run(1), run(2)
+    assert torch.equal(run(1), one)  # 1 is now the most recent
+    four = run(4)
+    assert [k[0] for k in pipe.graphs] == [1, 4]
+    assert torch.equal(run(1), one) and torch.equal(run(2), two)  # 2 captured again, 4 dropped
+    assert [k[0] for k in pipe.graphs] == [1, 2]
+    assert torch.equal(run(4), four)
+
+
+def _ragged_attention(device, hw, dtype):
+    """Attention at a ragged sr_arbitrary site (B = 1, C 32, T 18)."""
+    rng = np.random.default_rng(hw[0])
+    px = torch.from_numpy(rng.normal(size=(1, *hw, 32)).astype(np.float32)).to(device)
+    wd = torch.from_numpy(rng.normal(size=(1, 18, 32)).astype(np.float32)).to(device)
+    mask = (torch.arange(18) >= 7)[None].to(device)
+    ctx_k, attn_k = word_pixel_attention(px.to(dtype), wd.to(dtype), mask)
+    ctx_p, attn_p = plain_wpa(px.to(dtype).float(), wd.to(dtype).float(), mask)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -8, atol=1e-5)
+    torch.testing.assert_close(ctx_k.float(), ctx_p, **tol)
+    torch.testing.assert_close(attn_k.float(), attn_p, **tol)
+
+
+# the kernel sites of sr_arbitrary at a 40 x 56 LR, full width (B = 1): the
+# attention's three pixel grids, both up-head sites (160 x 224 -> 320 x 448),
+# and the int8 convs' shapes (b, h, w, cin, cout, k, up2, bn, residual)
+RAGGED_SITES = (
+    [("attention", (hw, dt)) for hw in ((40, 56), (80, 112), (160, 224))
+     for dt in (torch.float32, torch.bfloat16)]
+    + [(kind, (1, 160, 224, cin, 64, k, k == 5, k == 5)) for kind in ("up_head", "up_head_packed")
+       for cin, k in ((64, 3), (32, 5))]
+    + [("int8_conv", cfg) for cfg in (
+        (1, 40, 56, 3, 64, 3, False, False, False),
+        (1, 40, 56, 64, 128, 3, False, True, False),
+        (1, 40, 56, 64, 64, 3, False, True, True),
+        (1, 40, 56, 64, 64, 3, True, True, False),
+        (1, 80, 112, 32, 3, 3, False, False, False),
+        (1, 40, 56, 32, 64, 3, False, True, False),
+        (1, 40, 56, 32, 32, 3, False, True, True),
+        (1, 80, 112, 32, 64, 3, True, True, False),
+        (1, 160, 224, 32, 3, 5, False, False, False),
+        (1, 320, 448, 32, 3, 3, False, False, False),
+        (1, 320, 448, 32, 3, 5, False, False, False))])
+
+
+@pytest.mark.parametrize("site", RAGGED_SITES, ids=lambda s: f"{s[0]}-{s[1]}")
+def test_sr_arbitrary_ragged_site_matches_plain(cuda_device, site):
+    """Each kernel site of sr_arbitrary at a ragged LR (40 x 56, whose
+    grids are not multiples of the kernels' tiles) against its plain
+    version, with the gate of that kernel's own test."""
+    kind, cfg = site
+    if kind == "attention":
+        _ragged_attention(cuda_device, *cfg)
+    elif kind == "up_head":
+        test_up_head_kernel_matches_plain(cuda_device, cfg)
+    elif kind == "up_head_packed":
+        test_up_head_packed_kernel_matches_plain(cuda_device, cfg, torch.bfloat16)
+    else:
+        test_int8_conv_matches_plain(cuda_device, cfg)

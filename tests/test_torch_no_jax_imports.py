@@ -1,7 +1,7 @@
 """Hygiene of the PyTorch port: tgsr_tpu_torch and chip_smoke.py import
-nothing of JAX or tgsr_tpu, the port's weights carry exactly the reference
-state-dict keys and shapes that tgsr_tpu's exporter emits, and the ctypes
-signatures agree with the kernels' C interfaces."""
+nothing of JAX, flax, msgpack, PIL or tgsr_tpu, the port's weights carry
+exactly the reference state-dict keys and shapes that tgsr_tpu's exporter
+emits, and the ctypes signatures agree with the kernels' C interfaces."""
 
 import ast
 import os
@@ -20,7 +20,9 @@ from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tests.torch_parity import VOCAB, configs, jax_trees
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tgsr_tpu")
+# the card machine has none of these: msgpack files are read by the port's
+# own checkpoints/msgpack_io.py, and the port decodes no images
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tgsr_tpu", "msgpack", "PIL")
 
 
 def _port_files():

@@ -217,12 +217,19 @@ def init_seeded(cfg: Config, vocab_size: int, generator: torch.Generator
     returns. `a` is 0.5, the JAX init."""
     from tgsr_tpu_torch.models.generator import GSRNetLow
     from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
-    from tgsr_tpu_torch.models.text_encoder import TextEncoder
 
     emb = cfg.TEXT.EMBEDDING_DIM
-    text = TextEncoder(vocab_size, 300, emb)
+    text = seeded_text_state_dict(cfg, vocab_size, generator)
     netg = GSRNetLow(cfg.GAN.GF_DIM, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages,
                      cfg.GAN.R_NUM)
     netgh = NetGHighWeight(cfg.GAN.GF_DIM)
-    return (_seed_module(text, generator), _seed_module(netg, generator),
-            _seed_module(netgh, generator), 0.5)
+    return text, _seed_module(netg, generator), _seed_module(netgh, generator), 0.5
+
+
+def seeded_text_state_dict(cfg: Config, vocab_size: int, generator: torch.Generator
+                           ) -> StateDict:
+    """Random TextEncoder weights from `generator` (the first of
+    `init_seeded`'s draws)."""
+    from tgsr_tpu_torch.models.text_encoder import TextEncoder
+
+    return _seed_module(TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM), generator)

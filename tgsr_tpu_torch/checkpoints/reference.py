@@ -1,0 +1,61 @@
+"""The reference's checkpoint files (counterpart of
+tgsr_tpu/checkpoints/convert_torch.py `paired_path` and
+`load_generator_pair`, for the x8 family, BRANCH_NUM 4).
+
+A reference `.pth` already carries the port's key names and OIHW layouts, so
+it loads as it is, with `torch.load(weights_only=True)`, and the modules
+take it with `load_state_dict(strict=True)`. A `.msgpack` file (a flax tree,
+`cli.train_gan`'s netG_it* / netGH_it* snapshots) goes through `msgpack_io`
+and `from_jax`.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, netg_state_dict,
+                                                 netgh_state_dict, text_state_dict)
+from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
+from tgsr_tpu_torch.config import Config
+
+DEFAULT_A = 0.5  # the reference builds NetG_highweight with a = 0.5 (model.py:246-248)
+
+
+def paired_path(path: str, a: str, b: str) -> str:
+    """The companion file, named by substituting `a` -> `b` in the basename
+    only (netG -> netGH, trainer_objective.py:91-93); a directory whose name
+    contains `a` is not rewritten."""
+    d, base = os.path.split(path)
+    return os.path.join(d, base.replace(a, b))
+
+
+def _load_pth(path: str) -> StateDict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_generator_pair(cfg: Config, netg_path: str, netgh_path: Optional[str] = None
+                        ) -> Tuple[StateDict, StateDict, float]:
+    """(netg_sd, netgh_sd, a). netgh_path defaults to netg_path's pair. A
+    `.pth` netGH carries no `a` (it is not a registered parameter of the
+    reference), so a is 0.5 unless the file has one; a `.msgpack` pair
+    carries its trained `a`."""
+    if cfg.TREE.BRANCH_NUM != 4:
+        raise NotImplementedError("the port loads the x8 family (BRANCH_NUM 4) only")
+    if netgh_path is None:
+        netgh_path = paired_path(netg_path, "netG", "netGH")
+    if netg_path.endswith(".msgpack"):
+        netgh_sd, a = netgh_state_dict(load_variables(netgh_path))
+        return netg_state_dict(load_variables(netg_path)), netgh_sd, a
+    netgh_sd = dict(_load_pth(netgh_path))
+    a = float(netgh_sd.pop("a").reshape(-1)[0]) if "a" in netgh_sd else DEFAULT_A
+    return _load_pth(netg_path), netgh_sd, a
+
+
+def load_text_encoder(path: str) -> StateDict:
+    """A reference text_encoder `.pth`, or a flax TextEncoder tree."""
+    if path.endswith(".pth"):
+        return _load_pth(path)
+    return text_state_dict(load_variables(path))

@@ -31,29 +31,66 @@ made after the cast, as JAX quantizes the cast variables. Its convs launch
 256 px scale run as modules (the quantized UpBlock, then the int8 head), so
 the up-head kernels do not run. `calibrate_quant` records the scales on the
 plain, unfused modules.
+
+Serving: on the card `forward_scan` (and with it `sr_batched`, `sr_uint8`
+and engine/serving.py `BatchingServer`) replays the forward of one
+microbatch as a CUDA graph, captured once per (graph batch, LR size,
+caption length, LR dtype) (engine/graphs.py): a microbatch of b is padded
+by replicas to `graph_batch(b)` (a power of two up to 64, then a multiple
+of 64) and cropped, and at most MAX_GRAPHS graphs are kept. On the CPU it
+runs the same forward eagerly at b. `sr_batched` plans its microbatch from the card's memory
+(`plan_microbatch`). `sr_arbitrary` runs eagerly, since its shapes vary.
+Weights come from seeded or JAX state dicts, from the reference's
+checkpoints (`from_reference_checkpoints`), or from a deployment bundle
+(`save_artifact` / `load_artifact`, the JAX package's bundle layout; JAX's
+own bundles load too).
 """
 
 from __future__ import annotations
 
+import json
+import os
+from collections import OrderedDict
 from functools import partial
-from typing import Any, Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from tgsr_tpu_torch.checkpoints.from_jax import conv_sites
-from tgsr_tpu_torch.config import Config
+from tgsr_tpu_torch.checkpoints.from_jax import (conv_sites, seeded_text_state_dict,
+                                                 state_dicts_from_jax)
+from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
+from tgsr_tpu_torch.checkpoints.reference import load_generator_pair, load_text_encoder
+from tgsr_tpu_torch.config import Config, config_from_dict, config_to_dict
+from tgsr_tpu_torch.data.tokenizer import Vocab
+from tgsr_tpu_torch.engine.graphs import ForwardGraph
 from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats
-from tgsr_tpu_torch.engine.quant import (SPLIT_RES_GLU_SITES, check_scales,
+from tgsr_tpu_torch.engine.quant import (SCALES_META_KEY, SPLIT_RES_GLU_SITES, check_scales,
                                          effective_split_glu, record_absmax,
-                                         split_scales_meta)
+                                         split_scales_meta, weights_fingerprint)
 from tgsr_tpu_torch.models.generator import GSRNetLow
 from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
 from tgsr_tpu_torch.models.quantized import quantize_generator
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
+from tgsr_tpu_torch.ops.image import bucket_shape
 from tgsr_tpu_torch.ops.up_head import up_head_site
 from tgsr_tpu_torch.ops.up_head_packed import prepare_up_head_packed, up_head_packed_site
+from tgsr_tpu_torch.utils import memory
+
+# sr_batched's microbatch on the CPU, where no memory plan runs
+CPU_MICROBATCH = 64
+# sr_batched rounds its balanced microbatch up to a multiple of this, as the
+# JAX package does (which still leaves b = N for every N below the
+# microbatch); on the card a microbatch of b is replayed at `graph_batch(b)`
+MICROBATCH_QUANTUM = 64
+# the captured graphs a pipeline keeps, least recently used dropped first:
+# each holds its static inputs and output (engine/graphs.py), which the
+# memory plan counts
+MAX_GRAPHS = 16
+# a deployment bundle's weights: the three reference-named state dicts and a
+BUNDLE_WEIGHTS = "state_dicts.pt"
+DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -97,19 +134,18 @@ class SRPipeline:
             raise NotImplementedError("int8 serving with float32 compute is not "
                                       "ported; use compute_dtype=torch.bfloat16")
         self.cfg = cfg
+        self.vocab_size = vocab_size
         self.device = resolve_device(device)
         self.return_attn = return_attn
         self.compute_dtype = compute_dtype
-        emb = cfg.TEXT.EMBEDDING_DIM
-        self.text_encoder = TextEncoder(vocab_size, 300, emb)
-        self.netg = GSRNetLow(cfg.GAN.GF_DIM, emb, cfg.GAN.CONDITION_DIM,
-                              cfg.n_stages, cfg.GAN.R_NUM)
-        self.netgh = NetGHighWeight(cfg.GAN.GF_DIM)
-        for module, sd in ((self.text_encoder, text_sd), (self.netg, netg_sd),
-                           (self.netgh, netgh_sd)):
-            module.load_state_dict(sd, strict=True)
+        # the float32 weights as given, for save_artifact
+        self.state_dicts = tuple({k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+                                 for sd in (text_sd, netg_sd, netgh_sd))
+        self.a = float(a)
+        self.text_encoder, self.netg, self.netgh = _modules(cfg, vocab_size, *self.state_dicts)
+        for module in (self.text_encoder, self.netg, self.netgh):
             module.to(self.device).eval()
-        self.netgh.a.fill_(float(a))
+        self.netgh.a.fill_(self.a)
         self.quant_scales, self.quant_meta = split_scales_meta(quant_scales or {})
         check_scales(self.quant_scales, self.netg, self.netgh, meta=self.quant_meta)
         # the up-head sites of the generators served unquantized, folded (and
@@ -131,6 +167,112 @@ class SRPipeline:
                                SPLIT_RES_GLU_SITES)
             if self.quant_scales.get(group) else module
             for group, module in (("netg", self.netg), ("netgh", self.netgh)))
+        # on the card: the captured forwards (`_graph`) and the memory plan
+        self.graphs: "OrderedDict[tuple, ForwardGraph]" = OrderedDict()
+        self._graph_pool = None
+        self.memory_plan: Optional[memory.MemoryPlan] = None
+
+    # -- construction from files -------------------------------------------
+
+    @classmethod
+    def from_reference_checkpoints(cls, cfg: Config, vocab_size: int, netg_path: str,
+                                   netgh_path: Optional[str] = None,
+                                   text_encoder_path: Optional[str] = None,
+                                   text_seed: int = 100, **kw) -> "SRPipeline":
+        """The reference's loading rules (trainer_objective.py:74-93):
+        netGH's path is netG's with netG -> netGH in the basename; a `.pth`
+        loads as it is (reference key names), with a = 0.5; a `.msgpack`
+        pair is a flax tree with its own a (checkpoints/reference.py). The
+        text encoder is a `.pth` or a flax tree; without one the weights are
+        seeded from `text_seed` (`from_jax.seeded_text_state_dict`, which
+        does not reproduce the JAX package's PRNGKey(text_seed) init)."""
+        netg_sd, netgh_sd, a = load_generator_pair(cfg, netg_path, netgh_path)
+        if text_encoder_path:
+            text_sd = load_text_encoder(text_encoder_path)
+        else:
+            text_sd = seeded_text_state_dict(cfg, vocab_size,
+                                             torch.Generator().manual_seed(text_seed))
+        return cls(cfg, vocab_size, text_sd, netg_sd, netgh_sd, a=a, **kw)
+
+    def save_artifact(self, path: str, vocab: Optional[Vocab] = None,
+                      return_attn: Optional[bool] = None) -> str:
+        """One-directory deployment bundle, the JAX package's layout:
+        config.json (`config_to_dict`), meta.json (vocab_size, compute
+        dtype, return_attn), quant_scales.json (an int8 pipeline's scales,
+        stamped with the weights' fingerprint), vocab.json (optional), and
+        the weights in BUNDLE_WEIGHTS: {'text', 'netg', 'netgh'} float32
+        state dicts and 'a', where JAX writes variables.msgpack. Load with
+        `SRPipeline.load_artifact(path)`."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config_to_dict(self.cfg), f, indent=1, sort_keys=True)
+        text_sd, netg_sd, netgh_sd = self.state_dicts
+        torch.save({"text": text_sd, "netg": netg_sd, "netgh": netgh_sd, "a": self.a},
+                   os.path.join(path, BUNDLE_WEIGHTS))
+        if self.quant_scales:
+            # the bundle's scales are bound to the bundle's weights
+            _, netg, netgh = _modules(self.cfg, self.vocab_size, *self.state_dicts)
+            meta = {**self.quant_meta, "weights_fingerprint": weights_fingerprint(netg, netgh)}
+            with open(os.path.join(path, "quant_scales.json"), "w") as f:
+                json.dump({**self.quant_scales, SCALES_META_KEY: meta}, f, indent=1,
+                          sort_keys=True)
+        if vocab is not None:
+            with open(os.path.join(path, "vocab.json"), "w") as f:
+                json.dump({"ixtoword": vocab.ixtoword}, f)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"vocab_size": self.vocab_size,
+                       "compute_dtype": str(self.compute_dtype).split(".")[-1],
+                       "return_attn": self.return_attn if return_attn is None else return_attn},
+                      f)
+        return path
+
+    @classmethod
+    def load_artifact(cls, path: str, device: Union[str, torch.device] = "cuda",
+                      compute_dtype: Optional[torch.dtype] = None,
+                      use_quant: Optional[bool] = None, **kw
+                      ) -> Tuple["SRPipeline", Optional[Vocab]]:
+        """(pipeline, vocab or None) from a bundle of `save_artifact`, or of
+        the JAX package's `save_artifact` (variables.msgpack). The JAX
+        contract: `compute_dtype` and kw override the saved settings;
+        use_quant None serves as bundled, True requires bundled scales
+        (ValueError without), False ignores them."""
+        with open(os.path.join(path, "config.json")) as f:
+            cfg = config_from_dict(json.load(f))
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        weights = os.path.join(path, BUNDLE_WEIGHTS)
+        if os.path.exists(weights):
+            w = torch.load(weights, map_location="cpu", weights_only=True)
+            sds = (w["text"], w["netg"], w["netgh"], w["a"])
+        else:
+            v = load_variables(os.path.join(path, "variables.msgpack"))
+            sds = state_dicts_from_jax(v["text"], v["netg"], v["netgh"])
+        scales = None
+        scales_path = os.path.join(path, "quant_scales.json")
+        if os.path.exists(scales_path):
+            with open(scales_path) as f:
+                scales = json.load(f)
+        if use_quant and scales is None:
+            raise ValueError(f"{path} has no quant_scales.json: re-save from an int8 "
+                             "pipeline or calibrate_quant()")
+        if use_quant is False:
+            scales = None
+        vocab = None
+        vocab_path = os.path.join(path, "vocab.json")
+        if os.path.exists(vocab_path):
+            with open(vocab_path) as f:
+                ixtoword = {int(k): w for k, w in json.load(f)["ixtoword"].items()}
+            vocab = Vocab(ixtoword, {w: i for i, w in ixtoword.items()})
+        if compute_dtype is None:
+            if meta["compute_dtype"] not in DTYPE_NAMES:
+                raise NotImplementedError(f"compute dtype {meta['compute_dtype']!r}: the port "
+                                          f"serves {sorted(DTYPE_NAMES)}")
+            compute_dtype = DTYPE_NAMES[meta["compute_dtype"]]
+        kw.setdefault("return_attn", meta.get("return_attn", False))
+        text_sd, netg_sd, netgh_sd, a = sds
+        pipe = cls(cfg, meta["vocab_size"], text_sd, netg_sd, netgh_sd, a=a, device=device,
+                   compute_dtype=compute_dtype, quant_scales=scales, **kw)
+        return pipe, vocab
 
     def _up_head_site(self, generator, group: str
                       ) -> Optional[Callable[..., torch.Tensor]]:
@@ -192,32 +334,134 @@ class SRPipeline:
             out["attn"] = [a.float() for a in att]
         return out
 
+    def _serve(self, lr: torch.Tensor, captions: torch.Tensor,
+               cap_lens: torch.Tensor) -> torch.Tensor:
+        """The forward of one microbatch on the device, uint8 in or out:
+        lr [B, h, w, 3] (uint8, normalized here, or float in [-1, 1]) ->
+        uint8 SR [B, H, W, 3]. What a graph captures."""
+        if lr.dtype == torch.uint8:
+            lr = lr.float() / 127.5 - 1.0
+        fine, _ = self._forward(lr.float(), captions, cap_lens, False)
+        return nhwc(to_uint8(fine[-1].float()))
+
+    @staticmethod
+    def graph_batch(b: int) -> int:
+        """The batch a microbatch of b replays at on the card: the next
+        power of two up to MICROBATCH_QUANTUM, then the next multiple of
+        it. So the sizes 1..4096 map onto 70 graph batches, and a planned
+        microbatch (`memory.max_microbatch`) is one of them."""
+        if b <= MICROBATCH_QUANTUM:
+            return 1 << (b - 1).bit_length()
+        return -(-b // MICROBATCH_QUANTUM) * MICROBATCH_QUANTUM
+
+    def _graph(self, b: int, h: int, w: int, t: int, lr_dtype: torch.dtype) -> ForwardGraph:
+        """The captured forward at batch b (a `graph_batch` size), LR h x w,
+        caption length t, LR uint8 or float32 (any float LR is copied into a
+        float32 buffer); captured at first use. Past MAX_GRAPHS the least
+        recently used graph is dropped, with its inputs and output."""
+        lr_dtype = torch.uint8 if lr_dtype == torch.uint8 else torch.float32
+        key = (b, h, w, t, lr_dtype)
+        if key in self.graphs:
+            self.graphs.move_to_end(key)
+            return self.graphs[key]
+        if len(self.graphs) >= MAX_GRAPHS:
+            torch.cuda.synchronize(self.device)  # no replay of it is in flight
+            self.graphs.popitem(last=False)
+        if self._graph_pool is None:
+            # One memory pool for all of this pipeline's graphs, so their
+            # working sets overlap instead of adding up. Safe because their
+            # replays never overlap (one caller, or BatchingServer's one
+            # collector thread, on one stream), each kept graph's static
+            # inputs and output stay allocated (no other capture takes them;
+            # a dropped graph is never replayed again), and the caller
+            # copies each replay's output out before any graph replays
+            # again; what two graphs share is scratch that every replay
+            # writes before it reads.
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        inputs = (torch.zeros((b, h, w, 3), dtype=lr_dtype, device=self.device),
+                  torch.ones((b, t), dtype=torch.long, device=self.device),
+                  torch.full((b,), t, dtype=torch.long, device=self.device))
+        self.graphs[key] = ForwardGraph(self._serve, inputs, self._graph_pool)
+        return self.graphs[key]
+
     @torch.inference_mode()
     def forward_scan(self, lr, captions, cap_lens) -> torch.Tensor:
         """lr [M, B, h, w, 3] (uint8, or float in [-1, 1]), captions
         [M, B, T], cap_lens [M, B] -> uint8 SR [M, B, H, W, 3] on the device,
-        one microbatch of B after another."""
+        one microbatch of B after another: on the card, replays of the
+        forward captured at `graph_batch(B)` (captured at the first call of
+        that shape), each microbatch padded by replicas of its own images
+        and cropped; on the CPU, the same forward run eagerly at B."""
         lr = self._tensor(lr)
         captions = self._tensor(captions, torch.long)
         cap_lens = self._tensor(cap_lens, torch.long)
         s = self.cfg.scale
         m, b, h, w, _ = lr.shape
-        out = torch.empty((m, b, h * s, w * s, 3), dtype=torch.uint8,
-                          device=self.device)
+        serve = self._serve
+        if self.device.type == "cuda":
+            bg = self.graph_batch(b)
+            if bg > b:
+                sel = torch.arange(bg, device=self.device) % b
+                lr, captions, cap_lens = lr[:, sel], captions[:, sel], cap_lens[:, sel]
+            serve = self._graph(bg, h, w, captions.shape[-1], lr.dtype)
+        out = torch.empty((m, b, h * s, w * s, 3), dtype=torch.uint8, device=self.device)
         for i in range(m):
-            lr_i = lr[i]
-            if lr_i.dtype == torch.uint8:
-                lr_i = lr_i.float() / 127.5 - 1.0
-            fine, _ = self._forward(lr_i.float(), captions[i], cap_lens[i], False)
-            out[i] = nhwc(to_uint8(fine[-1].float()))
+            out[i] = serve(lr[i], captions[i], cap_lens[i])[:b]
         return out
 
-    def sr_batched(self, lr, captions, cap_lens, microbatch: int) -> np.ndarray:
-        """Any number N of images, in ceil(N / microbatch) microbatches of
-        balanced size: the batch is cut to ceil(N / m) so N = 65 at
-        microbatch 64 runs 2 x 33, not 2 x 64. The tail is padded by
+    @torch.inference_mode()
+    def _probe_need(self, b: int) -> int:
+        """Peak device bytes the caching allocator reserves for one eager
+        uint8 microbatch forward at b."""
+        t, size = self.cfg.TEXT.WORDS_NUM, self.cfg.TREE.BASE_SIZE
+        lr = torch.zeros((b, size, size, 3), dtype=torch.uint8, device=self.device)
+        captions = torch.ones((b, t), dtype=torch.long, device=self.device)
+        cap_lens = torch.full((b,), t, dtype=torch.long, device=self.device)
+        return memory.peak_bytes(lambda: self._serve(lr, captions, cap_lens), self.device)
+
+    def plan_microbatch(self) -> int:
+        """The largest microbatch (a multiple of MICROBATCH_QUANTUM, or a
+        power of two below it; at most memory.MAX_MICROBATCH) that fits the
+        card: its forward twice over, as a graph's pool and an eager forward
+        of the same size beside it (the warm-up before a capture), plus the
+        static inputs and outputs of the MAX_GRAPHS - 1 other graphs the
+        pipeline may keep, each at most that size (utils/memory.py). The
+        forward's need is measured at two probe batches and fitted linearly,
+        against the card's free memory times memory.BUDGET_FRACTION. Planned
+        once per pipeline, kept with its fitted bytes in `memory_plan`. On
+        the CPU: CPU_MICROBATCH. The counterpart of the JAX package's plan
+        from XLA's memory analysis, and of its v5e constant
+        DEFAULT_MICROBATCH."""
+        if self.device.type != "cuda":
+            return CPU_MICROBATCH
+        if self.memory_plan is None:
+            t, size, s = self.cfg.TEXT.WORDS_NUM, self.cfg.TREE.BASE_SIZE, self.cfg.scale
+            # a graph's float32 LR, token ids and lengths, and uint8 SR
+            graph_bytes = size * size * 3 * 4 + (t + 1) * 8 + (size * s) ** 2 * 3
+            torch.cuda.empty_cache()
+            self.memory_plan = memory.plan(self._probe_need,
+                                           memory.device_memory_budget(self.device),
+                                           MICROBATCH_QUANTUM, (MAX_GRAPHS - 1) * graph_bytes)
+        return self.memory_plan.microbatch
+
+    @staticmethod
+    def plan_batches(n: int, microbatch: int) -> Tuple[int, int]:
+        """(m, b): N images in m microbatches of b, as the JAX package's
+        sr_batched plans them: m = ceil(N / microbatch), b balanced to
+        ceil(N / m) and rounded up to a multiple of MICROBATCH_QUANTUM, never
+        above the microbatch (N = 65 at microbatch 64 runs 2 x 64)."""
+        b = min(microbatch, n)
+        m = -(-n // b)
+        balanced = -(-n // m)
+        return m, min(b, -(-balanced // MICROBATCH_QUANTUM) * MICROBATCH_QUANTUM)
+
+    def sr_batched(self, lr, captions, cap_lens,
+                   microbatch: Optional[int] = None) -> np.ndarray:
+        """Any number N of images, in microbatches (`plan_batches`); the
+        microbatch defaults to `plan_microbatch()`. The tail is padded by
         replicating images from the start and stripped after. Peak memory is
-        set by the microbatch, not N. Returns uint8 [N, H, W, 3] on the host."""
+        set by the microbatch, not N (the device output is N uint8 images).
+        Returns uint8 [N, H, W, 3] on the host."""
         lr = np.asarray(lr)
         captions = np.asarray(captions)
         cap_lens = np.asarray(cap_lens)
@@ -225,10 +469,11 @@ class SRPipeline:
         s = self.cfg.scale
         if n == 0:
             return np.empty((0, lr.shape[1] * s, lr.shape[2] * s, 3), np.uint8)
+        if microbatch is None:
+            microbatch = self.plan_microbatch()
         if microbatch < 1:
             raise ValueError(f"microbatch must be >= 1, got {microbatch}")
-        m = -(-n // min(microbatch, n))
-        b = -(-n // m)
+        m, b = self.plan_batches(n, microbatch)
         if m * b > n:
             sel = np.arange(m * b) % n
             lr, captions, cap_lens = lr[sel], captions[sel], cap_lens[sel]
@@ -236,3 +481,42 @@ class SRPipeline:
                                 captions.reshape(m, b, captions.shape[-1]),
                                 cap_lens.reshape(m, b))
         return srs.reshape(m * b, *srs.shape[2:])[:n].cpu().numpy()
+
+    def sr_uint8(self, lr, captions, cap_lens) -> np.ndarray:
+        """lr [B, h, w, 3] float in [-1, 1] -> the final SR as uint8
+        [B, H, W, 3] on the host (the save-time clip,
+        trainer_objective.py:153-155), through the graph at B on the card."""
+        lr = np.asarray(lr, np.float32)
+        return self.forward_scan(lr[None], np.asarray(captions)[None],
+                                 np.asarray(cap_lens)[None])[0].cpu().numpy()
+
+    @torch.inference_mode()
+    def sr_arbitrary(self, lr, captions, cap_lens, bucket: Optional[int] = None) -> np.ndarray:
+        """lr [1, h, w, 3] float in [-1, 1], any (h, w) -> uint8 SR
+        [1, h * scale, w * scale, 3] on the host. bucket=None runs the native
+        shape; bucket=N edge-pads (h, w) on the host up to multiples of N
+        (`bucket_shape`) and crops the SR, at the cost of the convolutions'
+        halo reading the padding. Runs eagerly, since its shapes vary."""
+        lr = np.asarray(lr, np.float32)
+        if lr.ndim != 4 or lr.shape[0] != 1:
+            raise ValueError(f"sr_arbitrary takes lr [1, h, w, 3], got {lr.shape}")
+        h, w = lr.shape[1:3]
+        if bucket:
+            bh, bw = bucket_shape(h, w, 1, bucket)
+            lr = np.pad(lr, ((0, 0), (0, bh - h), (0, bw - w), (0, 0)), mode="edge")
+        s = self.cfg.scale
+        sr = self(lr, captions, cap_lens)["sr"][:, :h * s, :w * s]
+        return to_uint8(sr).cpu().numpy()
+
+
+def _modules(cfg: Config, vocab_size: int, text_sd: Mapping[str, Any],
+             netg_sd: Mapping[str, Any], netgh_sd: Mapping[str, Any]):
+    """(TextEncoder, GSRNetLow, NetGHighWeight) on the CPU in float32,
+    with the state dicts loaded strictly."""
+    emb = cfg.TEXT.EMBEDDING_DIM
+    modules = (TextEncoder(vocab_size, 300, emb),
+               GSRNetLow(cfg.GAN.GF_DIM, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages, cfg.GAN.R_NUM),
+               NetGHighWeight(cfg.GAN.GF_DIM))
+    for module, sd in zip(modules, (text_sd, netg_sd, netgh_sd)):
+        module.load_state_dict(sd, strict=True)
+    return modules

@@ -79,13 +79,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches of each kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else
 LAUNCHES: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
+# launches made by CUDA graph replays since the last reset_launches(): a
+# replay adds the counts its graph recorded while it was captured
+# (engine/graphs.py); the wrappers' LAUNCHES do not move on a replay
+REPLAYED: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, REPLAYED):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc() -> str:
