@@ -21,8 +21,14 @@ serving phase, per path: replay bit for bit against the eager __call__,
 sr_arbitrary at ragged LR shapes against the plain pipelines on the CPU,
 B = 1 latency and img/s eager against replay, the memory plan (bfloat16:
 N = plan + 1 under its budget), an int8 bundle and a .pth checkpoint round
-trip, and BatchingServer (bfloat16, 8 threads, 256 requests). Then drives
-the conv probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128
+trip, and BatchingServer (bfloat16, 8 threads, 256 requests). Then the
+front door: three threads on one bfloat16 pipeline (each result bit for bit
+its solo call, one capture while the others run); the HTTP server of
+tgsr_tpu_torch.cli.serve booted from a YAML config, .pth files and a vocab
+pickle (bfloat16, the shipped NET_E) and from an int8 bundle, answering
+concurrent fixed-size and native POSTs against the direct pipeline; and
+evaluate_sr on 64 images in float32 and bfloat16 against float32 on the
+CPU. Then drives the conv probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128
 px), whose four tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
 TMA-fed operands) are first held against their plain versions within one
 bfloat16 ulp, and none of which may spill registers. Prints one JSON line of
@@ -35,9 +41,11 @@ from __future__ import annotations
 
 import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1007,23 +1015,27 @@ def serving_phase(torch, rng, card, scales):
         print(f"  serving {tag} one request at B = 1 (50 requests, host clock, seeded weights): "
               f"eager {percentiles(lat['eager'])}; replay {percentiles(lat['replay'])} "
               f"on {card}", flush=True)
-        n_img = 1024
+        # float32 is device-bound (eager and replay within 2 %, PERF.md), so
+        # fewer images measure its rate
+        n_img = 256 if tag == "float32" else 1024
+        m_img = n_img // 64
         lr_n = rng.integers(0, 256, (n_img, 32, 32, 3)).astype("uint8")
         cap_n, lens_n = captions(n_img)
 
         def eager_batched():
             with torch.inference_mode():
-                lr_d, cap_d, lens_d = (torch.as_tensor(x, device="cuda").reshape(16, 64, *x.shape[1:])
+                lr_d, cap_d, lens_d = (torch.as_tensor(x, device="cuda").reshape(m_img, 64,
+                                                                                  *x.shape[1:])
                                        for x in (lr_n, cap_n, lens_n))
                 return torch.stack([kern._serve(lr_d[i], cap_d[i], lens_d[i])
-                                    for i in range(16)]).cpu().numpy()
+                                    for i in range(m_img)]).cpu().numpy()
 
         def replay_batched():
             return kern.sr_batched(lr_n, cap_n, lens_n, microbatch=64)
 
         def replay_on_card():  # the same replays, the uint8 SR left on the card
-            kern.forward_scan(lr_n.reshape(16, 64, 32, 32, 3), cap_n.reshape(16, 64, T),
-                              lens_n.reshape(16, 64))
+            kern.forward_scan(lr_n.reshape(m_img, 64, 32, 32, 3), cap_n.reshape(m_img, 64, T),
+                              lens_n.reshape(m_img, 64))
             torch.cuda.synchronize()
 
         rate = {}
@@ -1134,6 +1146,425 @@ def server_checks(torch, kern, card, rng, captions, per_forward, run) -> None:
           f"seeded weights) on {card}", flush=True)
 
 
+# a 41-word caption vocabulary of the face S8 size (the shipped NET_E's)
+FACE_WORDS = ("<end> the this a woman man person has have is wears wearing with and "
+              "black blond brown gray red straight wavy short long hair big pointy small nose "
+              "lips mouth slightly open smiling eyes narrow bags under arched eyebrows high "
+              "cheekbones").split()
+# the bfloat16 pipeline's mean Y-PSNR and Y-SSIM against the HR, off the
+# float32 pipeline's on the CPU by at most these: about twice the gaps read on
+# an H100 (0.0073 dB, 1.4-1.5e-4; PERF.md), so that an error of a few levels
+# more than bfloat16's fails
+EVAL_BF16_PSNR_GAP_DB = 0.015
+EVAL_BF16_SSIM_GAP = 3e-4
+FACE_S8_YAML = """# face S8 evaluation: x8, 32 px -> 256 px (the reference's eval_faceSR_attn2.yml)
+CONFIG_NAME: 'face_S8_eval'
+METHOD: 'S8'
+TREE:
+    BRANCH_NUM: 4  # x8
+    BASE_SIZE: 32
+DATASET_NAME: 'face'
+B_VALIDATION: True
+TRAIN:
+    FLAG: False
+    NET_G: 'netG_epoch_7.pth'
+    B_NET_D: True
+    BATCH_SIZE: 1
+    NET_E: '{absent_net_e}'  # absent: falls through to the shipped NET_E
+GAN:
+    DF_DIM: 64
+    GF_DIM: 32
+    Z_DIM: 100
+    R_NUM: 2
+TEXT:
+    EMBEDDING_DIM: 256
+    CAPTIONS_PER_IMAGE: 1
+"""
+
+
+def face_captions(rng, n):
+    """n caption strings of 3-18 words from FACE_WORDS (at most T tokens, so
+    that the server draws no random subsample)."""
+    return [" ".join(rng.choice(FACE_WORDS[1:], rng.integers(3, T + 1))) for _ in range(n)]
+
+
+def concurrency_phase(torch, rng, card):
+    """One bfloat16 pipeline at face S8 full width shared by three threads:
+    two threads x 16 sr_uint8 calls with different inputs at the same graph
+    keys (B = 1 and B = 3, which replays at 4), a third thread's
+    sr_arbitrary calls (40 x 56, bucket 64) at the same time, and one call
+    that captures a new key (B = 2) while the others run; every result bit
+    for bit the same call run alone afterwards. Returns its launches."""
+    import threading
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = face_s8_config()
+    pipe = SRPipeline(cfg, 41, *init_seeded(cfg, 41, torch.Generator().manual_seed(0)),
+                      device="cuda", compute_dtype=torch.bfloat16)
+
+    def inputs(b, h=32, w=32):
+        lr = rng.integers(0, 256, (b, h, w, 3)).astype("float32") / 127.5 - 1.0
+        lens = rng.integers(1, T + 1, b)
+        cap = rng.integers(1, 41, (b, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        return lr, cap, lens
+
+    jobs = {}
+    for k in range(2):
+        for i in range(16):
+            b = 2 if (k, i) == (0, 8) else 1 + 2 * (i % 2)
+            jobs[k, i] = ("sr_uint8", *inputs(b))
+    for i in range(4):
+        jobs[2, i] = ("sr_arbitrary", *inputs(1, 40, 56))
+
+    def run(job):
+        name, lr, cap, lens = job
+        kw = {"bucket": 64} if name == "sr_arbitrary" else {}
+        return getattr(pipe, name)(lr, cap, lens, **kw)
+
+    run(jobs[0, 0])  # the B = 1 graph, before the threads start
+    run(jobs[0, 1])  # and B = 3's at 4
+    got, errors = {}, []
+    start = threading.Barrier(3)
+
+    def worker(k):
+        try:
+            start.wait(60)
+            for key in sorted(j for j in jobs if j[0] == k):
+                got[key] = run(jobs[key])
+        except Exception as e:  # reported by the check below
+            errors.append(f"thread {k}: {e!r}")
+
+    _build.reset_launches()
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(3)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run_counts = {key: _build.LAUNCHES[key] + _build.REPLAYED[key] for key in _build.LAUNCHES}
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"concurrency: three threads on one bf16 pipeline finished without an error "
+          f"({errors or 'none'}) in {dt:.2f} s")
+    check(sorted(key[0] for key in pipe.graphs) == [1, 2, 4],
+          f"concurrency: graphs at B = 1, 2 (captured while the others ran) and 4 "
+          f"({sorted(key[0] for key in pipe.graphs)})")
+    differ = [key for key, job in jobs.items() if not np.array_equal(got.get(key), run(job))]
+    check(not differ, f"concurrency: every one of {len(jobs)} results bit for bit the same call "
+                      f"run alone (differ: {differ})")
+    check(run_counts["word_pixel_attention"] > 0 and run_counts["up_head_packed"] > 0,
+          f"concurrency: went through rows 1 and 3 ({run_counts})")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_counts
+
+
+def http_client(port: int, jobs) -> list:
+    """One client process's POSTs to the server at `port`, one after
+    another: jobs of (index, PNG body, caption, query); returns (index,
+    status, response body, round trip ms by the host clock)."""
+    import urllib.request
+
+    out = []
+    for i, body, caption, query in jobs:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/sr{query}", data=body,
+                                     headers={"X-Caption": caption}, method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, data = r.status, r.read()
+        out.append((i, status, data, (time.perf_counter() - t) * 1e3))
+    return out
+
+
+def png_filters(body: bytes) -> np.ndarray:
+    """The row filter types of an 8-bit RGB PNG's image data."""
+    import struct
+    import zlib
+
+    pos, idat, w = 8, b"", 0
+    while pos < len(body):
+        length, kind = struct.unpack(">I4s", body[pos:pos + 8])
+        if kind == b"IHDR":
+            w = struct.unpack(">I", body[pos + 8:pos + 12])[0]
+        elif kind == b"IDAT":
+            idat += body[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(-1, 3 * w + 1)[:, 0]
+
+
+def codec_share(bodies, shape, sr, p50_ms, tag) -> None:
+    """The host's PNG work of one fixed-size request, each step timed alone
+    on this host: decoding a request body (its row filters chosen as PNG
+    encoders choose them, undone by the C helper) and resizing it to the LR
+    size, and encoding the SR (raw rows, as the server writes it); beside
+    the round trip's p50, and a 256 px photo-like upload's decode, by the C
+    helper and by the Python version, which must agree."""
+    from tgsr_tpu_torch.data import codec
+
+    check(codec.unfilter_library() is not None,
+          f"http {tag}: the PNG decoder's C helper built on this host")
+    hist = np.bincount(np.concatenate([png_filters(b) for b in bodies]), minlength=5)
+    t0 = time.perf_counter()
+    imgs = [codec.decode_png(b) for b in bodies]
+    t1 = time.perf_counter()
+    for img in imgs:
+        codec.resize_pil_bicubic(img, (32, 32))
+    t2 = time.perf_counter()
+    for _ in range(8):
+        codec.encode_png(sr)
+    t3 = time.perf_counter()
+    yy, xx = np.mgrid[:256, :256]
+    photo = np.clip(np.stack([yy, xx, (yy + xx) // 2], -1)
+                    + np.random.default_rng(0).normal(0, 6, (256, 256, 3)), 0, 255)
+    big = codec.encode_png(photo.astype("uint8"), filter_rows=True)
+    t4 = time.perf_counter()
+    got = codec.decode_png(big)
+    t5 = time.perf_counter()
+    library, codec.unfilter_library = codec.unfilter_library, lambda: None
+    try:
+        want = codec.decode_png(big)
+    finally:
+        codec.unfilter_library = library
+    t6 = time.perf_counter()
+    check(np.array_equal(got, want) and np.array_equal(got, photo.astype("uint8")),
+          f"http {tag}: the C helper decodes a 256 px filtered PNG as the Python version does")
+    dec, rsz = (t1 - t0) * 1e3 / len(bodies), (t2 - t1) * 1e3 / len(bodies)
+    enc = (t3 - t2) * 1e3 / 8
+    print(f"  http {tag} codec (host clock): decode of a {shape[0]} x {shape[1]} request body "
+          f"{dec:.4f} ms (row filters None/Sub/Up/Average/Paeth {hist.tolist()}), resize "
+          f"{rsz:.4f} ms, encode of the {sr.shape[0]} px SR {enc:.4f} ms: "
+          f"{(dec + rsz + enc) / p50_ms:.4f} of the round trip's p50 {p50_ms:.4f} ms; a 256 px "
+          f"photo-like upload (filters {np.bincount(png_filters(big), minlength=5).tolist()}) "
+          f"decodes in {(t5 - t4) * 1e3:.4f} ms, {(t6 - t5) * 1e3:.4f} ms in Python",
+          flush=True)
+
+
+def http_phase(torch, rng, card, tmp, clients):
+    """The serving CLI on the card: boot a bf16 server through the --cfg /
+    --netg / --vocab_pickle path (seeded .pth files, a 41-word vocab
+    pickle and a face S8 eval YAML in `tmp`, read by the port's YAML
+    reader, its NET_E a file that is absent, so that resolve_net_e falls
+    through to the shipped NET_E, which the check finds served); 8 client
+    processes x 16 fixed-size POSTs of 40 x 40 PNGs (rows filtered as PNG
+    encoders filter them), 4 of them with a native POST of 40 x 56 in the
+    middle. Each fixed response within 1 uint8 level of the direct
+    sr_uint8 on the codec-resized LR, each native one bit for bit the direct
+    sr_arbitrary; /healthz counts the requests; the replayed launches are
+    the captured counts times the replays. Then an int8 bundle (scales from
+    calibrate_quant) served through --artifact. `clients`: a pool of 8
+    processes that send the requests, as a server's clients are processes
+    of their own. Returns the launches of both runs."""
+    import pickle
+    import threading
+    import urllib.request
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.checkpoints.reference import load_text_encoder
+    from tgsr_tpu_torch.checkpoints.shipped import shipped_net_e
+    from tgsr_tpu_torch.cli import serve
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.data.codec import decode_png, encode_png, resize_pil_bicubic
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = face_s8_config()
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    for name, sd in (("netG_epoch_7.pth", sds[1]), ("netGH_epoch_7.pth", sds[2])):
+        torch.save(sd, os.path.join(tmp, name))
+    words = dict(enumerate(FACE_WORDS))
+    with open(os.path.join(tmp, "testset.pickle"), "wb") as f:
+        pickle.dump([[], words, {w: i for i, w in words.items()}], f)
+    with open(os.path.join(tmp, "eval_faceSR.yml"), "w") as f:
+        f.write(FACE_S8_YAML.format(absent_net_e=os.path.join(tmp, "absent_text_encoder.pth")))
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+
+    def serve_and_post(argv, n_clients, per_thread, n_native, tag):
+        pipe, vocab, args = serve.boot(argv)
+        httpd = serve.make_server(pipe, vocab, port=0, max_batch=args.max_batch,
+                                  max_delay_ms=args.max_delay_ms)
+        t0 = time.perf_counter()
+        httpd.batcher.warmup()
+        print(f"  http {tag}: boot and warm-up (graphs at {httpd.batcher.planned_sizes}) "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        port = httpd.server_address[1]
+        n = n_clients * per_thread
+        fixed = [rng.integers(0, 256, (40, 40, 3)).astype("uint8") for _ in range(n)]
+        native = [rng.integers(0, 256, (40, 56, 3)).astype("uint8") for _ in range(n_native)]
+        caps = face_captions(rng, n + n_native)
+        bodies = [encode_png(x, filter_rows=True) for x in fixed + native]  # as clients send
+        jobs = []  # per client: its fixed requests, a native one in the middle
+        for k in range(n_clients):
+            mine = [(i, bodies[i], caps[i], "") for i in range(k, n, n_clients)]
+            if k < n_native:
+                mine.insert(per_thread // 2, (n + k, bodies[n + k], caps[n + k], "?mode=native"))
+            jobs.append((port, mine))
+        out, ms, errors = {}, {}, []
+        graphs = {key: g.replays for key, g in pipe.graphs.items()}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            for res in clients.starmap(http_client, jobs):
+                for i, status, body, t in res:
+                    out[i], ms[i] = (body if status == 200 else None), t
+        except Exception as e:  # reported by the check below
+            errors.append(repr(e))
+        dt = time.perf_counter() - t0
+        out = {i: None if body is None else decode_png(body) for i, body in out.items()}
+        eager, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.close()
+        server.join(60)
+        check(not errors and sum(o is not None for o in out.values()) == n + n_native
+              and not server.is_alive(),
+              f"http {tag}: {len(out)} of {n + n_native} requests answered 200 ({errors})")
+        check(health["requests"] == n and sum(health["batch_hist"].values()) == health["batches"],
+              f"http {tag}: /healthz counts the {n} batched requests ({health})")
+        want_replayed = dict(zero)
+        for key, g in pipe.graphs.items():
+            for name, v in g.launches.items():
+                want_replayed[name] += v * (g.replays - graphs.get(key, 0))
+        per_forward = next(iter(pipe.graphs.values())).launches
+        check(replayed == want_replayed and eager == {k: v * n_native
+                                                     for k, v in per_forward.items()},
+              f"http {tag}: replayed launches = captured counts x replays ({replayed}), "
+              f"eager = the {n_native} native forwards ({eager})")
+        worst, native_same = 0, True
+        for i in range(n + n_native):
+            cap, length = serve.encode_caption_text(caps[i], vocab, T)
+            if i < n:
+                lr = resize_pil_bicubic(fixed[i], (32, 32)).astype("float32") / 127.5 - 1.0
+                direct = pipe.sr_uint8(lr[None], cap[None], np.asarray([length]))[0]
+                worst = max(worst, int(np.abs(direct.astype(int) - out[i].astype(int)).max()))
+            else:
+                lr = native[i - n].astype("float32") / 127.5 - 1.0
+                direct = pipe.sr_arbitrary(lr[None], cap[None], np.asarray([length]),
+                                           bucket=64)[0]
+                native_same &= np.array_equal(direct, out[i])
+        check(worst <= 1, f"http {tag}: every fixed-size response within 1 uint8 level of the "
+                          f"direct sr_uint8 on the codec-resized LR (max {worst})")
+        check(native_same, f"http {tag}: every native response bit for bit the direct "
+                           f"sr_arbitrary (bucket 64)")
+        lat = np.asarray([ms[i] for i in range(n)])
+        lat_native = [ms[i] for i in range(n, n + n_native)]
+        print(f"  http {tag}, {n_clients} client processes x {per_thread} fixed + {n_native} "
+              f"native POSTs: {dt:.3f} s, {(n + n_native) / dt:.2f} img/s, round trip of the "
+              f"fixed ones {percentiles(lat)}, native {percentiles(lat_native)}, batch histogram "
+              f"{health['batch_hist']} (host clock, seeded weights) on {card}", flush=True)
+        codec_share(bodies[:n], fixed[0].shape, out[0], np.percentile(lat, 50), tag)
+        return pipe, vocab, {k: eager[k] + replayed[k] for k in eager}
+
+    argv = ["--cfg", os.path.join(tmp, "eval_faceSR.yml"), "--netg",
+            os.path.join(tmp, "netG_epoch_7.pth"), "--vocab_pickle",
+            os.path.join(tmp, "testset.pickle")]
+    pipe, vocab, bf16_counts = serve_and_post(argv, 8, 16, 4, "bf16")
+    shipped = load_text_encoder(shipped_net_e(41))
+    check(shipped.keys() == pipe.state_dicts[0].keys()
+          and all(torch.equal(v, pipe.state_dicts[0][k]) for k, v in shipped.items()),
+          "http bf16: the YAML's NET_E is absent, and the server's text encoder is the shipped "
+          "trained NET_E")
+    check(pipe.compute_dtype == torch.bfloat16 and not pipe.quant_scales
+          and bf16_counts["word_pixel_attention"] > 0 and bf16_counts["up_head_packed"] > 0,
+          f"http bf16: the --cfg path serves the bf16 pipeline through rows 1 and 3")
+    lr = rng.integers(0, 256, (16, 32, 32, 3)).astype("float32") / 127.5 - 1.0
+    cap = rng.integers(1, 41, (16, T))
+    scales = pipe.calibrate_quant(lr, cap, np.full(16, T))
+    int8 = SRPipeline(cfg, 41, *pipe.state_dicts, a=pipe.a, device="cuda",
+                      compute_dtype=torch.bfloat16, quant_scales=scales)
+    bundle = os.path.join(tmp, "int8_bundle")
+    int8.save_artifact(bundle, vocab=vocab)
+    del pipe, int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe8, _, int8_counts = serve_and_post(["--artifact", bundle, "--max_batch", "8"], 4, 4, 1,
+                                        "int8")
+    int8_rows = ("word_pixel_attention", "int8_conv", "glu_requant_one", "glu_requant_pair",
+                 "requant")
+    check(bool(pipe8.quant_scales) and all(int8_counts[k] > 0 for k in int8_rows),
+          f"http int8: the --artifact bundle serves int8 through rows 1, 8, 9, X1 and X2 "
+          f"({int8_counts})")
+    del pipe8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16_counts, int8_counts
+
+
+def eval_phase(torch, rng, card):
+    """evaluate_sr on 64 seeded 256 px HR images (smooth ramps with noise),
+    on the card in float32 and bfloat16 and on the CPU in float32, every
+    kernel site there plain: float32 PSNR-Y within 0.01 dB and SSIM-Y within
+    1e-4 of the CPU's, bfloat16 within EVAL_BF16_*; the first batch's SR
+    images on the card within 40 dB (uint8 PSNR) of the CPU's. Returns the
+    card runs' launches."""
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine.evaluator import evaluate_sr
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.ops.image import normalize_uint8, resize
+
+    cfg = face_s8_config()
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    batches = []
+    yy, xx = np.mgrid[:256, :256]
+    for _ in range(4):
+        tilt = rng.uniform(0.3, 3.0, (16, 1, 1, 3))
+        base = yy[None, ..., None] + xx[None, ..., None] * tilt
+        hr = base * 255.0 / base.max(axis=(1, 2, 3), keepdims=True)
+        hr = np.clip(hr + rng.normal(0, 10, hr.shape), 0, 255).astype("uint8")
+        lens = rng.integers(1, T + 1, 16)
+        cap = rng.integers(1, 41, (16, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        batches.append({"hr": hr, "captions": cap, "cap_lens": lens})
+    res, counts, sr0 = {}, {}, {}
+    for tag, device, dtype in (("cpu float32", "cpu", torch.float32),
+                               ("float32", "cuda", torch.float32),
+                               ("bfloat16", "cuda", torch.bfloat16)):
+        pipe = SRPipeline(cfg, 41, *sds, device=device, compute_dtype=dtype)
+        _build.reset_launches()
+        res[tag] = evaluate_sr(pipe, batches)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts[tag] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+        with torch.inference_mode():  # the first batch's SR, to hold against the CPU's
+            hr = torch.as_tensor(batches[0]["hr"], device=device)
+            lr = resize(normalize_uint8(hr), (32, 32), "bilinear")
+            sr0[tag] = pipe(lr, batches[0]["captions"], batches[0]["cap_lens"])["sr"].cpu()
+        r = res[tag]
+        check(r["images"] == 64 and np.isfinite(r["psnr_y"]) and -1 <= r["ssim_y"] <= 1,
+              f"eval {tag}: 64 images, PSNR-Y {r['psnr_y']:.4f} dB, SSIM-Y {r['ssim_y']:.6f}")
+        print(f"  eval {tag}: PSNR-Y {r['psnr_y']!r} dB, SSIM-Y {r['ssim_y']!r}, "
+              f"{r['images_per_sec_host_e2e']:.2f} img/s host end to end (seeded weights)"
+              f"{'' if device == 'cpu' else ' on ' + card}", flush=True)
+        del pipe
+    ref = res["cpu float32"]
+    for tag, dp, ds in (("float32", 0.01, 1e-4),
+                        ("bfloat16", EVAL_BF16_PSNR_GAP_DB, EVAL_BF16_SSIM_GAP)):
+        gp, gs = abs(res[tag]["psnr_y"] - ref["psnr_y"]), abs(res[tag]["ssim_y"] - ref["ssim_y"])
+        check(gp <= dp and gs <= ds, f"eval {tag} on the card vs float32 on the CPU: PSNR-Y gap "
+                                     f"{gp:.6f} dB <= {dp}, SSIM-Y gap {gs:.3e} <= {ds}")
+    for tag in ("float32", "bfloat16"):
+        psnr = psnr_u8(sr0[tag], sr0["cpu float32"])
+        check(psnr >= 40, f"eval {tag} on the card vs float32 on the CPU, the first batch's 16 "
+                          f"SR images: uint8 PSNR {psnr:.2f} dB >= 40")
+    check(counts["float32"]["up_head"] > 0 and counts["bfloat16"]["up_head_packed"] > 0,
+          "eval: the card runs went through the up-head kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> None:
     """Device time of one B=64 forward, fn(), by kernel (torch.profiler,
     CUPTI), and the share of cuDNN's layout conversions; `how` is "eager"
@@ -1208,6 +1639,19 @@ def main() -> int:
     for tag, run in serving_phase(torch, rng, card, scales).items():
         launches[f"serving {tag}"] = run
     print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches["concurrency"] = concurrency_phase(torch, rng, card)
+    print(f"concurrency phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            multiprocessing.get_context("spawn").Pool(8) as clients:
+        clients.map(abs, range(8))  # the client processes are up before any clock
+        launches["http bf16"], launches["http int8"] = http_phase(torch, rng, card, tmp, clients)
+    print(f"http phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for tag, run in eval_phase(torch, rng, card).items():
+        launches[f"eval {tag}"] = run
+    print(f"eval phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows

@@ -717,6 +717,56 @@ def test_graph_cache_drops_least_recent(cuda_device, monkeypatch):
     assert torch.equal(run(4), four)
 
 
+def test_threads_share_one_pipeline(cuda_device):
+    """Two threads x 16 sr_uint8 calls with different inputs at the same
+    graph keys (B = 1 and B = 3, which replays at 4), a third thread's
+    sr_arbitrary calls at the same time, and one call that captures a new
+    key (B = 2) while the others run: every result bit for bit the same call
+    run alone afterwards (SRPipeline.lock)."""
+    import threading
+
+    pipe = _serving_pipe(cuda_device, "bfloat16")
+    jobs = {}
+    for k in range(2):
+        for i in range(16):
+            b = 2 if (k, i) == (0, 8) else 1 + 2 * (i % 2)
+            lr, cap, lens = _serving_batch(b, seed=1000 * k + i)
+            cap[0, :3], lens[0] = (5, 6, 7 + i), 3  # row 0's caption is not empty
+            jobs[k, i] = ("sr_uint8", (lr / 127.5 - 1.0).astype(np.float32), cap, lens)
+    rng = np.random.default_rng(7)
+    for i in range(6):
+        _, cap, lens = _serving_batch(1, seed=3000 + i)
+        cap[0, :2], lens[0] = (9, 10 + i), 2
+        lr = rng.integers(0, 256, (1, 12, 20, 3)) / 127.5 - 1.0
+        jobs[2, i] = ("sr_arbitrary", lr.astype(np.float32), cap, lens)
+
+    def run(job):
+        name, lr, cap, lens = job
+        return getattr(pipe, name)(lr, cap, lens)
+
+    pipe.sr_uint8(*jobs[0, 0][1:])  # the B = 1 graph exists before the threads start
+    got, errors = {}, []
+    start = threading.Barrier(3)
+
+    def worker(k):
+        try:
+            start.wait(30)
+            for key in sorted(j for j in jobs if j[0] == k):
+                got[key] = run(jobs[key])
+        except Exception as e:  # reported below, with the thread's jobs
+            errors.append((k, e))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert sorted(k[0] for k in pipe.graphs) == [1, 2, 4]
+    for key, job in jobs.items():
+        assert np.array_equal(got[key], run(job)), key
+
+
 def _ragged_attention(device, hw, dtype):
     """Attention at a ragged sr_arbitrary site (B = 1, C 32, T 18)."""
     rng = np.random.default_rng(hw[0])

@@ -1,5 +1,6 @@
-"""Hygiene of the PyTorch port: tgsr_tpu_torch and chip_smoke.py import
-nothing of JAX, flax, msgpack, PIL or tgsr_tpu, the port's weights carry
+"""Hygiene of the PyTorch port: tgsr_tpu_torch (every file under it, cli/
+included) and chip_smoke.py import nothing of JAX, flax, msgpack, PIL,
+PyYAML, nltk or tgsr_tpu, the port's weights carry
 exactly the reference state-dict keys and shapes that tgsr_tpu's exporter
 emits, and the ctypes signatures agree with the kernels' C interfaces."""
 
@@ -21,8 +22,10 @@ from tests.torch_parity import VOCAB, configs, jax_trees
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the card machine has none of these: msgpack files are read by the port's
-# own checkpoints/msgpack_io.py, and the port decodes no images
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tgsr_tpu", "msgpack", "PIL")
+# own checkpoints/msgpack_io.py, PNGs by data/codec.py (zlib), YAML configs
+# by config.py's own reader, and the stopwords are a built-in list
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tgsr_tpu", "msgpack", "PIL", "yaml",
+             "nltk")
 
 
 def _port_files():
@@ -30,6 +33,14 @@ def _port_files():
     for d, _, names in os.walk(os.path.join(ROOT, "tgsr_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
+
+
+def test_walk_covers_every_port_package():
+    """The walk reaches each subpackage of the port, the CLIs included."""
+    dirs = {os.path.relpath(os.path.dirname(p), ROOT) for p in _port_files()}
+    for sub in ("cli", "data", "engine", "ops", "checkpoints", "models", "utils", "probes"):
+        assert os.path.join("tgsr_tpu_torch", sub) in dirs
+    assert os.path.join(ROOT, "tgsr_tpu_torch", "cli", "serve.py") in _port_files()
 
 
 def _imported(tree):

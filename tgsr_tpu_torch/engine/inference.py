@@ -40,16 +40,19 @@ by replicas to `graph_batch(b)` (a power of two up to 64, then a multiple
 of 64) and cropped, and at most MAX_GRAPHS graphs are kept. On the CPU it
 runs the same forward eagerly at b. `sr_batched` plans its microbatch from the card's memory
 (`plan_microbatch`). `sr_arbitrary` runs eagerly, since its shapes vary.
-Weights come from seeded or JAX state dicts, from the reference's
-checkpoints (`from_reference_checkpoints`), or from a deployment bundle
-(`save_artifact` / `load_artifact`, the JAX package's bundle layout; JAX's
-own bundles load too).
+Every entry point may be called from many threads at once: they take the
+pipeline's one lock (`SRPipeline.lock`) in turn, so a replay, a capture and
+an eager forward never overlap. Weights come from seeded or JAX state
+dicts, from the reference's checkpoints (`from_reference_checkpoints`), or
+from a deployment bundle (`save_artifact` / `load_artifact`, the JAX
+package's bundle layout; JAX's own bundles load too).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 from collections import OrderedDict
 from functools import partial
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
@@ -167,6 +170,17 @@ class SRPipeline:
                                SPLIT_RES_GLU_SITES)
             if self.quant_scales.get(group) else module
             for group, module in (("netg", self.netg), ("netgh", self.netgh)))
+        # One re-entrant lock serialises every use of the device by this
+        # pipeline: `_graph` (the LRU and any capture), each replay's copy-in,
+        # replay and copy-out, the eager forwards of `__call__` /
+        # `sr_arbitrary` / `calibrate_quant`, the memory probes and the
+        # copies to the host. A graph's static inputs and output are shared
+        # by every caller of its key, so two threads interleaved there would
+        # swap images without an error; and a capture (`torch.cuda.graph`,
+        # "global" capture mode) fails if another thread launches or copies
+        # on the card while it runs. Callers that run device work of their
+        # own beside the pipeline (engine/evaluator.py) take `lock` too.
+        self.lock = threading.RLock()
         # on the card: the captured forwards (`_graph`) and the memory plan
         self.graphs: "OrderedDict[tuple, ForwardGraph]" = OrderedDict()
         self._graph_pool = None
@@ -309,14 +323,15 @@ class SRPipeline:
         unquantized pyramid. Returns {"netg": {...}, "netgh": {...}} of
         absmax * margin, keyed by the JAX conv paths, for `quant_scales=`."""
         cdt = self.compute_dtype
-        captions = self._tensor(captions, torch.long)
-        words, sent = self.text_encoder(captions, self._tensor(cap_lens, torch.long))
-        lr_c = nchw(self._tensor(lr, torch.float32).contiguous()).to(cdt)
         sites = conv_sites(self.netg, self.netgh)
-        with record_absmax(self.netg, sites["netg"]) as rec_g:
-            fake, _, _, _ = self.netg(lr_c, sent.to(cdt), words.to(cdt), captions == 0)
-        with record_absmax(self.netgh, sites["netgh"]) as rec_gh:
-            self.netgh(lr_c, fake)
+        with self.lock:
+            captions = self._tensor(captions, torch.long)
+            words, sent = self.text_encoder(captions, self._tensor(cap_lens, torch.long))
+            lr_c = nchw(self._tensor(lr, torch.float32).contiguous()).to(cdt)
+            with record_absmax(self.netg, sites["netg"]) as rec_g:
+                fake, _, _, _ = self.netg(lr_c, sent.to(cdt), words.to(cdt), captions == 0)
+            with record_absmax(self.netgh, sites["netgh"]) as rec_gh:
+                self.netgh(lr_c, fake)
         return {group: {k: float(v) * margin for k, v in rec.items()}
                 for group, rec in (("netg", rec_g), ("netgh", rec_gh))}
 
@@ -324,14 +339,15 @@ class SRPipeline:
     def __call__(self, lr, captions, cap_lens) -> Dict[str, Any]:
         """Returns float32 {'sr': [B, H, W, 3], 'pyramid': [64, 128, 256 px]
         NHWC, and 'attn': [B, T, H, W] per stage when return_attn}."""
-        fine, att = self._forward(self._tensor(lr, torch.float32),
-                                  self._tensor(captions, torch.long),
-                                  self._tensor(cap_lens, torch.long),
-                                  self.return_attn)
-        pyramid = [nhwc(f).float() for f in fine]
-        out = {"sr": pyramid[-1], "pyramid": pyramid}
-        if self.return_attn:
-            out["attn"] = [a.float() for a in att]
+        with self.lock:
+            fine, att = self._forward(self._tensor(lr, torch.float32),
+                                      self._tensor(captions, torch.long),
+                                      self._tensor(cap_lens, torch.long),
+                                      self.return_attn)
+            pyramid = [nhwc(f).float() for f in fine]
+            out = {"sr": pyramid[-1], "pyramid": pyramid}
+            if self.return_attn:
+                out["attn"] = [a.float() for a in att]
         return out
 
     def _serve(self, lr: torch.Tensor, captions: torch.Tensor,
@@ -358,7 +374,8 @@ class SRPipeline:
         """The captured forward at batch b (a `graph_batch` size), LR h x w,
         caption length t, LR uint8 or float32 (any float LR is copied into a
         float32 buffer); captured at first use. Past MAX_GRAPHS the least
-        recently used graph is dropped, with its inputs and output."""
+        recently used graph is dropped, with its inputs and output. The
+        caller holds `lock`."""
         lr_dtype = torch.uint8 if lr_dtype == torch.uint8 else torch.float32
         key = (b, h, w, t, lr_dtype)
         if key in self.graphs:
@@ -369,14 +386,15 @@ class SRPipeline:
             self.graphs.popitem(last=False)
         if self._graph_pool is None:
             # One memory pool for all of this pipeline's graphs, so their
-            # working sets overlap instead of adding up. Safe because their
-            # replays never overlap (one caller, or BatchingServer's one
-            # collector thread, on one stream), each kept graph's static
-            # inputs and output stay allocated (no other capture takes them;
-            # a dropped graph is never replayed again), and the caller
-            # copies each replay's output out before any graph replays
-            # again; what two graphs share is scratch that every replay
-            # writes before it reads.
+            # working sets overlap instead of adding up. Safe because of
+            # `lock`: whoever captures or replays holds it from the copy-in
+            # to the copy of the output out (`forward_scan`), on one stream,
+            # so no two replays or captures overlap and each replay's output
+            # is copied out before any graph replays again; each kept
+            # graph's static inputs and output stay allocated (no other
+            # capture takes them; a dropped graph is never replayed again);
+            # what two graphs share is scratch that every replay writes
+            # before it reads.
             self._graph_pool = torch.cuda.graph_pool_handle()
         inputs = (torch.zeros((b, h, w, 3), dtype=lr_dtype, device=self.device),
                   torch.ones((b, t), dtype=torch.long, device=self.device),
@@ -391,28 +409,31 @@ class SRPipeline:
         one microbatch of B after another: on the card, replays of the
         forward captured at `graph_batch(B)` (captured at the first call of
         that shape), each microbatch padded by replicas of its own images
-        and cropped; on the CPU, the same forward run eagerly at B."""
-        lr = self._tensor(lr)
-        captions = self._tensor(captions, torch.long)
-        cap_lens = self._tensor(cap_lens, torch.long)
-        s = self.cfg.scale
-        m, b, h, w, _ = lr.shape
-        serve = self._serve
-        if self.device.type == "cuda":
-            bg = self.graph_batch(b)
-            if bg > b:
-                sel = torch.arange(bg, device=self.device) % b
-                lr, captions, cap_lens = lr[:, sel], captions[:, sel], cap_lens[:, sel]
-            serve = self._graph(bg, h, w, captions.shape[-1], lr.dtype)
-        out = torch.empty((m, b, h * s, w * s, 3), dtype=torch.uint8, device=self.device)
-        for i in range(m):
-            out[i] = serve(lr[i], captions[i], cap_lens[i])[:b]
-        return out
+        and cropped; on the CPU, the same forward run eagerly at B. Holds
+        `lock` throughout: the capture, and each replay from its copy-in to
+        the copy of its output into the result."""
+        with self.lock:
+            lr = self._tensor(lr)
+            captions = self._tensor(captions, torch.long)
+            cap_lens = self._tensor(cap_lens, torch.long)
+            s = self.cfg.scale
+            m, b, h, w, _ = lr.shape
+            serve = self._serve
+            if self.device.type == "cuda":
+                bg = self.graph_batch(b)
+                if bg > b:
+                    sel = torch.arange(bg, device=self.device) % b
+                    lr, captions, cap_lens = lr[:, sel], captions[:, sel], cap_lens[:, sel]
+                serve = self._graph(bg, h, w, captions.shape[-1], lr.dtype)
+            out = torch.empty((m, b, h * s, w * s, 3), dtype=torch.uint8, device=self.device)
+            for i in range(m):
+                out[i] = serve(lr[i], captions[i], cap_lens[i])[:b]
+            return out
 
     @torch.inference_mode()
     def _probe_need(self, b: int) -> int:
         """Peak device bytes the caching allocator reserves for one eager
-        uint8 microbatch forward at b."""
+        uint8 microbatch forward at b. The caller holds `lock`."""
         t, size = self.cfg.TEXT.WORDS_NUM, self.cfg.TREE.BASE_SIZE
         lr = torch.zeros((b, size, size, 3), dtype=torch.uint8, device=self.device)
         captions = torch.ones((b, t), dtype=torch.long, device=self.device)
@@ -434,15 +455,16 @@ class SRPipeline:
         DEFAULT_MICROBATCH."""
         if self.device.type != "cuda":
             return CPU_MICROBATCH
-        if self.memory_plan is None:
-            t, size, s = self.cfg.TEXT.WORDS_NUM, self.cfg.TREE.BASE_SIZE, self.cfg.scale
-            # a graph's float32 LR, token ids and lengths, and uint8 SR
-            graph_bytes = size * size * 3 * 4 + (t + 1) * 8 + (size * s) ** 2 * 3
-            torch.cuda.empty_cache()
-            self.memory_plan = memory.plan(self._probe_need,
-                                           memory.device_memory_budget(self.device),
-                                           MICROBATCH_QUANTUM, (MAX_GRAPHS - 1) * graph_bytes)
-        return self.memory_plan.microbatch
+        with self.lock:
+            if self.memory_plan is None:
+                t, size, s = self.cfg.TEXT.WORDS_NUM, self.cfg.TREE.BASE_SIZE, self.cfg.scale
+                # a graph's float32 LR, token ids and lengths, and uint8 SR
+                graph_bytes = size * size * 3 * 4 + (t + 1) * 8 + (size * s) ** 2 * 3
+                torch.cuda.empty_cache()
+                self.memory_plan = memory.plan(self._probe_need,
+                                               memory.device_memory_budget(self.device),
+                                               MICROBATCH_QUANTUM, (MAX_GRAPHS - 1) * graph_bytes)
+            return self.memory_plan.microbatch
 
     @staticmethod
     def plan_batches(n: int, microbatch: int) -> Tuple[int, int]:
@@ -477,18 +499,20 @@ class SRPipeline:
         if m * b > n:
             sel = np.arange(m * b) % n
             lr, captions, cap_lens = lr[sel], captions[sel], cap_lens[sel]
-        srs = self.forward_scan(lr.reshape(m, b, *lr.shape[1:]),
-                                captions.reshape(m, b, captions.shape[-1]),
-                                cap_lens.reshape(m, b))
-        return srs.reshape(m * b, *srs.shape[2:])[:n].cpu().numpy()
+        with self.lock:  # the copy to the host too: no capture may see it
+            srs = self.forward_scan(lr.reshape(m, b, *lr.shape[1:]),
+                                    captions.reshape(m, b, captions.shape[-1]),
+                                    cap_lens.reshape(m, b))
+            return srs.reshape(m * b, *srs.shape[2:])[:n].cpu().numpy()
 
     def sr_uint8(self, lr, captions, cap_lens) -> np.ndarray:
         """lr [B, h, w, 3] float in [-1, 1] -> the final SR as uint8
         [B, H, W, 3] on the host (the save-time clip,
         trainer_objective.py:153-155), through the graph at B on the card."""
         lr = np.asarray(lr, np.float32)
-        return self.forward_scan(lr[None], np.asarray(captions)[None],
-                                 np.asarray(cap_lens)[None])[0].cpu().numpy()
+        with self.lock:
+            return self.forward_scan(lr[None], np.asarray(captions)[None],
+                                     np.asarray(cap_lens)[None])[0].cpu().numpy()
 
     @torch.inference_mode()
     def sr_arbitrary(self, lr, captions, cap_lens, bucket: Optional[int] = None) -> np.ndarray:
@@ -505,8 +529,9 @@ class SRPipeline:
             bh, bw = bucket_shape(h, w, 1, bucket)
             lr = np.pad(lr, ((0, 0), (0, bh - h), (0, bw - w), (0, 0)), mode="edge")
         s = self.cfg.scale
-        sr = self(lr, captions, cap_lens)["sr"][:, :h * s, :w * s]
-        return to_uint8(sr).cpu().numpy()
+        with self.lock:
+            sr = self(lr, captions, cap_lens)["sr"][:, :h * s, :w * s]
+            return to_uint8(sr).cpu().numpy()
 
 
 def _modules(cfg: Config, vocab_size: int, text_sd: Mapping[str, Any],

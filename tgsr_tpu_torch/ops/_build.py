@@ -1,11 +1,12 @@
 """Builds the port's CUDA kernels and keeps their launch counts.
 
-Each source in `tgsr_tpu_torch/csrc/` is compiled by `nvcc` for Hopper
-(`sm_90a`) into a shared library with a plain C interface, loaded with
-ctypes. Nothing here includes PyTorch's headers, so a build takes seconds.
-Libraries go into `tgsr_tpu_torch/_build/`, named by a hash of the source
-and the flags, and are built on first use; `build()` builds several at
-once, one nvcc process per source, all started together.
+Each `.cu` source in `tgsr_tpu_torch/csrc/` is compiled by `nvcc` for
+Hopper (`sm_90a`) into a shared library with a plain C interface, loaded
+with ctypes. Nothing here includes PyTorch's headers, so a build takes
+seconds. Libraries go into `tgsr_tpu_torch/_build/`, named by a hash of the
+source and the flags, and are built on first use; `build()` builds several
+at once, one nvcc process per source, all started together. A `.c` source
+is host code (`host_library`), compiled by the system's C compiler.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -72,9 +74,15 @@ SIGNATURES = {
         # p, wp, out, rows of p, stream
         "conv_dotceil_launch": ([_P] * 3 + [ctypes.c_longlong, _P], _I),
     },
+    # host code
+    "png_unfilter": {
+        # rows, out, h, stride, bytes per pixel
+        "png_unfilter": ([_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I], None),
+    },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
 
 # launches of each kernel since the last reset_launches(); each wrapper adds
 # one where it launches its kernel and nowhere else
@@ -85,6 +93,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
 REPLAYED: Dict[str, int] = {name: 0 for name in LAUNCH_NAMES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_HOST_LOCK = threading.Lock()  # request threads may all ask for a host library at once
 
 
 def reset_launches() -> None:
@@ -152,12 +161,43 @@ def library(name: str) -> ctypes.CDLL:
     ctypes signatures of its C functions set."""
     if name not in _LIBS:
         build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        for fn_name, (argtypes, restype) in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes, fn.restype = argtypes, restype
-        _LIBS[name] = lib
+        _LIBS[name] = _load(name, lib_path(name))
     return _LIBS[name]
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def host_library(name: str) -> Optional[ctypes.CDLL]:
+    """The loaded library of the host code `csrc/{name}.c`, compiled by the
+    system's C compiler on first use; None where there is no C compiler,
+    and the caller runs its Python version. ctypes calls it without the
+    interpreter lock."""
+    with _HOST_LOCK:
+        if name not in _LIBS:
+            cc = shutil.which("cc") or shutil.which("gcc")
+            if cc is None:
+                return None
+            src = CSRC / f"{name}.c"
+            digest = hashlib.sha256(src.read_bytes() + " ".join(CC_FLAGS).encode()).hexdigest()
+            out = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([cc, *CC_FLAGS, "-o", str(tmp), str(src)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"{name}: C build failed (exit {proc.returncode}):\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, out)
+            _LIBS[name] = _load(name, out)
+        return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:
