@@ -28,7 +28,14 @@ tgsr_tpu_torch.cli.serve booted from a YAML config, .pth files and a vocab
 pickle (bfloat16, the shipped NET_E) and from an int8 bundle, answering
 concurrent fixed-size and native POSTs against the direct pipeline; and
 evaluate_sr on 64 images in float32 and bfloat16 against float32 on the
-CPU. Then drives the conv probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128
+CPU. Then the eval and calibration entry points (tgsr_tpu_torch.cli.test
+and .calibrate) on a face example set in the reference's layout, seeded .pth
+files and the shipped NET_E: the bfloat16 default with the attention grids
+and --metrics, --no-bf16 (attention maps against the CPU's), --int8 and
+--no-bf16 --int8 (the float32 instances of the GLU-requant, requant and
+int8 conv kernels, held against their plain versions in the kernel phases),
+--arbitrary, a deployment bundle, a calibration against the CPU's, --scales
+and the fidelity gate's refusal. Then drives the conv probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128
 px), whose four tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
 TMA-fed operands) are first held against their plain versions within one
 bfloat16 ulp, and none of which may spill registers. Prints one JSON line of
@@ -621,6 +628,169 @@ def requant_phase(torch):
                       "means), device_ms with the host's launches queued behind a spin "
                       "kernel; copy_floor_ms the same bytes through one PyTorch int32 -> "
                       "int16 cast"}
+
+
+def near_half(torch, p, step, rel=2.0 ** -20):
+    """Where p / step lies within `rel` of it of a half-integer (float64)."""
+    t = (p.double() / step).abs()
+    return (t - t.floor() - 0.5).abs() <= rel * t
+
+
+def glu_requant_f32_phase(torch):
+    """The float32 instances of rows 8 and 9 (`glu_requant` on float32 h,
+    the int8 path with float32 compute) against their plain version at one
+    int8 forward's sites (B = 64): int8 equal except one step where the
+    product p / step lies within 2^-20 of a half-integer (a sigmoid's last
+    bit), the count printed. Times as `glu_requant_phase`; the bound reads
+    8 bytes and writes 1 per output."""
+    from tgsr_tpu_torch.engine.quant import act_step
+    from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = {name + "_f32": [] for name in INSTANCES.values()}
+    for site, h, w, c, n in GLU_SITES:
+        x = 1.5 * torch.randn(B, h, w, 2 * c, generator=g, device="cuda")
+        scale = 2.0
+        got, ref = glu_requant(x, scale), glu_requant_plain(x, scale)
+        torch.cuda.synchronize()
+        d = (got.int() - ref.int()).abs()
+        p = x[..., :c] * torch.sigmoid(x[..., c:])
+        n_diff = int((d > 0).sum())
+        only_near = bool(near_half(torch, p, act_step(scale))[d > 0].all())
+        del p
+        name = INSTANCES[c] + "_f32"
+        check(d.max().item() <= 1 and only_near,
+              f"{name} == plain at {site} [{B},{h},{w},{2 * c}] f32: {n_diff} of {d.numel()} "
+              f"differ by one step, each within 2^-20 of a half-step")
+        ms = cuda_ms_median(lambda: glu_requant(x, scale))
+        d_ms = device_ms(torch, lambda: glu_requant(x, scale), iters=20)
+        p_ms = cuda_ms_median(lambda: glu_requant_plain(x, scale), iters=5)
+        nbytes = x.numel() * 4 + x.numel() // 2  # f32 in, int8 out
+        ops = 10 * (x.numel() // 2)
+        bms, by = bound_ms(nbytes, ops)
+        print(f"  {name} {site} x{n}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached, "
+              f"{bms / d_ms:.1%} by device time)", flush=True)
+        rows[name].append(dict(ms=n * ms, device_ms=n * d_ms, plain_ms=n * p_ms, bound_ms=n * bms,
+                               nbytes=n * nbytes, flops=n * ops, err=float(d.max().item())))
+        del x, got, ref, d
+    out = []
+    for (line, c), name in zip(((72, 64), (96, 32)), ("glu_requant_one", "glu_requant_pair")):
+        tot = sums(rows[name + "_f32"], keys=("ms", "device_ms", "plain_ms", "bound_ms", "nbytes",
+                                              "flops"))
+        tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"))[1]
+        out.append({"name": name + "_f32", "route": "cuda",
+                    "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
+                    "replaces": f"examples/glu_pallas_probe.py:{line}", **tot, "library_ms": None,
+                    "shapes": f"B {B}, c {c}, float32 h, the sites of one int8 forward; "
+                              "max_abs_err in int8 steps; ms, plain_ms by CUDA events (median "
+                              "of five 20-call means), device_ms with the host's launches "
+                              "queued behind a spin kernel"})
+    return out
+
+
+def requant_f32_phase(torch):
+    """The float32 instance of X2 (`requant` on float32 x) against
+    `quantize_act` bit for bit: float32 over every binade from 2^-30 to 2^10
+    with the neighbours of every half-step, then the 26 requantized conv
+    inputs of one B = 64 int8 forward. Times as `requant_phase`."""
+    from tgsr_tpu_torch.engine.quant import act_step
+    from tgsr_tpu_torch.ops.glu_requant import requant, requant_plain
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n = 1 << 22
+    sweep = ((torch.rand(n, generator=g, device="cuda") + 1)
+             * torch.exp2(torch.randint(-30, 11, (n,), generator=g, device="cuda").float())
+             * (torch.randint(0, 2, (n,), generator=g, device="cuda").float() * 2 - 1))
+    for scale in REQUANT_SCALES:
+        half = ((torch.arange(-130, 130, device="cuda", dtype=torch.float64) + 0.5)
+                * act_step(scale)).float()
+        x = torch.cat([sweep, half, torch.nextafter(half, half + 1),
+                       torch.nextafter(half, half - 1)])
+        check(torch.equal(requant(x, scale), requant_plain(x, scale)),
+              f"requant_f32 == quantize_act over {x.numel()} float32 (every binade 2^-30..2^10, "
+              f"the half-steps and their neighbours), step {scale}/127")
+    rows = []
+    for site, h, w, cin, k in REQUANT_SITES:
+        x = (torch.randn(B, h, w, cin, generator=g, device="cuda")
+             * torch.rand(cin, generator=g, device="cuda") * 4)
+        scale = 0.9 * x.abs().max().item()
+        got, ref = requant(x, scale), requant_plain(x, scale)
+        torch.cuda.synchronize()
+        err = (got.int() - ref.int()).abs().max().item()
+        check(torch.equal(got, ref), f"requant_f32 == quantize_act at {site} [{B},{h},{w},{cin}] "
+                                     f"(max {err} step)")
+        ms = cuda_ms_median(lambda: requant(x, scale))
+        d_ms = device_ms(torch, lambda: requant(x, scale), iters=20)
+        p_ms = cuda_ms_median(lambda: requant_plain(x, scale), iters=5)
+        nbytes = 5 * x.numel()  # f32 in, int8 out
+        ops = 4 * x.numel()
+        bms, by = bound_ms(nbytes, ops)
+        print(f"  requant_f32 {site} x{k}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached, "
+              f"{bms / d_ms:.1%} by device time)", flush=True)
+        rows.append(dict(ms=k * ms, device_ms=k * d_ms, plain_ms=k * p_ms, bound_ms=k * bms,
+                         nbytes=k * nbytes, flops=k * ops, err=float(err)))
+    tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "bound_ms", "nbytes", "flops"))
+    tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"))[1]
+    return {"name": "requant_f32", "route": "cuda", "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
+            "replaces": "tgsr_tpu/engine/quant.py:137 (quantize_act; XLA, no Pallas kernel)",
+            **tot, "library_ms": None,
+            "shapes": f"B {B}, float32 x, the 26 requantized conv inputs of one int8 forward; "
+                      "max_abs_err in int8 steps; ms, plain_ms by CUDA events (median of five "
+                      "20-call means), device_ms with the host's launches queued behind a spin "
+                      "kernel"}
+
+
+def int8_conv_f32_phase(torch):
+    """X1's float32 output, with a float32 residual at the ResBlock conv2
+    sites (the int8 path with float32 compute), against its plain version
+    bit for bit at every conv shape of one B = 64 int8 forward. Times as
+    `int8_conv_phase` (no cuDNN beside it); the bound writes 4 bytes an
+    output and reads a float32 residual."""
+    from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for site, h, w, cin, cout, k, up2, bn, res, n in INT8_CONVS:
+        ho, wo = (2 * h, 2 * w) if up2 else (h, w)
+        x = torch.randint(-127, 128, (B, h, w, cin), generator=g, device="cuda",
+                          dtype=torch.int8)
+        wt = pack_int8_weight(torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                                            device="cuda", dtype=torch.int8))
+        scale = torch.rand(cout, generator=g, device="cuda") * 1e-5 + 1e-6
+        affine = ((1 + 0.1 * torch.randn(cout, generator=g, device="cuda"),
+                   0.1 * torch.randn(cout, generator=g, device="cuda")) if bn else None)
+        resid = torch.randn(B, ho, wo, cout, generator=g, device="cuda") if res else None
+        args = (x, wt, scale, affine, resid, torch.float32, up2)
+        got, ref = int8_conv(*args), int8_conv_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(torch.equal(got, ref), f"int8_conv_f32 == plain at {site} [{B},{h},{w},{cin}]->"
+                                     f"{cout} k{k}{' up2' if up2 else ''}"
+                                     f"{' + f32 residual' if res else ''}: equal (max {err:.1e})")
+        del got, ref
+        ms = cuda_ms(lambda: int8_conv(*args), iters=3, warmup=1)
+        d_ms = device_ms(torch, lambda: int8_conv(*args), iters=3, warmup=1)
+        p_ms = cuda_ms(lambda: int8_conv_plain(*args), iters=1, warmup=0)
+        nbytes = (x.numel() + k * k * cin * cout + 4 * cout * (3 if bn else 1)
+                  + B * ho * wo * cout * (4 + (4 if res else 0)))  # f32 out [+ residual]
+        ops = 2 * B * ho * wo * cout * k * k * cin
+        bms, by = bound_ms(nbytes, ops, INT8_OP_PER_S)
+        print(f"  int8_conv_f32 {site} x{n}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached, "
+              f"{bms / d_ms:.1%} by device time)", flush=True)
+        rows.append(dict(ms=n * ms, device_ms=n * d_ms, plain_ms=n * p_ms, bound_ms=n * bms,
+                         nbytes=n * nbytes, flops=n * ops, err=err))
+    tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "bound_ms", "nbytes", "flops"))
+    tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), INT8_OP_PER_S)[1]
+    return {"name": "int8_conv_f32", "route": "cuda", "source": "tgsr_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "tgsr_tpu/engine/quant.py:164 (XLA int8 conv; no Pallas kernel)",
+            **tot, "library_ms": None,
+            "shapes": f"B {B}, the 42 convs of one int8 forward (26 shapes) with a float32 "
+                      "output, a float32 residual at the 14 ResBlock conv2s; ms, plain_ms by "
+                      "CUDA events, device_ms with the host's launches queued behind a spin "
+                      "kernel"}
 
 
 def ptxas_usage(log: str, kernel: str) -> dict:
@@ -1565,6 +1735,290 @@ def eval_phase(torch, rng, card):
     return counts
 
 
+# CelebA's 40 attributes (list_attr_celeba.txt's header): the face example
+# set's vocabulary, 41 words with <end>, so that resolve_net_e picks the
+# shipped trained NET_E
+CELEBA_ATTRS = ("5_o_Clock_Shadow Arched_Eyebrows Attractive Bags_Under_Eyes Bald Bangs "
+                "Big_Lips Big_Nose Black_Hair Blond_Hair Blurry Brown_Hair Bushy_Eyebrows Chubby "
+                "Double_Chin Eyeglasses Goatee Gray_Hair Heavy_Makeup High_Cheekbones Male "
+                "Mouth_Slightly_Open Mustache Narrow_Eyes No_Beard Oval_Face Pale_Skin "
+                "Pointy_Nose Receding_Hairline Rosy_Cheeks Sideburns Smiling Straight_Hair "
+                "Wavy_Hair Wearing_Earrings Wearing_Hat Wearing_Lipstick Wearing_Necklace "
+                "Wearing_Necktie Young").split()
+CLI_IMAGES = 4  # the example set's images, one batch of every run
+
+
+def face_example_set(rng, root, n_images):
+    """The reference's face eval layout in `root`: testset.txt in CelebA's
+    attribute format (the first n_images rows, 1-2 attributes each, caption
+    the images in Img/changetxt_im1/; 40 more rows name every attribute
+    once, Blurry on the test rows, so that the vocabulary is the 41 words)
+    and n_images seeded PNGs of 300 x 280 (ramps and noise)."""
+    from tgsr_tpu_torch.data.codec import encode_png
+
+    img_dir = os.path.join(root, "Img", "changetxt_im1")
+    os.makedirs(img_dir)
+    blurry = CELEBA_ATTRS.index("Blurry")
+    others = [k for k in range(40) if k != blurry]
+    rows = []
+    for i in range(n_images):
+        r = np.zeros(40, int)
+        r[rng.choice(others, rng.integers(1, 3), replace=False)] = 1
+        rows.append(r)
+    for k in others + [blurry]:  # Blurry's row last: a test row
+        r = np.zeros(40, int)
+        r[k] = 1
+        rows.append(r)
+    with open(os.path.join(root, "testset.txt"), "w") as f:
+        f.write(" ".join(CELEBA_ATTRS) + " \n")
+        for i, r in enumerate(rows):
+            f.write(f"{i:06d}.jpg " + " ".join(map(str, r)) + "\n")
+    yy, xx = np.mgrid[:300, :280]
+    for i in range(n_images):
+        img = np.stack([(yy * rng.uniform(0.3, 1.5) + xx * rng.uniform(0.3, 1.5)) % 256
+                        for _ in range(3)], -1)
+        img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype("uint8")
+        with open(os.path.join(img_dir, f"{i:06d}.png"), "wb") as f:
+            f.write(encode_png(img))
+
+
+def cli_phase(torch, rng, card, tmp):
+    """The eval and calibration entry points (tgsr_tpu_torch.cli.test and
+    .calibrate) on the card at face S8 full width: a face example set in the
+    reference's layout (CLI_IMAGES PNGs of 300 x 280, CelebA attribute
+    captions, the 41-word vocabulary), a YAML, seeded .pth files and the
+    shipped NET_E through resolve_net_e. Runs, each with the launch counts
+    set to 0 before and read after: the bfloat16 default with --metrics
+    (every SR and grid written and decoding, each SR within 1 level of
+    sr_uint8 on the same LR, captions and weights, the metrics within the
+    eval gates against float32 on the CPU); --no-bf16 (SR within 1 level of
+    float32 on the CPU, and the card's attention maps within 1e-4 of the
+    CPU's), --int8 --save_artifact (the bundle serves within 1 level of the
+    CLI's SR), --no-bf16 --int8 (the float32 instances; PSNR against
+    float32 on the CPU at least the CPU's own int8-float32 figure less 1
+    dB, on the first two images), --arbitrary --bucket 64 (bit for bit
+    sr_arbitrary), cli.calibrate --batches 2 (scales within 1e-4 relative
+    of a CPU calibration of the same views; the gate passes), cli.test
+    --scales --arbitrary on its file, and --gate_db 99 (writes nothing).
+    Prints each run's images per second and host seconds per grid (host
+    clock). Returns the launches of each run."""
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.checkpoints.shipped import shipped_net_e
+    from tgsr_tpu_torch.cli import calibrate as cal_cli
+    from tgsr_tpu_torch.cli import test as test_cli
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.data.codec import decode_png
+    from tgsr_tpu_torch.data.datasets import load_arbitrary_eval_image
+    from tgsr_tpu_torch.data.pipeline import BatchLoader
+    from tgsr_tpu_torch.engine.evaluator import evaluate_sr
+    from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
+    from tgsr_tpu_torch.engine.quant import merge_scales
+    from tgsr_tpu_torch.ops import _build
+
+    data = os.path.join(tmp, "face")
+    face_example_set(rng, data, CLI_IMAGES)
+    cfg = face_s8_config()
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(1))
+    ckpt = os.path.join(tmp, "face_ckpt")
+    os.makedirs(ckpt)
+    for name, sd in (("netG_epoch_7.pth", sds[1]), ("netGH_epoch_7.pth", sds[2])):
+        torch.save(sd, os.path.join(ckpt, name))
+    yml = os.path.join(tmp, "eval_faceSR_cli.yml")
+    with open(yml, "w") as f:
+        f.write(FACE_S8_YAML.format(absent_net_e=os.path.join(tmp, "absent_text_encoder.pth")))
+    netg = os.path.join(ckpt, "netG_epoch_7.pth")
+    net_e = shipped_net_e(41)
+    base = ["--cfg", yml, "--ckpt_dir", ckpt, "--batch", str(CLI_IMAGES), "--data_dir", data]
+    launches = {}
+
+    def run(tag, main, argv):
+        """One CLI run with the counts set to 0 before it and read after."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        summary = main(base + argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[f"cli {tag}"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                  for k in _build.LAUNCHES}
+        ran = {k: v for k, v in launches[f"cli {tag}"].items() if v}
+        if "images" in summary:
+            grid = (f", {summary['grid_seconds'] / summary['grids']:.4f} s per grid "
+                    f"({summary['grids']} grids)" if summary.get("grids") else "")
+            print(f"  cli {tag}: {summary['images']} images in {dt:.3f} s, "
+                  f"{summary['images'] / dt:.2f} img/s (host clock, whole run){grid}; "
+                  f"launches {ran} on {card}", flush=True)
+        else:
+            print(f"  cli {tag}: {dt:.3f} s (host clock); launches {ran} on {card}", flush=True)
+        return summary
+
+    def outputs(summary, n, grids=True):
+        """(keys, SR uint8 images, grid shapes) read back through the PNG
+        decoder, every file present."""
+        out = summary["out_dir"]
+        keys = [f"{i:06d}" for i in range(n)]
+        srs, shapes, ok = [], [], True
+        for key in keys:
+            path = os.path.join(out, f"{key}_SR.png")
+            ok &= os.path.exists(path)
+            if ok:
+                with open(path, "rb") as f:
+                    srs.append(decode_png(f.read()))
+            if grids:
+                path = os.path.join(out, "att", f"{key}.png")
+                ok &= os.path.exists(path)
+                if ok:
+                    with open(path, "rb") as f:
+                        shapes.append(decode_png(f.read()).shape)
+        return ok, srs, shapes
+
+    def loader():
+        """The CLI's own loader of the set (one batch)."""
+        ds = test_cli.build_example_dataset(test_cli.load_config(yml, data))
+        return BatchLoader(ds, CLI_IMAGES, shuffle=False, drop_last=False,
+                           deterministic_captions=True)
+
+    def worst_level(srs, refs):
+        return max(int(np.abs(a.astype(int) - b.astype(int)).max()) for a, b in zip(srs, refs))
+
+    # -- the bfloat16 default with --metrics ---------------------------------------
+    s = run("bf16", test_cli.main, ["--out_dir", os.path.join(tmp, "o_bf16"), "--metrics"])
+    ok, srs, shapes = outputs(s, CLI_IMAGES)
+    check(ok and s["images"] == s["grids"] == CLI_IMAGES and all(
+        x.shape == (256, 256, 3) for x in srs) and all(
+        h == 306 and w % 258 == 0 and c == 3 for h, w, c in shapes),
+        f"cli bf16: {CLI_IMAGES} <key>_SR.png and att/<key>.png written and decoding "
+        f"(grids {sorted(set(shapes))})")
+    ref = SRPipeline.from_reference_checkpoints(cfg, 41, netg, text_encoder_path=net_e,
+                                                compute_dtype=torch.bfloat16)
+    batch = next(iter(loader().epoch(0)))
+    lr_s = test_cli.degrade(batch["hr"], 32, "cuda")
+    lr_cpu, cap_s, lens_s = lr_s.cpu().numpy(), batch["captions"], batch["cap_lens"]
+    worst = worst_level(srs, ref.sr_uint8(lr_cpu, cap_s, lens_s))
+    check(worst <= 1, f"cli bf16: every SR within 1 uint8 level of sr_uint8 on the same LR, "
+                      f"captions and weights (max {worst})")
+    plain = SRPipeline.from_reference_checkpoints(cfg, 41, netg, text_encoder_path=net_e,
+                                                  device="cpu")
+    m_cpu = evaluate_sr(plain, loader().epoch(0))
+    m = s["metrics"]
+    gp, gs = abs(m["psnr_y"] - m_cpu["psnr_y"]), abs(m["ssim_y"] - m_cpu["ssim_y"])
+    check(m["images"] == CLI_IMAGES and gp <= EVAL_BF16_PSNR_GAP_DB and gs <= EVAL_BF16_SSIM_GAP,
+          f"cli bf16 --metrics vs float32 on the CPU: PSNR-Y {m['psnr_y']!r} dB (gap {gp:.6f} "
+          f"<= {EVAL_BF16_PSNR_GAP_DB}), SSIM-Y {m['ssim_y']!r} (gap {gs:.3e} <= "
+          f"{EVAL_BF16_SSIM_GAP})")
+    counts = launches["cli bf16"]
+    check(counts["word_pixel_attention"] > 0 and counts["up_head_packed"] > 0,
+          "cli bf16: the forward with attention maps went through rows 1 and 3")
+    del ref
+
+    # -- float32: the SR and the attention maps against the CPU ------------------
+    s = run("float32", test_cli.main, ["--out_dir", os.path.join(tmp, "o_f32"), "--no-bf16"])
+    ok, srs, _ = outputs(s, CLI_IMAGES)
+    ref_f32 = plain(lr_cpu, cap_s, lens_s)
+    sr_cpu = to_uint8(ref_f32["sr"]).numpy()
+    worst = worst_level(srs, sr_cpu) if ok else 255
+    check(ok and worst <= 1, f"cli float32: every SR within 1 uint8 level of float32 on the "
+                             f"CPU (max {worst})")
+    card_f32 = SRPipeline.from_reference_checkpoints(cfg, 41, netg, text_encoder_path=net_e,
+                                                     return_attn=True)
+    att = card_f32(lr_s, cap_s, lens_s)["attn"]
+    plain.return_attn = True
+    att_cpu = plain(lr_cpu, cap_s, lens_s)["attn"]
+    plain.return_attn = False
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(att, att_cpu))
+    check(err <= 1e-4, f"cli float32: the card's attention maps (3 stages) within 1e-4 of the "
+                       f"CPU's (max abs err {err:.3e})")
+    check(launches["cli float32"]["up_head"] > 0, "cli float32: went through row 2")
+    del card_f32
+
+    # -- int8 (bfloat16 compute) and its bundle ----------------------------------
+    bundle = os.path.join(tmp, "cli_int8_bundle")
+    s = run("int8", test_cli.main, ["--out_dir", os.path.join(tmp, "o_i8"), "--int8",
+                                    "--save_artifact", bundle])
+    ok, srs, _ = outputs(s, CLI_IMAGES)
+    pipe, vocab = SRPipeline.load_artifact(bundle, device="cuda")
+    served = pipe.sr_uint8(lr_cpu, cap_s, lens_s)
+    worst = worst_level(srs, served) if ok else 255
+    check(ok and bool(pipe.quant_scales) and vocab.n_words == 41 and not pipe.return_attn
+          and worst <= 1, f"cli int8 --save_artifact: the bundle serves int8 within 1 uint8 "
+                          f"level of the CLI's SR (max {worst})")
+    counts = launches["cli int8"]
+    check(all(counts[k] > 0 for k in ("int8_conv", "glu_requant_one", "glu_requant_pair",
+                                      "requant")),
+          "cli int8: went through rows 8, 9, X1 and X2 (bfloat16 instances)")
+    del pipe
+
+    # -- int8 with float32 compute (the float32 instances) -----------------------
+    bundle32 = os.path.join(tmp, "cli_int8_f32_bundle")
+    s = run("float32 int8", test_cli.main, ["--out_dir", os.path.join(tmp, "o_i8f32"),
+                                            "--no-bf16", "--int8", "--save_artifact", bundle32])
+    ok, srs, _ = outputs(s, CLI_IMAGES)
+    with open(os.path.join(bundle32, "quant_scales.json")) as f:
+        scales32 = json.load(f)
+    cpu_i8 = SRPipeline.from_reference_checkpoints(cfg, 41, netg, text_encoder_path=net_e,
+                                                   device="cpu", quant_scales=scales32)
+    floor = psnr_u8(cpu_i8(lr_cpu[:2], cap_s[:2], lens_s[:2])["sr"], ref_f32["sr"][:2])
+    got = torch.from_numpy(np.stack(srs[:2])).float() / 127.5 - 1.0 if ok else None
+    psnr = psnr_u8(got, ref_f32["sr"][:2]) if ok else 0.0
+    print(f"  int8 with float32 compute vs float32, both on the CPU (2 images): "
+          f"uint8 PSNR {floor:.2f} dB", flush=True)
+    check(ok and psnr >= floor - 1.0, f"cli float32 int8: SR on the card vs float32 on the CPU "
+                                      f"PSNR {psnr:.2f} dB >= {floor - 1.0:.2f} (the CPU's own "
+                                      f"int8-float32 figure less 1 dB)")
+    counts = launches["cli float32 int8"]
+    f32_rows = ("int8_conv_f32", "glu_requant_one_f32", "glu_requant_pair_f32", "requant_f32")
+    check(all(counts[k] > 0 for k in f32_rows) and not any(
+        counts[k] for k in ("int8_conv", "glu_requant_one", "glu_requant_pair", "requant")),
+        f"cli float32 int8: went through the float32 instances of rows 8, 9, X1 and X2 and none "
+        f"of the bfloat16 ones ({ {k: counts[k] for k in f32_rows} })")
+    del cpu_i8
+
+    # -- native geometry ---------------------------------------------------------
+    s = run("arbitrary", test_cli.main, ["--out_dir", os.path.join(tmp, "o_arb"), "--arbitrary",
+                                         "--bucket", "64"])
+    ok, srs, _ = outputs(s, CLI_IMAGES, grids=False)
+    ref = SRPipeline.from_reference_checkpoints(cfg, 41, netg, text_encoder_path=net_e,
+                                                compute_dtype=torch.bfloat16)
+    same = ok
+    for i in range(CLI_IMAGES if ok else 0):
+        lr, _ = load_arbitrary_eval_image(os.path.join(data, "Img", "changetxt_im1",
+                                                       f"{i:06d}.png"), 8)
+        sr = ref.sr_arbitrary(lr, cap_s[i:i + 1], lens_s[i:i + 1], bucket=64)[0]
+        same &= srs[i].shape == (296, 280, 3) and np.array_equal(sr, srs[i])
+    check(same and s["lr_shapes"] == 1, f"cli --arbitrary --bucket 64: {CLI_IMAGES} SR of "
+                                        f"296 x 280, bit for bit sr_arbitrary ({s['lr_shapes']} "
+                                        f"LR shape run)")
+    del ref
+
+    # -- calibration, --scales, the gate -----------------------------------------
+    out = os.path.join(tmp, "cli_scales.json")
+    s = run("calibrate", cal_cli.main, ["--out", out, "--batches", "2"])
+    per_view = [plain.calibrate_quant(lr, cap, lens) for lr, cap, lens in s["views"]]
+    cpu = {g: merge_scales(*(v[g] for v in per_view)) for g in per_view[0]}
+    rel = max(abs(s["scales"][g][k] - cpu[g][k]) / cpu[g][k] for g in cpu for k in cpu[g])
+    check(os.path.exists(out) and s["scales"].keys() == cpu.keys() and all(
+        s["scales"][g].keys() == cpu[g].keys() for g in cpu) and rel <= 1e-4,
+        f"cli calibrate: {sum(len(v) for v in cpu.values())} scales within 1e-4 relative of a "
+        f"CPU calibration of the same {len(s['views'])} views (max {rel:.2e}); gate "
+        f"{s['psnr']:.2f} dB passed")
+    s = run("scales", test_cli.main, ["--out_dir", os.path.join(tmp, "o_scales"), "--scales",
+                                      out, "--arbitrary"])
+    check(s["images"] == CLI_IMAGES and launches["cli scales"]["int8_conv"] > 0,
+          "cli --scales --arbitrary: the calibrated file serves int8 without calibrating")
+    never = os.path.join(tmp, "never.json")
+    try:
+        cal_cli.main(base + ["--out", never, "--batches", "1", "--gate_db", "99"])
+        refused = False
+    except SystemExit as e:
+        refused = "fidelity gate failed" in str(e)
+    check(refused and not os.path.exists(never), "cli calibrate --gate_db 99: refused, nothing "
+                                                 "written")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> None:
     """Device time of one B=64 forward, fn(), by kernel (torch.profiler,
     CUPTI), and the share of cuDNN's layout conversions; `how` is "eager"
@@ -1630,7 +2084,8 @@ def main() -> int:
     torch.manual_seed(0)
     t0 = time.perf_counter()
     kernels = [attention_phase(torch, rng), *up_head_phase(torch), *glu_requant_phase(torch),
-               requant_phase(torch), int8_conv_phase(torch)]
+               requant_phase(torch), int8_conv_phase(torch), *glu_requant_f32_phase(torch),
+               requant_f32_phase(torch), int8_conv_f32_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches, scales = pipeline_phase(torch, rng, card)
@@ -1653,11 +2108,16 @@ def main() -> int:
         launches[f"eval {tag}"] = run
     print(f"eval phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(cli_phase(torch, rng, card, tmp))
+    print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows
     print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # launches: the runs of each path, the serving forward in f32, bf16 and
-    # int8 and the conv probe (counted apart per path; "launches" is their sum)
+    # int8, the CLIs' runs and the conv probe (counted apart per path;
+    # "launches" is their sum)
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in launches.values())
         k["launches_by_path"] = {tag: run[k["name"]] for tag, run in launches.items()}

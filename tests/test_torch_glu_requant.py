@@ -175,9 +175,10 @@ def test_wrapper_refuses_and_counts_nothing_on_the_cpu():
     before = dict(_build.LAUNCHES)
     h = torch.zeros(8, 64, dtype=torch.bfloat16)
     assert glu_requant(h, 1.0).shape == (8, 32)
+    assert glu_requant(h.float(), 1.0).shape == (8, 32)
     assert _build.LAUNCHES == before  # the CPU runs the plain version
-    with pytest.raises(TypeError, match="bfloat16"):
-        glu_requant(h.float(), 1.0)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        glu_requant(h.half(), 1.0)
     with pytest.raises(ValueError, match="no kernel"):
         glu_requant(h.to("meta"), 1.0)
 
@@ -221,8 +222,93 @@ def test_requant_wrapper_refuses_and_counts_nothing_on_the_cpu():
     before = dict(_build.LAUNCHES)
     x = torch.linspace(-3, 3, 21).bfloat16().reshape(3, 7)  # 21: not a multiple of 8
     np.testing.assert_array_equal(requant(x, 2.0).numpy(), requant_plain(x, 2.0).numpy())
+    np.testing.assert_array_equal(requant(x.float(), 2.0).numpy(),
+                                  requant_plain(x.float(), 2.0).numpy())
     assert _build.LAUNCHES == before  # the CPU runs the plain version
-    with pytest.raises(TypeError, match="bfloat16"):
-        requant(x.float(), 2.0)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        requant(x.double(), 2.0)
     with pytest.raises(ValueError, match="no kernel"):
         requant(x.to("meta"), 2.0)
+
+
+# -- the float32 instances (int8 serving with float32 compute) ---------------
+
+def _near_half(p, step, rel=2.0 ** -20):
+    """Where p / step lies within `rel` of it of a half-integer (float64)."""
+    t = np.abs(p.astype(np.float64) / np.float64(step))
+    return np.abs(t - np.floor(t) - 0.5) <= rel * t
+
+
+@pytest.mark.parametrize("c", [64, 32])
+@pytest.mark.parametrize("jit", [False, True])
+def test_f32_glu_matches_res_block_split_order(c, jit):
+    """float32 h: the port's plain GLU+requantize (s = sigmoid(g),
+    p = v * s, q = rint(clip(p / step))) against JAX's float32 order in
+    `_res_block_split` and the UpBlock split, `v * jax.nn.sigmoid(g)` then
+    `quantize_act`. The two sigmoids may differ in their last bit, which
+    moves q by at most one step, and only where p / step lies within
+    2^-20 of a half-integer; everywhere else the int8 is equal."""
+    rng = np.random.default_rng(20 + c)
+    h = rng.normal(0, 1.5, (N, 2 * c)).astype(np.float32)
+    scale = 2.0
+
+    def ref(hj):
+        return quantize_act(hj[:, :c] * jax.nn.sigmoid(hj[:, c:]), scale)[0]
+
+    want = np.asarray((jax.jit(ref) if jit else ref)(jnp.asarray(h))).astype(np.int32)
+    got = glu_requant_plain(torch.from_numpy(h), scale)
+    assert got.dtype == torch.int8 and got.shape == (N, c)
+    d = np.abs(got.numpy().astype(np.int32) - want)
+    p = h[:, :c] * torch.sigmoid(torch.from_numpy(h[:, c:])).numpy()
+    assert d.max() <= 1
+    assert np.all(_near_half(p, act_step(scale))[d > 0])
+    assert np.abs(want).max() == 127  # the clip is exercised
+
+
+@pytest.mark.parametrize("jit", [False, True])
+@pytest.mark.parametrize("scale", [POW2_SCALE, CAL_SCALE, MISROUND_SCALE])
+def test_requant_f32_matches_jax_quantize_act(scale, jit):
+    """float32 x, spread over every binade from 2^-30 to 2^10 with both
+    signs, zeros and exact half-steps: bit for bit tgsr_tpu's eager
+    quantize_act. Under jit XLA multiplies by the reciprocal of the constant
+    step instead of dividing, which for float32 inputs (unlike bfloat16
+    ones) moves q by one step where x / step lies within 2^-20 of a
+    half-integer, and nowhere else."""
+    rng = np.random.default_rng(7)
+    step = np.float32(act_step(scale))
+    x = np.concatenate([
+        rng.uniform(1, 2, 1 << 16).astype(np.float32)
+        * np.exp2(rng.integers(-30, 11, 1 << 16)).astype(np.float32)
+        * rng.choice(np.float32([-1, 1]), 1 << 16),
+        (np.arange(-130, 130, dtype=np.float32) + np.float32(0.5)) * step,
+        np.float32([0.0, -0.0, 1e-38, -1e-38, 3e38, -3e38])])
+    fn = (lambda v: quantize_act(v, scale)[0])
+    want = np.asarray((jax.jit(fn) if jit else fn)(jnp.asarray(x)))
+    got = requant(torch.from_numpy(x), scale)
+    if jit:
+        d = np.abs(got.numpy().astype(np.int32) - want)
+        assert d.max() <= 1 and np.all(_near_half(x, step)[d > 0])
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert want.min() == -127 and want.max() == 127 and np.any(want == 0)
+
+
+@pytest.mark.parametrize("scale", [POW2_SCALE, CAL_SCALE, MISROUND_SCALE, 0.7316, 255.0])
+def test_divide_guard_equals_ieee_division_f32(scale):
+    """The kernel's multiply-with-guard on float32 products (the float32
+    instances' p is any float32): division-then-rint bit for bit over a
+    million float32 drawn across the int8 range, and over the float32
+    neighbours of every half-step, where the guard must divide."""
+    rng = np.random.default_rng(8)
+    step = np.float32(act_step(scale))
+    half = (np.arange(-128, 128, dtype=np.float64) + 0.5) * np.float64(step)
+    near = np.float32(half)
+    for _ in range(6):
+        near = np.concatenate([near, np.nextafter(near, np.float32(np.inf)),
+                               np.nextafter(near, np.float32(-np.inf))])
+    p = np.concatenate([rng.uniform(-140, 140, 1 << 20).astype(np.float32) * step, near])
+    t, divided = _guarded_quotient(p, step)
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = np.rint(np.clip(p / step, -127, 127)).astype(np.int8)
+    np.testing.assert_array_equal(np.rint(np.clip(t, -127, 127)).astype(np.int8), want)
+    assert divided[-len(near):].mean() > 0.5 and divided[:1 << 20].mean() < 0.01

@@ -108,6 +108,22 @@ def test_residual_is_added_after_the_cast():
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
+def test_float32_residual_is_added_in_float32():
+    """The float32 epilogue of a quantized ResBlock's conv2 (JAX's
+    `_res_block_split` under float32 compute): acc * scale, BN, then + x,
+    all in float32, nothing rounded to bfloat16."""
+    acc = torch.tensor([[1000, -7, 3]], dtype=torch.int32)
+    scale = torch.tensor([1e-3, 0.5, 1 / 3])
+    bn = (torch.tensor([1.5, -1.0, 0.7]), torch.tensor([0.1, 0.2, -0.3]))
+    res = torch.tensor([[0.25, 3.0, 1 / 7]])
+    got = dequant_epilogue(acc, scale, bn=bn, residual=res, out_dtype=torch.float32)
+    want = (acc.float() * scale) * bn[0] + bn[1] + res
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    y = jnp.asarray(acc.numpy()).astype(jnp.float32) * jnp.asarray(scale.numpy())
+    y = (y * jnp.asarray(bn[0].numpy()) + jnp.asarray(bn[1].numpy())).astype(jnp.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(y + jnp.asarray(res.numpy())))
+
+
 @pytest.mark.parametrize("k, cin, cout, n, kp", [
     (3, 6, 5, 8, 288),     # Cin padded to 32 a tap, Cout to the N = 8 instance
     (3, 3, 64, 64, 64),    # 3 channels: taps folded into K, 9 x 4 = 36 -> 64
@@ -145,6 +161,12 @@ def test_wrapper_refuses_and_counts_nothing_on_the_cpu():
     with pytest.raises(TypeError, match="out_dtype"):
         int8_conv(x, w, scale, out_dtype=torch.float16)
     with pytest.raises(TypeError, match="residual"):
-        int8_conv(x, w, scale, residual=torch.zeros(1, 4, 4, 4), out_dtype=torch.float32)
+        int8_conv(x, w, scale, residual=torch.zeros(1, 4, 4, 4, dtype=torch.bfloat16),
+                  out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="residual"):
+        int8_conv(x, w, scale, residual=torch.zeros(1, 4, 4, 4))
+    res = torch.full((1, 4, 4, 4), 0.5)
+    assert torch.equal(int8_conv(x, w, scale, residual=res, out_dtype=torch.float32), res)
+    assert _build.LAUNCHES == before
     with pytest.raises(ValueError, match="no kernel"):
         int8_conv(x.to("meta"), w, scale)

@@ -46,6 +46,7 @@ import torch
 from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
 from tgsr_tpu_torch.config import Config, GanConfig, TextConfig, TreeConfig
 from tgsr_tpu_torch.engine import inference
+from tgsr_tpu_torch.engine.quant import act_step
 from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
 from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops import conv_probe
@@ -359,12 +360,13 @@ def test_int8_conv_matches_plain(cuda_device, cfg):
     ho, wo = (2 * h, 2 * w) if up2 else (h, w)
     resid = torch.randn(b, ho, wo, cout, generator=g, device=cuda_device).bfloat16() if res else None
     one = torch.ones(cout, device=cuda_device)
-    before = _build.LAUNCHES["int8_conv"]
+    before = dict(_build.LAUNCHES)
     acc = int8_conv(x, wt, one, out_dtype=torch.float32, up2=up2)
     f32 = int8_conv(x, wt, scale, bn=affine, out_dtype=torch.float32, up2=up2)
     bf = int8_conv(x, wt, scale, bn=affine, residual=resid, up2=up2)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["int8_conv"] == before + 3
+    assert _build.LAUNCHES["int8_conv"] == before["int8_conv"] + 1
+    assert _build.LAUNCHES["int8_conv_f32"] == before["int8_conv_f32"] + 2
     assert torch.equal(acc, int8_conv_plain(x, wt, one, out_dtype=torch.float32, up2=up2))
     assert torch.equal(f32, int8_conv_plain(x, wt, scale, bn=affine, out_dtype=torch.float32,
                                             up2=up2))
@@ -429,8 +431,8 @@ def test_requant_every_bf16(cuda_device, scale):
         requant(x[1:], scale)
     with pytest.raises(ValueError, match="contiguous"):
         requant(x[:64].reshape(8, 8).t(), scale)
-    with pytest.raises(TypeError, match="bfloat16"):
-        requant(x.float(), scale)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        requant(x.half(), scale)
     assert _build.LAUNCHES["requant"] == before + 4
 
 
@@ -459,6 +461,176 @@ def test_pipeline_int8_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, int8_conv=42,
                                    glu_requant_one=6, glu_requant_pair=10, requant=26)
+    d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
+    assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
+
+
+# -- the float32 instances: int8 serving with float32 compute ----------------
+
+# every int8 conv shape of the x8 forward at GF_DIM 32 (B = 2): (h, w, cin,
+# cout, k, up2, bn, residual)
+INT8_SITES = [
+    (32, 32, 3, 64, 3, False, False, False), (32, 32, 64, 128, 3, False, True, False),
+    (32, 32, 64, 64, 3, False, True, True), (32, 32, 64, 64, 3, True, True, False),
+    (64, 64, 32, 3, 3, False, False, False), (64, 64, 64, 128, 3, False, True, False),
+    (64, 64, 64, 64, 3, False, True, True), (64, 64, 64, 64, 3, True, True, False),
+    (128, 128, 32, 3, 3, False, False, False), (128, 128, 64, 128, 3, False, True, False),
+    (128, 128, 64, 64, 3, False, True, True), (128, 128, 64, 64, 3, True, True, False),
+    (256, 256, 32, 3, 3, False, False, False), (32, 32, 32, 64, 3, False, True, False),
+    (32, 32, 32, 32, 3, False, True, True), (32, 32, 32, 64, 3, True, True, False),
+    (64, 64, 32, 3, 5, False, False, False), (64, 64, 32, 32, 3, False, True, False),
+    (128, 128, 32, 3, 5, False, False, False), (256, 256, 32, 3, 5, False, False, False),
+]
+# the GLU-requant sites of that forward: (h, w, c)
+GLU_SITE_SHAPES = [(32, 32, 64), (64, 64, 64), (128, 128, 64), (32, 32, 32), (64, 64, 32),
+                   (128, 128, 32), (256, 256, 32)]
+
+
+def _near_half(p, step, rel=2.0 ** -20):
+    """Where p / step lies within `rel` of it of a half-integer (float64)."""
+    t = (p.double() / step).abs()
+    return (t - t.floor() - 0.5).abs() <= rel * t
+
+
+@pytest.mark.parametrize("site", INT8_SITES)
+def test_int8_conv_f32_residual_matches_plain(cuda_device, site):
+    """The float32 output with a float32 residual (a quantized block's conv2
+    under float32 compute) and without one, at every int8 conv shape of the
+    forward: bit for bit the plain version."""
+    h, w, cin, cout, k, up2, bn, res = site
+    g = torch.Generator(device=cuda_device).manual_seed(h + cin + cout + k)
+    x = torch.randint(-127, 128, (2, h, w, cin), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    wt = pack_int8_weight(torch.randint(-127, 128, (k, k, cin, cout), generator=g,
+                                        device=cuda_device, dtype=torch.int8))
+    scale = torch.rand(cout, generator=g, device=cuda_device) * 1e-5 + 1e-6
+    affine = ((1 + 0.1 * torch.randn(cout, generator=g, device=cuda_device),
+               0.1 * torch.randn(cout, generator=g, device=cuda_device)) if bn else None)
+    ho, wo = (2 * h, 2 * w) if up2 else (h, w)
+    resid = torch.randn(2, ho, wo, cout, generator=g, device=cuda_device) if res else None
+    before = dict(_build.LAUNCHES)
+    args = (x, wt, scale, affine, resid, torch.float32, up2)
+    got = int8_conv(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(before, int8_conv_f32=before["int8_conv_f32"] + 1)
+    assert got.dtype == torch.float32 and torch.equal(got, int8_conv_plain(*args))
+
+
+def test_int8_conv_f32_refusals(cuda_device):
+    """A residual whose type is not the output's, and a misaligned one,
+    raise before any launch."""
+    x = torch.zeros(1, 8, 8, 32, dtype=torch.int8, device=cuda_device)
+    wt = pack_int8_weight(torch.ones(3, 3, 32, 32, dtype=torch.int8, device=cuda_device))
+    scale = torch.ones(32, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError, match="residual"):
+        int8_conv(x, wt, scale, residual=torch.zeros(1, 8, 8, 32, device=cuda_device,
+                                                    dtype=torch.bfloat16),
+                  out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="residual"):
+        int8_conv(x, wt, scale, residual=torch.zeros(1, 8, 8, 32, device=cuda_device))
+    flat = torch.zeros(1 + 8 * 8 * 32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        int8_conv(x, wt, scale, residual=flat[1:].reshape(1, 8, 8, 32), out_dtype=torch.float32)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", GLU_SITE_SHAPES + [(1, 4097, 64), (1, 4097, 32)])
+def test_glu_requant_f32_matches_plain(cuda_device, shape):
+    """The float32 instances (c = 64 and 32) at every GLU-requant site of the
+    forward (B = 2) and on a ragged row count: int8 equal to the plain
+    version, except one step where p / step lies within 2^-20 of a
+    half-integer (a sigmoid's last bit); the count is printed."""
+    h, w, c = shape
+    g = torch.Generator(device=cuda_device).manual_seed(h * w + c)
+    x = 1.5 * torch.randn(2, h, w, 2 * c, generator=g, device=cuda_device)
+    name = INSTANCES[c] + "_f32"
+    before = dict(_build.LAUNCHES)
+    got = glu_requant(x, 2.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(before, **{name: before[name] + 1})
+    ref = glu_requant_plain(x, 2.0)
+    d = (got.int() - ref.int()).abs()
+    p = x[..., :c] * torch.sigmoid(x[..., c:])
+    print(f"{name} {shape}: {int((d > 0).sum())} of {d.numel()} differ")
+    assert got.dtype == torch.int8 and d.max().item() <= 1
+    assert bool(_near_half(p, act_step(2.0))[d > 0].all())
+
+
+def test_glu_requant_f32_edges(cuda_device):
+    """Gates at +-0, at +-100 (sigmoid 1 and 0), past expf's range (+-1e30)
+    and infinite; values at exact half-steps (sigmoid 1, a power-of-two
+    step: rint to even), +-0 and beyond the clip: bit for bit the plain
+    version in both instances."""
+    scale = 127.0 / 64  # step 2^-6
+    vals = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 300.0, 0.0, -0.0], device=cuda_device) / 64
+    gates = torch.tensor([100.0, 1e30, float("inf"), 0.0, -0.0, -100.0, -1e30, 3.0],
+                         device=cuda_device)
+    for c in sorted(INSTANCES):
+        v = vals.repeat(c // 8).expand(64, c)
+        gs = [gates.roll(k).repeat(c // 8).expand(64, c) for k in range(8)]
+        h = torch.cat([torch.cat([v, gg], 1) for gg in gs]).contiguous()
+        got = glu_requant(h, scale)
+        assert torch.equal(got, glu_requant_plain(h, scale)), c
+        ones = torch.cat([v, torch.full_like(v, 100.0)], 1).contiguous()  # sigmoid 1
+        assert glu_requant(ones, scale)[0, :8].tolist() == [0, 2, 2, 0, -2, 127, 0, 0]
+
+
+@pytest.mark.parametrize("scale", REQUANT_SCALES)
+def test_requant_f32_matches_plain(cuda_device, scale):
+    """The float32 flat pass against `quantize_act` bit for bit: values over
+    every binade from 2^-30 to 2^10, zeros, infinities, the float32
+    neighbours of every half-step; a ragged count, a view 16 bytes in; a
+    view off 16-byte alignment raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(int(scale * 7))
+    n = 1 << 18
+    mag = torch.rand(n, generator=g, device=cuda_device) + 1
+    expo = torch.randint(-30, 11, (n,), generator=g, device=cuda_device).float()
+    sign = torch.randint(0, 2, (n,), generator=g, device=cuda_device).float() * 2 - 1
+    step = act_step(scale)
+    half = (torch.arange(-130, 130, device=cuda_device, dtype=torch.float64) + 0.5) * step
+    half = half.float()
+    x = torch.cat([mag * torch.exp2(expo) * sign, half, torch.nextafter(half, half + 1),
+                   torch.nextafter(half, half - 1),
+                   torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 3e38, -3e38],
+                                device=cuda_device)])
+    before = _build.LAUNCHES["requant_f32"]
+    for v in (x, x[:-3], x[4:], x[4:-5].reshape(-1, 1)):
+        got = requant(v, scale)
+        assert got.dtype == torch.int8 and got.shape == v.shape
+        assert torch.equal(got, requant_plain(v, scale))
+    assert _build.LAUNCHES["requant_f32"] == before + 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        requant(x[1:], scale)
+    assert _build.LAUNCHES["requant_f32"] == before + 4
+
+
+def test_pipeline_int8_f32_card_matches_cpu(cuda_device):
+    """int8 serving with float32 compute on the card against the same
+    pipeline and scales on the CPU (GF_DIM 32): each int8 site launches the
+    float32 instances (42 int8 convs, 6 + 10 GLU-requant passes, 26
+    requantized inputs) and nothing of the bfloat16 ones; uint8 PSNR >= 40
+    dB. The scales are recorded in float32, as cli.test --int8 records
+    them."""
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(32, 10, 2), TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    lr = rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (2, 6))
+    cap[1, 3:] = 0
+    lens = np.array([6, 3])
+    f32 = SRPipeline(cfg, 41, *sds, device=cuda_device)
+    scales = f32.calibrate_quant(lr, cap, lens)
+    kern = SRPipeline(cfg, 41, *sds, device=cuda_device, quant_scales=scales)
+    plain = SRPipeline(cfg, 41, *sds, device="cpu", quant_scales=scales)
+    ref = plain(lr, cap, lens)
+    _build.reset_launches()
+    got = kern(lr, cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, int8_conv_f32=42,
+                                   glu_requant_one_f32=6, glu_requant_pair_f32=10,
+                                   requant_f32=26)
+    assert got["sr"].dtype == torch.float32
     d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
     assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
 
@@ -817,3 +989,67 @@ def test_sr_arbitrary_ragged_site_matches_plain(cuda_device, site):
         test_up_head_packed_kernel_matches_plain(cuda_device, cfg, torch.bfloat16)
     else:
         test_int8_conv_matches_plain(cuda_device, cfg)
+
+
+# -- the eval CLI on the card --------------------------------------------------
+
+CLI_YAML = """CONFIG_NAME: 'narrow_face'
+DATASET_NAME: 'face'
+TREE:
+    BRANCH_NUM: 4
+    BASE_SIZE: 8
+TRAIN:
+    FLAG: False
+    NET_G: 'absent/netG_epoch_7.pth'
+GAN:
+    GF_DIM: 32
+    CONDITION_DIM: 10
+TEXT:
+    EMBEDDING_DIM: 32
+    WORDS_NUM: 6
+    CAPTIONS_PER_IMAGE: 1
+"""
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32_int8"])
+def test_cli_test_runs_on_the_card(cuda_device, tmp_path, mode):
+    """tgsr_tpu_torch.cli.test at small N on the card (2 PNGs in the face
+    layout, GF_DIM 32 so that the GLU widths are the kernels' 64 and 32,
+    seeded .pth, the seeded text encoder): each SR and attention grid
+    written, through rows 1 and 3 (bf16 default) or through the float32
+    instances of rows 8, 9, X1 and X2 (--no-bf16 --int8)."""
+    from tgsr_tpu_torch.cli import test as cli
+    from tgsr_tpu_torch.data.codec import decode_png, encode_png
+
+    img_dir = tmp_path / "data" / "Img" / "changetxt_im1"
+    img_dir.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    names = ("Smiling Male Young " + " ".join(f"a{i}" for i in range(37))).split()
+    with open(tmp_path / "data" / "testset.txt", "w") as f:
+        f.write(" ".join(names) + " \n")
+        for i, row in enumerate(([1] + [0] * 39, [0, 1] + [0] * 38)):
+            f.write(f"{i:06d}.jpg " + " ".join(map(str, row)) + "\n")
+            (img_dir / f"{i:06d}.png").write_bytes(
+                encode_png(rng.integers(0, 256, (70, 66, 3)).astype(np.uint8)))
+    (tmp_path / "cfg.yml").write_text(CLI_YAML)
+    cfg = cli.load_config(str(tmp_path / "cfg.yml"))
+    sds = init_seeded(cfg, 3, torch.Generator().manual_seed(0))
+    for name, sd in (("netG_epoch_7.pth", sds[1]), ("netGH_epoch_7.pth", sds[2])):
+        torch.save(sd, tmp_path / name)
+    _build.reset_launches()
+    summary = cli.main(["--cfg", str(tmp_path / "cfg.yml"), "--data_dir", str(tmp_path / "data"),
+                        "--ckpt_dir", str(tmp_path), "--out_dir", str(tmp_path / "out")]
+                       + (["--no-bf16", "--int8"] if mode == "f32_int8" else []))
+    torch.cuda.synchronize()
+    assert summary["images"] == summary["grids"] == 2
+    for i in range(2):
+        sr = decode_png((tmp_path / "out" / "testset" / f"{i:06d}_SR.png").read_bytes())
+        grid = decode_png((tmp_path / "out" / "testset" / "att" / f"{i:06d}.png").read_bytes())
+        assert sr.shape == (64, 64, 3) and grid.shape == (306, 258, 3)
+    used = {k for k, v in _build.LAUNCHES.items() if v}
+    if mode == "bf16":
+        assert {"word_pixel_attention", "up_head_packed"} <= used
+    else:
+        assert {"word_pixel_attention", "int8_conv_f32", "glu_requant_one_f32",
+                "glu_requant_pair_f32", "requant_f32"} <= used
+        assert not used & {"int8_conv", "glu_requant_one", "glu_requant_pair", "requant"}

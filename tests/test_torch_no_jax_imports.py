@@ -1,6 +1,6 @@
 """Hygiene of the PyTorch port: tgsr_tpu_torch (every file under it, cli/
 included) and chip_smoke.py import nothing of JAX, flax, msgpack, PIL,
-PyYAML, nltk or tgsr_tpu, the port's weights carry
+OpenCV, skimage, PyYAML, nltk or tgsr_tpu, the port's weights carry
 exactly the reference state-dict keys and shapes that tgsr_tpu's exporter
 emits, and the ctypes signatures agree with the kernels' C interfaces."""
 
@@ -23,9 +23,11 @@ from tests.torch_parity import VOCAB, configs, jax_trees
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the card machine has none of these: msgpack files are read by the port's
 # own checkpoints/msgpack_io.py, PNGs by data/codec.py (zlib), YAML configs
-# by config.py's own reader, and the stopwords are a built-in list
+# by config.py's own reader, the stopwords are a built-in list, and the
+# attention grids resize, blend and draw text in numpy and scipy
+# (utils/visualize.py, utils/skimage_compat.py)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tgsr_tpu", "msgpack", "PIL", "yaml",
-             "nltk")
+             "nltk", "cv2", "skimage")
 
 
 def _port_files():
@@ -40,7 +42,10 @@ def test_walk_covers_every_port_package():
     dirs = {os.path.relpath(os.path.dirname(p), ROOT) for p in _port_files()}
     for sub in ("cli", "data", "engine", "ops", "checkpoints", "models", "utils", "probes"):
         assert os.path.join("tgsr_tpu_torch", sub) in dirs
-    assert os.path.join(ROOT, "tgsr_tpu_torch", "cli", "serve.py") in _port_files()
+    files = _port_files()
+    for rel in ("cli/serve.py", "cli/test.py", "cli/calibrate.py", "data/datasets.py",
+                "data/pipeline.py", "utils/visualize.py", "utils/skimage_compat.py"):
+        assert os.path.join(ROOT, "tgsr_tpu_torch", *rel.split("/")) in files, rel
 
 
 def _imported(tree):

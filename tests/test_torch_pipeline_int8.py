@@ -237,6 +237,78 @@ def test_entry_points_run(setup):
 
 
 def test_float32_with_scales_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        SRPipeline(setup["tcfg"], VOCAB, *setup["sds"], device="cpu",
-                   quant_scales=setup["scales"])
+    """float32 compute with scales, which the port refused until it served
+    it (JAX's `cli.test --no-bf16 --int8`), now builds the int8 modules in
+    float32, with the up-head sites off, and serves float32 SR."""
+    tpipe = SRPipeline(setup["tcfg"], VOCAB, *setup["sds"], device="cpu",
+                       quant_scales=setup["scales"])
+    assert tpipe.compute_dtype == torch.float32
+    assert tpipe.netg_up_head is None and tpipe.netgh_up_head is None
+    quantized = [m for m in tpipe.serve_netg.modules() if isinstance(m, QuantResBlock)]
+    assert quantized and all(m.bn1_mul.dtype == torch.float32 for m in quantized)
+    lr, cap, lens = inputs(2, setup["jcfg"].TREE.BASE_SIZE, T, [T, 2], seed=6)
+    sr = tpipe(lr, cap, lens)["sr"]
+    assert sr.dtype == torch.float32 and bool(torch.isfinite(sr).all())
+
+
+# -- int8 with float32 compute ----------------------------------------------
+
+@pytest.mark.parametrize("kind,split", [("res", True), ("seq", True), ("up", True),
+                                        ("up", False), ("head", True)])
+def test_block_matches_quant_interceptor_f32(kind, split):
+    """The quantized blocks in float32 compute against `quant_interceptor`
+    with out_dtype float32 on the float32 variables: int8 conv outputs and
+    the residual GLU in float32, then requantized (JAX's
+    `_res_block_split`, its UpBlock branch and `quant_conv`). Both sides
+    compute the same float32 values up to the sigmoid's last bit, so the
+    gate is the bf16 one's a quarter."""
+    cin = 16 if kind == "res" else 8
+    rng = np.random.default_rng(10 + len(kind))
+    x = rng.normal(0, 1, (2, 6, 6, cin)).astype(np.float32)
+    mod = _JBlocks(kind)
+    variables = _perturb(unfreeze(jax.tree.map(
+        np.asarray, mod.init(jax.random.PRNGKey(4), jnp.asarray(x)))), rng)
+    scales = jq.calibrate(lambda v: mod.apply(variables, v), jnp.asarray(x), margin=1.1)
+    split_glu = jq.effective_split_glu(scales) if split else frozenset()
+    with fnn.intercept_methods(jq.quant_interceptor(scales, out_dtype=jnp.float32,
+                                                    split_glu=split_glu,
+                                                    split_res=jq.SPLIT_RES_GLU_SITES)):
+        ref = np.asarray(mod.apply(variables, jnp.asarray(x)))
+    port = _TBlocks(kind, cin)
+    port.load_state_dict(_state_dict(kind, variables), strict=True)
+    q = quantize_generator(port.eval(), _sites(kind), scales, split_glu,
+                           tq.SPLIT_RES_GLU_SITES)
+    with torch.no_grad():
+        got = q(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got.dtype == torch.float32
+    got = got.permute(0, 2, 3, 1).numpy()
+    err = np.abs(got - ref).max()
+    assert err <= 2 ** -7 * np.abs(ref).max() + 2 ** -8, (err, np.abs(ref).max())
+
+
+@pytest.fixture(scope="module")
+def scales_f32(setup):
+    """Scales JAX's float32 pipeline records (cli.test --int8 calibrates on
+    a float32 twin)."""
+    lr, cap, lens = inputs(4, setup["jcfg"].TREE.BASE_SIZE, T, [T, 3, 0, 5], seed=11)
+    return setup["jax_f32"].calibrate_quant(lr, cap, lens)
+
+
+@pytest.mark.parametrize("heads", [True, False])
+def test_call_matches_jax_int8_f32(setup, scales_f32, heads):
+    """int8 with float32 compute: the port against JAX's int8 float32
+    pipeline on the same scales, >= 40 dB (uint8) at every pyramid level,
+    and the port's int8-versus-float32 PSNR at most 1 dB below JAX's."""
+    scales = scales_f32 if heads else jq.drop_head_scales(scales_f32)
+    jpipe = JSRPipeline(setup["jcfg"], VOCAB, *setup["trees"], compute_dtype=jnp.float32,
+                        quant_scales=scales)
+    tpipe = SRPipeline(setup["tcfg"], VOCAB, *setup["sds"], device="cpu",
+                       compute_dtype=torch.float32, quant_scales=scales)
+    lr, cap, lens = inputs(3, setup["jcfg"].TREE.BASE_SIZE, T, [T, 2, 0], seed=13)
+    ref, got = jpipe(lr, cap, lens), tpipe(lr, cap, lens)
+    assert tuple(got["sr"].shape) == (3, 64, 64, 3) and got["sr"].dtype == torch.float32
+    for p, pr in zip(got["pyramid"], ref["pyramid"]):
+        assert _psnr_u8(p.numpy(), pr) >= 40
+    jax_vs_f32 = _psnr_u8(ref["sr"], setup["jax_f32"](lr, cap, lens)["sr"])
+    port_vs_f32 = _psnr_u8(got["sr"].numpy(), setup["port_f32"](lr, cap, lens)["sr"].numpy())
+    assert port_vs_f32 >= jax_vs_f32 - 1.0, (port_vs_f32, jax_vs_f32)

@@ -252,8 +252,10 @@ def test_boot_from_cfg_and_checkpoints(files):
     np.testing.assert_array_equal(pipe.sr_uint8(lr, cap, lens), direct.sr_uint8(lr, cap, lens))
     bf16, _, _ = serve.boot(argv)  # no NET_E source for a 5-word vocab: seeded, bfloat16
     assert bf16.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="float32"):
-        serve.boot(argv + ["--f32", "--int8"])  # int8 with float32 compute is not ported
+    # int8 with float32 compute is served; the shipped face_S8 scales then
+    # refuse these seeded weights by their fingerprint, as with bfloat16
+    with pytest.raises(ValueError, match="fingerprint"):
+        serve.boot(argv + ["--f32", "--int8"])
 
 
 def test_boot_from_artifact(files, tmp_path):

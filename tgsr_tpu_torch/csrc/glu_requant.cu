@@ -50,6 +50,22 @@
 //     equal to division-then-rint over every finite bfloat16.
 //   A warp takes a precise path only if one of its lanes needs it, and then
 //   for that element slot alone.
+//
+// float32 instances (the int8 path with float32 compute, where the JAX
+// package's quantized blocks keep their activations in float32): h or x
+// float32, the same three passes with nothing rounded to bfloat16:
+//   s = 1 / (1 + expf(-g)), p = v * s, q = int8(rint(clamp(p / step, -127, 127))).
+// The gate's guard above rests on bfloat16 rounding and does not carry
+// over, so the gate takes the precise formula everywhere: expf (the function
+// PyTorch's CUDA sigmoid calls) and a correctly rounded reciprocal, each
+// rounding written out (_rn), which is PyTorch's `1 / (1 + exp(-g))` in
+// float32 bit for bit. The divide keeps the reciprocal and its guard: the
+// argument above holds for any float32 p (t = fl(p * fl(1 / step)) and
+// fl(p / step) lie within 2^-22 |t| of each other whatever p is; below 2^-126
+// both round to 0, above 256 both clamp), so q equals division-then-rint bit
+// for bit. A unit of 8 outputs then reads two 16-byte words of values (and
+// two of gates) and still writes 8 bytes; the flat pass takes one unit a
+// thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,23 +75,37 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// 16-byte words that hold 8 elements of T: 1 of bfloat16, 2 of float32
+template <typename T>
+constexpr int WORDS = sizeof(T) / 2;
+
 // units of 8 outputs a thread loads before computing: 1 for the GLU (two
-// 16-byte loads a unit), 2 for the flat pass (one)
-template <int C>
-constexpr int UNROLL = C == 0 ? 2 : 1;
+// 16-byte loads a unit in bfloat16), 2 for the bfloat16 flat pass (one), 1
+// for every float32 instance (its unit is already two or four loads)
+template <int C, typename T>
+constexpr int UNROLL = (C == 0 && sizeof(T) == 2) ? 2 : 1;
 
 __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// the 8 bfloat16 of a 16-byte word as float32 (element 2i in the low half of
-// 32-bit word i)
-__device__ __forceinline__ void unpack8(const uint4& w, float* f) {
-    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+// the 8 elements of a unit as float32: bfloat16 element 2i in the low half of
+// 32-bit word i of one 16-byte word; float32 two words as they are
+__device__ __forceinline__ void unpack8(const uint4 (&w)[1], float* f) {
+    const uint32_t u[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         f[2 * i] = __uint_as_float(u[i] << 16);
         f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+}
+__device__ __forceinline__ void unpack8(const uint4 (&w)[2], float* f) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        f[4 * i] = __uint_as_float(w[i].x);
+        f[4 * i + 1] = __uint_as_float(w[i].y);
+        f[4 * i + 2] = __uint_as_float(w[i].z);
+        f[4 * i + 3] = __uint_as_float(w[i].w);
     }
 }
 
@@ -87,6 +117,16 @@ __device__ __forceinline__ float gate(float g) {
     if (!(ag <= 64.0f) || mid <= 32.0f + 4.0f * ag)
         return bf16_round(__frcp_rn(__fadd_rn(1.0f, expf(-g))));
     return bf16_round(s);
+}
+
+// the GLU product of one element: bf16(v * bf16(sigmoid(g))) in bfloat16,
+// v * (1 / (1 + expf(-g))) in float32
+template <typename T>
+__device__ __forceinline__ float glu(float v, float g) {
+    if constexpr (sizeof(T) == 2)
+        return bf16_round(__fmul_rn(v, gate(g)));
+    else
+        return __fmul_rn(v, __frcp_rn(__fadd_rn(1.0f, expf(-g))));
 }
 
 // rint(clamp(p / step, -127, 127)) with the bits of IEEE division
@@ -103,31 +143,38 @@ __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
            ((uint32_t)d << 24);
 }
 
-// C = 64 or 32: x is h [N, 2C] as 16-byte words (C / 4 a pixel, the values
-// in the first C / 8), `units` = N * C / 8. C = 0: x is the flat tensor of
-// `n` elements, `units` = n / 8, the last n % 8 elements done one by one.
-template <int C>
+// C = 64 or 32: x is h [N, 2C] of T as 16-byte words (C / 4 * WORDS a pixel,
+// the values in the first half), `units` = N * C / 8. C = 0: x is the flat
+// tensor of `n` elements, `units` = n / 8, the last n % 8 elements done one
+// by one.
+template <int C, typename T>
 __global__ void __launch_bounds__(THREADS)
 glu_requant_kernel(const uint4* __restrict__ x, uint2* __restrict__ q, long long units,
                    long long n, float step, float r) {
     constexpr int UPP = C / 8;  // units of one pixel
-    const long long base = (long long)blockIdx.x * THREADS * UNROLL<C> + threadIdx.x;
-    uint4 vw[UNROLL<C>], gw[UNROLL<C>];
+    constexpr int W = WORDS<T>;
+    constexpr int U = UNROLL<C, T>;
+    const long long base = (long long)blockIdx.x * THREADS * U + threadIdx.x;
+    uint4 vw[U][W], gw[U][W];
 #pragma unroll
-    for (int k = 0; k < UNROLL<C>; ++k) {
+    for (int k = 0; k < U; ++k) {
         const long long u = base + k * THREADS;
         if (u < units) {
             if constexpr (C == 0) {
-                vw[k] = __ldg(x + u);
+#pragma unroll
+                for (int j = 0; j < W; ++j) vw[k][j] = __ldg(x + u * W + j);
             } else {
-                const uint4* w = x + (u / UPP) * (C / 4) + u % UPP;
-                vw[k] = __ldg(w);
-                gw[k] = __ldg(w + C / 8);
+                const uint4* w = x + (u / UPP) * (C / 4 * W) + (u % UPP) * W;
+#pragma unroll
+                for (int j = 0; j < W; ++j) {
+                    vw[k][j] = __ldg(w + j);
+                    gw[k][j] = __ldg(w + C / 8 * W + j);
+                }
             }
         }
     }
 #pragma unroll
-    for (int k = 0; k < UNROLL<C>; ++k) {
+    for (int k = 0; k < U; ++k) {
         const long long u = base + k * THREADS;
         if (u < units) {
             float v[8];
@@ -140,8 +187,7 @@ glu_requant_kernel(const uint4* __restrict__ x, uint2* __restrict__ q, long long
                 float g[8];
                 unpack8(gw[k], g);
 #pragma unroll
-                for (int i = 0; i < 8; ++i)
-                    o[i] = quant(bf16_round(__fmul_rn(v[i], gate(g[i]))), r, step);
+                for (int i = 0; i < 8; ++i) o[i] = quant(glu<T>(v[i], g[i]), r, step);
             }
             q[u] = make_uint2(pack4(o[0], o[1], o[2], o[3]), pack4(o[4], o[5], o[6], o[7]));
         }
@@ -149,19 +195,40 @@ glu_requant_kernel(const uint4* __restrict__ x, uint2* __restrict__ q, long long
     if constexpr (C == 0) {
         const long long e = units * 8 + threadIdx.x;
         if (blockIdx.x == 0 && e < n) {
-            const float v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[e]);
+            float v;
+            if constexpr (sizeof(T) == 2)
+                v = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[e]);
+            else
+                v = reinterpret_cast<const float*>(x)[e];
             reinterpret_cast<int8_t*>(q)[e] = (int8_t)quant(v, r, step);
         }
     }
 }
 
-template <int C>
+template <int C, typename T>
 int launch(const void* x, void* q, long long units, long long n, float step, cudaStream_t s) {
-    const long long blocks = (units + THREADS * UNROLL<C> - 1) / (THREADS * UNROLL<C>);
+    constexpr int U = UNROLL<C, T>;
+    const long long blocks = (units + THREADS * U - 1) / (THREADS * U);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    glu_requant_kernel<C><<<(int)(blocks > 0 ? blocks : 1), THREADS, 0, s>>>(
+    glu_requant_kernel<C, T><<<(int)(blocks > 0 ? blocks : 1), THREADS, 0, s>>>(
         static_cast<const uint4*>(x), static_cast<uint2*>(q), units, n, step, 1.0f / step);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int glu_requant_any(const void* h, void* q, long long n_pixels, int c, float step, void* stream) {
+    if ((c != 64 && c != 32) || n_pixels < 0) return (int)cudaErrorInvalidValue;
+    if (n_pixels == 0) return 0;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const long long units = n_pixels * c / 8;
+    return c == 64 ? launch<64, T>(h, q, units, 0, step, s) : launch<32, T>(h, q, units, 0, step, s);
+}
+
+template <typename T>
+int requant_any(const void* x, void* q, long long n, float step, void* stream) {
+    if (n < 0) return (int)cudaErrorInvalidValue;
+    if (n == 0) return 0;
+    return launch<0, T>(x, q, n / 8, n, step, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -170,17 +237,22 @@ int launch(const void* x, void* q, long long units, long long n, float step, cud
 // n_pixels = N. Returns a cudaError_t.
 extern "C" int glu_requant_launch(const void* h, void* q, long long n_pixels, int c,
                                   float step, void* stream) {
-    if ((c != 64 && c != 32) || n_pixels < 0) return (int)cudaErrorInvalidValue;
-    if (n_pixels == 0) return 0;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long long units = n_pixels * c / 8;
-    return c == 64 ? launch<64>(h, q, units, 0, step, s) : launch<32>(h, q, units, 0, step, s);
+    return glu_requant_any<__nv_bfloat16>(h, q, n_pixels, c, step, stream);
 }
 
 // x: bfloat16, n elements, 16-byte aligned; q: int8, n elements, 8-byte
 // aligned. q = rint(clamp(x / step, -127, 127)). Returns a cudaError_t.
 extern "C" int requant_launch(const void* x, void* q, long long n, float step, void* stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
-    if (n == 0) return 0;
-    return launch<0>(x, q, n / 8, n, step, static_cast<cudaStream_t>(stream));
+    return requant_any<__nv_bfloat16>(x, q, n, step, stream);
+}
+
+// The float32 instances: h float32 [N, 2c], x float32, each 16-byte
+// aligned; otherwise as above.
+extern "C" int glu_requant_f32_launch(const void* h, void* q, long long n_pixels, int c,
+                                      float step, void* stream) {
+    return glu_requant_any<float>(h, q, n_pixels, c, step, stream);
+}
+
+extern "C" int requant_f32_launch(const void* x, void* q, long long n, float step, void* stream) {
+    return requant_any<float>(x, q, n, step, stream);
 }

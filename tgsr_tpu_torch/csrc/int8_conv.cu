@@ -14,9 +14,9 @@
 // with the SAME padding on the upsampled grid, as the JAX UpBlock quantizes
 // before its upsample. The epilogue, in float32 and in this order:
 // acc * scale[c] (scale = x_step * w_step[c]), then * mul[c] + add[c] when a
-// folded BN is given, then the cast to float32 or bfloat16; then, for a
-// bfloat16 output, + residual (bfloat16), rounded once more, as the JAX block
-// adds its skip in the working type. Every multiply and add is written
+// folded BN is given, then the cast to float32 or bfloat16; then + residual
+// in the output's type (a bfloat16 sum rounded once more), as the JAX block
+// adds its skip in the working type, float32 or bfloat16. Every multiply and add is written
 // with the _rn intrinsics, so nvcc contracts nothing into an FMA and the
 // result equals the plain version's bit for bit in float32 (integer sums are
 // exact in any order).
@@ -125,16 +125,17 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
 __device__ __forceinline__ void put(float* o, float v) { *o = v; }
 __device__ __forceinline__ void put(bf16* o, float v) { *o = __float2bfloat16_rn(v); }
 
-// + residual, rounded once more (bfloat16 only)
+// + residual in the output's type (bfloat16: rounded once more)
 __device__ __forceinline__ bf16 add_res(bf16 o, bf16 r) {
     return __float2bfloat16_rn(__fadd_rn(__bfloat162float(o), __bfloat162float(r)));
 }
+__device__ __forceinline__ float add_res(float o, float r) { return __fadd_rn(o, r); }
 
 template <int N, typename OutT>
 __global__ void __launch_bounds__(THREADS, 2)
 int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ scale, const float* __restrict__ mul,
-                 const float* __restrict__ add, const bf16* __restrict__ res,
+                 const float* __restrict__ add, const OutT* __restrict__ res,
                  OutT* __restrict__ out, int H, int W, int cin, int cout, int k, int up2) {
     using T = Tile<N>;
     using G = Geometry<N>;
@@ -285,10 +286,10 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             int4 v = *reinterpret_cast<const int4*>(o_s + m * os + c);
             if (res != nullptr) {
                 const int4 r = *reinterpret_cast<const int4*>(res + o);
-                bf16* vo = reinterpret_cast<bf16*>(&v);
-                const bf16* vr = reinterpret_cast<const bf16*>(&r);
+                OutT* vo = reinterpret_cast<OutT*>(&v);
+                const OutT* vr = reinterpret_cast<const OutT*>(&r);
 #pragma unroll
-                for (int j = 0; j < 8; ++j) vo[j] = add_res(vo[j], vr[j]);
+                for (int j = 0; j < V; ++j) vo[j] = add_res(vo[j], vr[j]);
             }
             *reinterpret_cast<int4*>(out + o) = v;
         }
@@ -299,9 +300,7 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             if (oy >= Ho || px >= nv) continue;
             const size_t o = ((size_t)(b * Ho + oy) * Wo + ox0 + px) * cout + c;
             OutT v = o_s[(py * TW + px) * os + c];
-            if constexpr (sizeof(OutT) == 2) {
-                if (res != nullptr) v = add_res(v, res[o]);
-            }
+            if (res != nullptr) v = add_res(v, res[o]);
             out[o] = v;
         }
     }
@@ -320,7 +319,7 @@ int launch(const void* x, const void* w, const void* scale, const void* mul, con
     dim3 grid((Wo + TW - 1) / TW, (Ho + Geometry<N>::TH - 1) / Geometry<N>::TH, B);
     kernel<<<grid, THREADS, geo.bytes, stream>>>(
         static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-        static_cast<const float*>(mul), static_cast<const float*>(add), static_cast<const bf16*>(res),
+        static_cast<const float*>(mul), static_cast<const float*>(add), static_cast<const OutT*>(res),
         static_cast<OutT*>(out), H, W, cin, cout, k, up2);
     return (int)cudaGetLastError();
 }
@@ -342,7 +341,7 @@ int cout_pad(int cout) {
 
 }  // namespace
 
-// out_dtype: 0 float32, 1 bfloat16 (residual only with bfloat16). `cin` is
+// out_dtype: 0 float32, 1 bfloat16, the residual's type too. `cin` is
 // x's channel count, 4 or a multiple of 32. Returns a cudaError_t;
 // cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale,
@@ -350,7 +349,7 @@ extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale,
                                 int B, int H, int W, int cin, int cout, int k, int up2,
                                 int out_dtype, void* stream) {
     if ((cin != 4 && (cin < 32 || cin % 32 != 0)) || (k != 3 && k != 5) || cout < 1
-        || (mul == nullptr) != (add == nullptr) || (res != nullptr && out_dtype != 1)
+        || (mul == nullptr) != (add == nullptr) || (out_dtype != 0 && out_dtype != 1)
         || B < 1 || B > 65535 || H < 1 || W < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);

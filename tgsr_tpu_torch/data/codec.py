@@ -1,5 +1,6 @@
-"""PNG in and out, and PIL's bicubic resize, without PIL: what the serving
-CLI needs to take an image from a request and give one back.
+"""PNG in and out, and PIL's resizes, without PIL: what the serving CLI
+needs to take an image from a request and give one back, and what the eval
+datasets need to read their images.
 
 - `decode_png(data)`: 8-bit PNGs of colour types 0 (grey), 2 (RGB),
   3 (palette), 4 (grey + alpha) and 6 (RGBA), not interlaced, all five row
@@ -12,8 +13,11 @@ CLI needs to take an image from a request and give one back.
   header's size.
 - `encode_png(rgb, filter_rows=False)`: uint8 [H, W, 3] to an 8-bit RGB
   PNG, rows raw or filtered adaptively as PNG encoders filter them.
-- `resize_pil_bicubic(img, (h, w))`: uint8 [H, W, C] resized bit for bit as
-  `Image.resize((w, h), Image.BICUBIC)` (Pillow's libImaging/Resample.c).
+- `resize_pil(img, (h, w), "bicubic" | "bilinear")`: uint8 [H, W, C] resized
+  bit for bit as `Image.resize((w, h), Image.BICUBIC / BILINEAR)`
+  (Pillow's libImaging/Resample.c); `resize_pil_bicubic` is its bicubic form.
+- `load_image_rgb(path)`: an image file as uint8 RGB [H, W, 3], as PIL's
+  `Image.open(path).convert("RGB")` gives a PNG; other formats raise.
 """
 
 from __future__ import annotations
@@ -204,7 +208,20 @@ def _png_rgb(w: int, h: int, rows: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-# -- Pillow's bicubic resize (libImaging/Resample.c, 8 bits a channel) ---------
+def load_image_rgb(path: str) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of the image file at `path`, as PIL's
+    `Image.open(path).convert("RGB")`. PNG only (8-bit, not interlaced):
+    JPEG, 16-bit and interlaced images raise ValueError, naming the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return decode_png(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e} (the port reads 8-bit non-interlaced PNG only; "
+                         "other image formats are queued as ROADMAP.md A 6)") from None
+
+
+# -- Pillow's resampling resize (libImaging/Resample.c, 8 bits a channel) -------
 
 PRECISION_BITS = 32 - 8 - 2
 
@@ -219,21 +236,31 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
-def _coeffs(in_size: int, out_size: int) -> np.ndarray:
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+# Pillow's filters: (function, support)
+FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_triangle, 1.0)}
+
+
+def _coeffs(in_size: int, out_size: int, method: str = "bicubic") -> np.ndarray:
     """[out, in] int64 fixed-point weights, Pillow's `precompute_coeffs`
-    then `normalize_coeffs_8bpc`: support 2 widened by the scale when
-    downsampling, each output's taps normalised to sum 1 in double, then
-    rounded half away from zero to PRECISION_BITS fraction bits."""
+    then `normalize_coeffs_8bpc`: the filter's support widened by the scale
+    when downsampling, each output's taps normalised to sum 1 in double,
+    then rounded half away from zero to PRECISION_BITS fraction bits."""
+    fn, support = FILTERS[method]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = support * filterscale
     k = np.zeros((out_size, in_size), np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         ss = 1.0 / filterscale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = [_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = sum(w)
         for x, v in enumerate(w):
             if ww != 0.0:
@@ -253,21 +280,28 @@ def _pass(img: np.ndarray, k: np.ndarray, axis: int) -> np.ndarray:
     return np.clip((ss + (1 << (PRECISION_BITS - 1))) >> PRECISION_BITS, 0, 255)
 
 
-def resize_pil_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+def resize_pil(img: np.ndarray, size: Tuple[int, int], method: str = "bicubic") -> np.ndarray:
     """uint8 [H, W, C] -> uint8 [h, w, C], bit for bit PIL's
-    `Image.fromarray(img).resize((w, h), Image.BICUBIC)`: the horizontal
+    `Image.fromarray(img).resize((w, h), Image.BICUBIC)` (method "bicubic")
+    or `Image.BILINEAR` ("bilinear", PIL's triangle filter): the horizontal
     pass, then the vertical, each rounded and clipped to uint8; a dimension
     whose size does not change is not resampled."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError(f"resize_pil_bicubic takes uint8 [H, W, C], got {img.dtype} "
-                         f"{img.shape}")
+        raise ValueError(f"resize_pil takes uint8 [H, W, C], got {img.dtype} {img.shape}")
+    if method not in FILTERS:
+        raise ValueError(f"resize_pil: method {method!r}, one of {sorted(FILTERS)}")
     h, w = size
     if h < 1 or w < 1:
-        raise ValueError(f"resize_pil_bicubic to {size}")
+        raise ValueError(f"resize_pil to {size}")
     out = img.astype(np.int64)
     if w != img.shape[1]:
-        out = _pass(out, _coeffs(img.shape[1], w), 1)
+        out = _pass(out, _coeffs(img.shape[1], w, method), 1)
     if h != img.shape[0]:
-        out = _pass(out, _coeffs(img.shape[0], h), 0)
+        out = _pass(out, _coeffs(img.shape[0], h, method), 0)
     return out.astype(np.uint8)
+
+
+def resize_pil_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`resize_pil(img, size, "bicubic")`: PIL's `Image.BICUBIC`."""
+    return resize_pil(img, size, "bicubic")

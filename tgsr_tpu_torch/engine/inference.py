@@ -22,12 +22,14 @@ The up-head sites run `fused_up_head` (float32) or `fused_up_head_packed`
 (bfloat16), whose weights are folded and packed once from the float32
 weights before the cast.
 
-int8 serving (`quant_scales`, bfloat16 compute only in this port; see
+int8 serving (`quant_scales`, with bfloat16 or float32 compute; see
 engine/quant.py and models/quantized.py): the scales are checked against the
 float32 weights (keys, and the weights fingerprint when they carry one), and
 each generator with a non-empty scales group is served by a quantized copy
-made after the cast, as JAX quantizes the cast variables. Its convs launch
-`int8_conv` and its GLU+requantize passes `glu_requant`; its last stage and
+made after the cast, as JAX quantizes the cast variables; activations stay
+in the compute dtype between the int8 convs, as in JAX. Its convs launch
+`int8_conv` and its GLU+requantize passes `glu_requant` (their float32
+instances under float32 compute); its last stage and
 256 px scale run as modules (the quantized UpBlock, then the int8 head), so
 the up-head kernels do not run. `calibrate_quant` records the scales on the
 plain, unfused modules.
@@ -133,9 +135,6 @@ class SRPipeline:
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the port serves "
                              f"{COMPUTE_DTYPES}")
-        if quant_scales and compute_dtype == torch.float32:
-            raise NotImplementedError("int8 serving with float32 compute is not "
-                                      "ported; use compute_dtype=torch.bfloat16")
         self.cfg = cfg
         self.vocab_size = vocab_size
         self.device = resolve_device(device)
@@ -225,8 +224,7 @@ class SRPipeline:
                    os.path.join(path, BUNDLE_WEIGHTS))
         if self.quant_scales:
             # the bundle's scales are bound to the bundle's weights
-            _, netg, netgh = _modules(self.cfg, self.vocab_size, *self.state_dicts)
-            meta = {**self.quant_meta, "weights_fingerprint": weights_fingerprint(netg, netgh)}
+            meta = {**self.quant_meta, "weights_fingerprint": self.weights_fingerprint()}
             with open(os.path.join(path, "quant_scales.json"), "w") as f:
                 json.dump({**self.quant_scales, SCALES_META_KEY: meta}, f, indent=1,
                           sort_keys=True)
@@ -287,6 +285,13 @@ class SRPipeline:
         pipe = cls(cfg, meta["vocab_size"], text_sd, netg_sd, netgh_sd, a=a, device=device,
                    compute_dtype=compute_dtype, quant_scales=scales, **kw)
         return pipe, vocab
+
+    def weights_fingerprint(self) -> str:
+        """`engine.quant.weights_fingerprint` of the float32 generators as
+        given (before any cast), the JAX package's fingerprint of the same
+        weights."""
+        _, netg, netgh = _modules(self.cfg, self.vocab_size, *self.state_dicts)
+        return weights_fingerprint(netg, netgh)
 
     def _up_head_site(self, generator, group: str
                       ) -> Optional[Callable[..., torch.Tensor]]:

@@ -97,8 +97,9 @@ class QuantResBlock(nn.Module):
         self.skip = skip
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x bfloat16 (glu_requant takes bfloat16). conv2's epilogue is the
-        JAX block's tail: float32 sums, BN in float32, the cast, + x."""
+        """x in the compute dtype, bfloat16 or float32; conv1's output and
+        the GLU in that dtype, as JAX's `_res_block_split`. conv2's epilogue
+        is the JAX block's tail: float32 sums, BN in float32, the cast, + x."""
         h = int8_conv(self.conv1.quantize(x), self.conv1.weight, self.conv1.scale,
                       bn=(self.bn1_mul, self.bn1_add), out_dtype=x.dtype)
         hq = glu_requant(h, self.conv2.in_scale)

@@ -28,12 +28,14 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv",
            "conv_probe")
-# the kernels a run counts: one name per library, but the three instances of
-# glu_requant.cu (GLU at c = 64 and c = 32, requantization alone) and the four
-# kernels of conv_probe.cu apart
+# the kernels a run counts: one name per library, but the instances of
+# glu_requant.cu (GLU at c = 64 and c = 32, requantization alone; bfloat16 and
+# float32 inputs), the bfloat16 and float32 outputs of int8_conv.cu and the
+# four kernels of conv_probe.cu apart
 LAUNCH_NAMES = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant_one",
-                "glu_requant_pair", "requant", "int8_conv", "conv_tap9", "conv_im2col",
-                "conv_pair5", "conv_dotceil")
+                "glu_requant_pair", "requant", "int8_conv", "glu_requant_one_f32",
+                "glu_requant_pair_f32", "requant_f32", "int8_conv_f32", "conv_tap9",
+                "conv_im2col", "conv_pair5", "conv_dotceil")
 # element type codes of the kernels that take more than float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,6 +62,9 @@ SIGNATURES = {
         "glu_requant_launch": ([_P, _P, ctypes.c_longlong, _I, _F, _P], _I),
         # x, q, n, step, stream
         "requant_launch": ([_P, _P, ctypes.c_longlong, _F, _P], _I),
+        # the float32 instances, the same arguments
+        "glu_requant_f32_launch": ([_P, _P, ctypes.c_longlong, _I, _F, _P], _I),
+        "requant_f32_launch": ([_P, _P, ctypes.c_longlong, _F, _P], _I),
     },
     "int8_conv": {
         # x, w, scale, mul, add, residual, out, B, H, W, Cin, Cout, k, up2,

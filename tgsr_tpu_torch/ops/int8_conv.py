@@ -5,14 +5,14 @@ convolutions of tgsr_tpu/engine/quant.py `quant_conv` and `_int8_seg_fn`).
 weight int8 HWIO per output channel (`Int8Weight`), int32 sums, k 3 or 5,
 SAME, stride 1; with `up2` on the nearest-x2 upsample of x. The epilogue, in
 float32: acc * scale[c] (scale = x_step * w_step), then * mul[c] + add[c]
-for a folded BN, then the cast to float32 or bfloat16, then + residual
-(bfloat16 only).
+for a folded BN, then the cast to float32 or bfloat16, then + residual in
+that type (as the JAX block adds its skip in its working type).
 
 On a CPU tensor the wrapper runs the plain version: `F.conv2d` in float64 on
 the int8 values, which is exact (every product and partial sum is an integer
 below 2^53; at most 127^2 * 800 here), then int32, then the same epilogue as
 separate torch ops. On a CUDA tensor it launches `csrc/int8_conv.cu` or
-raises.
+raises; a float32 output is counted apart (`int8_conv_f32`).
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def int8_conv(
     w: Int8Weight,
     scale: torch.Tensor,  # float32 [Cout]: x_step * w_step
     bn: Optional[BN] = None,  # float32 (mul [Cout], add [Cout])
-    residual: Optional[torch.Tensor] = None,  # bfloat16 [B, Ho, Wo, Cout]
+    residual: Optional[torch.Tensor] = None,  # out_dtype [B, Ho, Wo, Cout]
     out_dtype: torch.dtype = torch.bfloat16,
     up2: bool = False,
 ) -> torch.Tensor:
@@ -107,8 +107,9 @@ def int8_conv(
         raise TypeError(f"int8_conv: x must be int8 [B, H, W, Cin], got {x.dtype} {tuple(x.shape)}")
     if out_dtype not in _build.DTYPE_CODES:
         raise TypeError(f"int8_conv: out_dtype {out_dtype}; the kernel writes float32 or bfloat16")
-    if residual is not None and out_dtype != torch.bfloat16:
-        raise TypeError("int8_conv: a residual is added to a bfloat16 output only")
+    if residual is not None and residual.dtype != out_dtype:
+        raise TypeError(f"int8_conv: a {residual.dtype} residual to a {out_dtype} output; "
+                        "the residual takes the output's type")
     if x.device.type == "cpu":
         return int8_conv_plain(x, w, scale, bn, residual, out_dtype, up2)
     if x.device.type != "cuda":
@@ -128,7 +129,7 @@ def int8_conv(
     if bn is not None:
         tensors += [(bn[0], torch.float32, (cout,)), (bn[1], torch.float32, (cout,))]
     if residual is not None:
-        tensors.append((residual, torch.bfloat16, (b, ho, wo, cout)))
+        tensors.append((residual, out_dtype, (b, ho, wo, cout)))
     for t, dtype, shape in tensors:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("int8_conv: inputs must be contiguous and on one device")
@@ -148,5 +149,5 @@ def int8_conv(
             out.data_ptr(), b, h, wd, x.shape[-1], cout, k, int(up2),
             _build.DTYPE_CODES[out_dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
+    _build.LAUNCHES[NAME if out_dtype == torch.bfloat16 else NAME + "_f32"] += 1
     return out
