@@ -35,8 +35,18 @@ and --metrics, --no-bf16 (attention maps against the CPU's), --int8 and
 --no-bf16 --int8 (the float32 instances of the GLU-requant, requant and
 int8 conv kernels, held against their plain versions in the kernel phases),
 --arbitrary, a deployment bundle, a calibration against the CPU's, --scales
-and the fidelity gate's refusal. Then drives the conv probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128
-px), whose four tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
+and the fidelity gate's refusal. Then the x16 family (configs/eval_faceSR_S16
+.yml, BRANCH_NUM 5, 32 px -> 512 px, full width, seeded weights): its
+kernels first held against their plain versions at its shapes (256 px
+attention, both 512 px up-head sites, tanh without a blend included, its
+int8 conv, GLU-requant and requant sites in their bfloat16 and float32
+instances), then float32, bfloat16, int8 and
+int8 with float32 compute against the same pipelines on the CPU, each
+forward's launches, the replay against eager, the memory plan (bfloat16: N
+= plan and plan + 1 under its budget), a profile of each path, and the HTTP
+server booted from that YAML answering 512 px POSTs. Then drives the conv
+probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose
+four tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
 TMA-fed operands) are first held against their plain versions within one
 bfloat16 ulp, and none of which may spill registers. Prints one JSON line of
 per-kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
@@ -50,6 +60,7 @@ import gc
 import json
 import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -68,6 +79,12 @@ T, C = 18, 32  # caption slots and attention width of the face S8 path
 # CPU, seeded weights: the CPU's own int8-versus-float32 PSNR, which this
 # script prints (45.36 dB on an H100 machine's CPU), less 1 dB (PERF.md)
 INT8_PSNR_FLOOR = 44.3
+# the same floor for the x16 family (x16_phase's weights and images): the
+# CPU's int8-versus-float32 PSNR at full width, which x16_phase prints, less
+# 1 dB (44.33 dB in tests/test_torch_pipeline_x16.py's rehearsal of the phase
+# on the CPU; PERF.md)
+X16_INT8_PSNR_FLOOR = 43.3
+HERE = os.path.dirname(os.path.abspath(__file__))
 FAILURES: list = []
 
 # one full-width int8 forward's convs, all with a bfloat16 output: (site, H,
@@ -120,6 +137,70 @@ GLU_SITES = (
     ("h_net3/upsample -> img_net3", 256, 256, 32, 1),
     ("upscale8x -> conv_output", 256, 256, 32, 1),
 )
+# the most uint8 levels an int8 (bfloat16 compute) request served in a batch
+# of up to 8 came out from itself served alone (B = 1) on one H100:
+# tgsr_tpu_torch/probes/batch_variance.py, face S8, six weight seeds x 64
+# requests, each reading twice; its only origin is the text encoder's
+# cuBLAS GEMMs, which change kernel with the batch (float32 and bfloat16: 1)
+INT8_BATCH_LEVELS = 2
+# the two up-head sites of one forward: (Cin, C2, k, tanh, blend, site)
+UP_HEAD_SITES = ((64, 64, 3, False, False, "h_net3.upsample+img_net3"),
+                 (32, 64, 5, True, True, "upscale8x+conv_output+a*srb"))
+
+# the x16 family (configs/eval_faceSR_S16.yml, BRANCH_NUM 5, 32 px -> 512 px):
+# h_net2 == h_net3 == h_net4 and img_net1 == .. == img_net4 are one module
+# each, run three and four times; NetGHighWeight16's 512 px step runs
+# residual48 and upscale8x again. Its attention sites (px), up-head sites at
+# 256 -> 512 px (the shared stage's last call: 3x3 head, tanh, NO blend;
+# upscale8x's second call: the 5x5 head, tanh, + a * nearest2x(srb[2])),
+# and its int8 sites as the x8 tables above
+X16_ATTENTION = (32, 64, 128, 256)
+UP_HEAD_SITES_X16 = ((64, 64, 3, True, False, "h_net2.upsample+img_net1 (tanh, no blend)"),
+                     (32, 64, 5, True, True, "upscale8x+conv_output+a*nearest2x(srb[2])"))
+INT8_CONVS_X16 = (
+    ("h_net1/im2f_conv", 32, 32, 3, 64, 3, False, False, False, 1),
+    ("h_net1/residual_*/conv1", 32, 32, 64, 128, 3, False, True, False, 2),
+    ("h_net1/residual_*/conv2", 32, 32, 64, 64, 3, False, True, True, 2),
+    ("h_net1/upsample/conv", 32, 32, 64, 64, 3, True, True, False, 1),
+    *(entry for px in (64, 128, 256) for entry in (
+        (f"img_net1/conv {px}", px, px, 32, 3, 3, False, False, False, 1),
+        (f"h_net2/residual_*/conv1 {px}", px, px, 64, 128, 3, False, True, False, 2),
+        (f"h_net2/residual_*/conv2 {px}", px, px, 64, 64, 3, False, True, True, 2),
+        (f"h_net2/upsample/conv {px}", px, px, 64, 64, 3, True, True, False, 1))),
+    ("img_net1/conv 512", 512, 512, 32, 3, 3, False, False, False, 1),
+    ("convin/conv", 32, 32, 3, 64, 3, False, False, False, 1),
+    ("residual_*/conv1", 32, 32, 32, 64, 3, False, True, False, 6),
+    ("residual_*/conv2", 32, 32, 32, 32, 3, False, True, True, 6),
+    ("upscale2x/conv", 32, 32, 32, 64, 3, True, True, False, 1),
+    ("conv_output/conv 64", 64, 64, 32, 3, 5, False, False, False, 1),
+    ("residual24/conv1", 64, 64, 32, 64, 3, False, True, False, 1),
+    ("residual24/conv2", 64, 64, 32, 32, 3, False, True, False, 1),
+    ("upscale4x/conv", 64, 64, 32, 64, 3, True, True, False, 1),
+    *(entry for px in (128, 256) for entry in (
+        (f"conv_output/conv {px}", px, px, 32, 3, 5, False, False, False, 1),
+        (f"residual48/conv1 {px}", px, px, 32, 64, 3, False, True, False, 1),
+        (f"residual48/conv2 {px}", px, px, 32, 32, 3, False, True, False, 1),
+        (f"upscale8x/conv {px}", px, px, 32, 64, 3, True, True, False, 1))),
+    ("conv_output/conv 512", 512, 512, 32, 3, 5, False, False, False, 1),
+)
+# in x16 no UpBlock's GLU output feeds only an int8 head, so every conv but
+# the ResBlock and residual-sequence conv2s requantizes its input
+REQUANT_SITES_X16 = tuple((site, h, w, cin, n) for site, h, w, cin, _, _, _, _, _, n
+                          in INT8_CONVS_X16 if "conv2" not in site)
+GLU_SITES_X16 = (
+    ("h_net1/residual_*", 32, 32, 64, 2),
+    *((f"h_net2/residual_* {px}", px, px, 64, 2) for px in (64, 128, 256)),
+    ("netgh residual_*", 32, 32, 32, 6), ("residual24", 64, 64, 32, 1),
+    ("residual48 128", 128, 128, 32, 1), ("residual48 256", 256, 256, 32, 1),
+)
+# one x16 forward's launches per path, attention at each of its four stages
+X16_PER_FORWARD = {
+    "float32": {"up_head": 2}, "bfloat16": {"up_head_packed": 2},
+    "int8": {"int8_conv": 52, "glu_requant_one": 8, "glu_requant_pair": 9, "requant": 35},
+    "int8 f32": {"int8_conv_f32": 52, "glu_requant_one_f32": 8, "glu_requant_pair_f32": 9,
+                 "requant_f32": 35},
+}
+
 # the conv probe's kernels: (formulation, line of its TPU function in
 # examples/pallas_conv_probe.py)
 CONV_PROBE = (("tap9", 85), ("im2col", 132), ("pair5", 172), ("dotceil", 196))
@@ -227,9 +308,10 @@ def sums(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "nbytes", "flop
     return tot
 
 
-def attention_phase(torch, rng):
-    """The attention kernel against its plain version at the three sites of
-    one forward, in float32 and in bfloat16. The bfloat16 kernel is held
+def attention_phase(torch, rng, hws=(32, 64, 128)):
+    """The attention kernel against its plain version at the sites of one
+    forward (`hws`: x8's three, or the x16 family's four), in float32 and in
+    bfloat16. The bfloat16 kernel is held
     against the plain version in float32 on the same bfloat16 inputs: it
     computes in float32 and rounds each output once, so |err| <= 2^-8 |ref|
     + 1e-5 elementwise."""
@@ -248,7 +330,7 @@ def attention_phase(torch, rng):
         tag = str(dtype).split(".")[-1]
         words = words32.to(dtype)
         rows = []
-        for hw in (32, 64, 128):
+        for hw in hws:
             px = torch.randn(B, hw, hw, C, device="cuda").to(dtype)
             ctx_k, attn_k = word_pixel_attention(px, words, mask)
             if dtype == torch.float32:
@@ -295,15 +377,17 @@ def attention_phase(torch, rng):
              "source": "tgsr_tpu_torch/csrc/word_pixel_attention.cu",
              "replaces": "tgsr_tpu/ops/pallas_attention.py:30", **out["float32"],
              "bfloat16": out["bfloat16"],
-             "shapes": f"B {B}, C {C}, T {T}, HW 32^2+64^2+128^2 (one forward's three "
-                       "sites); top level float32, 'bfloat16' the bf16 instance; ms by CUDA "
-                       "events, device_ms with the host's launches queued behind a spin "
-                       "kernel (the small sites take less than the host's launch)"}
+             "shapes": f"B {B}, C {C}, T {T}, HW {'+'.join(f'{hw}^2' for hw in hws)} (one "
+                       f"forward's {len(hws)} sites); top level float32, 'bfloat16' the bf16 "
+                       "instance; ms by CUDA events, device_ms with the host's launches "
+                       "queued behind a spin kernel (the small sites take less than the "
+                       "host's launch)"}
     return entry
 
 
-def up_head_phase(torch):
-    """At both up-head sites of one forward (B = 64, 128 -> 256 px): row 2
+def up_head_phase(torch, h=128, sites=UP_HEAD_SITES):
+    """At both up-head sites of one forward (B = 64; x8: 128 -> 256 px, the
+    x16 family: 256 -> 512 px, `sites` (Cin, C2, k, tanh, blend, name)): row 2
     (`fused_up_head`, float32, 3xTF32 on the tensor cores, the combined
     weight made once as the main path makes it) against its plain version
     within 1e-4 * max(1, |ref|max); row 3
@@ -319,10 +403,8 @@ def up_head_phase(torch):
     from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, prepare_up_head_packed
 
     rows2, rows3 = [], {"float32": [], "bfloat16": []}
-    h = w = 128
-    for cin, c2, k, use_tanh, blend, site in (
-            (64, 64, 3, False, False, "h_net3.upsample+img_net3"),
-            (32, 64, 5, True, True, "upscale8x+conv_output+a*srb")):
+    w = h
+    for cin, c2, k, use_tanh, blend, site in sites:
         x = torch.randn(B, h, w, cin, device="cuda")
         w_up = torch.randn(3, 3, cin, c2, device="cuda") / (9 * cin) ** 0.5
         mul, add = fold_bn(1 + 0.1 * torch.randn(c2, device="cuda"),
@@ -413,7 +495,7 @@ def up_head_phase(torch):
         row3[tag]["tflops_issued"] = row3[tag].pop("issued") / row3[tag]["ms"] / 1e9
         row3[tag]["bound_by"] = bound_ms(row3[tag].pop("nbytes"), row3[tag].pop("flops"), rate)[1]
         row3[tag]["library_ms"] = None
-    shapes = f"B {B}, 128->256 px, both sites of one forward"
+    shapes = f"B {B}, {h}->{2 * h} px, both sites of one forward"
     return [{"name": "up_head", "route": "cuda", "source": "tgsr_tpu_torch/csrc/up_head.cu",
              "replaces": "tgsr_tpu/ops/pallas_up_head.py:78", **row2, "library_ms": None,
              "shapes": shapes + ", float32; bound_ms at float32 accuracy (up-conv as 3 TF32 "
@@ -429,10 +511,10 @@ def up_head_phase(torch):
                                 "(CUDA cores), up_head_ms row 2 on the same inputs"}]
 
 
-def int8_conv_phase(torch):
+def int8_conv_phase(torch, convs=INT8_CONVS):
     """`int8_conv` against its plain version (float64 convolution on the
-    int8 values, exact) at every conv shape of one full-width B = 64 int8
-    forward: the int32 sums and the float32 epilogue bit for bit, the
+    int8 values, exact) at every conv shape (`convs`) of one full-width
+    B = 64 int8 forward: the int32 sums and the float32 epilogue bit for bit, the
     bfloat16 output within one bfloat16 ulp. Times are summed over the
     forward's calls (weighted by calls per forward). `ms`, `plain_ms` and
     `cudnn_bf16_ms` are CUDA-event times of back-to-back calls (`cuda_ms`),
@@ -446,7 +528,7 @@ def int8_conv_phase(torch):
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for site, h, w, cin, cout, k, up2, bn, res, n in INT8_CONVS:
+    for site, h, w, cin, cout, k, up2, bn, res, n in convs:
         ho, wo = (2 * h, 2 * w) if up2 else (h, w)
         x = torch.randint(-127, 128, (B, h, w, cin), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -503,18 +585,19 @@ def int8_conv_phase(torch):
     return {"name": "int8_conv", "route": "cuda", "source": "tgsr_tpu_torch/csrc/int8_conv.cu",
             "replaces": "tgsr_tpu/engine/quant.py:164 (XLA int8 conv; no Pallas kernel)",
             **tot, "library_ms": None,
-            "shapes": f"B {B}, the 42 convs of one int8 forward (26 shapes); ms, plain_ms and "
+            "shapes": f"B {B}, the {sum(c[-1] for c in convs)} convs of one int8 forward "
+                      f"({len(convs)} shapes); ms, plain_ms and "
                       "cudnn_bf16_ms by CUDA events, device_ms and cudnn_bf16_device_ms by "
                       "CUDA events with the host's launches queued behind a spin kernel; "
                       "cudnn_bf16_* is cuDNN's bf16 conv on the same shapes, "
                       "for scale, not the same function"}
 
 
-def glu_requant_phase(torch):
-    """Both `glu_requant` instances against their plain version, first over
-    every finite bfloat16 gate (against four values) and every finite
-    bfloat16 value (against four gates), then at one int8 forward's sites
-    (B = 64): int8 equal except one step in at most 0.1 % of the elements (a
+def glu_requant_phase(torch, sites=GLU_SITES, sweep=True):
+    """Both `glu_requant` instances against their plain version, first (with
+    `sweep`) over every finite bfloat16 gate (against four values) and every
+    finite bfloat16 value (against four gates), then at one int8 forward's
+    `sites` (B = 64): int8 equal except one step in at most 0.1 % of the elements (a
     gate or product on a bfloat16 rounding boundary). `ms`, `plain_ms` and
     `copy_floor_ms` (the same bytes through one PyTorch cast) by CUDA
     events, the median of five means (`cuda_ms_median`); `device_ms` with
@@ -523,7 +606,7 @@ def glu_requant_phase(torch):
     from tgsr_tpu_torch.ops.glu_requant import INSTANCES, glu_requant, glu_requant_plain
 
     every = finite_bf16(torch)
-    for c, name in sorted(INSTANCES.items()):
+    for c, name in sorted(INSTANCES.items()) if sweep else ():
         grid = every.reshape(-1, c)
         for sweep, few, scale in (("gate", (1.0, -0.75, 0.3, 2.5), 1.0),
                                   ("value", (0.0, 1.5, -2.0, 8.0), 3.0)):
@@ -539,7 +622,7 @@ def glu_requant_phase(torch):
                   f"{d.numel()} differ, max {dmax} step")
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {name: [] for name in INSTANCES.values()}
-    for site, h, w, c, n in GLU_SITES:
+    for site, h, w, c, n in sites:
         x = (1.5 * torch.randn(B, h, w, 2 * c, generator=g, device="cuda")).bfloat16()
         scale = 2.0
         got, ref = glu_requant(x, scale), glu_requant_plain(x, scale)
@@ -578,24 +661,25 @@ def glu_requant_phase(torch):
     return out
 
 
-def requant_phase(torch):
+def requant_phase(torch, sites=REQUANT_SITES, n_inputs=26, sweep=True):
     """`requant` (X2, the int8 path's input quantization) against
     `requant_plain` (`quantize_act`, the five torch ops the int8 path ran
-    before) bit for bit: over every finite bfloat16 at three steps, then at
-    the 26 requantized conv inputs of one B = 64 int8 forward, with inputs
+    before) bit for bit: (with `sweep`) over every finite bfloat16 at three
+    steps, then at the `n_inputs` requantized conv inputs (`sites`) of one
+    B = 64 int8 forward, with inputs
     spread as activations and a calibrated-looking scale (the absmax less
     a tenth, so the tail clips). Times as `glu_requant_phase`."""
     from tgsr_tpu_torch.ops.glu_requant import requant, requant_plain
 
     every = finite_bf16(torch)
-    for scale in REQUANT_SCALES:
+    for scale in REQUANT_SCALES if sweep else ():
         check(torch.equal(requant(every, scale), requant_plain(every, scale)),
               f"requant == quantize_act over every finite bf16, step {scale}/127")
-    check(sum(n for *_, n in REQUANT_SITES) == 26,
-          f"26 requantized conv inputs a forward ({sum(n for *_, n in REQUANT_SITES)})")
+    check(sum(n for *_, n in sites) == n_inputs,
+          f"{n_inputs} requantized conv inputs a forward ({sum(n for *_, n in sites)})")
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for site, h, w, cin, n in REQUANT_SITES:
+    for site, h, w, cin, n in sites:
         x = (torch.randn(B, h, w, cin, generator=g, device="cuda")
              * torch.rand(cin, generator=g, device="cuda") * 4).bfloat16()
         scale = 0.9 * x.float().abs().max().item()
@@ -622,7 +706,8 @@ def requant_phase(torch):
     return {"name": "requant", "route": "cuda", "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
             "replaces": "tgsr_tpu/engine/quant.py:137 (quantize_act; XLA, no Pallas kernel)",
             **tot, "library_ms": None,
-            "shapes": f"B {B}, the 26 requantized conv inputs of one int8 forward (18 shapes); "
+            "shapes": f"B {B}, the {n_inputs} requantized conv inputs of one int8 forward "
+                      f"({len(sites)} shapes); "
                       "plain_ms the five torch ops of quantize_act; max_abs_err in int8 steps; "
                       "ms, plain_ms, copy_floor_ms by CUDA events (median of five 20-call "
                       "means), device_ms with the host's launches queued behind a spin "
@@ -636,10 +721,10 @@ def near_half(torch, p, step, rel=2.0 ** -20):
     return (t - t.floor() - 0.5).abs() <= rel * t
 
 
-def glu_requant_f32_phase(torch):
+def glu_requant_f32_phase(torch, sites=GLU_SITES):
     """The float32 instances of rows 8 and 9 (`glu_requant` on float32 h,
     the int8 path with float32 compute) against their plain version at one
-    int8 forward's sites (B = 64): int8 equal except one step where the
+    int8 forward's `sites` (B = 64): int8 equal except one step where the
     product p / step lies within 2^-20 of a half-integer (a sigmoid's last
     bit), the count printed. Times as `glu_requant_phase`; the bound reads
     8 bytes and writes 1 per output."""
@@ -648,7 +733,7 @@ def glu_requant_f32_phase(torch):
 
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = {name + "_f32": [] for name in INSTANCES.values()}
-    for site, h, w, c, n in GLU_SITES:
+    for site, h, w, c, n in sites:
         x = 1.5 * torch.randn(B, h, w, 2 * c, generator=g, device="cuda")
         scale = 2.0
         got, ref = glu_requant(x, scale), glu_requant_plain(x, scale)
@@ -689,29 +774,32 @@ def glu_requant_f32_phase(torch):
     return out
 
 
-def requant_f32_phase(torch):
+def requant_f32_phase(torch, sites=REQUANT_SITES, n_inputs=26, sweep=True):
     """The float32 instance of X2 (`requant` on float32 x) against
-    `quantize_act` bit for bit: float32 over every binade from 2^-30 to 2^10
-    with the neighbours of every half-step, then the 26 requantized conv
-    inputs of one B = 64 int8 forward. Times as `requant_phase`."""
+    `quantize_act` bit for bit: (with `sweep`) float32 over every binade
+    from 2^-30 to 2^10 with the neighbours of every half-step, then the
+    `n_inputs` requantized conv inputs (`sites`) of one B = 64 int8
+    forward. Times as `requant_phase`."""
     from tgsr_tpu_torch.engine.quant import act_step
     from tgsr_tpu_torch.ops.glu_requant import requant, requant_plain
 
     g = torch.Generator(device="cuda").manual_seed(4)
     n = 1 << 22
-    sweep = ((torch.rand(n, generator=g, device="cuda") + 1)
-             * torch.exp2(torch.randint(-30, 11, (n,), generator=g, device="cuda").float())
-             * (torch.randint(0, 2, (n,), generator=g, device="cuda").float() * 2 - 1))
-    for scale in REQUANT_SCALES:
+    values = ((torch.rand(n, generator=g, device="cuda") + 1)
+              * torch.exp2(torch.randint(-30, 11, (n,), generator=g, device="cuda").float())
+              * (torch.randint(0, 2, (n,), generator=g, device="cuda").float() * 2 - 1))
+    for scale in REQUANT_SCALES if sweep else ():
         half = ((torch.arange(-130, 130, device="cuda", dtype=torch.float64) + 0.5)
                 * act_step(scale)).float()
-        x = torch.cat([sweep, half, torch.nextafter(half, half + 1),
+        x = torch.cat([values, half, torch.nextafter(half, half + 1),
                        torch.nextafter(half, half - 1)])
         check(torch.equal(requant(x, scale), requant_plain(x, scale)),
               f"requant_f32 == quantize_act over {x.numel()} float32 (every binade 2^-30..2^10, "
               f"the half-steps and their neighbours), step {scale}/127")
+    check(sum(n for *_, n in sites) == n_inputs,
+          f"{n_inputs} requantized conv inputs a forward ({sum(n for *_, n in sites)})")
     rows = []
-    for site, h, w, cin, k in REQUANT_SITES:
+    for site, h, w, cin, k in sites:
         x = (torch.randn(B, h, w, cin, generator=g, device="cuda")
              * torch.rand(cin, generator=g, device="cuda") * 4)
         scale = 0.9 * x.abs().max().item()
@@ -736,23 +824,24 @@ def requant_f32_phase(torch):
     return {"name": "requant_f32", "route": "cuda", "source": "tgsr_tpu_torch/csrc/glu_requant.cu",
             "replaces": "tgsr_tpu/engine/quant.py:137 (quantize_act; XLA, no Pallas kernel)",
             **tot, "library_ms": None,
-            "shapes": f"B {B}, float32 x, the 26 requantized conv inputs of one int8 forward; "
+            "shapes": f"B {B}, float32 x, the {n_inputs} requantized conv inputs of one int8 "
+                      f"forward ({len(sites)} shapes); "
                       "max_abs_err in int8 steps; ms, plain_ms by CUDA events (median of five "
                       "20-call means), device_ms with the host's launches queued behind a spin "
                       "kernel"}
 
 
-def int8_conv_f32_phase(torch):
+def int8_conv_f32_phase(torch, convs=INT8_CONVS):
     """X1's float32 output, with a float32 residual at the ResBlock conv2
     sites (the int8 path with float32 compute), against its plain version
-    bit for bit at every conv shape of one B = 64 int8 forward. Times as
+    bit for bit at every conv shape (`convs`) of one B = 64 int8 forward. Times as
     `int8_conv_phase` (no cuDNN beside it); the bound writes 4 bytes an
     output and reads a float32 residual."""
     from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
 
     g = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for site, h, w, cin, cout, k, up2, bn, res, n in INT8_CONVS:
+    for site, h, w, cin, cout, k, up2, bn, res, n in convs:
         ho, wo = (2 * h, 2 * w) if up2 else (h, w)
         x = torch.randint(-127, 128, (B, h, w, cin), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -787,8 +876,9 @@ def int8_conv_f32_phase(torch):
     return {"name": "int8_conv_f32", "route": "cuda", "source": "tgsr_tpu_torch/csrc/int8_conv.cu",
             "replaces": "tgsr_tpu/engine/quant.py:164 (XLA int8 conv; no Pallas kernel)",
             **tot, "library_ms": None,
-            "shapes": f"B {B}, the 42 convs of one int8 forward (26 shapes) with a float32 "
-                      "output, a float32 residual at the 14 ResBlock conv2s; ms, plain_ms by "
+            "shapes": f"B {B}, the {sum(c[-1] for c in convs)} convs of one int8 forward "
+                      f"({len(convs)} shapes) with a float32 output, a float32 residual at the "
+                      f"{sum(c[-1] for c in convs if c[8])} ResBlock conv2s; ms, plain_ms by "
                       "CUDA events, device_ms with the host's launches queued behind a spin "
                       "kernel"}
 
@@ -1018,6 +1108,217 @@ def pipeline_phase(torch, rng, card):
                   f"{sum(len(v) for v in scales.values())} scales", flush=True)
         del kern
     return launches, scales
+
+
+def x16_inputs(torch):
+    """The x16 phase's configuration, weights and inputs, drawn from seed 16
+    alone (the same on any machine that runs the phase, or rehearses it on
+    the CPU): cfg from configs/eval_faceSR_S16.yml, init_seeded weights at
+    that full width, two eval images with mixed caption lengths (one
+    empty) and eight calibration images, uint8 LR at 32 px."""
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.config import config_from_file
+
+    cfg = config_from_file(os.path.join(HERE, "configs", "eval_faceSR_S16.yml"))
+    rng = np.random.default_rng(16)
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(16))
+
+    def batch(n):
+        lr = rng.integers(0, 256, (n, 32, 32, 3)).astype("uint8")
+        lens = rng.integers(1, T + 1, n)
+        lens[min(1, n - 1)] = 0
+        cap = rng.integers(1, 41, (n, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        return lr, cap, lens
+
+    return cfg, sds, batch(2), batch(8), rng
+
+
+def x16_phase(torch, card, tmp, clients):
+    """The x16 family served end to end at full width (configs/eval_faceSR_S16
+    .yml: BRANCH_NUM 5, 32 px -> 512 px, GF_DIM 32, R_NUM 2, EMBEDDING_DIM
+    256, T 18; seeded weights, `x16_inputs`), through the same entry points
+    as x8: float32 on the card against the same pipeline on the CPU (max
+    abs error <= 1e-3, uint8 within 1); bfloat16 >= 40 dB against it; int8
+    with scales calibrated on the card (calibrate_quant, eight images) >= 40
+    dB against the same int8 pipeline on the CPU and >= X16_INT8_PSNR_FLOOR
+    against float32 on the CPU; int8 with float32 compute >= 40 dB against
+    its CPU twin. Per path: one eager forward's launches (X16_PER_FORWARD),
+    sr_batched at N = 32 in microbatches of 16 (two graph replays, their
+    launches the path's count in the kernels line), the replay at B = 16 bit
+    for bit the eager forward, the plan (bfloat16: sr_batched at N = plan
+    and plan + 1 under its budget) and a profile of one forward at B =
+    min(64, plan), eager and under replay. Then the HTTP server booted from
+    configs/eval_faceSR_S16.yml, x16 .pth files and the shipped NET_E
+    answering 512 px POSTs. Returns the launches of each run."""
+    from tgsr_tpu_torch.checkpoints.shipped import shipped_net_e
+    from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
+    from tgsr_tpu_torch.engine.quant import x16_scales
+    from tgsr_tpu_torch.ops import _build
+
+    cfg, sds, (lr, cap, lens), (lrc, capc, lensc), rng = x16_inputs(torch)
+    check(cfg.TREE.BRANCH_NUM == 5 and cfg.imsize == 512 and cfg.GAN.GF_DIM == 32,
+          f"x16: configs/eval_faceSR_S16.yml is BRANCH_NUM {cfg.TREE.BRANCH_NUM}, "
+          f"{cfg.TREE.BASE_SIZE} -> {cfg.imsize} px, GF_DIM {cfg.GAN.GF_DIM}")
+    lrf = lr.astype("float32") / 127.5 - 1.0
+    t0 = time.perf_counter()
+    ref = SRPipeline(cfg, 41, *sds, device="cpu")(lrf, cap, lens)["sr"]
+    print(f"  x16 plain reference on the CPU, B=2: {time.perf_counter() - t0:.1f} s", flush=True)
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+    n, mb = 32, 16
+    lr_n, cap_n, lens_n = (np.concatenate([x] * (n // 2)) for x in (lr, cap, lens))
+    launches, scales = {}, None
+    for tag in ("float32", "bfloat16", "int8", "int8 f32"):
+        per_forward = dict(zero, word_pixel_attention=4, **X16_PER_FORWARD[tag])
+        kw = dict(compute_dtype=torch.float32 if tag in ("float32", "int8 f32")
+                  else torch.bfloat16)
+        if tag.startswith("int8"):
+            kw["quant_scales"] = scales
+        kern = SRPipeline(cfg, 41, *sds, device="cuda", **kw)
+        _build.reset_launches()
+        got = kern(lrf, cap, lens)["sr"]
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        check(counts == per_forward, f"x16: one {tag} forward launches {per_forward} ({counts})")
+        check(tuple(got.shape) == (2, 512, 512, 3) and bool(torch.isfinite(got).all())
+              and float(got.std()) > 1e-3,
+              f"x16 {tag} SR is finite, not constant, shape {tuple(got.shape)}")
+        du8 = (to_uint8(got).cpu().int() - to_uint8(ref).int()).abs().max().item()
+        if tag == "float32":
+            err = (got.cpu() - ref).abs().max().item()
+            check(err <= 1e-3 and du8 <= 1, f"x16 f32: the card's kernels == plain on the CPU "
+                                             f"(max abs err {err:.3e} <= 1e-3, uint8 within "
+                                             f"{du8} <= 1)")
+        elif tag == "bfloat16":
+            psnr = psnr_u8(got, ref)
+            check(psnr >= 40, f"x16 bf16 on the card vs f32 plain on the CPU: uint8 PSNR "
+                              f"{psnr:.2f} dB >= 40 (max {du8} levels)")
+        else:
+            t0 = time.perf_counter()
+            cref = SRPipeline(cfg, 41, *sds, device="cpu", **kw)(lrf, cap, lens)["sr"]
+            print(f"  x16 {tag} plain reference on the CPU, B=2: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            psnr_cpu = psnr_u8(got, cref)
+            check(psnr_cpu >= 40, f"x16 {tag} on the card vs {tag} plain on the CPU, same "
+                                  f"scales: uint8 PSNR {psnr_cpu:.2f} dB >= 40")
+            psnr = psnr_u8(got, ref)
+            print(f"  x16 {tag} vs f32, both on the CPU (B=2): uint8 PSNR "
+                  f"{psnr_u8(cref, ref):.2f} dB", flush=True)
+            if tag == "int8":
+                check(psnr >= X16_INT8_PSNR_FLOOR, f"x16 int8 on the card vs f32 plain on the "
+                                                   f"CPU: PSNR {psnr:.2f} dB >= "
+                                                   f"{X16_INT8_PSNR_FLOOR}")
+
+        kern.sr_batched(lr_n, cap_n, lens_n, microbatch=mb)  # captures the graph at B = 16
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = kern.sr_batched(lr_n, cap_n, lens_n, microbatch=mb)
+        dt = time.perf_counter() - t0
+        eager, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
+        launches[f"x16 {tag}"] = {key: eager[key] + replayed[key] for key in eager}
+        check(eager == zero and replayed == {k: 2 * v for k, v in per_forward.items()},
+              f"x16 sr_batched {tag} N={n} microbatch {mb}: 2 replays of the graph at B = {mb} "
+              f"went through the kernels (replayed {replayed}, eager {eager})")
+        with torch.inference_mode():
+            lr_d = torch.as_tensor(lr_n[:mb], device="cuda").float() / 127.5 - 1.0
+            same = to_uint8(kern(lr_d, cap_n[:mb], lens_n[:mb])["sr"]).cpu().numpy()
+        check(out.shape == (n, 512, 512, 3) and np.array_equal(out[:mb], same),
+              f"x16 {tag}: sr_batched at B = {mb} (graph replay) == uint8 of the eager "
+              f"__call__, bit for bit ({int((out[:mb] != same).sum())} values differ)")
+        print(f"  x16 sr_batched {tag} N={n} microbatch {mb}: {dt:.4f} s, {n / dt:.2f} img/s "
+              f"(seeded weights) on {card}", flush=True)
+        b_plan = kern.plan_microbatch()
+        plan = kern.memory_plan
+        print(f"  x16 {tag} plan_microbatch: {b_plan} (need {plan.fixed_bytes} + "
+              f"{plan.per_image_bytes} x b bytes, held by other graphs "
+              f"{plan.held_per_image_bytes} x b, probes {plan.probes}, budget "
+              f"{plan.budget_bytes} bytes) on {card}", flush=True)
+        if tag != "int8 f32":
+            bp = min(64, b_plan)
+            sel = np.arange(bp) % n
+            lr_p, cap_p, lens_p = lr_n[sel], cap_n[sel], lens_n[sel]
+            lr_d, cap_d, lens_d = (torch.as_tensor(x, device="cuda") for x in (lr_p, cap_p,
+                                                                              lens_p))
+            profile_forward(torch, lambda: kern._serve(lr_d, cap_d, lens_d), f"x16 {tag}",
+                            "eager", bp)
+            for _ in range(4):  # the capture at bp, then replays before the one profiled
+                kern.forward_scan(lr_p[None], cap_p[None], lens_p[None])
+            profile_forward(torch, lambda: kern.forward_scan(lr_p[None], cap_p[None],
+                                                             lens_p[None]),
+                            f"x16 {tag}", "replay", bp)
+        if tag == "bfloat16":
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved()
+            for n_big in (b_plan, b_plan + 1):
+                sel = np.arange(n_big) % n
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                big = kern.sr_batched(lr_n[sel], cap_n[sel], lens_n[sel])
+                dt = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_reserved() - base
+                m, b = kern.plan_batches(n_big, b_plan)
+                check(big.shape == (n_big, 512, 512, 3) and peak <= plan.budget_bytes,
+                      f"x16 bf16: sr_batched(microbatch=None) at N = {n_big} ({m} x {b}, graph "
+                      f"at {kern.graph_batch(b)}, capture included, {dt:.2f} s) peaked at {peak} "
+                      f"reserved bytes ({peak / 2 ** 30:.2f} GiB) <= the budget "
+                      f"{plan.budget_bytes}")
+                del big
+            t0 = time.perf_counter()
+            scales = kern.calibrate_quant(lrc.astype("float32") / 127.5 - 1.0, capc, lensc)
+            print(f"  x16 calibrate_quant on the card, B=8: {time.perf_counter() - t0:.1f} s, "
+                  f"{sum(len(v) for v in scales.values())} scales", flush=True)
+            check(all(sorted(scales[g]) == sorted(v) for g, v in x16_scales().items()
+                      if g != "_meta"),
+                  f"x16: calibrate_quant keys the tied stage and head once, under h_net2 and "
+                  f"img_net1 ({len(scales['netg'])} netg, {len(scales['netgh'])} netgh scales)")
+        del kern
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the HTTP server booted from the repository's S16 YAML; its NET_E is a
+    # path outside the checkout, so the shipped one is named by flag
+    paths = [os.path.join(tmp, name) for name in ("netG_epoch_7.pth", "netGH_epoch_7.pth")]
+    for path, sd in zip(paths, sds[1:3]):
+        torch.save(sd, path)
+    words = dict(enumerate(FACE_WORDS))
+    with open(os.path.join(tmp, "testset.pickle"), "wb") as f:
+        pickle.dump([[], words, {w: i for i, w in words.items()}], f)
+    argv = ["--cfg", os.path.join(HERE, "configs", "eval_faceSR_S16.yml"), "--netg", paths[0],
+            "--vocab_pickle", os.path.join(tmp, "testset.pickle"), "--text_encoder",
+            shipped_net_e(41), "--max_batch", "16"]
+    pipe, _, launches["x16 http"] = serve_and_post(torch, rng, card, clients, argv, 4, 4, 1,
+                                                   "x16 bf16")
+    check(pipe.cfg.imsize == 512 and launches["x16 http"]["word_pixel_attention"] > 0
+          and launches["x16 http"]["up_head_packed"] > 0,
+          f"x16 http: served from configs/eval_faceSR_S16.yml at 512 px through rows 1 and 3 "
+          f"({launches['x16 http']})")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def x16_kernel_phase(torch, rng):
+    """The kernels of the x16 path at its shapes (B = 64, one x16 forward's
+    sites: X16_ATTENTION, UP_HEAD_SITES_X16, GLU_SITES_X16,
+    REQUANT_SITES_X16, INT8_CONVS_X16), each held against its plain version
+    with the gates of the x8 phases; the int8 rows in both instances, the
+    bfloat16 one and the float32 one that int8 with float32 compute runs
+    (whose conv stages its tiles for a float32 output). Returns {kernel name: its numbers},
+    which main sets under "x16" in that kernel's entry."""
+    entries = [attention_phase(torch, rng, X16_ATTENTION),
+               *up_head_phase(torch, 256, UP_HEAD_SITES_X16),
+               *glu_requant_phase(torch, GLU_SITES_X16, sweep=False),
+               requant_phase(torch, REQUANT_SITES_X16, 35, sweep=False),
+               int8_conv_phase(torch, INT8_CONVS_X16),
+               *glu_requant_f32_phase(torch, GLU_SITES_X16),
+               requant_f32_phase(torch, REQUANT_SITES_X16, 35, sweep=False),
+               int8_conv_f32_phase(torch, INT8_CONVS_X16)]
+    return {e["name"]: {k: v for k, v in e.items() if k not in ("name", "route", "source",
+                                                                 "replaces")}
+            for e in entries}
 
 
 def percentiles(ms) -> str:
@@ -1516,6 +1817,109 @@ def codec_share(bodies, shape, sr, p50_ms, tag) -> None:
           flush=True)
 
 
+def serve_and_post(torch, rng, card, clients, argv, n_clients, per_thread, n_native, tag,
+                   levels=1):
+    """Boots the serving CLI (`serve.boot(argv)`), warms it up and sends
+    n_clients processes x per_thread fixed-size POSTs (40 x 40 PNGs, rows
+    filtered as encoders filter them) with n_native native POSTs (40 x 56)
+    in the middle. Each fixed response (served in a batch) within `levels`
+    uint8 levels of the direct sr_uint8 (B = 1) on the codec-resized LR, each native one bit for bit the direct
+    sr_arbitrary (bucket 64) on the body cropped down to a multiple of the
+    scale, as the server crops it; /healthz counts the requests; the replayed
+    launches are the captured counts times the replays. Returns (pipeline,
+    vocab, the run's launches)."""
+    import threading
+    import urllib.request
+
+    from tgsr_tpu_torch.cli import serve
+    from tgsr_tpu_torch.data.codec import decode_png, encode_png, resize_pil_bicubic
+    from tgsr_tpu_torch.ops import _build
+
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+    pipe, vocab, args = serve.boot(argv)
+    httpd = serve.make_server(pipe, vocab, port=0, max_batch=args.max_batch,
+                              max_delay_ms=args.max_delay_ms)
+    t0 = time.perf_counter()
+    httpd.batcher.warmup()
+    print(f"  http {tag}: boot and warm-up (graphs at {httpd.batcher.planned_sizes}) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    n = n_clients * per_thread
+    fixed = [rng.integers(0, 256, (40, 40, 3)).astype("uint8") for _ in range(n)]
+    native = [rng.integers(0, 256, (40, 56, 3)).astype("uint8") for _ in range(n_native)]
+    caps = face_captions(rng, n + n_native)
+    bodies = [encode_png(x, filter_rows=True) for x in fixed + native]  # as clients send
+    jobs = []  # per client: its fixed requests, a native one in the middle
+    for k in range(n_clients):
+        mine = [(i, bodies[i], caps[i], "") for i in range(k, n, n_clients)]
+        if k < n_native:
+            mine.insert(per_thread // 2, (n + k, bodies[n + k], caps[n + k], "?mode=native"))
+        jobs.append((port, mine))
+    out, ms, errors = {}, {}, []
+    graphs = {key: g.replays for key, g in pipe.graphs.items()}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for res in clients.starmap(http_client, jobs):
+            for i, status, body, t in res:
+                out[i], ms[i] = (body if status == 200 else None), t
+    except Exception as e:  # reported by the check below
+        errors.append(repr(e))
+    dt = time.perf_counter() - t0
+    out = {i: None if body is None else decode_png(body) for i, body in out.items()}
+    eager, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.batcher.close()
+    server.join(60)
+    check(not errors and sum(o is not None for o in out.values()) == n + n_native
+          and not server.is_alive(),
+          f"http {tag}: {len(out)} of {n + n_native} requests answered 200 ({errors})")
+    check(health["requests"] == n and sum(health["batch_hist"].values()) == health["batches"],
+          f"http {tag}: /healthz counts the {n} batched requests ({health})")
+    want_replayed = dict(zero)
+    for key, g in pipe.graphs.items():
+        for name, v in g.launches.items():
+            want_replayed[name] += v * (g.replays - graphs.get(key, 0))
+    per_forward = next(iter(pipe.graphs.values())).launches
+    check(replayed == want_replayed and eager == {k: v * n_native
+                                                 for k, v in per_forward.items()},
+          f"http {tag}: replayed launches = captured counts x replays ({replayed}), "
+          f"eager = the {n_native} native forwards ({eager})")
+    worst, native_same = 0, True
+    for i in range(n + n_native):
+        cap, length = serve.encode_caption_text(caps[i], vocab, T)
+        if i < n:
+            lr = resize_pil_bicubic(fixed[i], (32, 32)).astype("float32") / 127.5 - 1.0
+            direct = pipe.sr_uint8(lr[None], cap[None], np.asarray([length]))[0]
+            worst = max(worst, int(np.abs(direct.astype(int) - out[i].astype(int)).max()))
+        else:
+            # the server crops a native body down to a multiple of the scale
+            img, s = native[i - n], pipe.cfg.scale
+            lr = img[:img.shape[0] // s * s, :img.shape[1] // s * s].astype("float32")
+            lr = lr / 127.5 - 1.0
+            direct = pipe.sr_arbitrary(lr[None], cap[None], np.asarray([length]),
+                                       bucket=64)[0]
+            native_same &= np.array_equal(direct, out[i])
+    check(worst <= levels, f"http {tag}: every fixed-size response within {levels} uint8 "
+                           f"level(s) of the direct sr_uint8 (B = 1) on the codec-resized LR "
+                           f"(max {worst})")
+    check(native_same, f"http {tag}: every native response bit for bit the direct "
+                       f"sr_arbitrary (bucket 64)")
+    lat = np.asarray([ms[i] for i in range(n)])
+    lat_native = [ms[i] for i in range(n, n + n_native)]
+    print(f"  http {tag}, {n_clients} client processes x {per_thread} fixed + {n_native} "
+          f"native POSTs: {dt:.3f} s, {(n + n_native) / dt:.2f} img/s, round trip of the "
+          f"fixed ones {percentiles(lat)}, native {percentiles(lat_native)}, batch histogram "
+          f"{health['batch_hist']} (host clock, seeded weights) on {card}", flush=True)
+    codec_share(bodies[:n], fixed[0].shape, out[0], np.percentile(lat, 50), tag)
+    return pipe, vocab, {k: eager[k] + replayed[k] for k in eager}
+
+
 def http_phase(torch, rng, card, tmp, clients):
     """The serving CLI on the card: boot a bf16 server through the --cfg /
     --netg / --vocab_pickle path (seeded .pth files, a 41-word vocab
@@ -1528,21 +1932,17 @@ def http_phase(torch, rng, card, tmp, clients):
     sr_uint8 on the codec-resized LR, each native one bit for bit the direct
     sr_arbitrary; /healthz counts the requests; the replayed launches are
     the captured counts times the replays. Then an int8 bundle (scales from
-    calibrate_quant) served through --artifact. `clients`: a pool of 8
+    calibrate_quant) served through --artifact, each fixed response within
+    INT8_BATCH_LEVELS of the direct sr_uint8. `clients`: a pool of 8
     processes that send the requests, as a server's clients are processes
     of their own. Returns the launches of both runs."""
     import pickle
-    import threading
-    import urllib.request
 
     from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
     from tgsr_tpu_torch.checkpoints.reference import load_text_encoder
     from tgsr_tpu_torch.checkpoints.shipped import shipped_net_e
-    from tgsr_tpu_torch.cli import serve
     from tgsr_tpu_torch.config import face_s8_config
-    from tgsr_tpu_torch.data.codec import decode_png, encode_png, resize_pil_bicubic
     from tgsr_tpu_torch.engine.inference import SRPipeline
-    from tgsr_tpu_torch.ops import _build
 
     cfg = face_s8_config()
     sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
@@ -1553,92 +1953,12 @@ def http_phase(torch, rng, card, tmp, clients):
         pickle.dump([[], words, {w: i for i, w in words.items()}], f)
     with open(os.path.join(tmp, "eval_faceSR.yml"), "w") as f:
         f.write(FACE_S8_YAML.format(absent_net_e=os.path.join(tmp, "absent_text_encoder.pth")))
-    zero = {name: 0 for name in _build.LAUNCH_NAMES}
 
-    def serve_and_post(argv, n_clients, per_thread, n_native, tag):
-        pipe, vocab, args = serve.boot(argv)
-        httpd = serve.make_server(pipe, vocab, port=0, max_batch=args.max_batch,
-                                  max_delay_ms=args.max_delay_ms)
-        t0 = time.perf_counter()
-        httpd.batcher.warmup()
-        print(f"  http {tag}: boot and warm-up (graphs at {httpd.batcher.planned_sizes}) "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        server = threading.Thread(target=httpd.serve_forever, daemon=True)
-        server.start()
-        port = httpd.server_address[1]
-        n = n_clients * per_thread
-        fixed = [rng.integers(0, 256, (40, 40, 3)).astype("uint8") for _ in range(n)]
-        native = [rng.integers(0, 256, (40, 56, 3)).astype("uint8") for _ in range(n_native)]
-        caps = face_captions(rng, n + n_native)
-        bodies = [encode_png(x, filter_rows=True) for x in fixed + native]  # as clients send
-        jobs = []  # per client: its fixed requests, a native one in the middle
-        for k in range(n_clients):
-            mine = [(i, bodies[i], caps[i], "") for i in range(k, n, n_clients)]
-            if k < n_native:
-                mine.insert(per_thread // 2, (n + k, bodies[n + k], caps[n + k], "?mode=native"))
-            jobs.append((port, mine))
-        out, ms, errors = {}, {}, []
-        graphs = {key: g.replays for key, g in pipe.graphs.items()}
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            for res in clients.starmap(http_client, jobs):
-                for i, status, body, t in res:
-                    out[i], ms[i] = (body if status == 200 else None), t
-        except Exception as e:  # reported by the check below
-            errors.append(repr(e))
-        dt = time.perf_counter() - t0
-        out = {i: None if body is None else decode_png(body) for i, body in out.items()}
-        eager, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-        httpd.shutdown()
-        httpd.server_close()
-        httpd.batcher.close()
-        server.join(60)
-        check(not errors and sum(o is not None for o in out.values()) == n + n_native
-              and not server.is_alive(),
-              f"http {tag}: {len(out)} of {n + n_native} requests answered 200 ({errors})")
-        check(health["requests"] == n and sum(health["batch_hist"].values()) == health["batches"],
-              f"http {tag}: /healthz counts the {n} batched requests ({health})")
-        want_replayed = dict(zero)
-        for key, g in pipe.graphs.items():
-            for name, v in g.launches.items():
-                want_replayed[name] += v * (g.replays - graphs.get(key, 0))
-        per_forward = next(iter(pipe.graphs.values())).launches
-        check(replayed == want_replayed and eager == {k: v * n_native
-                                                     for k, v in per_forward.items()},
-              f"http {tag}: replayed launches = captured counts x replays ({replayed}), "
-              f"eager = the {n_native} native forwards ({eager})")
-        worst, native_same = 0, True
-        for i in range(n + n_native):
-            cap, length = serve.encode_caption_text(caps[i], vocab, T)
-            if i < n:
-                lr = resize_pil_bicubic(fixed[i], (32, 32)).astype("float32") / 127.5 - 1.0
-                direct = pipe.sr_uint8(lr[None], cap[None], np.asarray([length]))[0]
-                worst = max(worst, int(np.abs(direct.astype(int) - out[i].astype(int)).max()))
-            else:
-                lr = native[i - n].astype("float32") / 127.5 - 1.0
-                direct = pipe.sr_arbitrary(lr[None], cap[None], np.asarray([length]),
-                                           bucket=64)[0]
-                native_same &= np.array_equal(direct, out[i])
-        check(worst <= 1, f"http {tag}: every fixed-size response within 1 uint8 level of the "
-                          f"direct sr_uint8 on the codec-resized LR (max {worst})")
-        check(native_same, f"http {tag}: every native response bit for bit the direct "
-                           f"sr_arbitrary (bucket 64)")
-        lat = np.asarray([ms[i] for i in range(n)])
-        lat_native = [ms[i] for i in range(n, n + n_native)]
-        print(f"  http {tag}, {n_clients} client processes x {per_thread} fixed + {n_native} "
-              f"native POSTs: {dt:.3f} s, {(n + n_native) / dt:.2f} img/s, round trip of the "
-              f"fixed ones {percentiles(lat)}, native {percentiles(lat_native)}, batch histogram "
-              f"{health['batch_hist']} (host clock, seeded weights) on {card}", flush=True)
-        codec_share(bodies[:n], fixed[0].shape, out[0], np.percentile(lat, 50), tag)
-        return pipe, vocab, {k: eager[k] + replayed[k] for k in eager}
 
     argv = ["--cfg", os.path.join(tmp, "eval_faceSR.yml"), "--netg",
             os.path.join(tmp, "netG_epoch_7.pth"), "--vocab_pickle",
             os.path.join(tmp, "testset.pickle")]
-    pipe, vocab, bf16_counts = serve_and_post(argv, 8, 16, 4, "bf16")
+    pipe, vocab, bf16_counts = serve_and_post(torch, rng, card, clients, argv, 8, 16, 4, "bf16")
     shipped = load_text_encoder(shipped_net_e(41))
     check(shipped.keys() == pipe.state_dicts[0].keys()
           and all(torch.equal(v, pipe.state_dicts[0][k]) for k, v in shipped.items()),
@@ -1657,8 +1977,9 @@ def http_phase(torch, rng, card, tmp, clients):
     del pipe, int8
     gc.collect()
     torch.cuda.empty_cache()
-    pipe8, _, int8_counts = serve_and_post(["--artifact", bundle, "--max_batch", "8"], 4, 4, 1,
-                                        "int8")
+    pipe8, _, int8_counts = serve_and_post(torch, rng, card, clients,
+                                           ["--artifact", bundle, "--max_batch", "8"], 4, 4, 1,
+                                           "int8", levels=INT8_BATCH_LEVELS)
     int8_rows = ("word_pixel_attention", "int8_conv", "glu_requant_one", "glu_requant_pair",
                  "requant")
     check(bool(pipe8.quant_scales) and all(int8_counts[k] > 0 for k in int8_rows),
@@ -2026,6 +2347,7 @@ def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> Non
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()  # nothing queued before fn() counts in its wall time
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
                                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2052,8 +2374,7 @@ def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> Non
 
 
 def main() -> int:
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    sys.path.insert(0, HERE)
     import torch
 
     if not torch.cuda.is_available():
@@ -2088,6 +2409,10 @@ def main() -> int:
                requant_f32_phase(torch), int8_conv_f32_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    # a stream of its own: the x8 phases' data does not depend on this phase
+    x16_kernels = x16_kernel_phase(torch, np.random.default_rng(16))
+    print(f"x16 kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     launches, scales = pipeline_phase(torch, rng, card)
     print(f"pipeline phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -2102,7 +2427,10 @@ def main() -> int:
             multiprocessing.get_context("spawn").Pool(8) as clients:
         clients.map(abs, range(8))  # the client processes are up before any clock
         launches["http bf16"], launches["http int8"] = http_phase(torch, rng, card, tmp, clients)
-    print(f"http phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"http phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches.update(x16_phase(torch, card, tmp, clients))
+    print(f"x16 phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for tag, run in eval_phase(torch, rng, card).items():
         launches[f"eval {tag}"] = run
@@ -2116,14 +2444,19 @@ def main() -> int:
     kernels += probe_rows
     print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # launches: the runs of each path, the serving forward in f32, bf16 and
-    # int8, the CLIs' runs and the conv probe (counted apart per path;
-    # "launches" is their sum)
+    # int8, the CLIs' runs, the x16 family's runs and the conv probe (counted
+    # apart per path; "launches" is their sum); "x16": the kernel at the x16
+    # family's shapes, its launches those of the x16 runs
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in launches.values())
         k["launches_by_path"] = {tag: run[k["name"]] for tag, run in launches.items()}
         for tag in ("float32", "bfloat16"):
             if tag in k:
                 k[tag]["launches"] = launches[tag][k["name"]]
+        if k["name"] in x16_kernels:
+            k["x16"] = x16_kernels[k["name"]]
+            k["x16"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()
+                                       if tag.startswith("x16"))
         paths = [tag for tag, n in k["launches_by_path"].items() if n]
         check(k["launches"] > 0, f"{k['name']} launched on its path ({', '.join(paths)})")
     print(card, flush=True)

@@ -88,7 +88,8 @@ def test_config_dict_round_trips_with_jax():
 
 
 @pytest.mark.parametrize("section, key, value", [
-    ("TREE", "BRANCH_NUM", 5), (None, "RNN_TYPE", "GRU"), ("EVAL", "INPUT_NETGH", "lrblur"),
+    ("TREE", "BRANCH_NUM", 3), ("TREE", "BRANCH_NUM", 6), (None, "RNN_TYPE", "GRU"),
+    ("EVAL", "INPUT_NETGH", "lrblur"),
     ("EVAL", "WEIGHTMAP", True), ("EVAL", "STAGE1", True),
 ])
 def test_config_refuses_what_the_port_does_not_serve(section, key, value):

@@ -1,7 +1,8 @@
 """tgsr_tpu_torch/config.py against tgsr_tpu/config.py: partial dicts merge
 over the same schema defaults; every file in configs/ loads to the same
-field values in both packages, or, where it asks for a setting the port
-does not serve (BRANCH_NUM 5), raises NotImplementedError; unknown keys and
+field values in both packages (the x8 family, BRANCH_NUM 4, and the x16
+family, BRANCH_NUM 5, the JAX schema's default); a BRANCH_NUM the port does
+not serve (3, 6) raises NotImplementedError; unknown keys and
 mismatched types raise the same KeyError / ValueError. The port's YAML
 reader against yaml.safe_load on every file in configs/, and on what it
 must refuse."""
@@ -32,6 +33,7 @@ def test_defaults_are_the_jax_schema():
     {"TREE": {"BRANCH_NUM": 4}, "TRAIN": {"NET_E": "x.pth", "SMOOTH": {"GAMMA1": 4}},
      "EVAL": {"NO_STOPWORD": True, "TEXT_BATCH_NUM": 7}, "METHOD": "S8"},
     {"TREE": {"BRANCH_NUM": 4}, "TEXT": {"CAPTIONS_PER_IMAGE": 1}, "B_VALIDATION": True},
+    {}, {"TREE": {"BRANCH_NUM": 5, "BASE_SIZE": 32}, "GAN": {"GF_DIM": 32}, "METHOD": "S16"},
 ])
 def test_partial_dicts_match_jax(partial):
     got = tconfig.config_from_dict(partial)
@@ -61,12 +63,19 @@ def test_config_files_match_jax(path):
     with open(path) as f:
         assert tconfig.load_yaml(f.read(), path) == raw
     want = jconfig.config_from_file(path)
-    if want.TREE.BRANCH_NUM != 4:
-        with pytest.raises(NotImplementedError, match="BRANCH_NUM"):
-            tconfig.config_from_file(path)
-        return
+    assert want.TREE.BRANCH_NUM in (4, 5)
     got = tconfig.config_from_file(path)
     assert tconfig.config_to_dict(got) == jconfig.config_to_dict(want)
+
+
+@pytest.mark.parametrize("branch_num", [3, 6])
+def test_unserved_branch_nums_raise(branch_num):
+    """JAX builds any BRANCH_NUM (its family switch sends every value but 4 to
+    models16); the port serves 4 and 5 and refuses the rest by name."""
+    d = {"TREE": {"BRANCH_NUM": branch_num}}
+    assert jconfig.config_from_dict(d).TREE.BRANCH_NUM == branch_num
+    with pytest.raises(NotImplementedError, match="BRANCH_NUM = %d" % branch_num):
+        tconfig.config_from_dict(d)
 
 
 @pytest.mark.parametrize("bad", [

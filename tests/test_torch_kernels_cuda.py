@@ -87,9 +87,10 @@ def cuda_device():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-@pytest.mark.parametrize("hw", [32, 64, 128])
+@pytest.mark.parametrize("hw", [32, 64, 128, 256])
 def test_attention_kernel_matches_plain(cuda_device, hw):
-    """Main-path shapes (C 32, T 18), mixed lengths, one all-padded caption."""
+    """Main-path shapes (C 32, T 18; 256 px the x16 family's last site),
+    mixed lengths, one all-padded caption."""
     b, c, t = 4, 32, 18
     rng = np.random.default_rng(hw)
     px = torch.from_numpy(rng.normal(size=(b, hw, hw, c)).astype(np.float32))
@@ -116,6 +117,8 @@ def test_attention_kernel_matches_plain(cuda_device, hw):
     (1, 8, 8, 32, 64, 3, False, True),       # one tile
     (1, 13, 21, 32, 64, 5, True, True),      # B = 1, 26 x 42 output: ragged both ways
     (3, 9, 17, 8, 16, 3, False, True),       # C2 16 (the narrow test tree), ragged
+    (2, 256, 256, 64, 64, 3, True, False),   # x16: h_net2.upsample + img_net1, tanh, no blend
+    (2, 256, 256, 32, 64, 5, True, True),    # x16: upscale8x + conv_output + a*srb, 512 px
 ])
 def test_up_head_kernel_matches_plain(cuda_device, cfg):
     """The 3xTF32 kernel, given the combined weight made once and without it,
@@ -163,7 +166,7 @@ def test_pipeline_kernels_match_plain(cuda_device):
         torch.testing.assert_close(at.cpu(), ar, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("hw", [32, 128])
+@pytest.mark.parametrize("hw", [32, 128, 256])
 def test_attention_kernel_bf16_matches_plain(cuda_device, hw):
     """bfloat16 in and out, main-path shapes, one all-padded caption."""
     b, c, t = 4, 32, 18
@@ -255,6 +258,45 @@ def test_up_head_packed_tensor_cores_bf16(cuda_device, cfg):
     assert err <= 2e-2 * max(1.0, ref.abs().max().item()), err
 
 
+@pytest.mark.parametrize("cfg", [
+    # (cin, c2, k, blend): the x16 family's sites, 256 -> 512 px
+    (64, 64, 3, False),  # the shared stage's last call + img_net1: tanh, no blend
+    (32, 64, 5, True),   # upscale8x's second call + conv_output + a * nearest2x(srb[2])
+])
+def test_up_head_packed_x16_sites_bf16(cuda_device, cfg):
+    """The bfloat16 tensor-core kernel at the x16 sites (B = 2, 512 px out)
+    with tanh, and the same inputs without it, against its plain version:
+    |err| <= 2e-2 * max(1, |ref|max) each. Weights at the scale the path
+    serves (N(0, 1 / fan_in), as init_seeded draws them): with tanh the
+    gate's |ref|max is at most 1, so a head whose sums run far past 1 (the
+    sd 0.2 weights of the test above) would make the gate a bound on the
+    saturated outputs, not on the sums; the run without tanh holds those
+    sums."""
+    cin, c2, k, blend = cfg
+    b, h = 2, 256
+    g = torch.Generator().manual_seed(cin + k)
+    r = lambda *s, sd=1.0: (torch.randn(*s, generator=g) * sd).to(cuda_device)  # noqa: E731
+    x = r(b, h, h, cin)
+    w_up, w_head = r(3, 3, cin, c2, sd=(9 * cin) ** -0.5), r(k, k, c2 // 2, 3,
+                                                             sd=(k * k * c2 / 2) ** -0.5)
+    mul, add = fold_bn(1 + r(c2, sd=0.1), r(c2, sd=0.1), r(c2, sd=0.2),
+                       0.5 + 1.5 * torch.rand(c2, generator=g).to(cuda_device))
+    srb = r(b, 2 * h, 2 * h, 3).clamp(-1, 1).bfloat16()
+    a = torch.tensor(0.5, device=cuda_device).bfloat16()
+    wts = prepare_up_head_packed(w_up, mul, add, w_head, dtype=torch.bfloat16)
+    xb = x.bfloat16()
+    for use_tanh in (True, False):
+        kw = dict(use_tanh=use_tanh, blend=blend)
+        ref = packed_up_head(xb, wts, srb, a, **kw)
+        before = _build.LAUNCHES["up_head_packed"]
+        got = fused_up_head_packed(xb, wts, srb, a, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["up_head_packed"] == before + 1
+        assert got.shape == (b, 2 * h, 2 * h, 3)
+        err = (got - ref).abs().max().item()
+        assert err <= 2e-2 * max(1.0, ref.abs().max().item()), (use_tanh, err)
+
+
 def test_up_head_packed_bf16_refuses_what_it_cannot_load(cuda_device):
     """The tensor-core kernel copies 16 bytes at a time: Cin % 8 and a
     16-byte-aligned x, or the wrapper raises before any launch."""
@@ -343,6 +385,11 @@ def test_pipeline_bf16_card_matches_f32_cpu(cuda_device):
     (2, 20, 36, 3, 64, 5, False, True, False),      # Cin 3 -> 4 folded, k 5 (K 100 -> 128)
     (2, 16, 40, 32, 32, 3, False, True, True),      # NetGHighWeight ResBlock conv2, + x
     (1, 11, 45, 32, 128, 5, False, False, True),    # Cout 128, k 5, + residual, ragged
+    (2, 256, 256, 64, 64, 3, True, True, False),    # x16: h_net2's upsample, 512 px out
+    (2, 512, 512, 32, 3, 3, False, False, False),   # x16: img_net1 at 512 px
+    (2, 256, 256, 32, 64, 3, True, True, False),    # x16: upscale8x's 512 px step
+    (2, 512, 512, 32, 3, 5, False, False, False),   # x16: conv_output at 512 px
+    (2, 256, 256, 64, 64, 3, False, True, True),    # x16: h_net2 ResBlock conv2 at 256 px
 ])
 def test_int8_conv_matches_plain(cuda_device, cfg):
     """The int8 tensor-core kernel: int32 sums and the float32 epilogue bit
@@ -463,6 +510,60 @@ def test_pipeline_int8_card_matches_cpu(cuda_device):
                                    glu_requant_one=6, glu_requant_pair=10, requant=26)
     d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
     assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
+
+
+# kernel launches of one forward of the x16 family at GF_DIM 32 in each path:
+# attention at each of the 4 stages; the 2 up-head sites (the shared stage's
+# last call, upscale8x's 512 px step); int8: 52 convs (netG 25: h_net1 6, the
+# shared stage 3 x 5, the shared head 4 x 1; netGH 27), GLU-requant 8 (C 64)
+# + 9 (C 32), 35 requantized inputs (every conv but the 17 ResBlock conv2s)
+X16_LAUNCHES = {
+    "float32": dict(word_pixel_attention=4, up_head=2),
+    "bfloat16": dict(word_pixel_attention=4, up_head_packed=2),
+    "int8": dict(word_pixel_attention=4, int8_conv=52, glu_requant_one=8, glu_requant_pair=9,
+                 requant=35),
+}
+
+
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8"])
+def test_pipeline_x16_card_matches_cpu(cuda_device, path):
+    """The x16 family (BRANCH_NUM 5, BASE_SIZE 8 -> 128 px, GF_DIM 32, the
+    kernels' widths) on the card against the same pipeline on the CPU:
+    float32 pyramid rtol 1e-3, atol 2e-4; bfloat16 >= 40 dB against float32
+    on the CPU; int8 (scales calibrated on the card) >= 40 dB against the
+    CPU's int8. Each forward's launches as X16_LAUNCHES; the graph replay at
+    B = 2 bit for bit the eager forward, its launches the captured ones."""
+    cfg = Config(TREE=TreeConfig(5, 8), GAN=GanConfig(32, 10, 2), TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    lr8, cap, lens = _serving_batch(2, seed=16)
+    lr = lr8.astype(np.float32) / 127.5 - 1.0
+    kw = {} if path == "float32" else dict(compute_dtype=torch.bfloat16)
+    if path == "int8":
+        bf16 = SRPipeline(cfg, 41, *sds, device=cuda_device, **kw)
+        kw["quant_scales"] = bf16.calibrate_quant(lr, cap, lens)
+    kern = SRPipeline(cfg, 41, *sds, device=cuda_device, **kw)
+    plain = SRPipeline(cfg, 41, *sds, device="cpu", **({} if path == "bfloat16" else kw))
+    ref = plain(lr, cap, lens)
+    _build.reset_launches()
+    got = kern(lr, cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(ZERO, **X16_LAUNCHES[path])
+    assert tuple(got["sr"].shape) == (2, 128, 128, 3) and len(got["pyramid"]) == 4
+    if path == "float32":
+        for p, pr in zip(got["pyramid"], ref["pyramid"]):
+            torch.testing.assert_close(p.cpu(), pr, rtol=1e-3, atol=2e-4)
+    else:
+        d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
+        assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40
+    first = kern.forward_scan(lr8[None], cap[None], lens[None])[0].clone()  # captures
+    _build.reset_launches()
+    again = kern.forward_scan(lr8[None], cap[None], lens[None])[0]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == ZERO
+    assert _build.REPLAYED == dict(ZERO, **X16_LAUNCHES[path])
+    eager = to_uint8(kern(torch.as_tensor(lr8, device=cuda_device).float() / 127.5 - 1.0,
+                          cap, lens)["sr"])
+    assert torch.equal(again, first) and torch.equal(again, eager)
 
 
 # -- the float32 instances: int8 serving with float32 compute ----------------

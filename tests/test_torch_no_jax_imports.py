@@ -2,7 +2,7 @@
 included) and chip_smoke.py import nothing of JAX, flax, msgpack, PIL,
 OpenCV, skimage, PyYAML, nltk or tgsr_tpu, the port's weights carry
 exactly the reference state-dict keys and shapes that tgsr_tpu's exporter
-emits, and the ctypes signatures agree with the kernels' C interfaces."""
+emits (x8 and x16), and the ctypes signatures agree with the kernels' C interfaces."""
 
 import ast
 import os
@@ -18,7 +18,8 @@ from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.models.generator import GSRNetLow
 from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
-from tests.torch_parity import VOCAB, configs, jax_trees
+from tgsr_tpu_torch.models.models16 import make_generators, unused_blocks
+from tests.torch_parity import VOCAB, configs, jax_trees, jax_trees16
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the card machine has none of these: msgpack files are read by the port's
@@ -101,6 +102,29 @@ def test_state_dict_keys_match_exporter(trees, which):
     for k, v in ref.items():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
     module = _modules(tcfg)[i]
+    module.load_state_dict(got, strict=True)
+    assert _shapes(module.state_dict()) == _shapes(ref)
+
+
+@pytest.mark.parametrize("unused", [False, True], ids=["jax-init", "with-unused"])
+@pytest.mark.parametrize("which", ["netg", "netgh"])
+def test_state_dict_keys_match_exporter_x16(which, unused):
+    """The x16 family: state_dicts_from_jax of a GSRNetLow16 /
+    NetGHighWeight16 tree gives the keys, shapes and values of tgsr_tpu's
+    export_netg_low16 / export_netgh_weight16 (the aliased h_net2/3/4 and
+    img_net1..4 key sets; residual816 and upscale16x where the tree carries
+    them), and they load strict=True into the port's x16 modules."""
+    jcfg, tcfg = configs(base_size=8, branch_num=5)
+    trees = jax_trees16(jcfg, unused=unused)
+    i = ("netg", "netgh").index(which)
+    ref = (export_torch.export_netg_low16(trees[1]),
+           export_torch.export_netgh_weight16(trees[2]))[i]
+    sds = state_dicts_from_jax(*trees)
+    got = sds[1 + i]
+    assert _shapes(got) == _shapes(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+    module = make_generators(tcfg, unused_blocks(sds[2]))[i]
     module.load_state_dict(got, strict=True)
     assert _shapes(module.state_dict()) == _shapes(ref)
 

@@ -65,6 +65,9 @@ class _JBlocks(fnn.Module):
 
 
 class _TBlocks(torch.nn.Module):
+    # as NetGHighWeight: upscale8x's output feeds only its head
+    head_only_upblocks = frozenset({"upscale8x/conv"})
+
     def __init__(self, kind: str, cin: int):
         super().__init__()
         self.kind = kind

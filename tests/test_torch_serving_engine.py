@@ -152,6 +152,33 @@ def test_memory_fit_and_plan():
     assert memory.plan(need, budget, 64, held_per_image=200).microbatch == 448  # 500
 
 
+@pytest.mark.parametrize("path, probes, budget, microbatch", [
+    ("float32", {64: 12807307264, 256: 54395928576}, 64790219980, 128),
+    ("bfloat16", {64: 5419040768, 256: 22552772608}, 73066630348, 320),
+    ("int8", {64: 7472152576, 256: 30022828032}, 72613645516, 256),
+    ("int8 f32", {64: 14279507968, 256: 57201917952}, 71075384524, 128),
+])
+def test_memory_plan_x16_from_card_probes(path, probes, budget, microbatch):
+    """The x16 family's plans (configs/eval_faceSR_S16.yml, 512 px out) as
+    chip_smoke.py read them on one H100 80GB HBM3 at 700 W: plan() given the
+    bytes each probe reserved there and that run's budget gives the
+    microbatch the card planned. The other graphs hold each their 32 px
+    float32 LR, the token ids and lengths, and the 512 px uint8 SR."""
+    graph_bytes = 32 * 32 * 3 * 4 + 19 * 8 + 512 * 512 * 3
+    held = (inference.MAX_GRAPHS - 1) * graph_bytes
+    calls = []
+
+    def need(b):
+        calls.append(b)
+        (b1, n1), (b2, n2) = sorted(probes.items())
+        return n1 + (n2 - n1) * (b - b1) // (b2 - b1)
+
+    plan = memory.plan(need, budget, inference.MICROBATCH_QUANTUM, held)
+    assert calls == [64, 64 * memory.PROBE_SPAN] and plan.probes == probes
+    assert held == 11983080 and plan.fixed_bytes == 0
+    assert plan.microbatch == microbatch, (path, plan)
+
+
 def test_graph_batch_sizes():
     """On the card a microbatch of b replays the graph at graph_batch(b):
     the next power of two up to 64, then the next multiple of 64; the sizes

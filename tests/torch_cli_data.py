@@ -1,8 +1,10 @@
 """Shared set-up of the eval and calibration CLI tests: a face example set in
 the reference's layout (testset.txt in CelebA's attribute format, PNG images
-under Img/changetxt_im1/), a narrow x8 YAML (BASE_SIZE 16, GF_DIM 8), and
-seeded .pth weights carried across from one tgsr_tpu init, with the text
-encoder as a .pth too, so that both packages load the same weights."""
+under Img/changetxt_im1/), a narrow x8 YAML (BASE_SIZE 16, GF_DIM 8) or a
+narrow S16 YAML (BRANCH_NUM 5, BASE_SIZE 8, GF_DIM 8), and seeded .pth
+weights carried across from one tgsr_tpu init (x16: in the reference's
+models16 layout, aliases and all), with the text encoder as a .pth too, so
+that both packages load the same weights."""
 
 import os
 import shutil
@@ -13,7 +15,7 @@ import torch
 from tgsr_tpu_torch.checkpoints.from_jax import state_dicts_from_jax
 from tgsr_tpu_torch.data.codec import encode_png
 from tgsr_tpu_torch.data.tokenizer import build_dictionary
-from tests.torch_parity import configs, jax_trees
+from tests.torch_parity import configs, jax_trees, jax_trees16
 
 # CelebA's 40 attributes, in the order of list_attr_celeba.txt
 ATTRS = ("5_o_Clock_Shadow Arched_Eyebrows Attractive Bags_Under_Eyes Bald Bangs Big_Lips "
@@ -29,6 +31,26 @@ DATASET_NAME: 'face'
 TREE:
     BRANCH_NUM: 4
     BASE_SIZE: 16
+TRAIN:
+    FLAG: False
+    NET_G: 'absent/netG_epoch_7.pth'
+GAN:
+    GF_DIM: 8
+    CONDITION_DIM: 10
+TEXT:
+    EMBEDDING_DIM: 32
+    WORDS_NUM: 6
+    CAPTIONS_PER_IMAGE: 1
+"""
+
+
+YAML16 = """# a narrow x16 face eval config
+CONFIG_NAME: 'narrow_face_S16'
+METHOD: 'S16'
+DATASET_NAME: 'face'
+TREE:
+    BRANCH_NUM: 5
+    BASE_SIZE: 8
 TRAIN:
     FLAG: False
     NET_G: 'absent/netG_epoch_7.pth'
@@ -87,18 +109,20 @@ def make_face_set(d, n=3, seed=0, size=(150, 140), n_attr=(1, 2)):
                             [c for c, r in zip(caps, rows) if r[BLURRY]])[2].n_words
 
 
-def make_env(root, n=3, seed=0, n_attr=(1, 2)):
+def make_env(root, n=3, seed=0, n_attr=(1, 2), x16=False):
     """data/ (the example set), cfg.yml, ckpt/ (netG_epoch_7.pth,
-    netGH_epoch_7.pth, text_encoder.pth) under `root`; returns a dict of
-    their paths and the vocabulary size."""
+    netGH_epoch_7.pth, text_encoder.pth) under `root`, of the narrow x8
+    tree or (x16) the narrow S16 tree; returns a dict of their paths and the
+    vocabulary size."""
     data = os.path.join(root, "data")
     n_words = make_face_set(data, n=n, seed=seed, n_attr=n_attr)
     cfg = os.path.join(root, "cfg.yml")
     with open(cfg, "w") as f:
-        f.write(YAML)
-    jcfg, _ = configs(base_size=16, gf_dim=8, condition_dim=10, embedding_dim=32, words_num=6)
-    text_sd, netg_sd, netgh_sd, _ = state_dicts_from_jax(*jax_trees(jcfg, vocab=n_words,
-                                                                    seed=seed))
+        f.write(YAML16 if x16 else YAML)
+    jcfg, _ = configs(base_size=8 if x16 else 16, gf_dim=8, condition_dim=10, embedding_dim=32,
+                      words_num=6, branch_num=5 if x16 else 4)
+    trees = (jax_trees16 if x16 else jax_trees)(jcfg, vocab=n_words, seed=seed)
+    text_sd, netg_sd, netgh_sd, _ = state_dicts_from_jax(*trees)
     ckpt = os.path.join(root, "ckpt")
     os.makedirs(ckpt)
     for name, sd in (("netG_epoch_7.pth", netg_sd), ("netGH_epoch_7.pth", netgh_sd),

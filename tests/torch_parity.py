@@ -18,13 +18,15 @@ SMALL = dict(BASE_SIZE=8, GF_DIM=8, CONDITION_DIM=10, R_NUM=2,
 
 def configs(base_size=SMALL["BASE_SIZE"], gf_dim=SMALL["GF_DIM"],
             condition_dim=SMALL["CONDITION_DIM"], r_num=SMALL["R_NUM"],
-            embedding_dim=SMALL["EMBEDDING_DIM"], words_num=SMALL["WORDS_NUM"]):
-    """(tgsr_tpu Config, tgsr_tpu_torch Config) of one x8 geometry."""
+            embedding_dim=SMALL["EMBEDDING_DIM"], words_num=SMALL["WORDS_NUM"],
+            branch_num=4):
+    """(tgsr_tpu Config, tgsr_tpu_torch Config) of one geometry, x8
+    (branch_num 4) or x16 (5)."""
     out = []
     for mod in (jcfg_mod, tcfg_mod):
         out.append(mod.Config(
             RNN_TYPE="LSTM",
-            TREE=mod.TreeConfig(BRANCH_NUM=4, BASE_SIZE=base_size),
+            TREE=mod.TreeConfig(BRANCH_NUM=branch_num, BASE_SIZE=base_size),
             GAN=mod.GanConfig(GF_DIM=gf_dim, CONDITION_DIM=condition_dim,
                               R_NUM=r_num),
             TEXT=mod.TextConfig(EMBEDDING_DIM=embedding_dim,
@@ -66,6 +68,36 @@ def jax_trees(jcfg, vocab=VOCAB, seed=0, a=0.3):
         jnp.zeros((1, T), bool))
     sizes = tuple(jcfg.pyramid_sizes())
     netgh = NetGHighWeight(ngf=jcfg.GAN.GF_DIM, sizes=sizes).init(
+        keys[2], lr, [jnp.zeros((1, z, z, 3)) for z in sizes], lr)
+    rng = np.random.default_rng(seed)
+    trees = []
+    for v in (text, netg, netgh):
+        trees.append(_perturb(unfreeze(jax.tree.map(np.asarray, v)), rng))
+    trees[2]["params"]["a"] = np.full((1,), a, np.float32)
+    return tuple(trees)
+
+
+def jax_trees16(jcfg, vocab=VOCAB, seed=0, a=0.3, unused=False):
+    """As `jax_trees`, for the x16 family (GSRNetLow16, NetGHighWeight16
+    fix_bugs=False, low 'lr'). A JAX init never runs residual816 and
+    upscale16x, so its tree lacks them; `unused` adds them (perturbed, from
+    a fix_bugs=True init), as a reference .pth converted with keep_unused
+    carries them."""
+    from tgsr_tpu.models.models16 import GSRNetLow16, NetGHighWeight16
+    from tgsr_tpu.models.text_encoder import TextEncoder
+
+    keys = jax.random.split(jax.random.PRNGKey(seed), 3)
+    T, E = jcfg.TEXT.WORDS_NUM, jcfg.TEXT.EMBEDDING_DIM
+    s = jcfg.TREE.BASE_SIZE
+    lr = jnp.zeros((1, s, s, 3))
+    text = TextEncoder(vocab_size=vocab, nhidden=E, rnn_type="LSTM").init(
+        keys[0], jnp.zeros((1, T), jnp.int32), jnp.ones((1,), jnp.int32))
+    netg = GSRNetLow16(ngf=jcfg.GAN.GF_DIM, c_dim=jcfg.GAN.CONDITION_DIM,
+                       r_num=jcfg.GAN.R_NUM).init(
+        keys[1], lr, jnp.zeros((1, E)), jnp.zeros((1, T, E)), jnp.zeros((1, T), bool))
+    sizes = tuple(jcfg.pyramid_sizes())
+    netgh = NetGHighWeight16(ngf=jcfg.GAN.GF_DIM, low="lr", sizes=sizes,
+                             fix_bugs=unused).init(
         keys[2], lr, [jnp.zeros((1, z, z, 3)) for z in sizes], lr)
     rng = np.random.default_rng(seed)
     trees = []

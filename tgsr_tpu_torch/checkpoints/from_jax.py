@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from tgsr_tpu_torch.config import Config
+from tgsr_tpu_torch.models.models16 import UNUSED_BLOCKS, make_generators
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -61,22 +62,26 @@ def _resblock_sites(key: str, path: str) -> Dict[str, str]:
     return {f"{key}/conv1": f"{path}.0", f"{key}/conv2": f"{path}.3"}
 
 
-def netg_conv_sites(n_stages: int, r_num: int) -> Dict[str, str]:
+def netg_conv_sites(n_stages: int, r_num: int, tied: bool = False) -> Dict[str, str]:
     """GSRNetLow: JAX conv path (the key of a calibrated-scales group and of
-    `conv_kernel_sites`) -> the port's module path of that conv."""
+    `conv_kernel_sites`) -> the port's module path of that conv. `tied`: the
+    x16 GSRNetLow16, whose tree names its one shared stage h_net2 and its one
+    shared head img_net1 (the port module's other names alias them)."""
     sites = {"h_net1/im2f_conv": "h_net1.im2f.0"}
-    for k in range(1, n_stages + 1):
+    for k in range(1, (2 if tied else n_stages) + 1):
         for j in range(r_num):
             sites.update(_resblock_sites(f"h_net{k}/residual_{j}",
                                          f"h_net{k}.residual.{j}.block"))
         sites[f"h_net{k}/upsample/conv"] = f"h_net{k}.upsample.1"
+    for k in range(1, (1 if tied else n_stages) + 1):
         sites[f"img_net{k}/conv"] = f"img_net{k}.img.0"
     return sites
 
 
-def netgh_conv_sites(n_res: int) -> Dict[str, str]:
-    """NetGHighWeight (low 'lr', no weight map): JAX conv path -> the port's
-    module path."""
+def netgh_conv_sites(n_res: int, unused: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """NetGHighWeight (low 'lr', no weight map), or the x16 NetGHighWeight16
+    with the declared blocks `unused` that its weights carry (residual816,
+    upscale16x): JAX conv path -> the port's module path."""
     sites = {"convin/conv": "convin.0"}
     for j in range(n_res):
         sites.update(_resblock_sites(f"residual_{j}", f"residual.{j}.block"))
@@ -85,15 +90,22 @@ def netgh_conv_sites(n_res: int) -> Dict[str, str]:
     for name in ("residual24", "residual48"):
         sites.update(_resblock_sites(name, name))
     sites["conv_output/conv"] = "conv_output.0"
+    if "residual816" in unused:
+        sites.update(_resblock_sites("residual816", "residual816"))
+    if "upscale16x" in unused:
+        sites["upscale16x/conv"] = "upscale16x.1"
     return sites
 
 
 def conv_sites(netg: nn.Module, netgh: nn.Module) -> Dict[str, Dict[str, str]]:
     """{"netg": {...}, "netgh": {...}} for the port's two generators: the
     one table from JAX conv paths to port modules that the state dicts,
-    calibration, `check_scales` and `weights_fingerprint` all use."""
-    return {"netg": netg_conv_sites(netg.n_stages, len(netg.h_net1.residual)),
-            "netgh": netgh_conv_sites(len(netgh.residual))}
+    calibration, `check_scales` and `weights_fingerprint` all use. A module
+    bound under several names (the x16 family's tied stage and head) is
+    named once, under the JAX tree's name."""
+    return {"netg": netg_conv_sites(netg.n_stages, len(netg.h_net1.residual), netg.tied),
+            "netgh": netgh_conv_sites(len(netgh.residual),
+                                      tuple(n for n in UNUSED_BLOCKS if hasattr(netgh, n)))}
 
 
 def _at(tree: Mapping, key: str) -> Mapping:
@@ -115,15 +127,19 @@ def _count(params: Mapping, fmt: str, start: int = 0) -> int:
 
 
 def netg_state_dict(variables: Mapping) -> StateDict:
-    """GSRNetLow tree -> G_SR_NET_low state dict."""
+    """GSRNetLow tree -> G_SR_NET_low state dict; a GSRNetLow16 tree (one
+    shared stage h_net2 and one shared head img_net1, no img_net2) -> the
+    x16 G_SR_NET_low state dict, whose h_net3 / h_net4 and img_net2..4 key
+    sets repeat the shared tensors (models16.py:13-14)."""
     params, stats = variables["params"], variables["batch_stats"]
     n_stages = _count(params, "h_net{}", start=1)
+    tied = n_stages == 2 and "img_net2" not in params
     out: StateDict = {
         "ca_net.fc.weight": _t(np.asarray(params["ca_net"]["fc"]["kernel"]).T),
         "ca_net.fc.bias": _t(params["ca_net"]["fc"]["bias"]),
     }
     _put_convs(out, params, netg_conv_sites(
-        n_stages, _count(params["h_net1"], "residual_{}")))
+        n_stages, _count(params["h_net1"], "residual_{}"), tied))
     _put_bn(out, "h_net1.im2f.1", params["h_net1"]["im2f_bn"],
             stats["h_net1"]["im2f_bn"])
     for k in range(1, n_stages + 1):
@@ -134,25 +150,35 @@ def netg_state_dict(variables: Mapping) -> StateDict:
             _put_resblock_bn(out, f"h_net{k}.residual.{j}.block",
                              hp[f"residual_{j}"], hs[f"residual_{j}"])
         _put_bn(out, f"h_net{k}.upsample.2", hp["upsample"]["bn"], hs["upsample"]["bn"])
+    if tied:
+        for src, aliases in (("h_net2.", ("h_net3.", "h_net4.")),
+                             ("img_net1.", ("img_net2.", "img_net3.", "img_net4."))):
+            shared = {k[len(src):]: v for k, v in out.items() if k.startswith(src)}
+            for alias in aliases:
+                out.update({alias + k: v for k, v in shared.items()})
     return out
 
 
 def netgh_state_dict(variables: Mapping) -> Tuple[StateDict, float]:
     """NetGHighWeight tree (low 'lr', no weight map) -> (NetG_highweight
-    state dict, blend weight a)."""
+    state dict, blend weight a); a NetGHighWeight16 tree gives the x16
+    NetG_highweight's, with residual816 / upscale16x where the tree carries
+    them."""
     params, stats = variables["params"], variables["batch_stats"]
     n_res = _count(params, "residual_{}")
+    unused = tuple(n for n in UNUSED_BLOCKS if n in params)
     out: StateDict = {}
-    _put_convs(out, params, netgh_conv_sites(n_res))
+    _put_convs(out, params, netgh_conv_sites(n_res, unused))
     _put_bn(out, "convin.1", params["convin"]["bn"], stats["convin"]["bn"])
     for j in range(n_res):
         _put_resblock_bn(out, f"residual.{j}.block", params[f"residual_{j}"],
                          stats[f"residual_{j}"])
-    for scale in ("2x", "4x", "8x"):
-        _put_bn(out, f"upscale{scale}.2", params[f"upscale{scale}"]["bn"],
-                stats[f"upscale{scale}"]["bn"])
-    for name in ("residual24", "residual48"):
-        _put_resblock_bn(out, name, params[name], stats[name])
+    for name in ("upscale2x", "upscale4x", "upscale8x", "upscale16x"):
+        if name in params:
+            _put_bn(out, f"{name}.2", params[name]["bn"], stats[name]["bn"])
+    for name in ("residual24", "residual48", "residual816"):
+        if name in params:
+            _put_resblock_bn(out, name, params[name], stats[name])
     return out, float(np.asarray(params["a"]).reshape(-1)[0])
 
 
@@ -212,17 +238,13 @@ def _seed_module(module: nn.Module, gen: torch.Generator) -> StateDict:
 
 def init_seeded(cfg: Config, vocab_size: int, generator: torch.Generator
                 ) -> Tuple[StateDict, StateDict, StateDict, float]:
-    """Random weights for the x8 pipeline, made from `generator` on the CPU:
-    (text_sd, netg_sd, netgh_sd, a), in the form `state_dicts_from_jax`
-    returns. `a` is 0.5, the JAX init."""
-    from tgsr_tpu_torch.models.generator import GSRNetLow
-    from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
-
-    emb = cfg.TEXT.EMBEDDING_DIM
+    """Random weights for the pipeline of cfg's family, made from `generator`
+    on the CPU: (text_sd, netg_sd, netgh_sd, a), in the form
+    `state_dicts_from_jax` returns (x16: without the netGH blocks that never
+    run, as a JAX init). A tied module is drawn once. `a` is 0.5, the JAX
+    init."""
     text = seeded_text_state_dict(cfg, vocab_size, generator)
-    netg = GSRNetLow(cfg.GAN.GF_DIM, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages,
-                     cfg.GAN.R_NUM)
-    netgh = NetGHighWeight(cfg.GAN.GF_DIM)
+    netg, netgh = make_generators(cfg)
     return text, _seed_module(netg, generator), _seed_module(netgh, generator), 0.5
 
 

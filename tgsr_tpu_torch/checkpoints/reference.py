@@ -1,6 +1,6 @@
 """The reference's checkpoint files (counterpart of
 tgsr_tpu/checkpoints/convert_torch.py `paired_path` and
-`load_generator_pair`, for the x8 family, BRANCH_NUM 4).
+`load_generator_pair`, for the families `config.check_served` names).
 
 A reference `.pth` already carries the port's key names and OIHW layouts, so
 it loads as it is, with `torch.load(weights_only=True)`, and the modules
@@ -19,7 +19,7 @@ import torch
 from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, netg_state_dict,
                                                  netgh_state_dict, text_state_dict)
 from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
-from tgsr_tpu_torch.config import Config
+from tgsr_tpu_torch.config import Config, check_served
 
 DEFAULT_A = 0.5  # the reference builds NetG_highweight with a = 0.5 (model.py:246-248)
 
@@ -41,9 +41,11 @@ def load_generator_pair(cfg: Config, netg_path: str, netgh_path: Optional[str] =
     """(netg_sd, netgh_sd, a). netgh_path defaults to netg_path's pair. A
     `.pth` netGH carries no `a` (it is not a registered parameter of the
     reference), so a is 0.5 unless the file has one; a `.msgpack` pair
-    carries its trained `a`."""
-    if cfg.TREE.BRANCH_NUM != 4:
-        raise NotImplementedError("the port loads the x8 family (BRANCH_NUM 4) only")
+    carries its trained `a`. An x16 `.pth` carries the reference's aliased
+    key sets (h_net2/3/4, img_net1..4), which the port's tied modules take
+    as they are, and residual816 / upscale16x, which its netGH then declares
+    (`models16.unused_blocks`)."""
+    check_served(cfg)
     if netgh_path is None:
         netgh_path = paired_path(netg_path, "netG", "netGH")
     if netg_path.endswith(".msgpack"):

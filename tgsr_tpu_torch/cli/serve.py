@@ -200,15 +200,23 @@ def boot(argv=None):
         with open(args.scales) as f:
             quant = json.load(f)
     elif args.int8:
+        # as the JAX package: the shipped face S8 scales, whatever the family
         quant = face_s8_scales()
     # flag > cfg NET_E > shipped trained NET_E > seeded
     net_e_path, net_e_src = resolve_net_e(cfg, args.text_encoder, vocab.n_words,
                                           seeded=args.seeded_text)
     print(f"[serve] text encoder: {net_e_src}", flush=True)
-    pipe = SRPipeline.from_reference_checkpoints(
-        cfg, vocab.n_words, args.netg, text_encoder_path=net_e_path, device=args.device,
-        compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
-        quant_scales=quant)
+    try:
+        pipe = SRPipeline.from_reference_checkpoints(
+            cfg, vocab.n_words, args.netg, text_encoder_path=net_e_path, device=args.device,
+            compute_dtype=torch.float32 if args.f32 else torch.bfloat16,
+            quant_scales=quant)
+    except ValueError as e:
+        if not args.int8:
+            raise
+        raise ValueError(f"--int8 serves the shipped face S8 scales, calibrated for the x8 "
+                         f"family's face_S8 checkpoints; for these weights calibrate them "
+                         f"(tgsr_tpu_torch.cli.calibrate) and pass --scales: {e}") from e
     return pipe, vocab, args
 
 

@@ -2,10 +2,11 @@
 
 The JAX package's schema, under the same names and with the same defaults
 and strict merge (unknown key -> KeyError, mismatched type -> ValueError, an
-int for a float promoted), so that one dict or YAML file builds both. The
-port serves the x8 family only: `config_from_dict` raises
-NotImplementedError on a setting it does not serve (BRANCH_NUM other than
-4, a GRU, a stage-1 generator, a blurred HF input, a weight map). YAML is
+int for a float promoted), so that one dict or YAML file builds both.
+`check_served` is the one statement of what the port serves (the x8 and x16
+families, LSTM, LR input to the HF branch, no weight map, no stage 1);
+`config_from_dict` and every entry point that builds or loads a model call
+it, and it raises NotImplementedError on anything else. YAML is
 read by the port's own reader of the subset that configs/*.yml use
 (`load_yaml`), since the card machine has no PyYAML.
 
@@ -115,7 +116,8 @@ class Config:
         return self.TREE.BRANCH_NUM - 1
 
     def pyramid_sizes(self) -> list:
-        """[64, 128, 256] for face S8 (BASE_SIZE=32, BRANCH_NUM=4)."""
+        """[64, 128, 256] for face S8 (BASE_SIZE=32, BRANCH_NUM=4), [64, 128,
+        256, 512] for S16 (BRANCH_NUM=5)."""
         return [self.TREE.BASE_SIZE * 2 ** (i + 1) for i in range(self.n_stages)]
 
 
@@ -126,9 +128,31 @@ def face_s8_config() -> Config:
     return Config(TREE=TreeConfig(BRANCH_NUM=4, BASE_SIZE=32), GAN=GanConfig(GF_DIM=32))
 
 
-# the EVAL settings the port serves, and only these (SRPipeline: GSRNetLow,
-# NetGHighWeight on the LR, no weight map)
+# the EVAL settings the port serves, and only these (SRPipeline: the low
+# branch, then the HF branch on the LR, no weight map)
 SERVED_EVAL = {"STAGE1": False, "INPUT_NETGH": "lr", "WEIGHTMAP": False}
+# the model families the port serves, by TREE.BRANCH_NUM, as the reference's
+# family switch picks them (trainer_objective.py:74-88): 4 the x8 family
+# (model.py: GSRNetLow, NetGHighWeight), 5 the x16 family (models16.py:
+# GSRNetLow16, NetGHighWeight16)
+SERVED_BRANCH_NUMS = (4, 5)
+
+
+def check_served(cfg: Config) -> Config:
+    """`cfg` as it is, or NotImplementedError naming the setting the port
+    does not serve: a BRANCH_NUM outside SERVED_BRANCH_NUMS, a GRU text
+    encoder, or an EVAL setting other than SERVED_EVAL's."""
+    for k, v in SERVED_EVAL.items():
+        if getattr(cfg.EVAL, k) != v:
+            raise NotImplementedError(f"EVAL.{k} = {getattr(cfg.EVAL, k)!r}: the port serves "
+                                      f"EVAL.{k} = {v!r} only")
+    if cfg.TREE.BRANCH_NUM not in SERVED_BRANCH_NUMS:
+        raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port serves "
+                                  "the x8 (BRANCH_NUM 4) and x16 (BRANCH_NUM 5) families only")
+    if cfg.RNN_TYPE != "LSTM":
+        raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the port's text encoder is "
+                                  "the LSTM")
+    return cfg
 
 
 def config_to_dict(cfg: Config) -> Dict[str, Any]:
@@ -165,20 +189,10 @@ def _merge(src: Dict[str, Any], dst: Any, path: str) -> Any:
 def config_from_dict(d: Dict[str, Any]) -> Config:
     """A Config from a dict of the JAX schema (a YAML file, a bundle's
     config.json), merged over the schema's defaults. Raises
-    NotImplementedError on a setting the port does not serve, KeyError on a
-    key the schema does not have, ValueError on a mismatched type."""
-    cfg = _merge(d, Config(), "")
-    for k, v in SERVED_EVAL.items():
-        if getattr(cfg.EVAL, k) != v:
-            raise NotImplementedError(f"EVAL.{k} = {getattr(cfg.EVAL, k)!r}: the port serves "
-                                      f"EVAL.{k} = {v!r} only")
-    if cfg.TREE.BRANCH_NUM != 4:
-        raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port serves "
-                                  "the x8 family (BRANCH_NUM 4) only")
-    if cfg.RNN_TYPE != "LSTM":
-        raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the port's text encoder is "
-                                  "the LSTM")
-    return cfg
+    NotImplementedError on a setting the port does not serve
+    (`check_served`), KeyError on a key the schema does not have, ValueError
+    on a mismatched type."""
+    return check_served(_merge(d, Config(), ""))
 
 
 def config_from_file(path: str) -> Config:

@@ -1,5 +1,9 @@
-"""x8 text-guided SR inference (counterpart of tgsr_tpu/engine/inference.py
-`SRPipeline`): caption -> TextEncoder -> GSRNetLow -> NetGHighWeight -> SR.
+"""Text-guided SR inference (counterpart of tgsr_tpu/engine/inference.py
+`SRPipeline`): caption -> TextEncoder -> low branch -> HF branch -> SR, for
+the families `config.check_served` names: x8 (BRANCH_NUM 4, GSRNetLow ->
+NetGHighWeight, 256 px from 32 px at face S8) and x16 (BRANCH_NUM 5,
+GSRNetLow16 -> NetGHighWeight16, models/models16.py, 512 px), picked by
+`models16.make_generators` as the JAX package's family switch picks them.
 
 Public layouts are the JAX package's: lr [B, h, w, 3] in [-1, 1] (or uint8
 for `forward_scan` / `sr_batched`), captions [B, T] token ids with 0 = pad,
@@ -7,8 +11,8 @@ sr [B, H, W, 3]. Inside, the generators run NCHW, in channels_last memory on
 the card, so NHWC <-> NCHW at the kernel sites costs no copy.
 
 The pipeline runs on `device`, "cuda" unless the caller asks for the CPU.
-On the card the three attention sites and the two up-head sites launch the
-port's CUDA kernels; on the CPU they run the plain versions, so a pipeline
+On the card the attention site of each stage (3 in x8, 4 in x16) and the two
+up-head sites launch the port's CUDA kernels; on the CPU they run the plain versions, so a pipeline
 built with device="cpu" on the same weights is the reference the card's is
 held against.
 
@@ -30,8 +34,10 @@ made after the cast, as JAX quantizes the cast variables; activations stay
 in the compute dtype between the int8 convs, as in JAX. Its convs launch
 `int8_conv` and its GLU+requantize passes `glu_requant` (their float32
 instances under float32 compute); its last stage and
-256 px scale run as modules (the quantized UpBlock, then the int8 head), so
-the up-head kernels do not run. `calibrate_quant` records the scales on the
+last scale run as modules (the quantized UpBlock, then the int8 head), so
+the up-head kernels do not run. The x16 family's tied stage and head are one
+module in the quantized copy too, quantized once under the JAX tree's names
+(h_net2, img_net1) with the absmax of all their calls. `calibrate_quant` records the scales on the
 plain, unfused modules.
 
 Serving: on the card `forward_scan` (and with it `sr_batched`, `sr_uint8`
@@ -66,15 +72,14 @@ from tgsr_tpu_torch.checkpoints.from_jax import (conv_sites, seeded_text_state_d
                                                  state_dicts_from_jax)
 from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
 from tgsr_tpu_torch.checkpoints.reference import load_generator_pair, load_text_encoder
-from tgsr_tpu_torch.config import Config, config_from_dict, config_to_dict
+from tgsr_tpu_torch.config import Config, check_served, config_from_dict, config_to_dict
 from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.graphs import ForwardGraph
 from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats
 from tgsr_tpu_torch.engine.quant import (SCALES_META_KEY, SPLIT_RES_GLU_SITES, check_scales,
                                          effective_split_glu, record_absmax,
                                          split_scales_meta, weights_fingerprint)
-from tgsr_tpu_torch.models.generator import GSRNetLow
-from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
+from tgsr_tpu_torch.models.models16 import make_generators, unused_blocks
 from tgsr_tpu_torch.models.quantized import quantize_generator
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
@@ -128,10 +133,7 @@ class SRPipeline:
                  return_attn: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
                  quant_scales: Optional[Mapping[str, Any]] = None):
-        if cfg.TREE.BRANCH_NUM != 4 or cfg.RNN_TYPE != "LSTM":
-            raise NotImplementedError(
-                "the port serves the x8 geometry (BRANCH_NUM 4) with an LSTM "
-                "text encoder")
+        check_served(cfg)
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the port serves "
                              f"{COMPUTE_DTYPES}")
@@ -342,8 +344,9 @@ class SRPipeline:
 
     @torch.inference_mode()
     def __call__(self, lr, captions, cap_lens) -> Dict[str, Any]:
-        """Returns float32 {'sr': [B, H, W, 3], 'pyramid': [64, 128, 256 px]
-        NHWC, and 'attn': [B, T, H, W] per stage when return_attn}."""
+        """Returns float32 {'sr': [B, H, W, 3], 'pyramid': the low-to-high
+        images NHWC (64, 128, 256 px at face S8; 64 to 512 px at S16), and
+        'attn': [B, T, H, W] per stage when return_attn}."""
         with self.lock:
             fine, att = self._forward(self._tensor(lr, torch.float32),
                                       self._tensor(captions, torch.long),
@@ -541,12 +544,10 @@ class SRPipeline:
 
 def _modules(cfg: Config, vocab_size: int, text_sd: Mapping[str, Any],
              netg_sd: Mapping[str, Any], netgh_sd: Mapping[str, Any]):
-    """(TextEncoder, GSRNetLow, NetGHighWeight) on the CPU in float32,
+    """(TextEncoder, netG, netGH of cfg's family) on the CPU in float32,
     with the state dicts loaded strictly."""
-    emb = cfg.TEXT.EMBEDDING_DIM
-    modules = (TextEncoder(vocab_size, 300, emb),
-               GSRNetLow(cfg.GAN.GF_DIM, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages, cfg.GAN.R_NUM),
-               NetGHighWeight(cfg.GAN.GF_DIM))
+    modules = (TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM),
+               *make_generators(cfg, unused_blocks(netgh_sd)))
     for module, sd in zip(modules, (text_sd, netg_sd, netgh_sd)):
         module.load_state_dict(sd, strict=True)
     return modules

@@ -184,14 +184,27 @@ def check_scales(scales: Mapping[str, Mapping[str, float]], netg: nn.Module,
                 "reuse them deliberately.")
 
 
+def _shipped_scales(filename: str, heads: bool) -> Scales:
+    path = Path(__file__).resolve().parents[1] / "checkpoints" / filename
+    scales = json.loads(path.read_text())
+    return scales if heads else drop_head_scales(scales)
+
+
 def face_s8_scales(heads: bool = True) -> Scales:
     """The shipped calibration of the reference face_S8 checkpoints (a
     byte-identical copy of the JAX package's face_s8_int8_scales.json,
     '_meta' with its weights fingerprint included). heads=False drops the
     image heads' scales."""
-    path = Path(__file__).resolve().parents[1] / "checkpoints" / "face_s8_int8_scales.json"
-    scales = json.loads(path.read_text())
-    return scales if heads else drop_head_scales(scales)
+    return _shipped_scales("face_s8_int8_scales.json", heads)
+
+
+def x16_scales(heads: bool = True) -> Scales:
+    """The shipped calibration of the x16 family (a byte-identical copy of
+    the JAX package's x16_int8_scales.json). The reference ships no x16
+    checkpoint, so it was calibrated on the JAX package's seed-0 init of
+    the S16 geometry (examples/x16_bench.py), whose fingerprint its '_meta'
+    carries: `check_scales` takes it only for those weights."""
+    return _shipped_scales("x16_int8_scales.json", heads)
 
 
 @contextlib.contextmanager
@@ -199,9 +212,11 @@ def record_absmax(module: nn.Module, sites: Mapping[str, str]
                   ) -> Iterator[Dict[str, torch.Tensor]]:
     """Forward pre-hooks on the convs of `sites` ({JAX key: module path})
     that keep, per key, the max |input| over every call (conv_output runs
-    three times a forward). The UpBlock convs see the nearest-x2 upsample of
-    the block's input, whose absmax is the input's own. Yields the dict of
-    0-d tensors; the hooks go when the block ends."""
+    three times a forward, four in x16; the x16 family's tied stage runs
+    three times and its tied head four, each under one key). The UpBlock
+    convs see the nearest-x2 upsample of the block's input, whose absmax is
+    the input's own. Yields the dict of 0-d tensors; the hooks go when the
+    block ends."""
     records: Dict[str, torch.Tensor] = {}
     handles = []
     for key, path in sites.items():

@@ -75,11 +75,15 @@ class InitStageGImgUp(NextStageG):
 
 
 class GetImageG(nn.Module):
-    """conv3x3(ngf -> 3), no activation (= GET_IMAGE_G_noAct)."""
+    """conv3x3(ngf -> 3), then tanh where `use_tanh` (= GET_IMAGE_G, the x16
+    family's heads, models16.py) or no activation (= GET_IMAGE_G_noAct, the
+    x8 family's, model.py). The Tanh holds no weights, so both keep the
+    reference's one key, `img.0.weight`."""
 
-    def __init__(self, ngf: int):
+    def __init__(self, ngf: int, use_tanh: bool = False):
         super().__init__()
-        self.img = nn.Sequential(conv3x3(ngf, 3))
+        self.use_tanh = use_tanh
+        self.img = nn.Sequential(conv3x3(ngf, 3), *([nn.Tanh()] if use_tanh else []))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.img(h)
@@ -91,9 +95,13 @@ class GSRNetLow(nn.Module):
     forward(lr NCHW, sent [B, cdf], words [B, T, cdf], mask [B, T]) ->
     (pyramid of NCHW images, attention maps [B, T, H, W] (empty unless
     need_attn), mu, logvar). `up_head` is the last stage's site function,
-    `site(features) -> NCHW image`, made once by the caller from
+    `site(features, use_tanh=) -> NCHW image`, made once by the caller from
     `up_head_weights()`; without it the last stage runs `upsample`, then
     its head."""
+
+    tied = False  # one module under several stage names (the x16 family, models16.py)
+    # UpBlock convs (JAX paths) whose output feeds only the image head
+    head_only_upblocks = frozenset({"h_net3/upsample/conv"})
 
     def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100,
                  n_stages: int = 3, r_num: int = 2):
@@ -127,7 +135,7 @@ class GSRNetLow(nn.Module):
                 fake_imgs.append(head(h))
             else:
                 feats, att = stage.features(h, words, mask, need_attn)
-                fake_imgs.append(up_head(feats))
+                fake_imgs.append(up_head(feats, use_tanh=head.use_tanh))
             if need_attn:
                 att_maps.append(att)
         return fake_imgs, att_maps, mu, logvar

@@ -31,6 +31,9 @@ def _residual_seq(ngf: int) -> nn.Sequential:
 
 
 class NetGHighWeight(nn.Module):
+    # UpBlock convs (JAX paths) whose output feeds only the image head
+    head_only_upblocks = frozenset({"upscale8x/conv"})
+
     def __init__(self, ngf: int = 32, n_res: int = 6):
         super().__init__()
         self.convin = nn.Sequential(conv3x3(3, ngf * 2), batch_norm(ngf * 2), GLU())

@@ -1,0 +1,122 @@
+"""The x16 family's generators (counterpart of tgsr_tpu/models/models16.py;
+= models16.py G_SR_NET_low and NetG_highweight, BRANCH_NUM 5).
+
+They differ from the x8 generators by the reference's weight tying, which a
+reference x16 checkpoint carries and which is kept here so that such a
+`.pth` loads with `load_state_dict(strict=True)`:
+
+- `GSRNetLow16`: h_net2, h_net3 and h_net4 are ONE NextStageG, and all four
+  image heads are ONE GET_IMAGE_G (with tanh) (models16.py:13-14). The
+  aliases are attributes bound to the same module, as in the reference, so
+  `state_dict()` carries every alias key set and a quantized or cast copy
+  (`copy.deepcopy`, `Module.to`) keeps one module with one set of weights.
+- `NetGHighWeight16`: its blocks are untied, but the 512 px step reuses
+  residual48 and upscale8x (models16.py:171-173), and without a weight map
+  the last blend is against the 256 px SRb8 (models16.py:178), upsampled by
+  nearest x2 to 512 px as the JAX package's documented deviation does. The
+  declared residual816 and upscale16x never run; they exist exactly when
+  the weights carry them (a reference `.pth` does, a JAX init does not), so
+  that the weights fingerprint walks the same convs as the JAX package's.
+
+Serving sites, as in the x8 family (generator.py, generator_hf.py): the last
+call of the shared stage (256 px features -> 512 px image, 3x3 head, tanh,
+no blend) and the second call of upscale8x (256 px -> 512 px, the shared 5x5
+tanh head, + a * nearest2x(srb[2])) feed only an image head, so they run as
+one fused up-head site in float32 and bfloat16. The shared stage's first
+three calls and upscale8x's 256 px call stay plain: their features also feed
+the next stage or residual48.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tgsr_tpu_torch.config import Config, check_served
+from tgsr_tpu_torch.models.generator import GetImageG, GSRNetLow
+from tgsr_tpu_torch.models.generator_hf import NetGHighWeight, _residual_seq
+from tgsr_tpu_torch.ops.blocks import UpBlock
+
+# the declared blocks of NetG_highweight (x16) that its forward never runs
+UNUSED_BLOCKS = ("residual816", "upscale16x")
+
+
+class GSRNetLow16(GSRNetLow):
+    """= models16.G_SR_NET_low: four stages, h_net2 == h_net3 == h_net4 and
+    img_net1 == .. == img_net4 (tanh heads). The forward is GSRNetLow's over
+    the aliases; the last stage's site is the shared stage's upsample and
+    the shared head."""
+
+    tied = True
+    # the shared stage's upsample feeds the next stage on its first calls
+    head_only_upblocks = frozenset()
+
+    def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100, r_num: int = 2):
+        super().__init__(ngf, cdf, c_dim, n_stages=2, r_num=r_num)
+        self.n_stages = 4
+        self.h_net3 = self.h_net4 = self.h_net2
+        self.img_net1 = GetImageG(ngf, use_tanh=True)
+        self.img_net2 = self.img_net3 = self.img_net4 = self.img_net1
+
+
+class NetGHighWeight16(NetGHighWeight):
+    """= models16.NetG_highweight with INPUT_NETGH 'lr', no weight map,
+    fix_bugs=False: four scales, 64 to 512 px. `unused` names the blocks of
+    UNUSED_BLOCKS the weights carry; they are declared and never run."""
+
+    # upscale8x's 256 px output feeds residual48 as well as the head
+    head_only_upblocks = frozenset()
+
+    def __init__(self, ngf: int = 32, n_res: int = 6, unused: Tuple[str, ...] = ()):
+        super().__init__(ngf, n_res)
+        if "residual816" in unused:
+            self.residual816 = _residual_seq(ngf)
+        if "upscale16x" in unused:
+            self.upscale16x = UpBlock(ngf, ngf)
+
+    def forward(self, lr: torch.Tensor, srb: List[torch.Tensor],
+                up_head: Optional[Callable[..., torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
+        """lr NCHW, srb the low branch's four images (NCHW) -> the refined
+        64, 128, 256 and 512 px images. `up_head` is the 512 px site (the
+        second call of upscale8x with the shared head), `site(features, srb=,
+        a=, use_tanh=)`; without it upscale8x and conv_output run as
+        modules."""
+        out = self.residual(self.convin(lr))
+        out = self.upscale2x(out)
+        ims = [self.conv_output(out) + self.a * srb[0]]
+        out = self.upscale4x(self.residual24(out))
+        ims.append(self.conv_output(out) + self.a * srb[1])
+        out = self.upscale8x(self.residual48(out))
+        ims.append(self.conv_output(out) + self.a * srb[2])
+        # models16.py:171-178: residual48 and upscale8x again, blended with
+        # SRb8 (srb[2]) brought to 512 px by nearest x2
+        out = self.residual48(out)
+        srb8 = F.interpolate(srb[2], scale_factor=2, mode="nearest")
+        if up_head is None:
+            ims.append(self.conv_output(self.upscale8x(out)) + self.a * srb8)
+        else:
+            ims.append(up_head(out, srb=srb8, a=self.a, use_tanh=True))
+        return ims
+
+
+def make_generators(cfg: Config, unused: Tuple[str, ...] = ()
+                    ) -> Tuple[nn.Module, nn.Module]:
+    """(netG, netGH) of cfg's family, fresh, float32 on the CPU: the
+    reference's family switch (trainer_objective.py:74-88), BRANCH_NUM 4 the
+    x8 generators, 5 the x16 ones (`unused`: the x16 netGH's declared blocks
+    that the weights carry)."""
+    ngf, emb = cfg.GAN.GF_DIM, cfg.TEXT.EMBEDDING_DIM
+    if check_served(cfg).TREE.BRANCH_NUM == 5:
+        return (GSRNetLow16(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.GAN.R_NUM),
+                NetGHighWeight16(ngf, unused=unused))
+    return (GSRNetLow(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages, cfg.GAN.R_NUM),
+            NetGHighWeight(ngf))
+
+
+def unused_blocks(netgh_sd) -> Tuple[str, ...]:
+    """The blocks of UNUSED_BLOCKS a netGH state dict carries."""
+    return tuple(name for name in UNUSED_BLOCKS if any(k.startswith(name + ".") for k in netgh_sd))

@@ -21,10 +21,11 @@ buffers:
   channel.
 - `QuantUpBlock`: quantize, int8 conv on the nearest-x2 upsample with the
   folded BN, then GLU in the compute dtype; or, when its only consumer is an
-  int8 head (FUSED_UP_OUT_CONSUMER, in the split set), glu_requant with the
-  head's scale, so the int8 leaves the block and the head skips its own
-  quantize step (the same function as JAX's v*sigmoid(g), then the head's
-  quantize_act).
+  int8 head (FUSED_UP_OUT_CONSUMER, in the split set, and in the generator's
+  `head_only_upblocks`: not the x16 upscale8x, whose 256 px output also
+  feeds residual48), glu_requant with the head's scale, so the int8 leaves
+  the block and the head skips its own quantize step (the same function as
+  JAX's v*sigmoid(g), then the head's quantize_act).
 
 Modules run NCHW views of NHWC tensors, as the rest of the generators.
 """
@@ -134,9 +135,12 @@ def quantize_generator(generator: nn.Module, sites: Mapping[str, str],
     """A copy of `generator` with its calibrated convs in int8. `sites` is
     the generator's table from JAX conv paths to module paths
     (`checkpoints.from_jax.conv_sites`); `scales` its scales group. The
-    compute dtype is that of the generator's weights."""
+    compute dtype is that of the generator's weights. A module bound under
+    several names (the x16 family's tied stage and head) stays one module in
+    the copy (`deepcopy` keeps the aliases), quantized once."""
     gen = copy.deepcopy(generator)
     out_dtype = next(gen.parameters()).dtype
+    head_only = generator.head_only_upblocks  # UpBlocks whose output feeds only its head
     done = set()
     for key, path in sites.items():
         if not key.endswith("/conv1"):
@@ -156,7 +160,8 @@ def quantize_generator(generator: nn.Module, sites: Mapping[str, str],
         parent = gen.get_submodule(parent_path)
         if isinstance(parent, UpBlock):
             head = FUSED_UP_OUT_CONSUMER.get(key)
-            out_scale = scales[head] if key in split_glu and head in scales else None
+            out_scale = (scales[head] if key in split_glu and head in scales
+                         and key in head_only else None)
             gen.set_submodule(parent_path, QuantUpBlock(parent, scales[key], out_scale))
         else:
             gen.set_submodule(path, QuantConv(gen.get_submodule(path), scales[key], out_dtype))
