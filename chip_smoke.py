@@ -1,6 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-readings SEEDS [--out readings.json]
+
+The second form only runs `step_against_cpu` on the batches of SEEDS (such
+as 1-12 or 5,5,6) and prints, for each card step, the median and 90th
+percentile of its gradient ratios on each batch and each tensor's largest
+ratio over the batches (what GRAD_MEDIAN and GRAD_OUTLIER_FACTOR are set
+from).
 
 Builds the port's CUDA kernels from tgsr_tpu_torch/csrc/ with nvcc
 (sm_90a, one nvcc per source, all at once), holds each kernel against its
@@ -48,8 +55,14 @@ server booted from that YAML answering 512 px POSTs. Then drives the conv
 probe path (tgsr_tpu_torch.probes.conv_probe at B = 64, 128 x 128 px), whose
 four tensor-core kernels (tap9, im2col, pair5 and dotceil, all on wgmma with
 TMA-fed operands) are first held against their plain versions within one
-bfloat16 ulp, and none of which may spill registers. Prints one JSON line of
-per-kernel numbers, then, as the last line, {"ok": true, "device": {...}}.
+bfloat16 ulp, and none of which may spill registers. Training (the x8
+face S8 model at full width): the attention's backward kernel against
+autograd of its plain version at the three training sites, one step on the
+card against the same step on the CPU (both held against a float64 step),
+ten steps at B = 16 in float32 and bfloat16 with their launches, times and
+memory, and the training CLI, whose last snapshot pair SRPipeline serves
+equal to the run's EMA generator. Prints one JSON line of per-kernel
+numbers, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
 package is missing, or when any check fails.
 """
@@ -883,19 +896,29 @@ def int8_conv_f32_phase(torch, convs=INT8_CONVS):
                       "kernel"}
 
 
+def ptxas_entries(log: str) -> list:
+    """[(mangled entry name, {registers, stack and spill bytes})] of every
+    kernel instance in a `ptxas -v` log, in the log's order."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        usage = {}
+        for nxt in lines[i + 1:i + 6]:
+            if "spill stores" in nxt:
+                nums = [int(w) for w in nxt.replace(",", " ").split() if w.isdigit()]
+                usage["stack_bytes"], usage["spill_store_bytes"], usage["spill_load_bytes"] = \
+                    nums[:3]
+            elif "Used" in nxt and "registers" in nxt:
+                usage["registers"] = int(nxt.split("Used")[1].split()[0])
+        out.append((line.split("'")[1], usage))
+    return out
+
+
 def ptxas_usage(log: str, kernel: str) -> dict:
     """Registers and spill bytes of `kernel` in a `ptxas -v` log."""
-    lines = log.splitlines()
-    start = next(i for i, line in enumerate(lines)
-                 if "Compiling entry function" in line and kernel in line)
-    out = {}
-    for line in lines[start + 1:start + 6]:
-        if "spill stores" in line:
-            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
-            out["stack_bytes"], out["spill_store_bytes"], out["spill_load_bytes"] = nums[:3]
-        elif "Used" in line and "registers" in line:
-            out["registers"] = int(line.split("Used")[1].split()[0])
-    return out
+    return next(u for name, u in ptxas_entries(log) if kernel in name)
 
 
 def conv_probe_phase(torch):
@@ -2340,6 +2363,470 @@ def cli_phase(torch, rng, card, tmp):
     return launches
 
 
+# the three training sites of the attention (px), at the trainer's batch
+TRAIN_B = 16
+TRAIN_SITES = (32, 64, 128)
+# step_against_cpu: a card step's gradient tensors' L2 errors against the
+# float64 CPU step, in units of twice the CPU float32 step's + 1e-5 |g|: the
+# median tensor of each card step at most GRAD_MEDIAN, every tensor at most
+# GRAD_OUTLIER_FACTOR: two to three times the largest card readings on 12
+# seeded batches (`--step-readings 1-12`: medians up to 0.905 with cuDNN
+# off, 1.86 on; one tensor up to 349)
+GRAD_MEDIAN = {"cuDNN off": 2.0, "cuDNN on": 4.0}
+GRAD_OUTLIER_FACTOR = 1000
+# the face S8 training config (configs/train_faceSR_S8.yml at full width) for
+# the CLI run: BATCH_SIZE cut to 2 so that the example set's 4 train images
+# make 2 steps an epoch, a snapshot every 2 steps
+FACE_S8_TRAIN_YAML = """# face S8 training: x8, 32 px -> 256 px (configs/train_faceSR_S8.yml)
+CONFIG_NAME: 'face_S8_train'
+METHOD: 'S8'
+TREE:
+    BRANCH_NUM: 4
+    BASE_SIZE: 32
+DATASET_NAME: 'face'
+TRAIN:
+    FLAG: True
+    BATCH_SIZE: 2
+    MAX_EPOCH: 2
+    SNAPSHOT_INTERVAL: 2
+GAN:
+    DF_DIM: 64
+    GF_DIM: 32
+    R_NUM: 2
+TEXT:
+    EMBEDDING_DIM: 256
+    CAPTIONS_PER_IMAGE: 1
+"""
+
+
+def attention_grads(torch, fn, px, wd, mask, g, ga):
+    """(dpixels, dwords) of sum(ctx * g) + sum(attn * ga) through `fn`, and a
+    closure that runs that backward again on the graph kept."""
+    px = px.detach().requires_grad_()
+    wd = wd.detach().requires_grad_()
+    ctx, attn = fn(px, wd, mask, return_attn=ga is not None)
+    loss = (ctx * g).sum() + ((attn * ga).sum() if ga is not None else 0)
+    again = lambda: torch.autograd.grad(loss, (px, wd), retain_graph=True)
+    return again(), again
+
+
+def attention_bwd_phase(torch, rng, hws=TRAIN_SITES, b=TRAIN_B):
+    """Row "1 bwd": the attention's backward kernel against autograd of its
+    plain version on the card at the training sites (B = 16, C 32, T 18,
+    ragged captions with one padded everywhere, a gradient on the attention
+    map at 64 px), float32 and bfloat16. float32: max abs error <= 1e-5
+    max(1, |ref|max); bfloat16 (against float32 on the same inputs):
+    |err| - 2^-8 |ref| <= 1e-5 max(1, |ref|max). Two calls give the same
+    bits. Times the backward alone (the kernel's two launches) against the
+    plain backward on a kept graph, and SDPA forward + backward on the same
+    shapes, for scale, not the same function."""
+    import torch.nn.functional as F
+
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain
+    from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention, word_pixel_attention_bwd
+
+    bwd = [(n, u) for n, u in ptxas_entries(_build.build_log("word_pixel_attention"))
+           if "word_pixel_attention_bwd_kernel" in n]
+    spills = sum(u["spill_store_bytes"] + u["spill_load_bytes"] for _, u in bwd)
+    check(len(bwd) == 8 and spills == 0,
+          f"attention backward kernel ptxas: {len(bwd)} instances (float32 and bfloat16, TB 8 "
+          f"to 32), registers {sorted(u['registers'] for _, u in bwd)}, {spills} bytes spilled")
+
+    lens = rng.integers(1, T + 1, b)
+    lens[1] = 0
+    mask = torch.as_tensor(np.arange(T)[None, :] >= lens[:, None], device="cuda")
+    out = {}
+    for dtype, esize, rate in ((torch.float32, 4, F32_FLOP_PER_S),
+                               (torch.bfloat16, 2, BF16_FLOP_PER_S)):
+        tag = str(dtype).split(".")[-1]
+        rows = []
+        for hw in hws:
+            px, g = (torch.randn(b, hw, hw, C, device="cuda").to(dtype) for _ in range(2))
+            wd = torch.randn(b, T, C, device="cuda").to(dtype)
+            ga = torch.randn(b, T, hw, hw, device="cuda").to(dtype) if hw == 64 else None
+            ref, plain_again = attention_grads(torch, plain, px.float(), wd.float(), mask,
+                                               g.float(), ga.float() if ga is not None else None)
+            got, _ = attention_grads(torch, word_pixel_attention, px, wd, mask, g, ga)
+            twice, _ = attention_grads(torch, word_pixel_attention, px, wd, mask, g, ga)
+            torch.cuda.synchronize()
+            err, excess, same = 0.0, 0.0, True
+            for k, r, t2 in zip(got, ref, twice):
+                scale = 1e-5 * max(1.0, r.abs().max().item())
+                e = (k.float() - r).abs()
+                err = max(err, e.max().item())
+                rel = e if dtype == torch.float32 else e - 2 ** -8 * r.abs()
+                excess = max(excess, rel.max().item() / scale)
+                same &= torch.equal(k, t2)
+            check(excess <= 1.0 and same,
+                  f"attention backward kernel {tag} == plain autograd at [{b},{hw},{hw},{C}] T "
+                  f"{T}{' with an attention-map gradient' if ga is not None else ''} (max abs "
+                  f"err {err:.3e}, {excess:.3f} of the gate), the same bits twice")
+            run = lambda: word_pixel_attention_bwd(px, wd, mask, g, ga)
+            ms = cuda_ms(run, iters=20, warmup=3)
+            d_ms = device_ms(torch, run, iters=10)
+            if dtype == torch.float32:
+                _, p_again = attention_grads(torch, plain, px, wd, mask, g, ga)
+            else:
+                p_again = plain_again
+            p_ms = cuda_ms(p_again)
+            q = px.reshape(b, hw * hw, C).detach().requires_grad_()
+            kv = wd.detach().requires_grad_()
+            keep = ~mask[:, None, :]
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep, scale=1.0)
+                torch.autograd.grad(o, (q, kv), g.reshape(b, hw * hw, C))
+
+            l_ms = cuda_ms(sdpa)
+            n = b * hw * hw
+            # pixels and g in, dpixels out; words in, dwords out; the mask;
+            # the attention map's gradient where given
+            nbytes = (esize * (3 * n * C + 2 * b * T * C) + b * T
+                      + (esize * n * T if ga is not None else 0))
+            flops = n * (10 * T * C + 8 * T)  # logits, dA, dP, dW (two), softmax and dS
+            bms, by = bound_ms(nbytes, flops, rate)
+            print(f"  attention backward {tag} {hw}x{hw}: kernel {ms:.4f} ms (device time "
+                  f"{d_ms:.4f}), plain autograd {p_ms:.4f} ms, sdpa fwd+bwd {l_ms:.4f} ms (for "
+                  f"scale, not the same function), bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it "
+                  f"reached)", flush=True)
+            rows.append(dict(ms=ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms,
+                             nbytes=nbytes, flops=flops, err=err))
+        tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "nbytes",
+                               "flops"))
+        tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), rate)[1]
+        out[tag] = tot
+    return {"name": "word_pixel_attention_bwd", "route": "cuda",
+            "source": "tgsr_tpu_torch/csrc/word_pixel_attention.cu",
+            "replaces": "tgsr_tpu/ops/pallas_attention.py:30", **out["float32"],
+            "bfloat16": out["bfloat16"],
+            "shapes": f"B {b}, C {C}, T {T}, HW {'+'.join(f'{hw}^2' for hw in hws)} (one training "
+                      "step's 3 sites, an attention-map gradient at 64^2); the backward alone (the "
+                      "tiles and their sum); no Pallas backward exists (JAX differentiates XLA's "
+                      "einsum path); library_ms: SDPA forward + backward, for scale, not the same "
+                      "function"}
+
+
+def train_batch(torch, rng, b, device="cuda", vocab=41):
+    """A face S8 training batch of noise images (train-mode BN of a constant
+    image divides by sqrt(eps) at every layer), ragged captions with one
+    padded everywhere; NHWC in [-1, 1]."""
+    lens = rng.integers(1, T + 1, b)
+    lens[min(1, b - 1)] = 0
+    caps = rng.integers(1, vocab, (b, T))
+    caps[np.arange(T)[None, :] >= lens[:, None]] = 0
+    u = lambda s: torch.from_numpy(rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)).to(device)
+    return {"lr": u(32), "real_pyramid": [u(s) for s in (64, 128, 256)],
+            "captions": torch.from_numpy(caps).to(device),
+            "cap_lens": torch.from_numpy(lens).to(device)}
+
+
+def trainer_readout(torch, state):
+    """{name: (param, grad from Adam's first moment, sqrt(v_hat))} of every
+    parameter and {name: stat} of every BN running stat, on the CPU."""
+    params = {}
+    for opt, named in ((state.g_opt, state.g_named_parameters()),
+                       (state.d_opt, [(f"d.{n}", p) for n, p in state.dnets.named_parameters()])):
+        for n, p in named:
+            st = opt.state[p]
+            bias = 1 - 0.999 ** float(st["step"])
+            params[n] = (p.detach().cpu(), (st["exp_avg"] / 0.5).cpu(),
+                         (st["exp_avg_sq"] / bias).sqrt().cpu())
+    stats = {}
+    for prefix, module in (("netg", state.netg), ("netgh", state.netgh), ("d", state.dnets)):
+        for n, v in module.state_dict().items():
+            if n.endswith("running_mean") or n.endswith("running_var"):
+                stats[f"{prefix}.{n}"] = v.cpu()
+    return params, stats
+
+
+def profile_step(torch, fn, tag: str, top: int = 10) -> None:
+    """Device time of one training step, fn(), by kernel (torch.profiler,
+    CUPTI), and its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        print("  profile: no device time recorded (not measured)", flush=True)
+        return
+    dev = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  profile of one {tag} training step at B={TRAIN_B}: device {dev:.3f} ms, wall "
+          f"{wall:.3f} ms under the profiler, idle share {max(0.0, 1 - dev / wall):.3f}, "
+          f"{sum(e.count for e in events)} kernels", flush=True)
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"    {ms:9.3f} ms {ms / dev:6.1%} x{e.count:<4d} {e.key[:90]}", flush=True)
+
+
+def face_train_set(rng, root, n_images):
+    """The reference's face training layout in `root`: list_attr_celeba.txt
+    (n_images rows, 1-2 attributes each; the last row Blurry, the test split)
+    and seeded PNGs of 300 x 280 (ramps and noise) under Img/."""
+    from tgsr_tpu_torch.data.codec import encode_png
+
+    os.makedirs(os.path.join(root, "Img"))
+    blurry = CELEBA_ATTRS.index("Blurry")
+    others = [k for k in range(40) if k != blurry]
+    yy, xx = np.mgrid[:300, :280]
+    with open(os.path.join(root, "list_attr_celeba.txt"), "w") as f:
+        f.write(" ".join(CELEBA_ATTRS) + " \n")
+        for i in range(n_images):
+            r = np.zeros(40, int)
+            r[rng.choice(others, rng.integers(1, 3), replace=False)] = 1
+            r[blurry] = int(i == n_images - 1)
+            f.write(f"{i:06d}.jpg " + " ".join(map(str, r)) + "\n")
+            img = np.stack([(yy * rng.uniform(0.3, 1.5) + xx * rng.uniform(0.3, 1.5)) % 256
+                            for _ in range(3)], -1)
+            img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype("uint8")
+            with open(os.path.join(root, "Img", f"{i:06d}.png"), "wb") as g:
+                g.write(encode_png(img))
+
+
+def step_against_cpu(torch, cfg, text_sd, batch) -> dict:
+    """One float32 training step of the face S8 model on `batch` (B = 4, on
+    the CPU) on the card twice, cuDNN off and on (as training runs it), and
+    on the CPU, each held against the same step in float64 on the CPU; once
+    with D learning and once with D's learning rate 0. Returns {(D lr, card
+    step): {gradient tensor: its ratio}, (statistic, D lr, card step): their
+    median, 90th percentile and largest relative L2 error} (the ratios in
+    units of the tight gate).
+
+    A GAN step's gradients cancel (BN biases, the attention's projection,
+    the heads' weight gradients, sums over every pixel), so two float32
+    programs part there by their rounding alone, and Adam's first step
+    (+-lr an entry, whatever its size) follows the sign of entries that
+    rounding decides. D's first update moves such entries, and G's gradient
+    read through that D parts by percents: D is held with D learning, G and
+    every BN stat with D's learning rate 0, where all three read one D.
+
+    Gates, each card step: metrics within rtol 1e-4 of the CPU's (with D
+    learning, those that do not read the updated D: d_loss, kl, pixel);
+    gradients
+    (Adam's first moment) against the float64 step's, in units of the tight
+    gate (twice the CPU float32 step's L2 error + 1e-5 |g|): the median
+    tensor within GRAD_MEDIAN of it (cuDNN's algorithms part from float64
+    more than PyTorch's own convolutions), and every tensor within
+    GRAD_OUTLIER_FACTOR of it (sums over every pixel, BN biases and weight
+    gradients, part from float64 up to hundreds of times more on the card
+    than on the CPU as far as the batch makes them cancel, with cuDNN and
+    without; with cuDNN, on some batches, every tensor of one DNet);
+    parameters within 1e-6 of the
+    float64 step's off the entries at Adam's epsilon in any of the three
+    steps and those whose float32 gradient has the other sign (the card at
+    most twice the CPU's count + 0.1 %); BN running stats within twice the
+    CPU's max error + 1e-6."""
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+
+    def one_step(d_lr):
+        out = {}
+        for tag, device, dtype, cudnn in (("cpu", "cpu", torch.float32, True),
+                                          ("f64", "cpu", torch.float64, True),
+                                          ("cuDNN off", "cuda", torch.float32, False),
+                                          ("cuDNN on", "cuda", torch.float32, True)):
+            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=d_lr)
+            s = t.init_state(torch.Generator().manual_seed(0))
+            t0 = time.perf_counter()
+            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                m = t.train_step(s, batch)
+            out[tag] = ({k: float(v) for k, v in m.items()}, *trainer_readout(torch, s))
+            print(f"  train step {str(dtype).split('.')[-1]} B={len(batch['lr'])} (D lr {t.d_lr}) on {device}"
+                  f"{', ' + tag if device == 'cuda' else ''}: "
+                  f"{time.perf_counter() - t0:.2f} s (host clock, first step)", flush=True)
+        return out
+
+    def worst3(ratios):
+        top = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+        return max(ratios.values()), ", ".join(f"{n} {r:.3g}" for n, r in top)
+
+    readings = {}
+    for d_lr, net, what in ((None, "d.", "D learning: D's step"),
+                            (0.0, "net", "D frozen: G's step")):
+        out = one_step(d_lr)
+        (m_c, p_c, s_c), (_, p_64, s_64) = out["cpu"], out["f64"]
+        for card_tag in ("cuDNN off", "cuDNN on"):
+            m_g, p_g, s_g = out[card_tag]
+            head = f"train f32 step card ({card_tag}) vs CPU, {what}"
+            keys = ("d_loss", "kl", "pixel") if d_lr is None else sorted(m_c)
+            worst, key = max((abs(m_g[k] - m_c[k]) / abs(m_c[k]), k) for k in keys)
+            check(worst <= 1e-4, f"{head}: metrics {', '.join(keys)} within rtol 1e-4 (worst "
+                                 f"{key} {worst:.2e})")
+            mine = [n for n in p_g if n.startswith(net)]
+            ratios, rel = {}, {}
+            for n in mine:
+                ref = p_64[n][1]
+                e_card, e_cpu = ((x[n][1] - ref).norm().item() for x in (p_g, p_c))
+                ratios[n] = e_card / (2 * e_cpu + 1e-5 * ref.norm().item())
+                rel[n] = e_card / max(ref.norm().item(), 1e-30)
+            readings[d_lr, card_tag] = ratios
+            top, names = worst3(ratios)
+            med, p90 = (float(np.percentile(list(ratios.values()), q)) for q in (50, 90))
+            readings["median", d_lr, card_tag] = med
+            readings["p90", d_lr, card_tag] = p90
+            readings["relative L2", d_lr, card_tag] = max(rel.values())
+            check(med <= GRAD_MEDIAN[card_tag] and top <= GRAD_OUTLIER_FACTOR,
+                  f"{head}: {len(mine)} gradient tensors against the float64 step's, in units "
+                  f"of twice the CPU float32 step's L2 error + 1e-5 |g|: median {med:.3g} (<= "
+                  f"{GRAD_MEDIAN[card_tag]}), worst {names} (<= {GRAD_OUTLIER_FACTOR}); 90th "
+                  f"percentile {p90:.3g}, relative L2 error at most {max(rel.values()):.3g}")
+            # Adam's first step is lr g / (|g| + eps) an entry: +-lr, the sign
+            # of its gradient, where |g| is well above eps in all three steps;
+            # an entry whose float32 gradient has the other sign than the
+            # float64 one moves the other way, so those are left out, and the
+            # card may have no more of them than the CPU
+            ratios, flips = {}, {"card": 0, "cpu": 0, "all": 0, "eps": 0}
+            for n in mine:
+                p64, g64, root64 = p_64[n]
+                eps = ((g64.abs() < 1e-6 * g64.abs().max()) | (root64 < 1e-5)
+                       | (p_g[n][2] < 1e-5) | (p_c[n][2] < 1e-5))
+                flip = {k: (torch.sign(x[n][1]) != torch.sign(g64)) & ~eps
+                        for k, x in (("card", p_g), ("cpu", p_c))}
+                for k in ("card", "cpu"):
+                    flips[k] += int(flip[k].sum())
+                flips["all"] += g64.numel()
+                flips["eps"] += int(eps.sum())
+                ratios[n] = torch.where(eps | flip["card"], 0.0,
+                                        (p_g[n][0] - p64).abs()).max().item() / 1e-6
+            top, names = worst3(ratios)
+            check(top <= 1.0 and flips["card"] <= 2 * flips["cpu"] + 1e-3 * flips["all"],
+                  f"{head}: parameters within 1e-6 of the float64 step's, off the "
+                  f"{flips['eps']} of {flips['all']} entries at Adam's epsilon and those whose "
+                  f"float32 gradient has the other sign (card {flips['card']}, CPU "
+                  f"{flips['cpu']}; worst, in units of the gate: {names})")
+            ratios = {}
+            for n, ref in s_64.items():
+                if d_lr is None and n.startswith("d."):
+                    continue  # D's G-step calls read the updated D
+                e_card = (s_g[n] - ref).abs().max().item()
+                e_cpu = (s_c[n] - ref).abs().max().item()
+                ratios[n] = e_card / (2 * e_cpu + 1e-6 * (1 + ref.abs().max().item()))
+            top, names = worst3(ratios)
+            check(top <= 1.0, f"{head}: BN running stats as near the float64 step's as the "
+                              f"CPU's (max error <= 2x the CPU's + 1e-6; worst, in units of the "
+                              f"gate: {names})")
+    return readings
+
+
+def train_phase(torch, rng, card, tmp):
+    """GAN training of the face S8 model at full width on the card (seeded
+    weights, noise images). (1) One float32 step at B = 4 on the card, with
+    cuDNN off and on, against the CPU's, both held against the same step in
+    float64 on the CPU (`step_against_cpu`, TF32 off). (2) Ten steps
+    at B = 16 in float32 and in bfloat16: finite metrics, bf16's first-step
+    metrics within 15 % of f32's, 3 attention forward and 3 backward
+    launches a step, the step's ms (host clock, synchronised), img/s, peak
+    reserved memory, and one profiled step.
+    (3) The CLI (`tgsr_tpu_torch.cli.train_gan.main`, what `python -m
+    tgsr_tpu_torch.cli.train_gan` runs) on a face set in the training layout
+    for 2 epochs of 2 steps, snapshots every 2 steps and --eval_every 2; its
+    last snapshot pair served by SRPipeline on the card against the run's EMA
+    generator eagerly on the same input. Returns the launches of each run."""
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.cli import train_gan
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.data.datasets import TextFaceDataset
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = face_s8_config()
+    text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(14))
+    launches = {}
+
+    # -- (1) one float32 step, card against CPU ------------------------------------
+    step_against_cpu(torch, cfg, text_sd, train_batch(torch, rng, 4, device="cpu"))
+
+    # -- (2) ten steps at B = 16, float32 and bfloat16 ---------------------------------
+    batches = [train_batch(torch, rng, TRAIN_B) for _ in range(10)]
+    first = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "train " + str(dtype).split(".")[-1]
+        t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        times, metrics = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            metrics.append(t.train_step(s, b))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches[tag] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+        peak = torch.cuda.max_memory_reserved() / 2 ** 30
+        vals = [{k: float(v) for k, v in m.items()} for m in metrics]  # one host sync
+        first[dtype] = vals[0]
+        check(all(np.isfinite(v) for m in vals for v in m.values()),
+              f"{tag}: 10 steps at B = {TRAIN_B}, every metric finite")
+        per = {k: launches[tag][k] / 10
+               for k in ("word_pixel_attention", "word_pixel_attention_bwd")}
+        check(per == {"word_pixel_attention": 3, "word_pixel_attention_bwd": 3},
+              f"{tag}: 3 attention forward and 3 backward launches a step ({per})")
+        ms = 1e3 * float(np.mean(times[1:]))
+        print(f"  {tag}: step {ms:.2f} ms (host clock, synchronised, mean of steps 2-10; "
+              f"first {1e3 * times[0]:.1f}), {TRAIN_B * 1e3 / ms:.1f} img/s, peak reserved "
+              f"{peak:.2f} GiB, on {card}; d_loss {vals[0]['d_loss']:.4f} -> "
+              f"{vals[-1]['d_loss']:.4f}, pixel {vals[0]['pixel']:.4f} -> {vals[-1]['pixel']:.4f}",
+              flush=True)
+        profile_step(torch, lambda: t.train_step(s, batches[0]), tag)
+        del t, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(abs(first[torch.bfloat16][k] - v) / abs(v)
+                for k, v in first[torch.float32].items() if abs(v) > 1e-3)
+    check(worst < 0.15, f"train bf16 first-step metrics within 15 % of f32's (worst {worst:.3%})")
+
+    # -- (3) the CLI ---------------------------------------------------------------------
+    data = os.path.join(tmp, "face_train")
+    face_train_set(rng, data, 5)
+    yml = os.path.join(tmp, "train_faceSR_S8.yml")
+    with open(yml, "w") as f:
+        f.write(FACE_S8_TRAIN_YAML)
+    n_words = TextFaceDataset(data, split="train", words_num=T, imsize=256).n_words
+    te = os.path.join(tmp, "train_text_encoder.pth")
+    torch.save(seeded_text_state_dict(cfg, n_words, torch.Generator().manual_seed(15)), te)
+    out = os.path.join(tmp, "train_out")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_gan.main(["--cfg", yml, "--data_dir", data, "--out_dir", out,
+                              "--text_encoder", te, "--eval_every", "2", "--log_every", "1"])
+    dt = time.perf_counter() - t0
+    launches["train cli"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+    snaps = sorted(os.listdir(os.path.join(out, "Model")))
+    with open(os.path.join(out, "Log", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"  train cli: {summary['steps']} steps in {dt:.2f} s (host clock, whole run, kernels "
+          f"built); snapshots {snaps}", flush=True)
+    check(summary["steps"] == 4 and snaps == ["netGH_it2.msgpack", "netGH_it4.msgpack",
+                                              "netG_it2.msgpack", "netG_it4.msgpack"]
+          and sum("val_psnr_y" in r for r in rows) == 2
+          and launches["train cli"]["word_pixel_attention_bwd"] == 12,
+          "train cli: 4 steps, snapshots at 2 and 4, 2 eval rows, 12 backward launches")
+    state, trainer = summary["state"], summary["trainer"]
+    pipe = SRPipeline.from_reference_checkpoints(cfg, n_words, os.path.join(out, "Model",
+                                                                            "netG_it4.msgpack"),
+                                                 text_encoder_path=te)
+    b = train_batch(torch, rng, 4, vocab=n_words)
+    lr_cpu = b["lr"].cpu().numpy()
+    served = pipe(lr_cpu, b["captions"].cpu().numpy(), b["cap_lens"].cpu().numpy())["sr"]
+    eager = trainer.super_resolve(state, b)
+    err = (served.to(eager.device) - eager).abs().max().item()
+    check(err <= 1e-3, f"train cli: its last snapshot pair served by SRPipeline on the card == "
+                       f"the run's EMA generator eagerly (max abs err {err:.3e} <= 1e-3)")
+    del pipe, summary, state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> None:
     """Device time of one B=64 forward, fn(), by kernel (torch.profiler,
     CUPTI), and the share of cuDNN's layout conversions; `how` is "eager"
@@ -2373,6 +2860,37 @@ def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> Non
         print(f"    {ms:9.3f} ms {ms / dev:6.1%} x{e.count:<4d} {e.key[:90]}", flush=True)
 
 
+def step_readings(torch, seeds: list, out_path: str) -> int:
+    """`step_against_cpu` on the face S8 batches of `seeds`: per card step,
+    the median, 90th percentile and largest relative L2 error on each
+    batch, and each gradient tensor's largest ratio over them, printed (the
+    ten largest) and written to `out_path` as JSON."""
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.config import face_s8_config
+
+    cfg = face_s8_config()
+    text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(14))
+    most, stats = {}, {}
+    for seed in seeds:
+        batch = train_batch(torch, np.random.default_rng(seed), 4, device="cpu")
+        for key, r in step_against_cpu(torch, cfg, text_sd, batch).items():
+            if isinstance(key[0], str):
+                stats.setdefault(f"D lr {key[1]}, {key[2]}", {}).setdefault(key[0], []).append(r)
+                continue
+            got = most.setdefault(f"D lr {key[0]}, {key[1]}", {})
+            for name, v in r.items():
+                got[name] = max(v, got.get(name, 0.0))
+    for key, ratios in most.items():
+        top = sorted(ratios.items(), key=lambda kv: -kv[1])[:10]
+        per = "; ".join(f"{q}s {', '.join(f'{v:.3g}' for v in vals)}"
+                        for q, vals in stats[key].items())
+        print(f"{key}: {per}; largest over seeds {seeds}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in top), flush=True)
+    with open(out_path, "w") as f:
+        json.dump({"largest": most, "per batch": stats}, f, indent=1)
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -2394,17 +2912,27 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    if "--step-readings" in sys.argv:
+        args = sys.argv[1:]
+        seeds = []
+        for part in args[args.index("--step-readings") + 1].split(","):
+            lo, _, hi = part.partition("-")
+            seeds += range(int(lo), int(hi or lo) + 1)
+        out = args[args.index("--out") + 1] if "--out" in args else "step_readings.json"
+        return step_readings(torch, seeds, out)
     secs = _build.build()
     print(f"built kernels {list(_build.KERNELS)} in {secs:.1f} s", flush=True)
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for entry, u in ptxas_entries(_build.build_log(name)):
+            print(f"  {name}: {entry}: {u.get('registers')} registers, {u.get('stack_bytes')} "
+                  f"bytes stack frame, {u.get('spill_store_bytes')} bytes spill stores, "
+                  f"{u.get('spill_load_bytes')} bytes spill loads", flush=True)
 
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     t0 = time.perf_counter()
-    kernels = [attention_phase(torch, rng), *up_head_phase(torch), *glu_requant_phase(torch),
+    kernels = [attention_phase(torch, rng), attention_bwd_phase(torch, rng),
+               *up_head_phase(torch), *glu_requant_phase(torch),
                requant_phase(torch), int8_conv_phase(torch), *glu_requant_f32_phase(torch),
                requant_f32_phase(torch), int8_conv_f32_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2440,19 +2968,28 @@ def main() -> int:
         launches.update(cli_phase(torch, rng, card, tmp))
     print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(train_phase(torch, rng, card, tmp))
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows
     print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # launches: the runs of each path, the serving forward in f32, bf16 and
-    # int8, the CLIs' runs, the x16 family's runs and the conv probe (counted
+    # int8, the CLIs' runs, the x16 family's runs, the training runs ("train
+    # float32", "train bfloat16", "train cli") and the conv probe (counted
     # apart per path; "launches" is their sum); "x16": the kernel at the x16
     # family's shapes, its launches those of the x16 runs
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in launches.values())
         k["launches_by_path"] = {tag: run[k["name"]] for tag, run in launches.items()}
         for tag in ("float32", "bfloat16"):
-            if tag in k:
-                k[tag]["launches"] = launches[tag][k["name"]]
+            if tag in k:  # the backward's: its training run in that dtype
+                path = f"train {tag}" if k["name"].endswith("_bwd") else tag
+                k[tag]["launches"] = launches[path][k["name"]]
+        if k["name"].startswith("word_pixel_attention"):
+            k["train"] = {tag: run[k["name"]] for tag, run in launches.items()
+                          if tag.startswith("train")}
         if k["name"] in x16_kernels:
             k["x16"] = x16_kernels[k["name"]]
             k["x16"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()

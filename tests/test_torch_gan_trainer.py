@@ -1,0 +1,288 @@
+"""The port's GANTrainer against tgsr_tpu's on the CPU, float32.
+
+One JAX init (`GANTrainer.init_state`, jitted, built once for the module)
+is carried into the port's state; both take the same numpy batches (three
+captions: full, ragged, and one padded everywhere) and JAX's one-forward
+step (`reuse_g_forward=True`, equal to its default, tests/test_remat.py:103).
+Each JAX `GANTrainer` compiles its step for about 15 s, so each runs once
+for the module. Gates, those `chip_smoke.py` holds the card to against the
+CPU:
+
+- metrics rtol 1e-4 (float sums in another order through about 30
+  train-mode BNs, whose backward divides by the batch's own deviation);
+- each gradient tensor (read from Adam's first moment: 0.5 g after one
+  step) within relative L2 1e-4;
+- BN running var within 1e-5 var, running mean within 1e-5 (|mean| +
+  sqrt(var)): a mean near 0 has no relative precision, and is held at the
+  spread of what it averages. Stats moved by a forward on parameters that an
+  applied update moved (D's in the G step, G's after the first step) within
+  1e-4 of the same: the entries at Adam's epsilon (below) part there;
+- parameters and EMA within 1e-6, except entries whose gradient is below
+  1e-6 max|g| of their tensor or whose Adam denominator sqrt(v_hat) is below
+  1000 eps (1e-5): there Adam's step lr m_hat / (sqrt(v_hat) + eps) moves by
+  lr eps dg / g^2 with a gradient error dg (at the first step every other
+  entry moves by +-lr whatever its size). At most 1 % of the entries are
+  excepted.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tgsr_tpu.data.pipeline import device_preprocess as jax_preprocess
+from tgsr_tpu.engine.gan_trainer import GANTrainer as JGANTrainer
+from tgsr_tpu_torch.checkpoints.from_jax import text_state_dict
+from tgsr_tpu_torch.data.pipeline import device_preprocess
+from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+from tests.torch_train_parity import (VOCAB, batch, flat, jax_batch, load_jax_opt,
+                                      load_jax_state, port_trees, text_vars, train_configs)
+
+torch.set_num_threads(1)
+B, LENS = 3, (6, 3, 0)
+METRIC_RTOL, GRAD_REL_L2, STATS_SCALE, PARAM_ATOL = 1e-4, 1e-4, 1e-5, 1e-6
+ADAM_EPS = 1e-8  # optax.adam's and torch.optim.Adam's default
+
+
+def jax_trees(js):
+    """The JAX state's trees, numpy, keyed as `port_trees`."""
+    js = jax.tree.map(np.asarray, js)
+    opt = lambda o: (o.inner_opt_state if hasattr(o, "inner_opt_state") else o)[0]
+    return {"g_params": js.g_params, "g_stats": js.g_stats, "g_ema": js.g_ema,
+            "g_mu": opt(js.g_opt).mu, "g_nu": opt(js.g_opt).nu, "d_params": js.d_params,
+            "d_stats": js.d_stats, "d_mu": opt(js.d_opt).mu, "d_nu": opt(js.d_opt).nu,
+            "count": int(opt(js.g_opt).count)}
+
+
+@pytest.fixture(scope="module")
+def jax_init():
+    """(JAX trainer, its initial state as numpy) of the tiny tree; the JAX
+    init jitted once (13 s, against 37 s eagerly)."""
+    jcfg, _ = train_configs()
+    jt = JGANTrainer(jcfg, VOCAB, text_vars(), reuse_g_forward=True)
+    js = jax.jit(lambda k: jt.init_state(k, B, init_on_cpu=False))(jax.random.PRNGKey(0))
+    return jt, jax.tree.map(np.asarray, js)
+
+
+def run_both(jax_init, steps, grad_accum=1, d_lr=None, restart=False):
+    """(JAX metrics and trees after each step, port's), from one JAX init;
+    `restart`: each port step after the first starts from JAX's state before
+    it (weights, stats, Adam moments, EMA)."""
+    jt0, js = jax_init
+    jcfg, tcfg = train_configs()
+    tv = text_vars()
+    jt = (jt0 if grad_accum == 1 and d_lr is None else
+          JGANTrainer(jcfg, VOCAB, tv, reuse_g_forward=True, grad_accum=grad_accum, d_lr=d_lr))
+    js = js.replace(g_opt=jt.g_tx.init(js.g_params), d_opt=jt.d_tx.init(js.d_params))
+    pt = GANTrainer(tcfg, VOCAB, text_state_dict(tv), grad_accum=grad_accum, d_lr=d_lr,
+                    device="cpu")
+    ps = pt.init_state(torch.Generator().manual_seed(0))
+    load_jax_state(pt, ps, js)
+    out = {"jax": [], "port": []}
+    rng = jax.random.PRNGKey(2)
+    for i in range(steps):
+        b = batch(B, LENS, seed=i)
+        if restart and i:
+            load_jax_state(pt, ps, jax.tree.map(np.asarray, js))
+            load_jax_opt(ps, out["jax"][-1][1])
+        js, jm, rng = jt.train_step(js, jax_batch(b), rng)
+        out["jax"].append(({k: float(v) for k, v in jm.items()}, jax_trees(js)))
+        pm = pt.train_step(ps, b)
+        out["port"].append(({k: float(v) for k, v in pm.items()}, port_trees(ps)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def accum_run(jax_init):
+    return run_both(jax_init, 2, grad_accum=2)
+
+
+def check_stats(jt, pt, part, scale):
+    """Running var within scale * var, running mean within scale * (|mean| +
+    sqrt(var)): a mean near 0 is held at the spread of what it averages."""
+    fj, fp = flat(jt[part]), flat(pt[part])
+    assert fj.keys() == fp.keys(), part
+    for k in fj:
+        var = fj[k[:-len("mean")] + "var"] if k.endswith("/mean") else 0.0
+        bound = scale * (np.abs(fj[k]) + np.sqrt(var))
+        err = np.abs(fp[k] - fj[k])
+        assert (err <= bound).all(), (part, k, err.max(), (err / bound).max())
+
+
+def check_step(jm, jt, pm, pt, g_moved=False):
+    """One step's metrics, stats, gradients, params and EMA; `g_moved`: G's
+    forward ran on parameters an earlier update moved."""
+    assert set(pm) == set(jm), (sorted(pm), sorted(jm))
+    for k in jm:
+        np.testing.assert_allclose(pm[k], jm[k], rtol=METRIC_RTOL, err_msg=k)
+    check_stats(jt, pt, "g_stats", STATS_SCALE * (10 if g_moved else 1))
+    check_stats(jt, pt, "d_stats", STATS_SCALE * 10)
+    bias = 1 - 0.999 ** max(jt["count"], 1)  # Adam's second-moment correction
+    n_loose = [0, 0]
+    for net in ("g", "d"):
+        mu_j, mu_p, nu_j = flat(jt[f"{net}_mu"]), flat(pt[f"{net}_mu"]), flat(jt[f"{net}_nu"])
+        assert mu_j.keys() == mu_p.keys()
+        for k in mu_j:
+            rel = np.linalg.norm(mu_p[k] - mu_j[k]) / max(np.linalg.norm(mu_j[k]), 1e-30)
+            assert rel <= GRAD_REL_L2, (net, k, rel)
+            g = np.abs(mu_j[k])
+            loose = (g < 1e-6 * g.max()) | (np.sqrt(nu_j[k] / bias) < 1000 * ADAM_EPS)
+            n_loose[0] += loose.sum()
+            n_loose[1] += loose.size
+            for key in (f"{net}_params", "g_ema") if net == "g" else (f"{net}_params",):
+                pj, pp = flat(jt[key])[k], flat(pt[key])[k]
+                err = np.where(loose, 0.0, np.abs(pp - pj)).max()
+                assert err <= PARAM_ATOL, (key, k, err)
+    assert n_loose[0] <= 0.01 * n_loose[1], n_loose  # the exception stays an exception
+
+
+def test_one_step_matches_jax(jax_init):
+    (jm, jt), (pm, pt) = (x[0] for x in run_both(jax_init, 1).values())
+    check_step(jm, jt, pm, pt)
+
+
+def test_two_steps_match_jax(jax_init):
+    """Two steps, D's learning rate 0 on both sides, the port's second step
+    from JAX's state after the first: G's second step (Adam's second moments
+    and bias corrections, the EMA twice, BN stats on moved weights) at the
+    gates above. Why not from the port's own first step, and why D frozen:
+    the entries at Adam's epsilon that the first step excepts part by up to
+    2 lr, and D's second Adam step moves its own such entries by amounts
+    that turn on the last bits of their gradients; G's adversarial gradient
+    read through either parts by 0.7-3.5 % in a tensor (measured here) while
+    every metric agrees within 2e-5: the sensitivity of the adversarial
+    coupling, not a difference of the programs (3e-5 with both removed).
+    D's update is held by the one-step test and by grad_accum's applied
+    step."""
+    run = run_both(jax_init, 2, d_lr=0.0, restart=True)
+    for step in (0, 1):
+        (jm, jt), (pm, pt) = run["jax"][step], run["port"][step]
+        check_step(jm, jt, pm, pt, g_moved=step == 1)
+
+
+def test_grad_accum_matches_multisteps(accum_run):
+    """grad_accum=2: nothing moves on the first micro-step (params and EMA as
+    loaded; D's stats, moved by both its steps on the same D, at the tight
+    gate); the second applies the mean of both gradients and blends the EMA
+    once, as optax.MultiSteps with the EMA gated."""
+    (jm0, jt0), (pm0, pt0) = accum_run["jax"][0], accum_run["port"][0]
+    for k in jm0:
+        np.testing.assert_allclose(pm0[k], jm0[k], rtol=METRIC_RTOL, err_msg=k)
+    for part in ("g_params", "g_ema", "d_params"):
+        for k, v in flat(jt0[part]).items():
+            np.testing.assert_array_equal(flat(pt0[part])[k], v, err_msg=f"{part} {k}")
+    check_stats(jt0, pt0, "g_stats", STATS_SCALE)
+    check_stats(jt0, pt0, "d_stats", STATS_SCALE)
+    (jm, jt), (pm, pt) = accum_run["jax"][1], accum_run["port"][1]
+    check_step(jm, jt, pm, pt)
+
+
+def test_bf16_step_close_to_f32():
+    """compute_dtype bfloat16 against the port's float32 from one init: every
+    state leaf stays float32 and each first-step metric above 1e-3 is within
+    15 %, JAX's own gate (tests/test_gan_trainer_sharding.py:195-220)."""
+    _, tcfg = train_configs()
+    tv = text_state_dict(text_vars())
+    b = batch(B, LENS)
+    metrics = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = GANTrainer(tcfg, VOCAB, tv, compute_dtype=dtype, device="cpu")
+        s = t.init_state(torch.Generator().manual_seed(0))
+        metrics[dtype] = {k: float(v) for k, v in t.train_step(s, b).items()}
+        leaves = [*s.netg.state_dict().values(), *s.netgh.state_dict().values(), s.a,
+                  *s.dnets.state_dict().values(), *s.g_ema.values()]
+        for opt in (s.g_opt, s.d_opt):
+            leaves += [v for st in opt.state.values() for v in st.values() if v.dim()]
+        assert all(x.dtype in (torch.float32, torch.int64) for x in leaves)
+    for k, a in metrics[torch.float32].items():
+        v = metrics[torch.bfloat16][k]
+        assert np.isfinite(v), k
+        if abs(a) > 1e-3:
+            assert abs(a - v) / abs(a) < 0.15, (k, a, v)
+
+
+def test_float64_reference_step():
+    """compute_dtype float64 (the reference chip_smoke.py holds the card's
+    float32 step against): the same step as float32 within rtol 1e-4 in
+    every metric, float32 state."""
+    _, tcfg = train_configs()
+    tv = text_state_dict(text_vars())
+    b = batch(B, LENS)
+    metrics = {}
+    for dtype in (torch.float32, torch.float64):
+        t = GANTrainer(tcfg, VOCAB, tv, compute_dtype=dtype, device="cpu")
+        s = t.init_state(torch.Generator().manual_seed(0))
+        m = t.train_step(s, b)
+        assert all(v.dtype == torch.promote_types(dtype, torch.float32) for v in m.values())
+        metrics[dtype] = {k: float(v) for k, v in m.items()}
+        assert all(p.dtype == torch.float32 for _, p in s.g_named_parameters())
+    for k, v in metrics[torch.float32].items():
+        np.testing.assert_allclose(metrics[torch.float64][k], v, rtol=1e-4, err_msg=k)
+
+
+def test_loss_weights_scale_the_g_terms():
+    """loss_weights: g_loss is the weighted sum of the unweighted terms the
+    metrics report, and the weights change what G learns (the D step is
+    the same)."""
+    _, tcfg = train_configs()
+    tv = text_state_dict(text_vars())
+    b = batch(B, LENS)
+    w = {"adv": 0.01, "pixel": 2.0, "kl": 0.5}
+    runs = {}
+    for tag, lw in (("plain", None), ("weighted", w)):
+        t = GANTrainer(tcfg, VOCAB, tv, loss_weights=lw, device="cpu")
+        s = t.init_state(torch.Generator().manual_seed(0))
+        m = {k: float(v) for k, v in t.train_step(s, b).items()}
+        runs[tag] = (m, [p.detach().clone() for _, p in s.g_named_parameters()])
+    m = runs["weighted"][0]
+    np.testing.assert_allclose(m["g_loss"], 0.01 * m["adv"] + 2.0 * m["pixel"] + 0.5 * m["kl"],
+                               rtol=1e-6)
+    np.testing.assert_allclose(m["d_loss"], runs["plain"][0]["d_loss"], rtol=1e-6)
+    assert any(not torch.equal(a, b) for a, b in zip(runs["plain"][1], runs["weighted"][1]))
+    with pytest.raises(ValueError, match="damsm"):
+        GANTrainer(tcfg, VOCAB, tv, loss_weights={"damsm": 1.0}, device="cpu")
+
+
+@pytest.mark.parametrize("with_blur", [False, True])
+def test_device_preprocess_matches_jax(with_blur):
+    hr = np.random.default_rng(3).integers(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    ref = jax_preprocess(jnp.asarray(hr), 4, 8, with_blur=with_blur)
+    got = device_preprocess(torch.from_numpy(hr), 4, 8, with_blur=with_blur)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        for g, r in zip(got[k] if isinstance(got[k], list) else [got[k]],
+                        ref[k] if isinstance(ref[k], list) else [ref[k]]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_x16_and_the_image_encoder_are_refused():
+    _, tcfg16 = train_configs(branch_num=5)
+    tv = text_state_dict(text_vars())
+    with pytest.raises(NotImplementedError, match="What comes next"):
+        GANTrainer(tcfg16, VOCAB, tv, device="cpu")
+    _, tcfg = train_configs()
+    with pytest.raises(NotImplementedError, match="A 7"):
+        GANTrainer(tcfg, VOCAB, tv, image_encoder=lambda x: x, device="cpu")
+
+
+def test_eval_metrics_match_jax(jax_init):
+    """eval_metrics of the EMA generator: PSNR-Y and SSIM-Y on the batch's
+    pyramid top, eval-mode BN."""
+    jt, js = jax_init
+    _, tcfg = train_configs()
+    pt = GANTrainer(tcfg, VOCAB, text_state_dict(text_vars()), device="cpu")
+    ps = pt.init_state(torch.Generator().manual_seed(0))
+    load_jax_state(pt, ps, js)
+    b = batch(B, LENS, seed=5)
+    jm = jt.eval_metrics(js.g_ema, js.g_stats, jax_batch(b))
+    pm = pt.eval_metrics(ps, b)
+    for k in ("psnr_y", "ssim_y"):
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-4, err_msg=k)
+
+
+def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    _, tcfg = train_configs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GANTrainer(tcfg, VOCAB, text_state_dict(text_vars()))

@@ -109,6 +109,83 @@ def test_attention_kernel_matches_plain(cuda_device, hw):
     torch.testing.assert_close(ctx_n, ctx_k, rtol=0, atol=0)
 
 
+def _attention_grads(px, wd, mask, g, ga, fn):
+    """(dpixels, dwords) of sum(ctx * g) + sum(attn * ga) through `fn`."""
+    px = px.detach().requires_grad_()
+    wd = wd.detach().requires_grad_()
+    ctx, attn = fn(px, wd, mask, return_attn=ga is not None)
+    loss = (ctx * g).sum() + ((attn * ga).sum() if ga is not None else 0)
+    return torch.autograd.grad(loss, (px, wd))
+
+
+def _check_backward(b, hw, t, lens, dtype, with_attn_grad, seed, device):
+    """The backward kernel (through autograd) against autograd of the plain
+    version in float32 on the same inputs. float32: max abs error <= 1e-5
+    max(1, |ref|max) (T-term softmax sums and a dwords sum over up to 128^2
+    pixels in another order); bfloat16: |err| <= 2^-8 |ref| + 1e-5 max(1,
+    |ref|max) (float32 inside, each output rounded once). Two runs equal bit
+    for bit. Returns the kernel's grads."""
+    c = 32
+    rng = np.random.default_rng(seed)
+    px, wd, g = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device).to(dtype)
+                 for shape in ((b, hw, hw, c), (b, t, c), (b, hw, hw, c)))
+    ga = (torch.from_numpy(rng.normal(size=(b, t, hw, hw)).astype(np.float32)).to(device)
+          .to(dtype) if with_attn_grad else None)
+    mask = (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).to(device)
+    ref = _attention_grads(px.float(), wd.float(), mask, g.float(),
+                           ga.float() if ga is not None else None, plain_wpa)
+    before = dict(_build.LAUNCHES)
+    got = _attention_grads(px, wd, mask, g, ga, word_pixel_attention)
+    again = _attention_grads(px, wd, mask, g, ga, word_pixel_attention)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["word_pixel_attention"] == before["word_pixel_attention"] + 2
+    assert _build.LAUNCHES["word_pixel_attention_bwd"] == before["word_pixel_attention_bwd"] + 2
+    for k, r, a in zip(got, ref, again):
+        assert k.dtype == dtype and torch.equal(k, a)
+        scale = 1e-5 * max(1.0, r.abs().max().item())
+        err = (k.float() - r).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= scale, (err.max().item(), scale)
+        else:
+            assert (err - 2 ** -8 * r.abs()).max().item() <= scale
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [32, 64, 128])
+def test_attention_backward_matches_plain_autograd(cuda_device, hw, dtype):
+    """The training sites (C 32, T 18), ragged captions with one padded
+    everywhere, a gradient on the attention map at 64 px."""
+    _check_backward(4, hw, 18, [18, 7, 0, 1], dtype, hw == 64, hw, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 7, 18, 32])
+def test_attention_backward_ragged_tile_any_t(cuda_device, t, dtype):
+    """20 x 20 pixels (a ragged last tile), T of every register bucket, the
+    attention map's gradient on."""
+    _check_backward(3, 20, t, [t, 0, (t + 1) // 2], dtype, True, t, cuda_device)
+
+
+def test_attention_backward_only_where_autograd_asks(cuda_device):
+    """With grad on and an input that needs one, the output carries a grad_fn
+    and backward launches the backward kernel once; under no_grad (serving)
+    the forward launches alone, as before."""
+    px = torch.randn(2, 16, 16, 32, device=cuda_device, requires_grad=True)
+    wd = torch.randn(2, 18, 32, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        ctx, _ = word_pixel_attention(px, wd, None, return_attn=False)
+    assert ctx.grad_fn is None
+    ctx, _ = word_pixel_attention(px, wd, None, return_attn=False)
+    assert ctx.grad_fn is not None
+    ctx.sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["word_pixel_attention"] == before["word_pixel_attention"] + 2
+    assert _build.LAUNCHES["word_pixel_attention_bwd"] == before["word_pixel_attention_bwd"] + 1
+    assert px.grad is not None and torch.isfinite(px.grad).all()
+
+
 @pytest.mark.parametrize("cfg", [
     # (b, h, w, cin, c2, k, tanh, blend)
     (2, 128, 128, 64, 64, 3, False, False),  # h_net3.upsample + img_net3
@@ -1154,3 +1231,38 @@ def test_cli_test_runs_on_the_card(cuda_device, tmp_path, mode):
         assert {"word_pixel_attention", "int8_conv_f32", "glu_requant_one_f32",
                 "glu_requant_pair_f32", "requant_f32"} <= used
         assert not used & {"int8_conv", "glu_requant_one", "glu_requant_pair", "requant"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gan_trainer_step_card_matches_cpu(cuda_device, dtype):
+    """One GANTrainer step at a narrow x8 tree (BASE_SIZE 8, GF_DIM 16,
+    DF_DIM 16), the same init and batch on the card and on the CPU: the card
+    goes through the attention kernel forward and backward (3 each), and
+    every metric agrees within rtol 1e-4 in float32 (TF32 off; sums in
+    another order), 5e-2 in bfloat16 (both sides bfloat16, rounded at other
+    places)."""
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.config import EvalConfig
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(16, 10, 2, DF_DIM=16),
+                 TEXT=TextConfig(32, 6), EVAL=EvalConfig())
+    text_sd = seeded_text_state_dict(cfg, 12, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(0)
+    caps = rng.integers(1, 12, (3, 6))
+    caps[1, 3:] = 0
+    caps[2, :] = 0
+    b = {"lr": rng.uniform(-1, 1, (3, 8, 8, 3)).astype(np.float32),
+         "real_pyramid": [rng.uniform(-1, 1, (3, s, s, 3)).astype(np.float32) for s in (16, 32, 64)],
+         "captions": caps, "cap_lens": np.array([6, 3, 0])}
+    metrics = {}
+    for device in ("cpu", cuda_device):
+        t = GANTrainer(cfg, 12, text_sd, compute_dtype=dtype, device=device)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        before = dict(_build.LAUNCHES)
+        metrics[str(device)] = {k: float(v) for k, v in t.train_step(s, b).items()}
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert launched["word_pixel_attention"] == 3 and launched["word_pixel_attention_bwd"] == 3
+    rtol = 1e-4 if dtype == torch.float32 else 5e-2
+    for k, v in metrics["cpu"].items():
+        np.testing.assert_allclose(metrics[str(cuda_device)][k], v, rtol=rtol, err_msg=k)

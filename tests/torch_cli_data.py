@@ -144,3 +144,20 @@ def fresh_data(env, tag):
 def common_args(env):
     return ["--cfg", env["cfg"], "--ckpt_dir", env["ckpt"], "--text_encoder",
             env["text_encoder"]]
+
+
+def make_train_face_set(d, n=5, seed=0, size=(90, 80), n_attr=(1, 2)):
+    """The face set in the reference's training layout in `d`:
+    list_attr_celeba.txt (the last row Blurry, the test split) and PNG images
+    under Img/; returns the vocabulary size it builds."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(d, "Img"), exist_ok=True)
+    names = [f"{i:06d}" for i in range(n)]
+    rows = attr_rows(rng, n, n_attr)
+    write_attr_table(os.path.join(d, "list_attr_celeba.txt"), names, rows)
+    for name in names:
+        with open(os.path.join(d, "Img", name + ".png"), "wb") as f:
+            f.write(encode_png(face_image(rng, *size)))
+    caps = [[ATTRS[k] for k in np.nonzero(r)[0]] for r in rows]
+    return build_dictionary([c for c, r in zip(caps, rows) if not r[BLURRY]],
+                            [c for c, r in zip(caps, rows) if r[BLURRY]])[2].n_words

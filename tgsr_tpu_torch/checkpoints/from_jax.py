@@ -202,6 +202,127 @@ def state_dicts_from_jax(text_vars: Mapping, netg_vars: Mapping,
     return text_state_dict(text_vars), netg_state_dict(netg_vars), netgh_sd, a
 
 
+# -- the port's weights as flax trees (x8 family), and the discriminators' ------
+
+def _np(x) -> np.ndarray:
+    return x.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _set(tree: Dict[str, Any], key: str, value) -> None:
+    *parts, leaf = key.split("/")
+    for part in parts:
+        tree = tree.setdefault(part, {})
+    tree[leaf] = value
+
+
+def _get_bn(variables: Dict[str, Any], key: str, sd: Mapping[str, torch.Tensor],
+            prefix: str) -> None:
+    _set(variables["params"], f"{key}/scale", _np(sd[f"{prefix}.weight"]))
+    _set(variables["params"], f"{key}/bias", _np(sd[f"{prefix}.bias"]))
+    _set(variables["batch_stats"], f"{key}/mean", _np(sd[f"{prefix}.running_mean"]))
+    _set(variables["batch_stats"], f"{key}/var", _np(sd[f"{prefix}.running_var"]))
+
+
+def _get_convs(params: Dict[str, Any], sd: Mapping[str, torch.Tensor],
+               sites: Mapping[str, str]) -> None:
+    for key, path in sites.items():
+        _set(params, f"{key}/kernel", _np(sd[f"{path}.weight"]).transpose(2, 3, 1, 0))
+
+
+def netg_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `netg_state_dict` for the x8 family: a G_SR_NET_low
+    state dict -> the JAX GSRNetLow's {'params', 'batch_stats'} tree of numpy
+    float32 arrays (HWIO kernels, Dense [in, out]). num_batches_tracked,
+    which the JAX tree has no place for, is dropped."""
+    n_stages = _count({k.split(".")[0]: 0 for k in sd}, "h_net{}", start=1)
+    r_num = _count({k.split(".")[2]: 0 for k in sd if k.startswith("h_net1.residual.")}, "{}")
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    params = out["params"]
+    _set(params, "ca_net/fc/kernel", _np(sd["ca_net.fc.weight"]).T.copy())
+    _set(params, "ca_net/fc/bias", _np(sd["ca_net.fc.bias"]))
+    _get_convs(params, sd, netg_conv_sites(n_stages, r_num))
+    _get_bn(out, "h_net1/im2f_bn", sd, "h_net1.im2f.1")
+    for k in range(1, n_stages + 1):
+        w = _np(sd[f"h_net{k}.att.conv_context.weight"])[:, :, 0, 0]
+        _set(params, f"h_net{k}/att/conv_context/kernel", w.T.copy())
+        for j in range(r_num):
+            for bn, idx in (("bn1", 1), ("bn2", 4)):
+                _get_bn(out, f"h_net{k}/residual_{j}/{bn}", sd,
+                        f"h_net{k}.residual.{j}.block.{idx}")
+        _get_bn(out, f"h_net{k}/upsample/bn", sd, f"h_net{k}.upsample.2")
+    return out
+
+
+def netgh_variables(sd: Mapping[str, torch.Tensor], a: float) -> Dict[str, Any]:
+    """The inverse of `netgh_state_dict` for the x8 NetGHighWeight (low 'lr',
+    no weight map): (state dict, blend weight a) -> the JAX tree, with
+    params['a'] of shape (1,)."""
+    n_res = _count({k.split(".")[1]: 0 for k in sd if k.startswith("residual.")}, "{}")
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    _get_convs(out["params"], sd, netgh_conv_sites(n_res))
+    _get_bn(out, "convin/bn", sd, "convin.1")
+    for j in range(n_res):
+        for bn, idx in (("bn1", 1), ("bn2", 4)):
+            _get_bn(out, f"residual_{j}/{bn}", sd, f"residual.{j}.block.{idx}")
+    for name in ("upscale2x", "upscale4x", "upscale8x"):
+        _get_bn(out, f"{name}/bn", sd, f"{name}.2")
+    for name in ("residual24", "residual48"):
+        for bn, idx in (("bn1", 1), ("bn2", 4)):
+            _get_bn(out, f"{name}/{bn}", sd, f"{name}.{idx}")
+    out["params"]["a"] = np.full((1,), a, np.float32)
+    return out
+
+
+def _dnet_module(key: str) -> str:
+    """A JAX DNet module name -> the port's: downs_1 -> downs.1."""
+    head, _, idx = key.rpartition("_")
+    return f"{head}.{idx}" if head in ("downs", "extra") and idx.isdigit() else key
+
+
+def dnet_state_dict(variables: Mapping, img_size: int) -> StateDict:
+    """A JAX DNet tree -> the port's `DNet` state dict (conv kernels HWIO ->
+    OIHW; BN scale / bias / mean / var -> weight / bias / running stats).
+    Raises ValueError when the tree is not a DNet of `img_size`."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: StateDict = {}
+    for key, mod in params.items():
+        name = _dnet_module(key)
+        if "kernel" in mod:  # cond_out / uncond_out: a conv with a bias
+            out[f"{name}.weight"] = _conv(mod["kernel"])
+            out[f"{name}.bias"] = _t(mod["bias"])
+            continue
+        out[f"{name}.conv.weight"] = _conv(mod["conv"]["kernel"])
+        if "bn" in mod:
+            _put_bn(out, f"{name}.bn", mod["bn"], stats[key]["bn"])
+    downs = _count(params, "downs_{}") + _count(params, "extra_{}") // 2
+    if 4 * 2 ** downs != img_size:
+        raise ValueError(f"a DNet tree of {4 * 2 ** downs} px, not {img_size}")
+    return out
+
+
+def dnet_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `dnet_state_dict`."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for k, v in sd.items():
+        mod, _, leaf = k.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        parts = mod.split(".")
+        if parts[0] in ("downs", "extra"):
+            parts = [f"{parts[0]}_{parts[1]}"] + parts[2:]
+        key = "/".join(parts)
+        if leaf == "weight" and v.dim() == 4:
+            _set(out["params"], f"{key}/kernel", _np(v).transpose(2, 3, 1, 0))
+        elif parts[-1] == "bn":
+            coll, name = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                          "running_mean": ("batch_stats", "mean"),
+                          "running_var": ("batch_stats", "var")}[leaf]
+            _set(out[coll], f"{key}/{name}", _np(v))
+        else:
+            _set(out["params"], f"{key}/{leaf}", _np(v))
+    return out
+
+
 def _seed_module(module: nn.Module, gen: torch.Generator) -> StateDict:
     """Fill a module's weights from `gen` and return its state dict. Conv and
     Linear weights are N(0, 1/fan_in); BN running means and variances are

@@ -4,7 +4,8 @@ The JAX package's schema, under the same names and with the same defaults
 and strict merge (unknown key -> KeyError, mismatched type -> ValueError, an
 int for a float promoted), so that one dict or YAML file builds both.
 `check_served` is the one statement of what the port serves (the x8 and x16
-families, LSTM, LR input to the HF branch, no weight map, no stage 1);
+families, LSTM, LR input to the HF branch, no weight map, no stage 1), and
+`check_trained` of what it trains (the same, x8 only);
 `config_from_dict` and every entry point that builds or loads a model call
 it, and it raises NotImplementedError on anything else. YAML is
 read by the port's own reader of the subset that configs/*.yml use
@@ -152,6 +153,25 @@ def check_served(cfg: Config) -> Config:
     if cfg.RNN_TYPE != "LSTM":
         raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the port's text encoder is "
                                   "the LSTM")
+    return cfg
+
+
+# the families the port trains, by TREE.BRANCH_NUM: the x8 family only; x16
+# training (models16's tied modules called several times in train mode, with
+# remat) is ROADMAP "What comes next" item 1
+TRAINED_BRANCH_NUMS = (4,)
+
+
+def check_trained(cfg: Config) -> Config:
+    """`cfg` as it is, or NotImplementedError naming the setting the port
+    does not train: what `check_served` refuses, or a family other than
+    x8 (TREE.BRANCH_NUM 4). The TRAIN fields are the JAX schema's, read as
+    the JAX trainer reads them."""
+    check_served(cfg)
+    if cfg.TREE.BRANCH_NUM not in TRAINED_BRANCH_NUMS:
+        raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port trains "
+                                  "the x8 family (BRANCH_NUM 4) only; x16 training waits for "
+                                  "ROADMAP 'What comes next' item 1 (x16 training with remat)")
     return cfg
 
 

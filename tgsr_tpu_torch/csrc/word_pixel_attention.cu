@@ -266,6 +266,254 @@ int launch(const void* pixels, const void* words, const unsigned char* mask, voi
   return launch_tb<T, 32>(pixels, words, mask, ctx, attn, b, hw, c, t, shift, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward (training). No TPU kernel has one: the JAX package differentiates
+// XLA's einsum path (tgsr_tpu/ops/attention.py:86, `jax.grad`), and its
+// Pallas kernel has no custom_vjp. On the card the port's wrapper must launch
+// a kernel or raise, so the generator trains through this one.
+//
+// Per sample b, pixel p and word t, with s = P W^T, a = masked softmax over
+// t, ctx = a W, g = dL/dctx and (optionally) ga = dL/dattn [B, T, HW]:
+//   dA[p, t] = g_p . W_t + ga[t, p]
+//   dS[p, t] = a[p, t] (dA[p, t] - sum_t' a[p, t'] dA[p, t']), 0 at padded t
+//              (the where-fill passes no gradient; an all-padded row is
+//              uniform and gets dS = 0, as JAX's masked_softmax)
+//   dP_p     = sum_t dS[p, t] W_t
+//   dW_t     = sum_p a[p, t] g_p + dS[p, t] P_p
+//
+// What bounds it: memory, as the forward. Per pixel it reads P and g (2C)
+// and writes dP (C), about 8 T C flops: ~11 flop per byte in float32, below
+// the card's float32 ridge (20 flop per byte).
+//
+// Design, simple and right first: nothing is saved from the forward but its
+// inputs. A block of 128 threads takes a tile of 128 pixels of one sample,
+// one pixel a thread, stages P and g (16-byte loads, widened to float32) and
+// W in shared memory, and recomputes the logits and the softmax of its pixel
+// in registers (T <= 32), with the forward's sums in the forward's order, so
+// that a is the forward's a. dS goes to shared memory beside a; the block's
+// partial dW over its tile, a [T, C] float32 sum over its pixels in pixel
+// order, goes to a workspace [B, tiles, T, C]; then dP overwrites the
+// thread's own g row and goes out with 16-byte stores. A second launch sums
+// the tiles' partials in tile order. No float atomics: the backward gives the
+// same bits on every run, as the forward does.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 128;        // one pixel a thread
+constexpr int BWD_TILE = BWD_THREADS;   // pixels a block
+constexpr int BWD_MIN_BLOCKS = 3;       // blocks an SM at C = 32 (shared memory)
+constexpr int RED_THREADS = 256;
+
+size_t bwd_smem_bytes(int c, int t) {
+  const size_t cs = c + 4, ts = t | 1;
+  return sizeof(float) * ((size_t)t * c + 2 * BWD_TILE * cs + 2 * BWD_TILE * ts);
+}
+
+template <typename T, int TB>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
+word_pixel_attention_bwd_kernel(const T* __restrict__ pixels,   // [B, HW, C]
+                                const T* __restrict__ words,    // [B, T, C]
+                                const unsigned char* __restrict__ mask,  // [B, T] or null
+                                const T* __restrict__ gctx,     // [B, HW, C]
+                                const T* __restrict__ gattn,    // [B, T, HW] or null
+                                T* __restrict__ dpixels,        // [B, HW, C]
+                                float* __restrict__ ws,         // [B, tiles, T, C]
+                                int hw, int c, int t, int shift) {
+  constexpr int PER = 16 / sizeof(T);
+  extern __shared__ float4 smem4[];
+  const int cs = c + 4, ts = t | 1;  // row strides: 16-byte rows; odd, for the a / dS rows
+  float* w_s = reinterpret_cast<float*>(smem4);  // [T, C]
+  float* p_s = w_s + t * c;                      // [TILE, cs]
+  float* g_s = p_s + BWD_TILE * cs;              // [TILE, cs], then dP
+  float* a_s = g_s + BWD_TILE * cs;              // [TILE, ts]
+  float* d_s = a_s + BWD_TILE * ts;              // [TILE, ts]
+  __shared__ int m_s[TMAX];
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * BWD_TILE;
+  const int tid = threadIdx.x;
+  const int npix = min(BWD_TILE, hw - p0);
+  const int n16 = npix << shift, piece = (1 << shift) - 1;
+
+  const T* wb = words + (size_t)b * t * c;
+  for (int i = tid; i < t * c; i += BWD_THREADS) w_s[i] = to_f(wb[i]);
+  if (tid < t) m_s[tid] = mask ? (int)mask[(size_t)b * t + tid] : 0;
+  const size_t base = ((size_t)b * hw + p0) * c;
+  const uint4* psrc = reinterpret_cast<const uint4*>(pixels + base);
+  const uint4* gsrc = reinterpret_cast<const uint4*>(gctx + base);
+  for (int i0 = tid; i0 < n16; i0 += BWD_THREADS * UNROLL) {
+    uint4 v[UNROLL], u[UNROLL];
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k)
+      if (i0 + k * BWD_THREADS < n16) {
+        v[k] = __ldg(psrc + i0 + k * BWD_THREADS);
+        u[k] = __ldg(gsrc + i0 + k * BWD_THREADS);
+      }
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) {
+      const int i = i0 + k * BWD_THREADS;
+      if (i < n16) {
+        const int off = (i >> shift) * cs + (i & piece) * PER;
+        widen(v[k], p_s + off, pixels);
+        widen(u[k], g_s + off, pixels);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the thread's pixel: logits as the forward sums them, and g . W_t; rows
+  // past npix hold stale shared memory and are never stored or summed
+  float l[TB], d[TB];
+#pragma unroll
+  for (int k = 0; k < TB; ++k) l[k] = d[k] = 0.f;
+  for (int c4 = 0; c4 < c; c4 += 4) {
+    const float4 pv = *reinterpret_cast<const float4*>(p_s + tid * cs + c4);
+    const float4 gv = *reinterpret_cast<const float4*>(g_s + tid * cs + c4);
+#pragma unroll
+    for (int k = 0; k < TB; ++k) {
+      if (k >= t) break;
+      const float4 wv = *reinterpret_cast<const float4*>(w_s + k * c + c4);
+      l[k] = fmaf(pv.x, wv.x, l[k]);
+      l[k] = fmaf(pv.y, wv.y, l[k]);
+      l[k] = fmaf(pv.z, wv.z, l[k]);
+      l[k] = fmaf(pv.w, wv.w, l[k]);
+      d[k] = fmaf(gv.x, wv.x, d[k]);
+      d[k] = fmaf(gv.y, wv.y, d[k]);
+      d[k] = fmaf(gv.z, wv.z, d[k]);
+      d[k] = fmaf(gv.w, wv.w, d[k]);
+    }
+  }
+  unsigned padded = 0;
+#pragma unroll
+  for (int k = 0; k < TB; ++k)
+    if (k < t && m_s[k]) padded |= 1u << k;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < TB; ++k)
+    if (k < t) {
+      if (padded >> k & 1u) l[k] = NEG_FILL;
+      mx = fmaxf(mx, l[k]);
+    }
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < TB; ++k)
+    if (k < t) {
+      l[k] = expf(l[k] - mx);
+      sum += l[k];
+    }
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int k = 0; k < TB; ++k)
+    if (k < t) l[k] *= inv;
+  if (gattn && tid < npix) {
+    const T* gab = gattn + (size_t)b * t * hw + p0 + tid;
+#pragma unroll
+    for (int k = 0; k < TB; ++k)
+      if (k < t) d[k] += to_f(gab[(size_t)k * hw]);
+  }
+  float dot = 0.f;
+#pragma unroll
+  for (int k = 0; k < TB; ++k)
+    if (k < t) dot = fmaf(l[k], d[k], dot);
+#pragma unroll
+  for (int k = 0; k < TB; ++k)
+    if (k < t) {
+      d[k] = (padded >> k & 1u) ? 0.f : l[k] * (d[k] - dot);
+      a_s[tid * ts + k] = l[k];
+      d_s[tid * ts + k] = d[k];
+    }
+  __syncthreads();
+
+  // the tile's partial dW, in pixel order: consecutive threads on consecutive
+  // channels of one word (a and dS broadcast, g and P conflict-free)
+  float* wsb = ws + ((size_t)b * gridDim.x + blockIdx.x) * t * c;
+  for (int o = tid; o < t * c; o += BWD_THREADS) {
+    const int k = o / c, ch = o - k * c;
+    float acc = 0.f;
+    for (int p = 0; p < npix; ++p)
+      acc = fmaf(a_s[p * ts + k], g_s[p * cs + ch], fmaf(d_s[p * ts + k], p_s[p * cs + ch], acc));
+    wsb[o] = acc;
+  }
+  __syncthreads();
+
+  // dP of the thread's pixel over its own g row, then out
+  for (int c4 = 0; c4 < c; c4 += 4) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < TB; ++k) {
+      if (k >= t) break;
+      const float4 wv = *reinterpret_cast<const float4*>(w_s + k * c + c4);
+      s.x = fmaf(d[k], wv.x, s.x);
+      s.y = fmaf(d[k], wv.y, s.y);
+      s.z = fmaf(d[k], wv.z, s.z);
+      s.w = fmaf(d[k], wv.w, s.w);
+    }
+    *reinterpret_cast<float4*>(g_s + tid * cs + c4) = s;
+  }
+  __syncthreads();
+  uint4* dst = reinterpret_cast<uint4*>(dpixels + base);
+  for (int i = tid; i < n16; i += BWD_THREADS)
+    dst[i] = narrow(g_s + (i >> shift) * cs + (i & piece) * PER, pixels);
+}
+
+// dW[b, o] = sum over the tiles, in tile order, of the partials
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+word_pixel_attention_bwd_reduce(const float* __restrict__ ws, T* __restrict__ dwords,
+                                int tiles, int tc) {
+  const int b = blockIdx.y;
+  const int o = blockIdx.x * RED_THREADS + threadIdx.x;
+  if (o >= tc) return;
+  const float* src = ws + (size_t)b * tiles * tc + o;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < tiles; ++i) acc += src[(size_t)i * tc];
+  dwords[(size_t)b * tc + o] = from_f<T>(acc);
+}
+
+template <typename T, int TB>
+int bwd_tb(const void* pixels, const void* words, const unsigned char* mask, const void* gctx,
+           const void* gattn, void* dpixels, void* dwords, float* ws, int b, int hw, int c,
+           int t, int shift, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes(c, t);
+  cudaError_t err = cudaFuncSetAttribute(word_pixel_attention_bwd_kernel<T, TB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (hw + BWD_TILE - 1) / BWD_TILE;
+  word_pixel_attention_bwd_kernel<T, TB><<<dim3(tiles, b), BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(pixels), static_cast<const T*>(words), mask,
+      static_cast<const T*>(gctx), static_cast<const T*>(gattn), static_cast<T*>(dpixels), ws,
+      hw, c, t, shift);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  word_pixel_attention_bwd_reduce<T><<<dim3((t * c + RED_THREADS - 1) / RED_THREADS, b),
+                                       RED_THREADS, 0, stream>>>(ws, static_cast<T*>(dwords),
+                                                                 tiles, t * c);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd(const void* pixels, const void* words, const unsigned char* mask, const void* gctx,
+        const void* gattn, void* dpixels, void* dwords, float* ws, int b, int hw, int c, int t,
+        cudaStream_t stream) {
+  const int per = 16 / (int)sizeof(T);
+  if (c % per) return (int)cudaErrorInvalidValue;
+  int shift = 0;
+  while ((per << shift) < c) ++shift;
+  if ((per << shift) != c || bwd_smem_bytes(c, t) > 232448) return (int)cudaErrorInvalidValue;
+  if (t <= 8)
+    return bwd_tb<T, 8>(pixels, words, mask, gctx, gattn, dpixels, dwords, ws, b, hw, c, t,
+                        shift, stream);
+  if (t <= 16)
+    return bwd_tb<T, 16>(pixels, words, mask, gctx, gattn, dpixels, dwords, ws, b, hw, c, t,
+                         shift, stream);
+  if (t <= 24)
+    return bwd_tb<T, 24>(pixels, words, mask, gctx, gattn, dpixels, dwords, ws, b, hw, c, t,
+                         shift, stream);
+  return bwd_tb<T, 32>(pixels, words, mask, gctx, gattn, dpixels, dwords, ws, b, hw, c, t,
+                       shift, stream);
+}
+
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16 (pixels, words, ctx and attn alike). C * the
@@ -282,5 +530,30 @@ extern "C" int word_pixel_attention_launch(
   if (dtype == 0) return launch<float>(pixels, words, mask, ctx, attn, b, hw, c, t, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(pixels, words, mask, ctx, attn, b, hw, c, t, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's float32 workspace, in bytes: [B, tiles of 128 pixels, T, C].
+extern "C" long long word_pixel_attention_bwd_workspace(int b, int hw, int c, int t) {
+  return (long long)b * ((hw + BWD_TILE - 1) / BWD_TILE) * t * c * (long long)sizeof(float);
+}
+
+// dtype as the forward's; gctx, dpixels as pixels (16-byte aligned), gattn
+// [B, T, HW] or null, dwords [B, T, C], ws word_pixel_attention_bwd_workspace
+// bytes of float32. Two launches on `stream` (the tiles, then their sum);
+// returns the CUDA error code (0 = success).
+extern "C" int word_pixel_attention_bwd_launch(
+    const void* pixels, const void* words, const unsigned char* mask, const void* gctx,
+    const void* gattn, void* dpixels, void* dwords, void* ws, int b, int hw, int c, int t,
+    int dtype, void* stream) {
+  if (t < 1 || t > TMAX || c < 1 || hw < 1 || b < 1 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  float* w = static_cast<float*>(ws);
+  if (dtype == 0)
+    return bwd<float>(pixels, words, mask, gctx, gattn, dpixels, dwords, w, b, hw, c, t, s);
+  if (dtype == 1)
+    return bwd<__nv_bfloat16>(pixels, words, mask, gctx, gattn, dpixels, dwords, w, b, hw, c,
+                              t, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
-"""Host batch loading (counterpart of tgsr_tpu/data/pipeline.py
-`BatchLoader`): images decoded and captions encoded on a background thread,
-numpy batches yielded in order. The on-device preprocessing and prefetch of
-training (`device_preprocess`, `device_prefetch`) are not ported yet.
+"""Batch loading and preprocessing (counterpart of tgsr_tpu/data/pipeline.py):
+`BatchLoader`, images decoded and captions encoded on a background thread,
+numpy batches yielded in order; `device_preprocess`, the training batch's
+pyramid, LR and bicubic (and blurred) copies made on the device from the
+uint8 HR. `device_prefetch` is not ported (ROADMAP A 9): the trainer copies
+each batch when it takes it.
 """
 
 from __future__ import annotations
@@ -11,8 +13,30 @@ import threading
 from typing import Any, Dict, Iterator
 
 import numpy as np
+import torch
 
 from tgsr_tpu_torch.data.datasets import prepare_batch
+from tgsr_tpu_torch.ops.image import build_pyramid, gaussian_blur, normalize_uint8, resize
+
+
+def device_preprocess(hr_uint8: torch.Tensor, n_branches: int, base_size: int,
+                      with_blur: bool = True) -> Dict[str, Any]:
+    """hr_uint8 [B, H, W, 3] (on the device that should do the work) -> the
+    per-branch tensors, NHWC float32 in [-1, 1], as JAX's jitted function
+    (tgsr_tpu/data/pipeline.py:32-50; = prepare_datablur's contract):
+      pyramid[i] = resize(HR, base * 2^i), lr = pyramid[0],
+      bic[i]     = cubic resize of the LR to each pyramid size (bic[0] = lr),
+      blur_pyramid / bic_blur: gaussian_blur(radius 2) copies, with_blur."""
+    hr = normalize_uint8(hr_uint8)
+    pyramid = build_pyramid(hr, n_branches, base_size)
+    lr = pyramid[0]
+    bic = [resize(lr, (p.shape[1], p.shape[2]), "cubic") if i > 0 else lr
+           for i, p in enumerate(pyramid)]
+    out = {"pyramid": pyramid, "lr": lr, "bic": bic}
+    if with_blur:
+        out["blur_pyramid"] = [gaussian_blur(p, 2.0) for p in pyramid]
+        out["bic_blur"] = [gaussian_blur(b, 2.0) for b in bic]
+    return out
 
 
 class BatchLoader:

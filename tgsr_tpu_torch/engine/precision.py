@@ -1,12 +1,32 @@
-"""Compute-dtype casts (counterpart of tgsr_tpu/engine/precision.py
-`cast_floats`, which the JAX pipeline applies to its generator trees)."""
+"""Compute-dtype casts (counterpart of tgsr_tpu/engine/precision.py).
+
+Serving: `cast_floats`, which the JAX pipeline applies to its generator
+trees, casts a module once.
+
+Training (`GANTrainer`, JAX's `compute_dtype`, gan_trainer.py:79-84,
+261-272): `call_cast` runs a module with its parameters cast at apply time,
+as the JAX trainer casts its parameter trees inside the differentiated
+function. The casts are autograd ops, so the gradients land in the float32
+master parameters; the optimizer state and the EMA are float32 because they
+are made from those masters. The BatchNorm running stats are not cast at
+all: `ops/blocks.BatchNorm` computes its moments in float32 and blends them
+into its float32 buffers, which is the float32 recursion JAX's
+`merge_stats` recovers after its cast. Losses run on outputs the caller
+casts back to float32. Why casts and not `torch.autocast`: casting the
+parameters and the inputs once gives JAX's dataflow, every conv, GLU,
+upsample and attention in bfloat16 on bfloat16 weights, on the CPU and the
+card alike; autocast decides per op (elementwise ops follow their inputs,
+some ops it runs in float32) and its rules differ between the two devices.
+"""
 
 from __future__ import annotations
+
+from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
 
-# the compute dtypes SRPipeline serves in
+# the compute dtypes SRPipeline serves and GANTrainer trains in
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -18,3 +38,35 @@ def cast_floats(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     if dtype == torch.float32:
         return module
     return module.to(dtype)  # casts floating-point tensors only
+
+
+class _Method(nn.Module):
+    """`module.<method>` as a module's forward, so that
+    `torch.func.functional_call` can swap the parameters of any method."""
+
+    def __init__(self, module: nn.Module, method: str):
+        super().__init__()
+        self.m = module
+        self.method = method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.m, self.method)(*args, **kwargs)
+
+
+def call_cast(module: nn.Module, dtype: torch.dtype, *args, method: str = "forward",
+              overrides: Optional[Mapping[str, torch.Tensor]] = None, buffers: bool = False,
+              **kwargs) -> Any:
+    """`module.<method>(*args, **kwargs)` with every floating-point parameter
+    read as its `dtype` copy for this call (a differentiable cast of the
+    float32 master), and `overrides` (name -> tensor, cast likewise) in place
+    of the module's own tensors of those names. Buffers are the module's own
+    (train-mode BatchNorm updates them in place), or with `buffers` their
+    `dtype` copies (eval, as JAX casts its batch_stats). float32 without
+    overrides is a plain call."""
+    if dtype == torch.float32 and not overrides:
+        return getattr(module, method)(*args, **kwargs)
+    named = list(module.named_parameters()) + (list(module.named_buffers()) if buffers else [])
+    tensors = {f"m.{name}": p.to(dtype) if p.is_floating_point() else p for name, p in named}
+    for name, t in (overrides or {}).items():
+        tensors[f"m.{name}"] = t.to(dtype)
+    return torch.func.functional_call(_Method(module, method), tensors, args, kwargs)

@@ -25,8 +25,11 @@ from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
 
 class CANet(nn.Module):
     """Conditioning augmentation (= CA_NET, util.py:372-400): Linear
-    t_dim -> 4*c_dim -> GLU -> (mu, logvar). Its sampled code is unused by
-    the SR path, so eval returns only mu and logvar."""
+    t_dim -> 4*c_dim -> GLU -> (mu, logvar). JAX's CANet also draws c_code =
+    eps * exp(logvar / 2) + mu (tgsr_tpu/models/generator.py:37-57), which
+    nothing on the SR path reads, in training as in serving: only mu and
+    logvar reach the KL loss. So the port draws nothing (a deliberate
+    difference, ROADMAP Queue C) and returns mu and logvar."""
 
     def __init__(self, t_dim: int, c_dim: int):
         super().__init__()
@@ -97,7 +100,7 @@ class GSRNetLow(nn.Module):
     need_attn), mu, logvar). `up_head` is the last stage's site function,
     `site(features, use_tanh=) -> NCHW image`, made once by the caller from
     `up_head_weights()`; without it the last stage runs `upsample`, then
-    its head."""
+    its head, as training does (train mode: every BN on batch statistics)."""
 
     tied = False  # one module under several stage names (the x16 family, models16.py)
     # UpBlock convs (JAX paths) whose output feeds only the image head

@@ -28,14 +28,14 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv",
            "conv_probe")
-# the kernels a run counts: one name per library, but the instances of
-# glu_requant.cu (GLU at c = 64 and c = 32, requantization alone; bfloat16 and
-# float32 inputs), the bfloat16 and float32 outputs of int8_conv.cu and the
-# four kernels of conv_probe.cu apart
-LAUNCH_NAMES = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant_one",
-                "glu_requant_pair", "requant", "int8_conv", "glu_requant_one_f32",
-                "glu_requant_pair_f32", "requant_f32", "int8_conv_f32", "conv_tap9",
-                "conv_im2col", "conv_pair5", "conv_dotceil")
+# the kernels a run counts: one name per library, but the attention's
+# backward, the instances of glu_requant.cu (GLU at c = 64 and c = 32,
+# requantization alone; bfloat16 and float32 inputs), the bfloat16 and float32
+# outputs of int8_conv.cu and the four kernels of conv_probe.cu apart
+LAUNCH_NAMES = ("word_pixel_attention", "word_pixel_attention_bwd", "up_head", "up_head_packed",
+                "glu_requant_one", "glu_requant_pair", "requant", "int8_conv",
+                "glu_requant_one_f32", "glu_requant_pair_f32", "requant_f32", "int8_conv_f32",
+                "conv_tap9", "conv_im2col", "conv_pair5", "conv_dotceil")
 # element type codes of the kernels that take more than float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,6 +44,10 @@ SIGNATURES = {
     "word_pixel_attention": {
         # pixels, words, mask, ctx, attn, B, HW, C, T, dtype, stream
         "word_pixel_attention_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
+        # pixels, words, mask, gctx, gattn, dpixels, dwords, workspace, B, HW,
+        # C, T, dtype, stream
+        "word_pixel_attention_bwd_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
+        "word_pixel_attention_bwd_workspace": ([_I] * 4, ctypes.c_longlong),
     },
     "up_head": {
         # x, w_up, bn_mul, bn_add, w_head, srb, a, out, B, H, W, Cin, C2, k,
@@ -203,6 +207,17 @@ def host_library(name: str) -> Optional[ctypes.CDLL]:
                 os.replace(tmp, out)
             _LIBS[name] = _load(name, out)
         return _LIBS[name]
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raises for a serving-only kernel asked to run where autograd would
+    need its gradient: the kernel writes its output through raw pointers, so
+    the output would carry no grad_fn and the gradient would be lost without
+    an error."""
+    if torch.is_grad_enabled() and any(t is not None and torch.is_tensor(t) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: a serving kernel with no backward; an input needs a "
+                           "gradient (call it under torch.no_grad())")
 
 
 def check(err: int, what: str) -> None:

@@ -44,9 +44,43 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
-def batch_norm(ch: int) -> nn.BatchNorm2d:
-    """BatchNorm with torch's defaults (eps 1e-5); the port runs it in eval."""
-    return nn.BatchNorm2d(ch, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (eps 1e-5, the reference's keys) whose train mode is
+    flax's `BatchNorm` (the JAX package's `batch_norm(train=True)`,
+    tgsr_tpu/ops/blocks.py:116-121), the one the port is held against:
+
+    - batch moments in float32 (float64 for a float64 input), the variance
+      as E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), biased;
+    - y = (x - mean) * (rsqrt(var + eps) * weight) + bias in that type, then
+      in x's type;
+    - running stats blended as 0.9 * old + 0.1 * batch with the *biased*
+      variance. torch's own rule blends the unbiased one: a deliberate
+      difference from the reference's torch (ROADMAP, Queue C).
+
+    Eval mode is torch's, unchanged: every serving path runs it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as flax
+        dims = (0, 2, 3)
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum  # flax's momentum, 0.9
+            self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
+            self.running_var.mul_(keep).add_(var * (1.0 - keep))
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
+        return y.to(x.dtype)
+
+
+def batch_norm(ch: int) -> BatchNorm:
+    """BatchNorm with torch's defaults (eps 1e-5): eval in every serving
+    path, flax's train mode in training (`BatchNorm`)."""
+    return BatchNorm(ch, eps=BN_EPS)
 
 
 class UpBlock(nn.Sequential):

@@ -2,11 +2,19 @@
 tgsr_tpu/ops/pallas_attention.py).
 
 `word_pixel_attention` takes the JAX package's layout. On a CPU tensor it
-runs the plain version (`ops/attention.py`); on a CUDA tensor it launches
-`csrc/word_pixel_attention.cu` or raises. The kernel takes float32 or
-bfloat16 (pixels and words in one dtype), computes the logits, the softmax
-and ctx in float32, and returns ctx, and the attention map when
-`return_attn` is set, in the inputs' dtype.
+runs the plain version (`ops/attention.py`), which autograd differentiates;
+on a CUDA tensor it launches `csrc/word_pixel_attention.cu` or raises. The
+kernel takes float32 or bfloat16 (pixels and words in one dtype), computes
+the logits, the softmax and ctx in float32, and returns ctx, and the
+attention map when `return_attn` is set, in the inputs' dtype.
+
+Where autograd needs a gradient (grad mode on and pixels or words requiring
+one) the call goes through `_KernelAttention`, a `torch.autograd.Function`:
+its forward is the same launch, its backward the kernel's backward in the
+same source (`word_pixel_attention_bwd`: recomputes the softmax per pixel
+tile, writes dpixels, and sums dwords over the tiles in a second launch).
+Under `torch.no_grad()` and in graph capture the forward launches alone, as
+serving always has.
 """
 
 from __future__ import annotations
@@ -19,24 +27,16 @@ from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain_word_pixel_attention
 
 NAME = "word_pixel_attention"
+BWD_NAME = "word_pixel_attention_bwd"
 T_MAX = 32  # the kernel's register array (csrc/word_pixel_attention.cu TMAX)
 C_MAX = 128  # the kernel's pixel tile fits in shared memory up to here
 
 
-def word_pixel_attention(
-    pixels: torch.Tensor,  # [B, H, W, C] float32 or bfloat16
-    words: torch.Tensor,  # [B, T, C] in pixels' dtype
-    mask: Optional[torch.Tensor],  # [B, T] bool, True = padded
-    return_attn: bool = True,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (ctx [B, H, W, C], attn [B, T, H, W] or None)."""
-    if pixels.device.type == "cpu":
-        return plain_word_pixel_attention(pixels, words, mask, return_attn)
-    if pixels.device.type != "cuda":
-        raise ValueError(f"word_pixel_attention: no kernel for {pixels.device}")
+def _check(pixels: torch.Tensor, words: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
+    """Raises on what the kernel does not take."""
     if pixels.dim() != 4 or words.dim() != 3:
         raise ValueError("word_pixel_attention: pixels [B,H,W,C], words [B,T,C]")
-    b, h, w, c = pixels.shape
+    b, _, _, c = pixels.shape
     t = words.shape[1]
     if tuple(words.shape) != (b, t, c) or not 1 <= t <= T_MAX:
         raise ValueError(f"word_pixel_attention: words {tuple(words.shape)} "
@@ -62,6 +62,11 @@ def word_pixel_attention(
                          f"times a power of two, and at most {C_MAX}")
     if pixels.data_ptr() % 16:
         raise ValueError("word_pixel_attention: pixels must be 16-byte aligned")
+
+
+def _launch(pixels, words, mask, return_attn: bool):
+    b, h, w, c = pixels.shape
+    t = words.shape[1]
     ctx = torch.empty_like(pixels)
     attn = (torch.empty((b, t, h, w), dtype=pixels.dtype, device=pixels.device)
             if return_attn else None)
@@ -75,3 +80,80 @@ def word_pixel_attention(
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return ctx, attn
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and 16-byte aligned (a copy only where it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def word_pixel_attention_bwd(pixels: torch.Tensor, words: torch.Tensor,
+                             mask: Optional[torch.Tensor], grad_ctx: torch.Tensor,
+                             grad_attn: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel: (dpixels [B, H, W, C], dwords [B, T, C]) in the
+    inputs' dtype, from grad_ctx [B, H, W, C] and grad_attn [B, T, H, W] (or
+    None), both in the inputs' dtype. CUDA tensors only."""
+    _check(pixels, words, mask)
+    b, h, w, c = pixels.shape
+    t = words.shape[1]
+    grad_ctx = _aligned(grad_ctx.to(pixels.dtype))
+    if tuple(grad_ctx.shape) != tuple(pixels.shape) or grad_ctx.device != pixels.device:
+        raise ValueError("word_pixel_attention_bwd: grad_ctx must match pixels")
+    if grad_attn is not None:
+        grad_attn = grad_attn.to(pixels.dtype).contiguous()
+        if tuple(grad_attn.shape) != (b, t, h, w) or grad_attn.device != pixels.device:
+            raise ValueError("word_pixel_attention_bwd: grad_attn must be [B, T, H, W]")
+    lib = _build.library(NAME)
+    dpixels = torch.empty_like(pixels)
+    dwords = torch.empty_like(words)
+    ws = torch.empty(lib.word_pixel_attention_bwd_workspace(b, h * w, c, t) // 4,
+                     dtype=torch.float32, device=pixels.device)
+    with torch.cuda.device(pixels.device):
+        err = lib.word_pixel_attention_bwd_launch(
+            pixels.data_ptr(), words.data_ptr(), mask.data_ptr() if mask is not None else None,
+            grad_ctx.data_ptr(), grad_attn.data_ptr() if grad_attn is not None else None,
+            dpixels.data_ptr(), dwords.data_ptr(), ws.data_ptr(), b, h * w, c, t,
+            _build.DTYPE_CODES[pixels.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, BWD_NAME)
+    _build.LAUNCHES[BWD_NAME] += 1
+    return dpixels, dwords
+
+
+class _KernelAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. Saves
+    only the inputs: the backward recomputes the softmax."""
+
+    @staticmethod
+    def forward(ctx, pixels, words, mask, return_attn):
+        out, attn = _launch(pixels, words, mask, return_attn)
+        ctx.save_for_backward(pixels, words, mask)
+        ctx.set_materialize_grads(False)
+        return (out, attn) if return_attn else out
+
+    @staticmethod
+    def backward(ctx, grad_ctx, grad_attn=None):
+        pixels, words, mask = ctx.saved_tensors
+        if grad_ctx is None:
+            grad_ctx = torch.zeros_like(pixels)
+        dpixels, dwords = word_pixel_attention_bwd(pixels, words, mask, grad_ctx, grad_attn)
+        return dpixels, dwords, None, None
+
+
+def word_pixel_attention(
+    pixels: torch.Tensor,  # [B, H, W, C] float32 or bfloat16
+    words: torch.Tensor,  # [B, T, C] in pixels' dtype
+    mask: Optional[torch.Tensor],  # [B, T] bool, True = padded
+    return_attn: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (ctx [B, H, W, C], attn [B, T, H, W] or None)."""
+    if pixels.device.type == "cpu":
+        return plain_word_pixel_attention(pixels, words, mask, return_attn)
+    if pixels.device.type != "cuda":
+        raise ValueError(f"word_pixel_attention: no kernel for {pixels.device}")
+    _check(pixels, words, mask)
+    if torch.is_grad_enabled() and (pixels.requires_grad or words.requires_grad):
+        out = _KernelAttention.apply(pixels, words, mask, return_attn)
+        return out if return_attn else (out, None)
+    return _launch(pixels, words, mask, return_attn)

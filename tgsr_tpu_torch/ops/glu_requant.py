@@ -61,6 +61,7 @@ def glu_requant(h: torch.Tensor, scale: float) -> torch.Tensor:
     if h.dtype not in DTYPES or h.shape[-1] % 2:
         raise TypeError(f"glu_requant: h must be bfloat16 or float32 [..., 2c], got {h.dtype} "
                         f"{tuple(h.shape)}")
+    _build.refuse_grad("glu_requant", h)
     if _on_cpu(h, "glu_requant"):
         return glu_requant_plain(h, scale)
     c = h.shape[-1] // 2
@@ -82,6 +83,7 @@ def requant(x: torch.Tensor, scale: float) -> torch.Tensor:
     """x bfloat16 or float32 -> int8 of the same shape."""
     if x.dtype not in DTYPES:
         raise TypeError(f"requant: x must be bfloat16 or float32, got {x.dtype}")
+    _build.refuse_grad("requant", x)
     if _on_cpu(x, "requant"):
         return requant_plain(x, scale)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)

@@ -110,6 +110,7 @@ def int8_conv(
     if residual is not None and residual.dtype != out_dtype:
         raise TypeError(f"int8_conv: a {residual.dtype} residual to a {out_dtype} output; "
                         "the residual takes the output's type")
+    _build.refuse_grad(NAME, scale, residual, *(bn or ()))
     if x.device.type == "cpu":
         return int8_conv_plain(x, w, scale, bn, residual, out_dtype, up2)
     if x.device.type != "cuda":

@@ -152,6 +152,7 @@ def up_head_folded(
     """`fused_up_head` on one site's weights; the kernel reads `wts.w_frag`,
     or the combined weight made here from `wts.w_up` when it is None."""
     w_up, bn_mul, bn_add, w_head, w_frag = wts
+    _build.refuse_grad(NAME, x, srb, a, *wts)
     if x.device.type == "cpu":
         return reference_up_head(x, w_up, bn_mul, bn_add, w_head, srb, a,
                                  use_tanh=use_tanh, blend=blend)

@@ -121,6 +121,7 @@ def fused_up_head_packed(
     blend: bool = False,
 ) -> torch.Tensor:
     """Returns float32 [B, 2H, 2W, 3] = head(GLU(BN(conv(up2(x))))) [+a*srb]."""
+    _build.refuse_grad(NAME, x, srb, a, *wts)
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"fused_up_head_packed: x is {x.dtype}; the kernel "
                         "takes float32 or bfloat16")
