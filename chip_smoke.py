@@ -1,13 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --step-readings SEEDS [--out readings.json]
+    python3 chip_smoke.py --step-readings SEEDS [--damsm] [--out readings.json]
 
 The second form only runs `step_against_cpu` on the batches of SEEDS (such
 as 1-12 or 5,5,6) and prints, for each card step, the median and 90th
 percentile of its gradient ratios on each batch and each tensor's largest
 ratio over the batches (what GRAD_MEDIAN and GRAD_OUTLIER_FACTOR are set
-from).
+from; with --damsm, G's step with the DAMSM terms of a SimpleCNN trained
+one epoch as damsm_phase trains it, and that encoder's backward alone).
 
 Builds the port's CUDA kernels from tgsr_tpu_torch/csrc/ with nvcc
 (sm_90a, one nvcc per source, all at once), holds each kernel against its
@@ -61,7 +62,14 @@ autograd of its plain version at the three training sites, one step on the
 card against the same step on the CPU (both held against a float64 step),
 ten steps at B = 16 in float32 and bfloat16 with their launches, times and
 memory, and the training CLI, whose last snapshot pair SRPipeline serves
-equal to the run's EMA generator. Prints one JSON line of per-kernel
+equal to the run's EMA generator. DAMSM (damsm_phase; the DAMSM face
+configuration at full width: 299 px, T 18, nef 256): ten DAMSMTrainer steps
+with the seeded Inception-v3 encoder at B = 48 in float32 and bfloat16 (one
+step at B = 8 against the CPU's), the pretraining CLI for both encoder
+families with a resume, the GAN trainer with the DAMSM terms (ten steps at
+B = 16, the card's step against a float64 CPU step, the Inception terms
+giving G no gradient) and its CLI's --image_encoder, and the R-precision
+CLI on 64 images against the CPU's similarities. Prints one JSON line of per-kernel
 numbers, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
 package is missing, or when any check fails.
@@ -2374,6 +2382,25 @@ TRAIN_SITES = (32, 64, 128)
 # off, 1.86 on; one tensor up to 349)
 GRAD_MEDIAN = {"cuDNN off": 2.0, "cuDNN on": 4.0}
 GRAD_OUTLIER_FACTOR = 1000
+# the same median gate for G's step with SimpleCNN's DAMSM terms (D frozen).
+# The terms' gradient back through a trained SimpleCNN is ill-conditioned in
+# float32: the ReLUs a run's rounding flips decide whether its image
+# gradient lands 1e-5 or 7e-3 off float64, so card and CPU part by that
+# luck. Readings (`--step-readings 1-8 --damsm`, a one-epoch SimpleCNN):
+# medians up to 0.86 cuDNN off, 1.33 on; the phase's own batch 2.44 off
+# (the card's image gradient 5.65e-3 off float64, the CPU's 1.71e-3), 0.73
+# on. About 2.5 times the largest. The terms weighted 1.1 read at most
+# 1.38: this gate holds G's backward, DAMSM_ELEMENT_RATIO the terms'
+GRAD_MEDIAN_DAMSM = {"cuDNN off": 6.0, "cuDNN on": 4.0}
+# SimpleCNN's backward alone on the card (`damsm_input_grads` (b)): the
+# median element's error against float64 at most this many times the
+# CPU's. `--step-readings 1-8 --damsm`: 0.65-1.63 (ReLU flips included);
+# the card's gradient 1e-3 off reads 470-1,430
+DAMSM_ELEMENT_RATIO = 4.0
+# `--step-readings --damsm`'s controls: the card's DAMSM terms weighted
+# 1 + these, read in the gate's units (what a fault of that size reads)
+CONTROL_DELTAS = (1e-3, 1e-2, 1e-1)
+TRAIN_MS: dict = {}  # train_phase's ms a step at B = 16, by path, for damsm_phase
 # the face S8 training config (configs/train_faceSR_S8.yml at full width) for
 # the CLI run: BATCH_SIZE cut to 2 so that the example set's 4 train images
 # make 2 steps an epoch, a snapshot every 2 steps
@@ -2507,12 +2534,15 @@ def attention_bwd_phase(torch, rng, hws=TRAIN_SITES, b=TRAIN_B):
                       "function"}
 
 
-def train_batch(torch, rng, b, device="cuda", vocab=41):
+def train_batch(torch, rng, b, device="cuda", vocab=41, empty=True):
     """A face S8 training batch of noise images (train-mode BN of a constant
     image divides by sqrt(eps) at every layer), ragged captions with one
-    padded everywhere; NHWC in [-1, 1]."""
+    padded everywhere (`empty`; the DAMSM runs leave it out: the words loss
+    of an empty caption is the -1e9 sentinel's, about 1e9 gamma3 / B, in
+    both packages); NHWC in [-1, 1]."""
     lens = rng.integers(1, T + 1, b)
-    lens[min(1, b - 1)] = 0
+    if empty:
+        lens[min(1, b - 1)] = 0
     caps = rng.integers(1, vocab, (b, T))
     caps[np.arange(T)[None, :] >= lens[:, None]] = 0
     u = lambda s: torch.from_numpy(rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)).to(device)
@@ -2540,9 +2570,9 @@ def trainer_readout(torch, state):
     return params, stats
 
 
-def profile_step(torch, fn, tag: str, top: int = 10) -> None:
-    """Device time of one training step, fn(), by kernel (torch.profiler,
-    CUPTI), and its idle share."""
+def profile_step(torch, fn, tag: str, top: int = 10, b: int = TRAIN_B) -> None:
+    """Device time of one training step at batch b, fn(), by kernel
+    (torch.profiler, CUPTI), and its idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2558,7 +2588,7 @@ def profile_step(torch, fn, tag: str, top: int = 10) -> None:
         print("  profile: no device time recorded (not measured)", flush=True)
         return
     dev = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"  profile of one {tag} training step at B={TRAIN_B}: device {dev:.3f} ms, wall "
+    print(f"  profile of one {tag} training step at B={b}: device {dev:.3f} ms, wall "
           f"{wall:.3f} ms under the profiler, idle share {max(0.0, 1 - dev / wall):.3f}, "
           f"{sum(e.count for e in events)} kernels", flush=True)
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
@@ -2590,7 +2620,8 @@ def face_train_set(rng, root, n_images):
                 g.write(encode_png(img))
 
 
-def step_against_cpu(torch, cfg, text_sd, batch) -> dict:
+def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
+                     d_lrs=(None, 0.0), control=None) -> dict:
     """One float32 training step of the face S8 model on `batch` (B = 4, on
     the CPU) on the card twice, cuDNN off and on (as training runs it), and
     on the CPU, each held against the same step in float64 on the CPU; once
@@ -2622,19 +2653,30 @@ def step_against_cpu(torch, cfg, text_sd, batch) -> dict:
     float64 step's off the entries at Adam's epsilon in any of the three
     steps and those whose float32 gradient has the other sign (the card at
     most twice the CPU's count + 0.1 %); BN running stats within twice the
-    CPU's max error + 1e-6."""
+    CPU's max error + 1e-6. `image_encoder`: the DAMSM terms on (a copy of
+    it in each trainer); `d_lrs`: the D learning rates to run (None: D
+    learning, 0.0: D frozen); `control`: {label: loss_weights}, each for one
+    more card step (cuDNN off) with those weights, whose median ratio is
+    read (key ("median", D lr, label)) and not gated: what a fault of that
+    size reads."""
+    import copy
+
     from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
 
     def one_step(d_lr):
         out = {}
-        for tag, device, dtype, cudnn in (("cpu", "cpu", torch.float32, True),
-                                          ("f64", "cpu", torch.float64, True),
-                                          ("cuDNN off", "cuda", torch.float32, False),
-                                          ("cuDNN on", "cuda", torch.float32, True)):
-            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=d_lr)
+        runs = [("cpu", "cpu", torch.float32, True), ("f64", "cpu", torch.float64, True),
+                ("cuDNN off", "cuda", torch.float32, False),
+                ("cuDNN on", "cuda", torch.float32, True)]
+        runs += [(label, "cuda", torch.float32, False) for label in control or {}]
+        for tag, device, dtype, cudnn in runs:
+            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=d_lr,
+                           image_encoder=copy.deepcopy(image_encoder),
+                           loss_weights=(control or {}).get(tag))
             s = t.init_state(torch.Generator().manual_seed(0))
             t0 = time.perf_counter()
-            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            # TF32 as PyTorch sets it by default: the trainer turns it off
+            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=True):
                 m = t.train_step(s, batch)
             out[tag] = ({k: float(v) for k, v in m.items()}, *trainer_readout(torch, s))
             print(f"  train step {str(dtype).split('.')[-1]} B={len(batch['lr'])} (D lr {t.d_lr}) on {device}"
@@ -2647,35 +2689,56 @@ def step_against_cpu(torch, cfg, text_sd, batch) -> dict:
         return max(ratios.values()), ", ".join(f"{n} {r:.3g}" for n, r in top)
 
     readings = {}
+    terms = "" if image_encoder is None else f", DAMSM terms ({type(image_encoder).__name__})"
+    medians = GRAD_MEDIAN if image_encoder is None else GRAD_MEDIAN_DAMSM
     for d_lr, net, what in ((None, "d.", "D learning: D's step"),
                             (0.0, "net", "D frozen: G's step")):
+        if d_lr not in d_lrs:
+            continue
         out = one_step(d_lr)
         (m_c, p_c, s_c), (_, p_64, s_64) = out["cpu"], out["f64"]
-        for card_tag in ("cuDNN off", "cuDNN on"):
-            m_g, p_g, s_g = out[card_tag]
-            head = f"train f32 step card ({card_tag}) vs CPU, {what}"
-            keys = ("d_loss", "kl", "pixel") if d_lr is None else sorted(m_c)
-            worst, key = max((abs(m_g[k] - m_c[k]) / abs(m_c[k]), k) for k in keys)
-            check(worst <= 1e-4, f"{head}: metrics {', '.join(keys)} within rtol 1e-4 (worst "
-                                 f"{key} {worst:.2e})")
-            mine = [n for n in p_g if n.startswith(net)]
+        mine = [n for n in p_64 if n.startswith(net)]
+
+        def grad_ratios(p_g):
+            # each tensor's card error in units of the gate, and the card's
+            # and the CPU's relative L2 errors
             ratios, rel = {}, {}
             for n in mine:
                 ref = p_64[n][1]
                 e_card, e_cpu = ((x[n][1] - ref).norm().item() for x in (p_g, p_c))
                 ratios[n] = e_card / (2 * e_cpu + 1e-5 * ref.norm().item())
-                rel[n] = e_card / max(ref.norm().item(), 1e-30)
+                rel[n] = np.array([e_card, e_cpu]) / max(ref.norm().item(), 1e-30)
+            return ratios, rel
+
+        for label in control or {}:
+            ratios, _ = grad_ratios(out[label][1])
+            med = float(np.median(list(ratios.values())))
+            readings["median", d_lr, label] = med
+            print(f"  control, {what}{terms}: the card step (cuDNN off) with {label}: median "
+                  f"{med:.3g} units (not gated)", flush=True)
+        for card_tag in ("cuDNN off", "cuDNN on"):
+            m_g, p_g, s_g = out[card_tag]
+            head = f"train f32 step card ({card_tag}) vs CPU, {what}{terms}"
+            keys = ("d_loss", "kl", "pixel") if d_lr is None else sorted(m_c)
+            worst, key = max((abs(m_g[k] - m_c[k]) / abs(m_c[k]), k) for k in keys)
+            check(worst <= 1e-4, f"{head}: metrics {', '.join(keys)} within rtol 1e-4 (worst "
+                                 f"{key} {worst:.2e})")
+            ratios, rel = grad_ratios(p_g)
             readings[d_lr, card_tag] = ratios
             top, names = worst3(ratios)
-            med, p90 = (float(np.percentile(list(ratios.values()), q)) for q in (50, 90))
+            p10, med, p90 = (float(np.percentile(list(ratios.values()), q))
+                             for q in (10, 50, 90))
+            far = max(rel, key=lambda n: rel[n][0])
+            readings["p10", d_lr, card_tag] = p10
             readings["median", d_lr, card_tag] = med
             readings["p90", d_lr, card_tag] = p90
-            readings["relative L2", d_lr, card_tag] = max(rel.values())
-            check(med <= GRAD_MEDIAN[card_tag] and top <= GRAD_OUTLIER_FACTOR,
+            readings["relative L2", d_lr, card_tag] = rel[far][0]
+            check(med <= medians[card_tag] and top <= GRAD_OUTLIER_FACTOR,
                   f"{head}: {len(mine)} gradient tensors against the float64 step's, in units "
                   f"of twice the CPU float32 step's L2 error + 1e-5 |g|: median {med:.3g} (<= "
-                  f"{GRAD_MEDIAN[card_tag]}), worst {names} (<= {GRAD_OUTLIER_FACTOR}); 90th "
-                  f"percentile {p90:.3g}, relative L2 error at most {max(rel.values()):.3g}")
+                  f"{medians[card_tag]}), worst {names} (<= {GRAD_OUTLIER_FACTOR}); 10th and "
+                  f"90th percentiles {p10:.3g}, {p90:.3g}; relative L2 error at most "
+                  f"{rel[far][0]:.3g} ({far}, the CPU's {rel[far][1]:.3g})")
             # Adam's first step is lr g / (|g| + eps) an entry: +-lr, the sign
             # of its gradient, where |g| is well above eps in all three steps;
             # an entry whose float32 gradient has the other sign than the
@@ -2770,6 +2833,7 @@ def train_phase(torch, rng, card, tmp):
         check(per == {"word_pixel_attention": 3, "word_pixel_attention_bwd": 3},
               f"{tag}: 3 attention forward and 3 backward launches a step ({per})")
         ms = 1e3 * float(np.mean(times[1:]))
+        TRAIN_MS[tag] = ms
         print(f"  {tag}: step {ms:.2f} ms (host clock, synchronised, mean of steps 2-10; "
               f"first {1e3 * times[0]:.1f}), {TRAIN_B * 1e3 / ms:.1f} img/s, peak reserved "
               f"{peak:.2f} GiB, on {card}; d_loss {vals[0]['d_loss']:.4f} -> "
@@ -2827,6 +2891,467 @@ def train_phase(torch, rng, card, tmp):
     return launches
 
 
+# -- DAMSM (the image encoder, the DAMSM trainer and CLI, the GAN trainer's
+# DAMSM terms, R-precision) -----------------------------------------------------
+
+DAMSM_B = 48  # TRAIN.BATCH_SIZE of AttnGAN's cfg/DAMSM/bird.yml; face.yml 32-48
+DAMSM_CPU_B = 8  # the card step held against the CPU's
+RANK_PEAK_GIB = 8  # rank_memory: the ranking's own memory at N = 5,000
+# the DAMSM face configuration (cfg/DAMSM/face.yml's geometry: BRANCH_NUM 1,
+# 299 px, T 18, EMBEDDING_DIM 256, gammas 4 / 5 / 10) for the CLI runs, its
+# BATCH_SIZE cut to 4 so that the face set's 8 train images make 2 steps
+DAMSM_FACE_YAML = """# DAMSM face: text and image encoders at 299 px (cfg/DAMSM/face.yml)
+CONFIG_NAME: 'DAMSM_face'
+DATASET_NAME: 'face'
+TREE:
+    BRANCH_NUM: 1
+    BASE_SIZE: 299
+TEXT:
+    EMBEDDING_DIM: 256
+    WORDS_NUM: 18
+    CAPTIONS_PER_IMAGE: 1
+TRAIN:
+    FLAG: True
+    BATCH_SIZE: 4
+    MAX_EPOCH: 1
+    SNAPSHOT_INTERVAL: 1
+    ENCODER_LR: 0.002
+    SMOOTH:
+        GAMMA1: 4.0
+        GAMMA2: 5.0
+        GAMMA3: 10.0
+"""
+
+
+def damsm_config():
+    """The DAMSM face configuration at full width, B = DAMSM_B."""
+    import dataclasses
+
+    from tgsr_tpu_torch.config import Config, SmoothConfig, TextConfig, TrainConfig, TreeConfig
+
+    return Config(DATASET_NAME="face", TREE=TreeConfig(BRANCH_NUM=1, BASE_SIZE=299),
+                  TEXT=TextConfig(EMBEDDING_DIM=256, WORDS_NUM=T),
+                  TRAIN=dataclasses.replace(TrainConfig(), BATCH_SIZE=DAMSM_B, ENCODER_LR=0.002,
+                                            SMOOTH=SmoothConfig(4.0, 5.0, 10.0)))
+
+
+def damsm_batch(rng, b, vocab=41, size=299):
+    """A correlated DAMSM batch (tests/test_damsm_trainer.py's task): each
+    image's level (with noise) encodes its caption's first token; ragged
+    captions of 2-18 tokens."""
+    first = rng.integers(1, vocab, b)
+    lens = rng.integers(2, T + 1, b)
+    caps = rng.integers(1, vocab, (b, T))
+    caps[:, 0] = first
+    caps[np.arange(T)[None, :] >= lens[:, None]] = 0
+    level = (first * 255) // vocab
+    hr = level[:, None, None, None] + rng.normal(0, 8, (b, size, size, 3))
+    return {"hr": np.clip(hr, 0, 255).astype(np.uint8), "captions": caps.astype(np.int32),
+            "cap_lens": lens.astype(np.int32), "class_ids": np.arange(b, dtype=np.int32)}
+
+
+def damsm_readout(torch, t, s):
+    """(gradients from Adam's first moment, the parameters, the BN running
+    stats) of a DAMSM state after its first step, on the CPU."""
+    grads, params = {}, {}
+    for n, p in t.trainable(s.text, s.cnn):
+        grads[n] = (s.opt.state[p]["exp_avg"] / 0.5).cpu()
+        params[n] = p.detach().cpu()
+    stats = {k: v.cpu() for k, v in s.cnn.state_dict().items() if "running" in k}
+    return grads, params, stats
+
+
+def damsm_step_against_cpu(torch, cfg, b):
+    """One float32 DAMSM step (Inception, B = DAMSM_CPU_B) on the card and on
+    the CPU from one seeded init, batch and dropout. Gates (PR 14's lesson:
+    per-tensor relative L2, not per-element): metrics rtol 1e-4; each
+    trainable gradient within relative L2 1e-3 of the CPU's (94 float32
+    convolutions and BNs in another order before the heads); the BN running
+    stats within 1e-4 (|x| + 1); the parameters through that gate: the
+    card's step is Adam's on the card's own moments (within 1e-6 of lr
+    m_hat / (sqrt(v_hat) + eps) recomputed from them)."""
+    from tgsr_tpu_torch.engine.damsm_trainer import DAMSMTrainer
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        t = DAMSMTrainer(cfg, 41, seed=7, device=device)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        before = {n: p.detach().cpu().clone() for n, p in t.trainable(s.text, s.cnn)}
+        t0 = time.perf_counter()
+        m = t.train_step(s, t.device_batch(b), t.epoch_lr(0))
+        m = {k: float(v) for k, v in m.items()}
+        print(f"  damsm step f32 B={len(b['hr'])} on {device}: {time.perf_counter() - t0:.2f} s "
+              f"(host clock, first step)", flush=True)
+        out[device] = (m, *damsm_readout(torch, t, s), before, t.epoch_lr(0))
+    (mc, gc, pc, sc, _, _), (mg, gg, pg, sg, before, lr) = out["cpu"], out["cuda"]
+    worst, key = max((abs(mg[k] - v) / abs(v), k) for k, v in mc.items())
+    check(worst <= 1e-4, f"damsm step card vs CPU (B = {DAMSM_CPU_B}, Inception, f32): metrics "
+                         f"within rtol 1e-4 (worst {key} {worst:.2e})")
+    rel = {n: ((gg[n] - ref).norm() / ref.norm().clamp(min=1e-30)).item() for n, ref in gc.items()}
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    check(max(rel.values()) <= 1e-3,
+          f"damsm step card vs CPU: {len(rel)} gradient tensors within relative L2 1e-3 (worst "
+          + ", ".join(f"{n} {r:.2e}" for n, r in top) + ")")
+    bad = [k for k, ref in sc.items() if not ((sg[k] - ref).abs() <= 1e-4 * (ref.abs() + 1)).all()]
+    err = max(((sg[k] - ref).abs() / (ref.abs() + 1)).max().item() for k, ref in sc.items())
+    check(not bad, f"damsm step card vs CPU: {len(sc)} BN running stats within 1e-4 (|x| + 1) "
+                   f"(worst {err:.2e}{'; ' + bad[0] if bad else ''})")
+    worst = 0.0
+    for n, g in gg.items():
+        # after one step m_hat = g and v_hat = g^2: the update is lr g / (|g| + eps)
+        want = before[n] - lr * g / (g.abs() + 1e-8)
+        worst = max(worst, (pg[n] - want).abs().max().item())
+    check(worst <= 1e-6, f"damsm step card: parameters = Adam's first step on the card's own "
+                         f"gated gradients (max error {worst:.2e} <= 1e-6)")
+
+
+def damsm_face_data(rng, tmp):
+    """The face set (face_train_set, 9 images: 8 train, 1 test) and the
+    DAMSM YAML; returns (data dir, yml path, its vocabulary)."""
+    from tgsr_tpu_torch.data.datasets import TextFaceDataset
+
+    data = os.path.join(tmp, "damsm_face")
+    face_train_set(rng, data, 9)
+    yml = os.path.join(tmp, "DAMSM_face.yml")
+    with open(yml, "w") as f:
+        f.write(DAMSM_FACE_YAML)
+    return data, yml, TextFaceDataset(data, split="train", words_num=T, imsize=299).vocab
+
+
+def damsm_rank_set(rng, tmp, vocab, n=64):
+    """n generated 256 px SR images (ramps and noise) and their captions
+    (testset.txt, 'name|flags' over CelebA's attributes, the words the
+    vocabulary knows) and testset.pickle; returns (data dir, image dir,
+    pickle)."""
+    from tgsr_tpu_torch.data.codec import encode_png
+
+    data, images = os.path.join(tmp, "rank"), os.path.join(tmp, "rank", "sr")
+    os.makedirs(images)
+    known = [k for k, a in enumerate(CELEBA_ATTRS) if a in vocab.wordtoix]
+    yy, xx = np.mgrid[:256, :256]
+    with open(os.path.join(data, "testset.txt"), "w") as f:
+        f.write(" ".join(CELEBA_ATTRS) + " \n")
+        for i in range(n):
+            r = np.zeros(40, int)
+            r[rng.choice(known, min(len(known), rng.integers(1, 4)), replace=False)] = 1
+            f.write(f"{i:06d}.png|{i:06d}.jpg " + " ".join(map(str, r)) + "\n")
+            img = np.stack([(yy * rng.uniform(0.3, 1.5) + xx * rng.uniform(0.3, 1.5)) % 256
+                            for _ in range(3)], -1)
+            img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype("uint8")
+            with open(os.path.join(images, f"{i:06d}.png"), "wb") as g:
+                g.write(encode_png(img))
+    pkl = os.path.join(data, "testset.pickle")
+    with open(pkl, "wb") as f:
+        pickle.dump([[], vocab.ixtoword, vocab.wordtoix], f, protocol=2)
+    return data, images, pkl
+
+
+def damsm_phase(torch, rng, card, tmp):
+    """DAMSM on the card at the face configuration's full width. (1) Ten
+    DAMSMTrainer steps at B = 48 with the seeded Inception-v3 CNNEncoder at
+    299 px, float32 and bfloat16, on a correlated synthetic set: finite
+    metrics, the held-out loss falls, bf16's first-step metrics within 10 %
+    of f32's, the mean ms a step, img/s, peak reserved memory and one
+    profiled step; one step at B = 8 against the CPU's
+    (`damsm_step_against_cpu`). (2) `tgsr_tpu_torch.cli.pretrain_damsm` on a
+    face set, SimpleCNN and Inception, one epoch each, and a resume from
+    SimpleCNN's text_encoder0: snapshot pairs and attention grids. (3) The
+    GAN trainer with the DAMSM terms (face S8, full width): ten steps at B =
+    16 with the SimpleCNN snapshot, f32 and bf16, 3 + 3 attention launches a
+    step, ms a step beside train_phase's without the terms; the card's step
+    against a float64 CPU step (`step_against_cpu`, D frozen, terms on), and
+    SimpleCNN's backward alone on that step's fake (`damsm_input_grads`,
+    DAMSM_ELEMENT_RATIO; the terms alone, `damsm_term_grads`, printed); the
+    Inception snapshot's terms have no gradient path to G's fake,
+    SimpleCNN's move G's gradients; `cli.train_gan --image_encoder`. (4)
+    `tgsr_tpu_torch.cli.eval_rank` on 64 SR images with both snapshots (R@1,
+    R@5), and the similarity matrices of the card against the CPU's; the
+    ranking's time and peak memory at N = 1,000 and 5,000 (`rank_memory`).
+    main runs it under PyTorch's default TF32 switches, which the trainers
+    and the ranking override. Returns the launches of each run."""
+    import copy
+
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.cli import eval_rank, pretrain_damsm, train_gan
+    from tgsr_tpu_torch.config import Config, face_s8_config
+    from tgsr_tpu_torch.data.datasets import TextFaceDataset, TextSRGTDataset
+    from tgsr_tpu_torch.engine.damsm_trainer import DAMSMTrainer
+    from tgsr_tpu_torch.engine.evaluator import _rank_sims
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.losses.damsm import sent_loss, words_loss
+    from tgsr_tpu_torch.ops import _build
+
+    launches = {}
+    cfg = damsm_config()
+    # -- (1) DAMSM steps at B = 48, f32 and bf16 ---------------------------------------
+    t0 = time.perf_counter()
+    batches = [damsm_batch(rng, DAMSM_B) for _ in range(10)]
+    held = damsm_batch(rng, DAMSM_B)
+    first = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "damsm " + str(dtype).split(".")[-1]
+        t = DAMSMTrainer(cfg, 41, compute_dtype=dtype, seed=3)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        hb = t.device_batch(held)
+        loss0 = float(t.eval_step(s, hb)[0]["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        for b in batches:
+            db = t.device_batch(b)
+            t1 = time.perf_counter()
+            metrics.append(t.train_step(s, db, t.epoch_lr(0)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_reserved() / 2 ** 30
+        vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+        loss1 = float(t.eval_step(s, hb)[0]["loss"])
+        first[dtype] = vals[0]
+        check(all(np.isfinite(v) for m in vals for v in m.values()) and loss1 < loss0,
+              f"{tag}: 10 steps at B = {DAMSM_B} (Inception-v3, 299 px), every metric finite, "
+              f"the held-out loss falls ({loss0:.4f} -> {loss1:.4f})")
+        ms = 1e3 * float(np.mean(times[1:]))
+        print(f"  {tag}: step {ms:.2f} ms (host clock, synchronised, mean of steps 2-10; first "
+              f"{1e3 * times[0]:.1f}, the batch's copy to the card not included), "
+              f"{DAMSM_B * 1e3 / ms:.1f} img/s, peak reserved {peak:.2f} GiB, on {card}; loss "
+              f"{vals[0]['loss']:.4f} -> {vals[-1]['loss']:.4f}", flush=True)
+        db = t.device_batch(batches[0])
+        profile_step(torch, lambda: t.train_step(s, db, t.epoch_lr(0)), tag, b=DAMSM_B)
+        del t, s, hb, db
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(abs(first[torch.bfloat16][k] - v) / abs(v)
+                for k, v in first[torch.float32].items() if abs(v) > 1e-3)
+    check(worst < 0.1, f"damsm bf16 first-step metrics within 10 % of f32's (worst {worst:.3%})")
+    cpu_b = damsm_batch(rng, DAMSM_CPU_B)
+    damsm_step_against_cpu(torch, cfg, cpu_b)
+    print(f"  damsm steps: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- (2) the pretraining CLI, both families, and a resume ----------------------------
+    t0 = time.perf_counter()
+    data, yml, vocab = damsm_face_data(rng, tmp)
+    runs = {}
+    for family, extra in (("simple", ["--simple-cnn"]), ("inception", [])):
+        t1 = time.perf_counter()
+        out = os.path.join(tmp, f"damsm_{family}")
+        runs[family] = pretrain_damsm.main(["--cfg", yml, "--data_dir", data, "--out_dir", out,
+                                            "--manualSeed", "5", *extra])
+        files = sorted(os.listdir(os.path.join(runs[family]["out_dir"], "Model")))
+        grid = os.path.join(runs[family]["out_dir"], "Image", "attention_maps0.png")
+        check(files == ["image_encoder0.msgpack", "text_encoder0.msgpack"]
+              and os.path.getsize(grid) > 0,
+              f"cli.pretrain_damsm {family}: one epoch ({len(runs[family]['history'])} history "
+              f"rows), the snapshot pair and the attention grid written "
+              f"({time.perf_counter() - t1:.1f} s, host clock)")
+    snap = {f: os.path.join(r["out_dir"], "Model") for f, r in runs.items()}
+    t1 = time.perf_counter()
+    resumed = pretrain_damsm.main(["--cfg", yml, "--data_dir", data, "--out_dir",
+                                   os.path.join(tmp, "damsm_resumed"), "--manualSeed", "5",
+                                   "--simple-cnn", "--epochs", "2", "--resume_from",
+                                   os.path.join(snap["simple"], "text_encoder0.msgpack")])
+    files = sorted(os.listdir(os.path.join(resumed["out_dir"], "Model")))
+    check(resumed["start_epoch"] == 1 and files == ["image_encoder1.msgpack",
+                                                    "text_encoder1.msgpack"],
+          f"cli.pretrain_damsm --resume_from text_encoder0: epoch 1 trained and snapshotted "
+          f"({time.perf_counter() - t1:.1f} s)")
+    print(f"  damsm cli: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- (3) the GAN trainer's DAMSM terms ----------------------------------------------
+    t0 = time.perf_counter()
+    gcfg = face_s8_config()
+    text_sd = seeded_text_state_dict(gcfg, 41, torch.Generator().manual_seed(14))
+    simple = train_gan.load_image_encoder_module(
+        os.path.join(snap["simple"], "image_encoder0.msgpack"), 256)
+    inception = train_gan.load_image_encoder_module(
+        os.path.join(snap["inception"], "image_encoder0.msgpack"), 256)
+    gbatches = [train_batch(torch, rng, TRAIN_B, empty=False) for _ in range(10)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tag = f"damsm gan {name}"
+        t = GANTrainer(gcfg, 41, text_sd, compute_dtype=dtype, image_encoder=copy.deepcopy(simple))
+        s = t.init_state(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        times, metrics = [], []
+        for b in gbatches:
+            t1 = time.perf_counter()
+            metrics.append(t.train_step(s, b))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        launches[tag] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+        vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+        per = {k: launches[tag][k] / 10
+               for k in ("word_pixel_attention", "word_pixel_attention_bwd")}
+        check(all(np.isfinite(v) for m in vals for v in m.values()) and "w_loss" in vals[0]
+              and per == {"word_pixel_attention": 3, "word_pixel_attention_bwd": 3},
+              f"{tag}: 10 steps at B = {TRAIN_B} with SimpleCNN's DAMSM terms, every metric "
+              f"finite (w_loss {vals[0]['w_loss']:.4f}, s_loss {vals[0]['s_loss']:.4f}), 3 "
+              f"attention forward and 3 backward launches a step ({per})")
+        ms = 1e3 * float(np.mean(times[1:]))
+        plain = TRAIN_MS.get(f"train {name}")
+        print(f"  {tag}: step {ms:.2f} ms (host clock, synchronised, mean of steps 2-10), "
+              f"{TRAIN_B * 1e3 / ms:.1f} img/s, peak reserved "
+              f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB, on {card}; without the "
+              f"terms (train phase, this run) "
+              + (f"{plain:.2f} ms, x{ms / plain:.3f}" if plain else "not measured"), flush=True)
+        profile_step(torch, lambda: t.train_step(s, gbatches[0]), tag)
+        del t, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    b4 = train_batch(torch, rng, 4, device="cpu", empty=False)
+    step_against_cpu(torch, gcfg, text_sd, b4, image_encoder=simple, d_lrs=(0.0,))
+    diag = damsm_input_grads(torch, simple, text_sd, b4, damsm_fake(torch, gcfg, text_sd, b4,
+                                                                     simple))
+    print("  damsm gan, SimpleCNN's backward alone on that step's fake, relative L2 against "
+          "float64 (a: whole; b: from the float32 resize, ReLU flips): " + "; ".join(
+              f"{p} {r} {v:.3g}" for (p, r), v in diag.items()), flush=True)
+    for run in ("cuDNN off", "cuDNN on"):
+        r = diag["b", f"{run} median element error / the CPU's"]
+        control = diag["b", "control x (1 + 0.001) median element error / the CPU's"]
+        check(r <= DAMSM_ELEMENT_RATIO,
+              f"damsm gan ({run}): SimpleCNN's backward alone on the step's fake, from the "
+              f"float32 resize: the median element's error against float64 {r:.3g} times the "
+              f"CPU's (<= {DAMSM_ELEMENT_RATIO}; the gradient 1e-3 off reads {control:.3g})")
+    diag = damsm_term_grads(torch, gcfg, text_sd, b4, simple)
+    print("  damsm gan, the DAMSM terms alone in that step, each run on its own fake, against "
+          "float64: " + "; ".join(f"{p} {r} {v:.3g}" for (p, r), v in diag.items()), flush=True)
+    # the Inception family's terms give G no gradient, SimpleCNN's do. Exact:
+    # the Inception terms' loss on G's fake has no autograd path to it (the
+    # backbone runs without autograd, JAX's freeze_backbone); comparing G's
+    # gradients with and without them on the card only compares cuDNN's
+    # run-to-run noise (the script's final run: 1.87e-04 against 8.27e-05).
+    # SimpleCNN's terms move G's gradients (D frozen: Adam's sign-following
+    # first D step would make G's gradient part run to run)
+    b4 = train_batch(torch, rng, 4, empty=False)
+    path = {}
+    for fam, enc in (("inception", inception), ("simple", simple)):
+        t = GANTrainer(gcfg, 41, text_sd, image_encoder=copy.deepcopy(enc), d_lr=0.0)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        lr, words, sent, mask = t._inputs(b4)
+        img = t._generate(s, lr, words, sent, mask)[1][-1]
+        feat, code = t._encode(img)
+        w0, w1, _ = words_loss(feat, words, b4["cap_lens"], None, *t.gammas)
+        s0, s1 = sent_loss(code, sent, None, t.gammas[2])
+        path[fam] = (img.requires_grad, (w0 + w1 + s0 + s1).requires_grad,
+                     float((w0 + w1).detach()))
+        del t, s
+    g = {}
+    for fam, enc in (("none", None), ("simple", simple)):
+        t = GANTrainer(gcfg, 41, text_sd, image_encoder=copy.deepcopy(enc), d_lr=0.0)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        t.train_step(s, b4)
+        g[fam] = {n: s.g_opt.state[p]["exp_avg"].clone() for n, p in s.g_named_parameters()}
+        del t, s
+    moved = max(((g["simple"][n] - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+                for n, ref in g["none"].items())
+    check(path["inception"][:2] == (True, False) and path["simple"][:2] == (True, True)
+          and path["inception"][2] > 0 and moved >= 1e-2,
+          f"damsm gan: the Inception snapshot's terms (w_loss {path['inception'][2]:.4f}) have no "
+          f"gradient path to G's fake (JAX's freeze_backbone), SimpleCNN's (w_loss "
+          f"{path['simple'][2]:.4f}) have one and move G's gradients by {moved:.2e} (>= 1e-2, "
+          f"D frozen)")
+    cli_data = os.path.join(tmp, "damsm_gan_face")
+    face_train_set(rng, cli_data, 5)
+    gyml = os.path.join(tmp, "train_faceSR_S8_damsm.yml")
+    with open(gyml, "w") as f:
+        f.write(FACE_S8_TRAIN_YAML)
+    n_words = TextFaceDataset(cli_data, split="train", words_num=T, imsize=256).n_words
+    te = os.path.join(tmp, "damsm_gan_text_encoder.pth")
+    torch.save(seeded_text_state_dict(gcfg, n_words, torch.Generator().manual_seed(15)), te)
+    out = os.path.join(tmp, "damsm_gan_out")
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    summary = train_gan.main(["--cfg", gyml, "--data_dir", cli_data, "--out_dir", out,
+                              "--text_encoder", te, "--epochs", "1", "--log_every", "1",
+                              "--image_encoder",
+                              os.path.join(snap["simple"], "image_encoder0.msgpack")])
+    launches["damsm gan cli"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                 for k in _build.LAUNCHES}
+    with open(os.path.join(out, "Log", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(summary["steps"] == 2 and all("w_loss" in r and "s_loss" in r for r in rows)
+          and launches["damsm gan cli"]["word_pixel_attention_bwd"] == 6,
+          f"cli.train_gan --image_encoder (SimpleCNN snapshot): {summary['steps']} steps, "
+          f"w_loss and s_loss in every row, 6 backward launches "
+          f"({time.perf_counter() - t1:.1f} s)")
+    del summary
+    print(f"  damsm gan: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- (4) R-precision ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    rdata, rimages, pkl = damsm_rank_set(rng, tmp, vocab)
+    base = ["--data_dir", rdata, "--image_dir", rimages, "--vocab_pickle", pkl]
+    ecfg = Config()
+    for fam, extra in (("simple", ["--simple-cnn"]), ("inception", [])):
+        enc = ["--net_e", os.path.join(snap[fam], "text_encoder0.msgpack"), "--image_encoder",
+               os.path.join(snap[fam], "image_encoder0.msgpack"), *extra]
+        t1 = time.perf_counter()
+        res = eval_rank.main(base + enc)
+        dt = time.perf_counter() - t1
+        check(res["n"] == 64 and res["seeded_encoders"] == [] and all(
+            0 <= res[k] <= 1 for k in ("word_r@1", "sent_r@1", "word_r@5", "sent_r@5")),
+              f"cli.eval_rank {fam}: 64 images, word R@1 {res['word_r@1']:.4f}, R@5 "
+              f"{res['word_r@5']:.4f}, sentence R@1 {res['sent_r@1']:.4f}, R@5 "
+              f"{res['sent_r@5']:.4f} ({dt:.1f} s, host clock)")
+        args = eval_rank.build_parser().parse_args(base + enc)
+        ds = TextSRGTDataset(eval_rank.load_vocab(pkl), rdata, rimages, dataset="face",
+                             words_num=ecfg.TEXT.WORDS_NUM, imsize=256)
+        sims = {}
+        for device in ("cuda", "cpu"):
+            text_enc, cnn_enc, _ = eval_rank.load_encoders(args, ecfg, vocab.n_words,
+                                                           torch.device(device))
+            x = eval_rank.embed_all(ds, text_enc, cnn_enc, args.batch, torch.device(device))
+            sm = ecfg.TRAIN.SMOOTH
+            sims[device] = [m.cpu() for m in _rank_sims(*x, sm.GAMMA1, sm.GAMMA2, sm.GAMMA3)]
+        for what, card_m, cpu_m in zip(("word", "sentence"), sims["cuda"], sims["cpu"]):
+            tol = 1e-4 * (cpu_m.abs() + 1)
+            err = ((card_m - cpu_m).abs() / (cpu_m.abs() + 1)).max().item()
+            own = cpu_m.diagonal()
+            clear = ~(((cpu_m - own[:, None]).abs() <= tol) & ~torch.eye(64, dtype=torch.bool)
+                      ).any(1)
+            rank = lambda m: (m > m.diagonal()[:, None]).sum(1)
+            same = (rank(card_m) == rank(cpu_m))[clear].all().item()
+            check(err <= 1e-4 and same,
+                  f"cli.eval_rank {fam}: {what} similarities on the card within 1e-4 (|cpu| + 1) "
+                  f"of the CPU's (worst {err:.2e}), each own caption's rank the same in the "
+                  f"{int(clear.sum())} rows with no score within that of it")
+    rank_memory(torch, card)
+    print(f"  damsm rank: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def rank_memory(torch, card) -> None:
+    """`_rank_sims` at test-set sizes on seeded embeddings (T 18, 289
+    regions, nef 256, every caption 18 words): host ms (synchronised) and
+    the peak memory it allocates beyond its inputs, held below RANK_PEAK_GIB
+    (the captions in blocks; the whole [N, N, T, R] attention would be
+    N^2 T R 4 bytes a tensor)."""
+    from tgsr_tpu_torch.engine.evaluator import _rank_sims
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for n in (1000, 5000):
+        x = [torch.randn(s, generator=g, device="cuda")
+             for s in ((n, 289, 256), (n, 256), (n, T, 256), (n, 256))]
+        lens = torch.full((n,), T, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        w, s_ = _rank_sims(*x, lens, 4.0, 5.0, 10.0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        whole = n * n * T * 289 * 4 / 2 ** 30
+        check(w.shape == s_.shape == (n, n) and bool(torch.isfinite(w).all())
+              and peak <= RANK_PEAK_GIB,
+              f"damsm rank at N = {n}: the [N, N] similarities in {ms:.1f} ms (host clock, "
+              f"synchronised), peak {peak:.2f} GiB beyond the inputs (<= {RANK_PEAK_GIB}; "
+              f"one whole [N, N, T, R] tensor {whole:.1f} GiB), on {card}")
+        del x, w, s_
+        torch.cuda.empty_cache()
+
+
 def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> None:
     """Device time of one B=64 forward, fn(), by kernel (torch.profiler,
     CUPTI), and the share of cuDNN's layout conversions; `how` is "eager"
@@ -2860,32 +3385,190 @@ def profile_forward(torch, fn, tag: str, how: str, b: int, top: int = 12) -> Non
         print(f"    {ms:9.3f} ms {ms / dev:6.1%} x{e.count:<4d} {e.key[:90]}", flush=True)
 
 
-def step_readings(torch, seeds: list, out_path: str) -> int:
+def damsm_fake(torch, cfg, text_sd, batch, enc):
+    """The finest fake image G makes in `step_against_cpu`'s first step on
+    `batch` (its trainers' seeded init, train mode), NHWC float64 on the
+    CPU: what the image encoder sees in that step."""
+    import copy
+
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.ops.blocks import nhwc
+
+    t = GANTrainer(cfg, 41, text_sd, compute_dtype=torch.float64, device="cpu", d_lr=0.0,
+                   image_encoder=copy.deepcopy(enc))
+    s = t.init_state(torch.Generator().manual_seed(0))
+    s.netg.train()
+    s.netgh.train()
+    with torch.no_grad():
+        lr, words, sent, mask = t._inputs(batch)
+        return nhwc(t._generate(s, lr, words, sent, mask)[1][-1])
+
+
+def damsm_term_grads(torch, cfg, text_sd, batch, enc) -> dict:
+    """The DAMSM terms alone in `step_against_cpu`'s G step (D frozen): each
+    run (the CPU in float32, the card with cuDNN off and on) makes its own
+    fake from the trainers' seeded init, encodes it and takes the words +
+    sentence losses' gradient into that fake and into G's parameters. Each
+    against the CPU's float64: the fake's and the image gradient's relative
+    L2 errors, and the median of G's gradient tensors in the gate's units
+    (twice the CPU float32 run's error + 1e-5 |g|). Returns {(what, run):
+    number}."""
+    import copy
+
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.losses.damsm import sent_loss, words_loss
+
+    got = {}
+    for run, device, dtype, cudnn in (("f64", "cpu", torch.float64, True),
+                                      ("cpu", "cpu", torch.float32, True),
+                                      ("cuDNN off", "cuda", torch.float32, False),
+                                      ("cuDNN on", "cuda", torch.float32, True)):
+        t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=0.0,
+                       image_encoder=copy.deepcopy(enc))
+        s = t.init_state(torch.Generator().manual_seed(0))
+        s.netg.train()
+        s.netgh.train()
+        names, params = zip(*s.g_named_parameters())
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            lr, words, sent, mask = t._inputs(batch)
+            img = t._generate(s, lr, words, sent, mask)[1][-1]
+            feat, code = t._encode(img)
+            lt = t.loss_dtype
+            lens = torch.as_tensor(batch["cap_lens"], device=t.device)
+            w0, w1, _ = words_loss(feat, words.to(lt), lens, None, *t.gammas)
+            s0, s1 = sent_loss(code, sent.to(lt), None, t.gammas[2])
+            grads = torch.autograd.grad(w0 + w1 + s0 + s1, [img, *params], allow_unused=True)
+        # the parameters that the finest fake does not read get no gradient
+        got[run] = [x.detach().double().cpu() for x in (img, *grads) if x is not None]
+    ref, cpu = got["f64"], got["cpu"]
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+    out = {}
+    for run in ("cpu", "cuDNN off", "cuDNN on"):
+        x = got[run]
+        out["fake", run] = rel(x[0], ref[0])
+        out["image gradient", run] = rel(x[1], ref[1])
+        units = [(a - r).norm().item() / (2 * (c - r).norm().item() + 1e-5 * r.norm().item())
+                 for a, c, r in zip(x[2:], cpu[2:], ref[2:])]
+        out["G median units", run] = float(np.median(units))
+    return out
+
+
+def damsm_input_grads(torch, enc, text_sd, batch, img) -> dict:
+    """SimpleCNN's backward alone: the gradient of the DAMSM words and
+    sentence losses (the seeded text encoder's embeddings of the batch's
+    captions) into `img` (NHWC, 256 px; `damsm_fake`), through `enc` in
+    eval mode as the GAN trainer runs it, on the CPU in float32 and on the
+    card with cuDNN off and on, each against the CPU's float64: (a) the
+    whole encoder, its resize matrices float64 in the float64 run; (b) from
+    the 137 px input the CPU's float32 resize gives, so that only the
+    arithmetic of the convolutions, BNs and losses differs, with the ReLUs
+    whose input has another sign than in float64. Also how many entries of
+    the 256 -> 137 resize matrix the card computes otherwise than the CPU.
+    Returns {(a|b|matrix, what): number}."""
+    import copy
+
+    from tgsr_tpu_torch.losses.damsm import sent_loss, words_loss
+    from tgsr_tpu_torch.models.image_encoder import SIMPLE_SIZE
+    from tgsr_tpu_torch.models.text_encoder import TextEncoder
+    from tgsr_tpu_torch.ops.image import resize, resize_weights
+
+    text = TextEncoder(41, 300, 256)
+    text.load_state_dict(text_sd)
+    with torch.no_grad():
+        words, sent = text.eval()(batch["captions"].long(), batch["cap_lens"].long())
+    small = resize(img.float().cpu(), (SIMPLE_SIZE, SIMPLE_SIZE), "bilinear")
+
+    def grad(x, device, dtype, cudnn):
+        e = copy.deepcopy(enc).to(device, dtype).eval()
+        acts = []
+        for name in ("bn0", "bn1", "bn2", "conv_17"):  # the ReLUs' inputs
+            getattr(e, name).register_forward_hook(lambda m, i, o: acts.append(o.detach().cpu()))
+        x = x.to(device, dtype).requires_grad_()
+        lens = batch["cap_lens"].to(device)
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            feat, code = e(x)
+            w0, w1, _ = words_loss(feat, words.to(device, dtype), lens, None, 4.0, 5.0, 10.0)
+            s0, s1 = sent_loss(code, sent.to(device, dtype), None, 10.0)
+            (g,) = torch.autograd.grad(w0 + w1 + s0 + s1, x)
+        return g.double().cpu(), acts
+
+    mats = [resize_weights(256, SIMPLE_SIZE, "bilinear", device=d).cpu() for d in ("cpu", "cuda")]
+    out = {("matrix", "card entries off the CPU's"): int((mats[0] != mats[1]).sum())}
+    for part, x in (("a", img), ("b", small)):
+        ref, ref_acts = grad(x, "cpu", torch.float64, True)
+        gs = {}
+        for run, device, cudnn in (("cpu", "cpu", True), ("cuDNN off", "cuda", False),
+                                   ("cuDNN on", "cuda", True)):
+            g, acts = gs[run] = grad(x, device, torch.float32, cudnn)
+            out[part, run] = ((g - ref).norm() / ref.norm()).item()
+            if part == "b":
+                out[part, f"{run} ReLU flips"] = sum(int(((a > 0) != (r > 0)).sum())
+                                                     for a, r in zip(acts, ref_acts))
+        # the median element's error, robust to a few flipped ReLUs (each
+        # moves the gradient in one receptive field); the controls: the
+        # card's cuDNN-off gradient off by 1 + delta, what a fault reads
+        cpu = (gs["cpu"][0] - ref).abs().median().item()
+        for run in ("cuDNN off", "cuDNN on"):
+            out[part, f"{run} median element error / the CPU's"] = (
+                (gs[run][0] - ref).abs().median().item() / cpu)
+        for d in CONTROL_DELTAS:
+            out[part, f"control x (1 + {d:g}) median element error / the CPU's"] = (
+                (gs["cuDNN off"][0] * (1 + d) - ref).abs().median().item() / cpu)
+    return out
+
+
+def step_readings(torch, seeds: list, out_path: str, damsm: bool = False) -> int:
     """`step_against_cpu` on the face S8 batches of `seeds`: per card step,
-    the median, 90th percentile and largest relative L2 error on each
-    batch, and each gradient tensor's largest ratio over them, printed (the
-    ten largest) and written to `out_path` as JSON."""
+    the 10th, 50th and 90th percentiles and the largest relative L2 error on
+    each batch, and each gradient tensor's largest ratio over them, printed
+    (the ten largest) and written to `out_path` as JSON. `damsm`: G's step
+    (D frozen) with the DAMSM terms of a SimpleCNNEncoder trained one epoch
+    by cli.pretrain_damsm, as damsm_phase makes it, on batches without an
+    empty caption; and, per batch, that encoder's backward alone
+    (`damsm_input_grads`)."""
+    import tempfile
+
     from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
     from tgsr_tpu_torch.config import face_s8_config
 
     cfg = face_s8_config()
     text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(14))
-    most, stats = {}, {}
-    for seed in seeds:
-        batch = train_batch(torch, np.random.default_rng(seed), 4, device="cpu")
-        for key, r in step_against_cpu(torch, cfg, text_sd, batch).items():
-            if isinstance(key[0], str):
-                stats.setdefault(f"D lr {key[1]}, {key[2]}", {}).setdefault(key[0], []).append(r)
-                continue
-            got = most.setdefault(f"D lr {key[0]}, {key[1]}", {})
-            for name, v in r.items():
-                got[name] = max(v, got.get(name, 0.0))
-    for key, ratios in most.items():
-        top = sorted(ratios.items(), key=lambda kv: -kv[1])[:10]
-        per = "; ".join(f"{q}s {', '.join(f'{v:.3g}' for v in vals)}"
-                        for q, vals in stats[key].items())
-        print(f"{key}: {per}; largest over seeds {seeds}: "
-              + ", ".join(f"{k} {v:.4g}" for k, v in top), flush=True)
+    kw = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if damsm:
+            from tgsr_tpu_torch.cli import pretrain_damsm, train_gan
+
+            data, yml, _ = damsm_face_data(np.random.default_rng(0), tmp)
+            run = pretrain_damsm.main(["--cfg", yml, "--data_dir", data, "--out_dir",
+                                       os.path.join(tmp, "damsm"), "--manualSeed", "5",
+                                       "--simple-cnn"])
+            enc = train_gan.load_image_encoder_module(
+                os.path.join(run["out_dir"], "Model", "image_encoder0.msgpack"), 256)
+            control = {f"the terms x (1 + {d:g})": {"damsm": 1 + d} for d in CONTROL_DELTAS}
+            kw = {"image_encoder": enc, "d_lrs": (0.0,), "control": control}
+        most, stats = {}, {}
+        for seed in seeds:
+            batch = train_batch(torch, np.random.default_rng(seed), 4, device="cpu",
+                                empty=not damsm)
+            for key, r in step_against_cpu(torch, cfg, text_sd, batch, **kw).items():
+                if isinstance(key[0], str):
+                    stats.setdefault(f"D lr {key[1]}, {key[2]}", {}).setdefault(
+                        key[0], []).append(r)
+                    continue
+                got = most.setdefault(f"D lr {key[0]}, {key[1]}", {})
+                for name, v in r.items():
+                    got[name] = max(v, got.get(name, 0.0))
+            if damsm:
+                fake = damsm_fake(torch, cfg, text_sd, batch, enc)
+                for (part, run), v in damsm_input_grads(torch, enc, text_sd, batch,
+                                                        fake).items():
+                    stats.setdefault(f"encoder backward ({part})", {}).setdefault(
+                        run, []).append(v)
+    for key, vals in stats.items():
+        per = "; ".join(f"{q} {', '.join(f'{v:.3g}' for v in vs)}" for q, vs in vals.items())
+        top = sorted(most.get(key, {}).items(), key=lambda kv: -kv[1])[:10]
+        print(f"{key}: {per}" + (f"; largest over seeds {seeds}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in top) if top else ""), flush=True)
     with open(out_path, "w") as f:
         json.dump({"largest": most, "per batch": stats}, f, indent=1)
     return 1 if FAILURES else 0
@@ -2919,7 +3602,7 @@ def main() -> int:
             lo, _, hi = part.partition("-")
             seeds += range(int(lo), int(hi or lo) + 1)
         out = args[args.index("--out") + 1] if "--out" in args else "step_readings.json"
-        return step_readings(torch, seeds, out)
+        return step_readings(torch, seeds, out, damsm="--damsm" in args)
     secs = _build.build()
     print(f"built kernels {list(_build.KERNELS)} in {secs:.1f} s", flush=True)
     for name in _build.KERNELS:
@@ -2972,12 +3655,21 @@ def main() -> int:
         launches.update(train_phase(torch, rng, card, tmp))
     print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    # under PyTorch's default TF32 switches (cuDNN's on), as a user's run of
+    # the CLIs has them: the trainers and the ranking turn TF32 off
+    with tempfile.TemporaryDirectory() as tmp, torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=True):
+        launches.update(damsm_phase(torch, rng, card, tmp))
+    print(f"damsm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows
     print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # launches: the runs of each path, the serving forward in f32, bf16 and
     # int8, the CLIs' runs, the x16 family's runs, the training runs ("train
-    # float32", "train bfloat16", "train cli") and the conv probe (counted
+    # float32", "train bfloat16", "train cli"), the DAMSM terms' GAN runs
+    # ("damsm gan float32", "damsm gan bfloat16", "damsm gan cli") and the
+    # conv probe (counted
     # apart per path; "launches" is their sum); "x16": the kernel at the x16
     # family's shapes, its launches those of the x16 runs
     for k in kernels:

@@ -139,13 +139,43 @@ def test_init_netg_from_a_snapshot(env, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--resume"], "A 10"), (["--mesh", "8x1"], "A 10"), (["--fsdp"], "A 10"),
-    (["--remat"], "What comes next"), (["--image_encoder", "cnn.msgpack"], "A 7"),
+    (["--remat"], "What comes next"), (["--remat", "all"], "What comes next"),
     (["--tensorboard"], "A 10"),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(env, argv, item):
     with pytest.raises(SystemExit, match=item):
         train_gan.main(env["base"] + ["--out_dir", str(env["root"] / "never")] + argv)
     assert not os.path.exists(env["root"] / "never")
+
+
+@pytest.mark.parametrize("family", ["simple", "inception"])
+def test_image_encoder_adds_the_damsm_terms(env, family, capsys):
+    """--image_encoder: a SimpleCNN `.msgpack` snapshot (cli.pretrain_damsm's
+    form) or a reference-named Inception image_encoder `.pth`, the family
+    read from the tree; every metric row then carries JAX's w_loss and
+    s_loss, finite. A missing file exits naming it."""
+    from tgsr_tpu_torch.checkpoints.from_jax import (cnn_encoder_variables,
+                                                     seeded_cnn_encoder_state_dict)
+    from tgsr_tpu_torch.checkpoints.io import save_variables
+
+    sd = seeded_cnn_encoder_state_dict(family == "simple", 32, torch.Generator().manual_seed(2))
+    if family == "simple":
+        path = str(env["root"] / "image_encoder0.msgpack")
+        save_variables(path, cnn_encoder_variables(sd))
+    else:
+        path = str(env["root"] / "image_encoder7.pth")
+        torch.save(sd, path)
+    out = str(env["root"] / f"out_damsm_{family}")
+    s = train_gan.main(env["base"] + ["--out_dir", out, "--epochs", "1", "--image_encoder", path])
+    want = "SimpleCNNEncoder" if family == "simple" else "CNNEncoder"
+    assert f"DAMSM terms from {want} {path}" in capsys.readouterr().out
+    assert s["steps"] == 2
+    with open(os.path.join(out, "Log", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [set(r) for r in rows] == [METRIC_KEYS | {"w_loss", "s_loss"}] * 2
+    assert all(np.isfinite(r[k]) for r in rows for k in r)
+    with pytest.raises(SystemExit, match="--image_encoder not found"):
+        train_gan.main(env["base"] + ["--out_dir", out, "--image_encoder", path + ".absent"])
 
 
 def test_loss_weight_flag_is_checked(env):

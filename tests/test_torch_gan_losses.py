@@ -96,9 +96,53 @@ def test_generator_loss_matches_jax(with_uncond):
 
 
 def test_generator_loss_with_an_image_encoder_is_refused():
+    """An image encoder without the words and lengths its DAMSM terms read
+    is refused (the terms themselves: the next test)."""
     _, td = _both(4, True)
-    with pytest.raises(NotImplementedError, match="A 7"):
+    with pytest.raises(ValueError, match="words_embs and cap_lens"):
         gan.generator_loss([td], lambda img: img, [torch.zeros(2, 8, 8, 3)], torch.zeros(2, E))
+
+
+@pytest.mark.parametrize("class_ids", [None, [0, 1, 0, 2]], ids=["no-classes", "classes"])
+def test_generator_loss_damsm_terms_match_jax(class_ids):
+    """generator_loss with an image encoder (the same linear map of the
+    finest fake to 289 regions and a code on both sides): the words and
+    sentence terms times w, s and SMOOTH.LAMBDA inside the total, JAX's
+    logs, and the gradient into the fake images."""
+    jd, td = _both(6, True)
+    rng = np.random.default_rng(7)
+    fake = [rng.uniform(-1, 1, (B, s, s, 3)).astype(np.float32) for s in (8, 16)]
+    sent = rng.normal(size=(B, E)).astype(np.float32)
+    words = rng.normal(size=(B, 6, E)).astype(np.float32)
+    lens = np.array([6, 1, 3, 4], np.int32)
+    pr, pc = (rng.normal(size=s).astype(np.float32) for s in ((3, 289 * E), (3, E)))
+
+    def encoder(xp, pr, pc):
+        def enc(img):
+            m = xp.mean(img, axis=(1, 2))
+            return (m @ pr).reshape(img.shape[0], 289, E), m @ pc
+        return enc
+
+    kw = dict(gammas=(4.0, 5.0, 10.0), smooth_lambda=2.0, w=0.5, s=3.0)
+    cls = None if class_ids is None else np.asarray(class_ids, np.int32)
+
+    def jtotal(fake):
+        return jgan.generator_loss([jd, jd], encoder(jnp, jnp.asarray(pr), jnp.asarray(pc)), fake,
+                                   jnp.asarray(sent), jnp.asarray(words), jnp.asarray(lens),
+                                   None if cls is None else jnp.asarray(cls), **kw)
+
+    (jt, jlogs), jgrad = jax.value_and_grad(jtotal, has_aux=True)([jnp.asarray(f) for f in fake])
+    tf = [torch.from_numpy(f).requires_grad_() for f in fake]
+    tt, tlogs = gan.generator_loss(
+        [td, td], encoder(torch, torch.from_numpy(pr), torch.from_numpy(pc)), tf,
+        torch.from_numpy(sent), torch.from_numpy(words), torch.from_numpy(lens),
+        None if cls is None else torch.from_numpy(cls), **kw)
+    assert set(tlogs) == set(jlogs) == {"g_loss0", "g_loss1", "w_loss", "s_loss"}
+    np.testing.assert_allclose(tt.item(), float(jt), **TOL)
+    for k in jlogs:
+        np.testing.assert_allclose(tlogs[k].item(), float(jlogs[k]), **TOL)
+    for f, r in zip(torch.autograd.grad(tt, tf), jgrad):
+        np.testing.assert_allclose(f.numpy(), np.asarray(r), rtol=1e-4, atol=1e-6)
 
 
 def test_pixel_losses_match_jax():

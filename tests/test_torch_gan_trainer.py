@@ -239,8 +239,8 @@ def test_loss_weights_scale_the_g_terms():
                                rtol=1e-6)
     np.testing.assert_allclose(m["d_loss"], runs["plain"][0]["d_loss"], rtol=1e-6)
     assert any(not torch.equal(a, b) for a, b in zip(runs["plain"][1], runs["weighted"][1]))
-    with pytest.raises(ValueError, match="damsm"):
-        GANTrainer(tcfg, VOCAB, tv, loss_weights={"damsm": 1.0}, device="cpu")
+    with pytest.raises(ValueError, match="vgg"):
+        GANTrainer(tcfg, VOCAB, tv, loss_weights={"vgg": 1.0}, device="cpu")
 
 
 @pytest.mark.parametrize("with_blur", [False, True])
@@ -257,12 +257,15 @@ def test_device_preprocess_matches_jax(with_blur):
 
 
 def test_x16_and_the_image_encoder_are_refused():
+    """x16 training waits for ROADMAP What comes next 1; an image encoder
+    that is not a DAMSM encoder module is refused (the DAMSM terms take a
+    CNNEncoder or SimpleCNNEncoder, tests below)."""
     _, tcfg16 = train_configs(branch_num=5)
     tv = text_state_dict(text_vars())
     with pytest.raises(NotImplementedError, match="What comes next"):
         GANTrainer(tcfg16, VOCAB, tv, device="cpu")
     _, tcfg = train_configs()
-    with pytest.raises(NotImplementedError, match="A 7"):
+    with pytest.raises(TypeError, match="CNNEncoder"):
         GANTrainer(tcfg, VOCAB, tv, image_encoder=lambda x: x, device="cpu")
 
 
@@ -286,3 +289,129 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GANTrainer(tcfg, VOCAB, text_state_dict(text_vars()))
+
+
+# -- the DAMSM terms (GANTrainer(image_encoder=...)) ---------------------------
+
+DAMSM_CLASS_IDS = np.array([0, 1, 0], np.int32)  # a repeated class masks a negative
+
+
+def encoder_pair(family):
+    """(JAX module, its seeded tree as numpy, the port's module loaded with
+    it) of one DAMSM image-encoder family at the tiny tree's nef."""
+    from flax.core import unfreeze
+
+    from tgsr_tpu.models import image_encoder as jie
+    from tgsr_tpu_torch.checkpoints.from_jax import cnn_encoder_state_dict
+    from tgsr_tpu_torch.models.image_encoder import make_image_encoder
+    from tests.torch_parity import _perturb
+    from tests.torch_train_parity import EMB
+
+    jm = jie.SimpleCNNEncoder(nef=EMB) if family == "simple" else jie.CNNEncoder(nef=EMB)
+    size = 64 if family == "simple" else 299
+    v = jax.jit(lambda k: jm.init(k, jnp.zeros((1, size, size, 3))))(jax.random.PRNGKey(3))
+    v = _perturb(unfreeze(jax.tree.map(np.asarray, v)), np.random.default_rng(3))
+    pm = make_image_encoder(family == "simple", EMB)
+    pm.load_state_dict(cnn_encoder_state_dict(v), strict=True)
+    return jm, v, pm
+
+
+def damsm_batch(seed=0):
+    """No empty caption: its words loss is the -1e9 sentinel's (about 1e9
+    gamma3 / B) in both packages, which would bury the other terms."""
+    return {**batch(B, (6, 3, 1), seed=seed), "class_ids": DAMSM_CLASS_IDS}
+
+
+def test_damsm_terms_simple_cnn_match_jax(jax_init):
+    """SimpleCNNEncoder's terms (w_loss, s_loss inside adv, their gradient
+    into G through the finest fake) against JAX's GANTrainer(
+    image_encoder_apply=...) on one step, at the gates of the one-step test;
+    'damsm' 0.5 scales both terms as JAX's."""
+    jt0, js = jax_init
+    jcfg, tcfg = train_configs()
+    jm, v, pm = encoder_pair("simple")
+    jt = JGANTrainer(jcfg, VOCAB, text_vars(), image_encoder_apply=lambda img: jm.apply(v, img),
+                     reuse_g_forward=True, loss_weights={"damsm": 0.5})
+    js = js.replace(g_opt=jt.g_tx.init(js.g_params), d_opt=jt.d_tx.init(js.d_params))
+    pt = GANTrainer(tcfg, VOCAB, text_state_dict(text_vars()), image_encoder=pm,
+                    loss_weights={"damsm": 0.5}, device="cpu")
+    ps = pt.init_state(torch.Generator().manual_seed(0))
+    load_jax_state(pt, ps, js)
+    b = damsm_batch()
+    js, jm_, _ = jt.train_step(js, jax_batch(b), jax.random.PRNGKey(2))
+    pm_ = pt.train_step(ps, b)
+    jmet = {k: float(v) for k, v in jm_.items()}
+    pmet = {k: float(v) for k, v in pm_.items()}
+    assert {"w_loss", "s_loss"} <= set(pmet)
+    check_step(jmet, jax_trees(js), pmet, port_trees(ps))
+    assert not any(p.grad is not None for p in pm.parameters())
+
+
+def test_inception_damsm_terms_give_g_no_gradient(jax_init):
+    """The Inception family's DAMSM terms add to G's loss and send G no
+    gradient, in both packages: CNNEncoder's frozen backbone (JAX's
+    default freeze_backbone, stop_gradient) cuts both backbone outputs
+    from the graph, and the heads' inputs are all that the fake reaches. G's step with the terms equals
+    the step without them (the port: bit for bit; JAX: to 1e-7 of each
+    tensor's largest entry), while w_loss and s_loss agree between the
+    packages (rtol 1e-4)."""
+    jt0, js0 = jax_init
+    jcfg, tcfg = train_configs()
+    jm, v, pm = encoder_pair("inception")
+    b = damsm_batch(seed=4)
+    jruns, pruns = {}, {}
+    for tag, enc in (("plain", None), ("inception", pm)):
+        jt = (jt0 if enc is None else JGANTrainer(
+            jcfg, VOCAB, text_vars(), image_encoder_apply=lambda img: jm.apply(v, img),
+            reuse_g_forward=True))
+        js = js0.replace(g_opt=jt.g_tx.init(js0.g_params), d_opt=jt.d_tx.init(js0.d_params))
+        js, m, _ = jt.train_step(js, jax_batch(b), jax.random.PRNGKey(2))
+        jruns[tag] = ({k: float(x) for k, x in m.items()}, jax_trees(js))
+        pt = GANTrainer(tcfg, VOCAB, text_state_dict(text_vars()), image_encoder=enc,
+                        device="cpu")
+        ps = pt.init_state(torch.Generator().manual_seed(0))
+        load_jax_state(pt, ps, js0)
+        m = pt.train_step(ps, b)
+        pruns[tag] = ({k: float(x) for k, x in m.items()}, port_trees(ps))
+    for k in ("w_loss", "s_loss"):
+        np.testing.assert_allclose(pruns["inception"][0][k], jruns["inception"][0][k], rtol=1e-4)
+    for runs, exact in ((pruns, True), (jruns, False)):
+        (m0, t0), (m1, t1) = runs["plain"], runs["inception"]
+        np.testing.assert_allclose(m1["g_loss"], m0["g_loss"] + m1["w_loss"] + m1["s_loss"],
+                                   rtol=1e-5)
+        for part in ("g_mu", "g_params"):
+            for k, a in flat(t0[part]).items():
+                got = flat(t1[part])[k]
+                if exact:
+                    np.testing.assert_array_equal(got, a, err_msg=f"{part} {k}")
+                else:
+                    np.testing.assert_allclose(got, a, rtol=0, atol=1e-7 * np.abs(a).max(),
+                                               err_msg=f"{part} {k}")
+
+
+def test_steps_run_with_tf32_off(monkeypatch):
+    """train_step and super_resolve run with cuDNN's and cuBLAS's TF32
+    switches off whatever the caller set, and leave them as they were."""
+    import tgsr_tpu_torch.engine.gan_trainer as mod
+
+    seen = []
+    kl = mod.kl_loss
+    monkeypatch.setattr(mod, "kl_loss", lambda *a: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)) or kl(*a))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    _, tcfg = train_configs()
+    t = GANTrainer(tcfg, VOCAB, text_state_dict(text_vars()), device="cpu")
+    s = t.init_state(torch.Generator().manual_seed(0))
+    b = batch(B, LENS)
+    t.train_step(s, b)
+    forward = s.netg.forward
+
+    def spy(*a, **kw):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return forward(*a, **kw)
+
+    monkeypatch.setattr(s.netg, "forward", spy)
+    t.super_resolve(s, b)
+    assert seen == [(False, False)] * 2
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32

@@ -4,8 +4,8 @@ numpy-seeded inputs, on the CPU.
 Tolerances: the resizes (jax.image.resize's linear and cubic, antialiased,
 up and down, square and not; torch's bicubic weights), the gaussian blur
 and SSIM within 1e-5 absolute (float32 sums of the same products in
-another order); rgb2y, normalize and denormalize equal; PSNR within
-1e-4 dB.
+another order), in float64 within 1e-12 of JAX's with x64 on; rgb2y,
+normalize and denormalize equal; PSNR within 1e-4 dB.
 """
 
 import jax.numpy as jnp
@@ -37,6 +37,24 @@ def test_resize_matches_jax(method, src, dst):
     x = rng.uniform(-1, 1, (2, *src, 3)).astype(np.float32)
     j, t = _pair(x)
     _close(timage.resize(t, dst, method), jimage.resize(j, dst, method), 1e-5)
+
+
+@pytest.mark.parametrize("method", ["bilinear", "cubic"])
+@pytest.mark.parametrize("src, dst", [((32, 32), (137, 137)), ((256, 256), (137, 137)),
+                                      ((12, 20), (5, 7))])
+def test_resize_float64_matches_jax_x64(method, src, dst):
+    """A float64 resize is float64 throughout, its matrices too, as JAX's
+    with x64 on: within 1e-12 (float32 matrices would part by 1e-7)."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, (2, *src, 3))
+    with jax.enable_x64(True):
+        want = jimage.resize(jnp.asarray(x), dst, method)
+        assert want.dtype == jnp.float64
+    got = timage.resize(torch.from_numpy(x), dst, method)
+    assert got.dtype == torch.float64
+    _close(got, want, 1e-12)
 
 
 @pytest.mark.parametrize("method", ["linear", "cubic"])

@@ -28,6 +28,12 @@ The conv probe's four tensor-core kernels (`tap9`, `im2col`, `pair5`,
 one bfloat16 ulp elementwise (`conv_probe.max_ulps`: float32 sums in another
 order, each output rounded once).
 
+DAMSM (no kernel of its own): a DAMSMTrainer step (SimpleCNN and
+Inception) and a GAN step with the DAMSM terms on the card against the
+same steps on the CPU (metrics rtol 1e-4; gradients relative L2 1e-3 per
+tensor), and the attention's backward kernel reached by the DAMSM terms'
+gradient alone.
+
 bfloat16: attention against the plain version in float32 on the same
 bfloat16 inputs, rtol = 2^-8, atol = 1e-5 (the kernel computes in float32
 and rounds each output once to bfloat16, half an ulp = 2^-9 relative); the
@@ -1266,3 +1272,130 @@ def test_gan_trainer_step_card_matches_cpu(cuda_device, dtype):
     rtol = 1e-4 if dtype == torch.float32 else 5e-2
     for k, v in metrics["cpu"].items():
         np.testing.assert_allclose(metrics[str(cuda_device)][k], v, rtol=rtol, err_msg=k)
+
+
+def _damsm_cfg():
+    import dataclasses
+
+    from tgsr_tpu_torch.config import EvalConfig, SmoothConfig, TrainConfig
+
+    return Config(TREE=TreeConfig(1, 64), TEXT=TextConfig(32, 6), EVAL=EvalConfig(),
+                  TRAIN=dataclasses.replace(TrainConfig(), ENCODER_LR=2e-3,
+                                            SMOOTH=SmoothConfig(4.0, 5.0, 10.0)))
+
+
+@pytest.mark.parametrize("family", ["simple", "inception"])
+def test_damsm_step_card_matches_cpu(cuda_device, family):
+    """One DAMSMTrainer step at B = 4 (64 px images, nef 32, T 6), the same
+    seeded init, batch and dropout on the card and on the CPU: metrics
+    within rtol 1e-4, each trainable gradient (Adam's first moment) within
+    relative L2 1e-3 (the CNN's float32 convolutions in another order, and
+    for SimpleCNN its train-mode BN backward), the BN running stats within
+    1e-4 (|x| + 1)."""
+    from tgsr_tpu_torch.engine.damsm_trainer import DAMSMTrainer
+
+    cfg = _damsm_cfg()
+    rng = np.random.default_rng(1)
+    caps = rng.integers(1, 12, (4, 6))
+    caps[1, 3:] = 0
+    caps[2, 1:] = 0
+    b = {"hr": rng.integers(0, 256, (4, 64, 64, 3)).astype(np.uint8), "captions": caps,
+         "cap_lens": np.array([6, 3, 1, 6]), "class_ids": np.arange(4)}
+    out = {}
+    for device in ("cpu", cuda_device):
+        t = DAMSMTrainer(cfg, 12, use_inception=family == "inception", seed=5, device=device)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        m = t.train_step(s, t.device_batch(b), t.epoch_lr(0))
+        grads = {n: s.opt.state[p]["exp_avg"].cpu() for n, p in t.trainable(s.text, s.cnn)}
+        stats = {k: v.cpu() for k, v in s.cnn.state_dict().items() if "running" in k}
+        out[str(device)] = ({k: float(v) for k, v in m.items()}, grads, stats)
+    (mc, gc, sc), (mg, gg, sg) = out["cpu"], out[str(cuda_device)]
+    for k, v in mc.items():
+        np.testing.assert_allclose(mg[k], v, rtol=1e-4, err_msg=k)
+    for n, ref in gc.items():
+        rel = ((gg[n] - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-3, (n, rel)
+    for k, ref in sc.items():
+        assert ((sg[k] - ref).abs() <= 1e-4 * (ref.abs() + 1)).all(), k
+
+
+def _damsm_gan(device, image_encoder):
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.config import EvalConfig
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(16, 10, 2, DF_DIM=16),
+                 TEXT=TextConfig(32, 6), EVAL=EvalConfig())
+    text_sd = seeded_text_state_dict(cfg, 12, torch.Generator().manual_seed(3))
+    t = GANTrainer(cfg, 12, text_sd, image_encoder=image_encoder, device=device)
+    return t, t.init_state(torch.Generator().manual_seed(0))
+
+
+def _damsm_gan_batch():
+    rng = np.random.default_rng(2)
+    caps = rng.integers(1, 12, (3, 6))
+    caps[1, 3:] = 0
+    return {"lr": rng.uniform(-1, 1, (3, 8, 8, 3)).astype(np.float32),
+            "real_pyramid": [rng.uniform(-1, 1, (3, s, s, 3)).astype(np.float32)
+                             for s in (16, 32, 64)],
+            "captions": caps, "cap_lens": np.array([6, 3, 6]), "class_ids": np.array([0, 1, 0])}
+
+
+def _simple_encoder():
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_cnn_encoder_state_dict
+    from tgsr_tpu_torch.models.image_encoder import SimpleCNNEncoder
+
+    enc = SimpleCNNEncoder(32)
+    enc.load_state_dict(seeded_cnn_encoder_state_dict(True, 32, torch.Generator().manual_seed(4)))
+    return enc
+
+
+def test_gan_step_with_damsm_terms_card_matches_cpu(cuda_device):
+    """A GANTrainer step with SimpleCNNEncoder's DAMSM terms (narrow x8
+    tree), card against CPU: 3 + 3 attention launches, every metric (w_loss
+    and s_loss among them) within rtol 1e-4, float32, TF32 off."""
+    import copy
+
+    enc = _simple_encoder()
+    b = _damsm_gan_batch()
+    metrics = {}
+    for device in ("cpu", cuda_device):
+        t, s = _damsm_gan(device, copy.deepcopy(enc))
+        before = dict(_build.LAUNCHES)
+        metrics[str(device)] = {k: float(v) for k, v in t.train_step(s, b).items()}
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert launched["word_pixel_attention"] == 3 and launched["word_pixel_attention_bwd"] == 3
+    assert {"w_loss", "s_loss"} <= set(metrics["cpu"])
+    for k, v in metrics["cpu"].items():
+        np.testing.assert_allclose(metrics[str(cuda_device)][k], v, rtol=1e-4, err_msg=k)
+
+
+def test_attention_backward_through_the_damsm_gradient(cuda_device):
+    """G's gradient of the DAMSM terms alone (generator_loss with no
+    discriminator, SimpleCNNEncoder on the finest fake) reaches every
+    attention site through the backward kernel (3 launches) and equals the
+    CPU's within relative L2 1e-3 per tensor."""
+    import copy
+
+    from tgsr_tpu_torch.losses.gan import generator_loss
+
+    enc = _simple_encoder()
+    b = _damsm_gan_batch()
+    grads = {}
+    for device in ("cpu", cuda_device):
+        t, s = _damsm_gan(device, copy.deepcopy(enc))
+        lr, words, sent, mask = t._inputs(b)
+        _, fine, _, _ = t._generate(s, lr, words, sent, mask)
+        loss, logs = generator_loss([], t._encode, fine, sent, words,
+                                    torch.as_tensor(b["cap_lens"], device=device), None)
+        names, params = zip(*s.g_named_parameters())
+        before = _build.LAUNCHES["word_pixel_attention_bwd"]
+        g = torch.autograd.grad(loss, params, allow_unused=True)
+        launched = _build.LAUNCHES["word_pixel_attention_bwd"] - before
+        grads[str(device)] = {n: x.cpu() for n, x in zip(names, g) if x is not None}
+    assert launched == 3
+    assert grads["cpu"].keys() == grads[str(cuda_device)].keys()
+    assert any("att" in n for n in grads["cpu"])
+    for n, ref in grads["cpu"].items():
+        rel = ((grads[str(cuda_device)][n] - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+        assert rel <= 1e-3, (n, rel)

@@ -45,7 +45,9 @@ def test_walk_covers_every_port_package():
         assert os.path.join("tgsr_tpu_torch", sub) in dirs
     files = _port_files()
     for rel in ("cli/serve.py", "cli/test.py", "cli/calibrate.py", "data/datasets.py",
-                "data/pipeline.py", "utils/visualize.py", "utils/skimage_compat.py"):
+                "data/pipeline.py", "utils/visualize.py", "utils/skimage_compat.py",
+                "cli/pretrain_damsm.py", "cli/eval_rank.py", "engine/damsm_trainer.py",
+                "losses/damsm.py", "models/image_encoder.py"):
         assert os.path.join(ROOT, "tgsr_tpu_torch", *rel.split("/")) in files, rel
 
 

@@ -323,6 +323,21 @@ def dnet_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return out
 
 
+def init_module(module: nn.Module, gen: torch.Generator) -> None:
+    """The JAX init's scales from `gen`, in place: conv and Dense weights
+    N(0, 1 / fan_in) (flax's lecun_normal variance), biases 0, BN scale 1,
+    bias 0, running mean 0, var 1."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
 def _seed_module(module: nn.Module, gen: torch.Generator) -> StateDict:
     """Fill a module's weights from `gen` and return its state dict. Conv and
     Linear weights are N(0, 1/fan_in); BN running means and variances are
@@ -376,3 +391,92 @@ def seeded_text_state_dict(cfg: Config, vocab_size: int, generator: torch.Genera
     from tgsr_tpu_torch.models.text_encoder import TextEncoder
 
     return _seed_module(TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM), generator)
+
+
+def text_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `text_state_dict`: a RNN_ENCODER state dict -> the JAX
+    TextEncoder's {'params'} tree (LSTM weights [in, 4H])."""
+    params: Dict[str, Any] = {"embedding": _np(sd["encoder.weight"])}
+    for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        params[f"w_ih_{d}"] = _np(sd[f"rnn.weight_ih_l0{suffix}"]).T.copy()
+        params[f"w_hh_{d}"] = _np(sd[f"rnn.weight_hh_l0{suffix}"]).T.copy()
+        params[f"b_ih_{d}"] = _np(sd[f"rnn.bias_ih_l0{suffix}"])
+        params[f"b_hh_{d}"] = _np(sd[f"rnn.bias_hh_l0{suffix}"])
+    return {"params": params}
+
+
+# -- the DAMSM image encoders (models/image_encoder.py) ------------------------
+# Inception: each BasicConv2d is {conv: {kernel}, bn: {scale, bias}} under
+# params['inception'] at its torchvision path, its stats {bn: {mean, var}}
+# under batch_stats['inception']; the state dict keys are the torchvision
+# paths at the top level (`Mixed_5b.branch1x1.conv.weight`), as the
+# reference's CNN_ENCODER and tgsr_tpu's export_cnn_encoder write them.
+# SimpleCNN: conv{i}, bn{i}, conv_17 at the top level of both.
+
+def is_inception_state_dict(sd: Mapping[str, Any]) -> bool:
+    """The family test on a state dict; on a tree JAX's is `"inception" in
+    params` (tgsr_tpu/cli/train_gan.py)."""
+    return "Conv2d_1a_3x3.conv.weight" in sd
+
+
+def cnn_encoder_state_dict(variables: Mapping) -> StateDict:
+    """A JAX CNNEncoder or SimpleCNNEncoder tree -> the port's state dict of
+    that family (conv HWIO -> OIHW, Dense [in, out] -> [out, in],
+    emb_features -> a [nef, C, 1, 1] conv). A tree without the heads (a
+    converted zoo backbone) gives the backbone's keys only."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: StateDict = {}
+    if "inception" in params:
+        def walk(p: Mapping, s: Mapping, path: str) -> None:
+            if "kernel" in p.get("conv", {}):
+                out[f"{path}.conv.weight"] = _conv(p["conv"]["kernel"])
+                _put_bn(out, f"{path}.bn", p["bn"], s["bn"])
+                return
+            for name in p:
+                walk(p[name], s.get(name, {}), f"{path}.{name}" if path else name)
+
+        walk(params["inception"], stats.get("inception", {}), "")
+    else:
+        for key in [k for k in params if k.startswith("conv")]:
+            out[f"{key}.weight"] = _conv(params[key]["kernel"])
+        for key in [k for k in params if k.startswith("bn")]:
+            _put_bn(out, key, params[key], stats[key])
+    if "emb_features" in params:
+        out["emb_features.weight"] = _t(np.asarray(params["emb_features"]["kernel"]).T)[:, :, None, None]
+        out["emb_cnn_code.weight"] = _t(np.asarray(params["emb_cnn_code"]["kernel"]).T)
+        out["emb_cnn_code.bias"] = _t(params["emb_cnn_code"]["bias"])
+    return out
+
+
+def cnn_encoder_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `cnn_encoder_state_dict`: the JAX tree of either family
+    (num_batches_tracked dropped)."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    root = "inception/" if is_inception_state_dict(sd) else ""
+    names = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+             "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+    for k, v in sd.items():
+        mod, _, leaf = k.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if mod == "emb_features":
+            _set(out["params"], "emb_features/kernel", _np(v)[:, :, 0, 0].T.copy())
+        elif mod == "emb_cnn_code":
+            _set(out["params"], f"emb_cnn_code/{'kernel' if leaf == 'weight' else 'bias'}",
+                 _np(v).T.copy() if leaf == "weight" else _np(v))
+        elif v.dim() == 4:
+            key = mod.replace(".", "/")
+            _set(out["params"], f"{root}{key}/kernel", _np(v).transpose(2, 3, 1, 0).copy())
+        else:
+            coll, name = names[leaf]
+            _set(out[coll], f"{root}{mod.replace('.', '/')}/{name}", _np(v))
+    return out
+
+
+def seeded_cnn_encoder_state_dict(simple: bool, nef: int, generator: torch.Generator
+                                  ) -> StateDict:
+    """Random image-encoder weights of one family from `generator`, BN
+    statistics and affine moved away from (0, 1) as `init_seeded`'s."""
+    from tgsr_tpu_torch.models.image_encoder import make_image_encoder
+
+    return _seed_module(make_image_encoder(simple, nef), generator)

@@ -1,6 +1,6 @@
 """The reference's checkpoint files (counterpart of
-tgsr_tpu/checkpoints/convert_torch.py `paired_path` and
-`load_generator_pair`, for the families `config.check_served` names).
+tgsr_tpu/checkpoints/convert_torch.py `paired_path`, `load_generator_pair`
+for the families `config.check_served` names, and `convert_cnn_encoder`).
 
 A reference `.pth` already carries the port's key names and OIHW layouts, so
 it loads as it is, with `torch.load(weights_only=True)`, and the modules
@@ -16,8 +16,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, netg_state_dict,
-                                                 netgh_state_dict, text_state_dict)
+from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, cnn_encoder_state_dict,
+                                                 netg_state_dict, netgh_state_dict,
+                                                 text_state_dict)
 from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
 from tgsr_tpu_torch.config import Config, check_served
 
@@ -61,3 +62,19 @@ def load_text_encoder(path: str) -> StateDict:
     if path.endswith(".pth"):
         return _load_pth(path)
     return text_state_dict(load_variables(path))
+
+
+# the parts of torchvision's inception_v3 that CNN_ENCODER does not keep
+ZOO_ONLY = ("fc.", "AuxLogits.")
+
+
+def load_image_encoder(path: str) -> StateDict:
+    """A DAMSM image encoder's state dict: a reference `image_encoder<N>.pth`
+    (CNN_ENCODER: the Inception backbone under torchvision's names and the
+    two heads, as it loads strict into `CNNEncoder`), a bare torchvision
+    `inception_v3` zoo `.pth` (the backbone only: its `fc.` and `AuxLogits`
+    dropped, the heads left to the caller's init), or a `.msgpack` flax tree
+    of either family (`cli.pretrain_damsm`'s snapshots)."""
+    if path.endswith(".msgpack"):
+        return cnn_encoder_state_dict(load_variables(path))
+    return {k: v for k, v in _load_pth(path).items() if not k.startswith(ZOO_ONLY)}

@@ -4,7 +4,8 @@ step, KL and pixel MSE, the G EMA, and paired netG / netGH snapshots of the
 EMA weights, through `engine/gan_trainer.GANTrainer`.
 
   python -m tgsr_tpu_torch.cli.train_gan --cfg <train yml> --data_dir <root> \\
-      [--text_encoder text_encoder.pth] [--epochs N] [--bf16] [--device cpu]
+      [--text_encoder text_encoder.pth] [--image_encoder image_encoder0.msgpack] \\
+      [--epochs N] [--bf16] [--device cpu]
 
 The JAX CLI's flags, defaults and messages, plus `--device` (default
 "cuda"; "cpu" runs every kernel site's plain version). Each step's batch is
@@ -16,7 +17,9 @@ JAX's `load_variables` and the port's `SRPipeline` read). A non-finite
 metric aborts (never snapshotted); SIGTERM and Ctrl-C write the last step's
 snapshot pair and stop. JAX's orbax train-state checkpoints and the flags
 that need them or other unported parts (--resume, --mesh, --fsdp, --remat,
---image_encoder, --tensorboard) exit with the ROADMAP item that ports them.
+--tensorboard) exit with the ROADMAP item that ports them. --image_encoder
+(a `cli.pretrain_damsm` snapshot, or a reference image_encoder .pth) adds
+the DAMSM terms; its family comes from the tree, as JAX's.
 `main` returns a summary of the run.
 """
 
@@ -38,7 +41,6 @@ REFUSED = {
     "mesh": "ROADMAP A 10 (parallel/mesh.py as torch.distributed)",
     "fsdp": "ROADMAP A 10 (parallel/mesh.py as torch.distributed)",
     "remat": "ROADMAP 'What comes next' item 1 (x16 training with remat)",
-    "image_encoder": "ROADMAP A 7 (the image encoder and losses/damsm.py)",
     "tensorboard": "ROADMAP A 10 (utils/observability.py's TensorBoard mirror)",
 }
 
@@ -51,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--text_encoder", default="",
                         help="trained DAMSM text encoder (.msgpack/.pth)")
     parser.add_argument("--image_encoder", default="",
-                        help="trained DAMSM image encoder (not ported yet)")
+                        help="trained DAMSM image encoder (.msgpack snapshot or "
+                             "reference .pth; adds the DAMSM terms)")
     parser.add_argument("--epochs", type=int, default=0)
     parser.add_argument("--manualSeed", type=int, default=100)
     parser.add_argument("--log_every", type=int, default=20)
@@ -109,7 +112,24 @@ def _device_batch(cfg, batch, device):
                             cfg.TREE.BASE_SIZE, with_blur=False)
     return {"lr": pre["lr"], "real_pyramid": pre["pyramid"][1:],
             "captions": torch.from_numpy(batch["captions"]).to(device),
-            "cap_lens": torch.from_numpy(batch["cap_lens"]).to(device)}
+            "cap_lens": torch.from_numpy(batch["cap_lens"]).to(device),
+            "class_ids": torch.from_numpy(batch["class_ids"]).to(device)}
+
+
+def load_image_encoder_module(path: str, nef: int):
+    """The image encoder of a snapshot (`.msgpack`) or a reference `.pth`,
+    its family from the tree (JAX's `"inception" in params`), loaded
+    strict."""
+    from tgsr_tpu_torch.checkpoints.from_jax import is_inception_state_dict
+    from tgsr_tpu_torch.checkpoints.reference import load_image_encoder
+    from tgsr_tpu_torch.models.image_encoder import make_image_encoder
+
+    if not os.path.exists(path):
+        raise SystemExit(f"--image_encoder not found: {path}")
+    sd = load_image_encoder(path)
+    module = make_image_encoder(not is_inception_state_dict(sd), nef)
+    module.load_state_dict(sd, strict=True)
+    return module
 
 
 def _abort_if_nonfinite(metrics, it) -> None:
@@ -166,7 +186,11 @@ def main(argv=None):
         print("WARNING: no trained text encoder given; using seeded init")
         text_sd = seeded_text_state_dict(cfg, ds.n_words,
                                          torch.Generator().manual_seed(args.manualSeed))
-    trainer = GANTrainer(cfg, ds.n_words, text_sd,
+    image_encoder = None
+    if args.image_encoder:
+        image_encoder = load_image_encoder_module(args.image_encoder, cfg.TEXT.EMBEDDING_DIM)
+        print(f"DAMSM terms from {type(image_encoder).__name__} {args.image_encoder}")
+    trainer = GANTrainer(cfg, ds.n_words, text_sd, image_encoder=image_encoder,
                          compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                          loss_weights=loss_weights or None, device=args.device)
     device = trainer.device

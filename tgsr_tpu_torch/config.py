@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 
 @dataclass
@@ -175,6 +175,16 @@ def check_trained(cfg: Config) -> Config:
     return cfg
 
 
+def check_damsm(cfg: Config) -> Config:
+    """`cfg` as it is, or NotImplementedError: DAMSM pretraining reads any
+    tree geometry (its configs are BRANCH_NUM 1 at 299 px) and needs only
+    the LSTM text encoder (the GRU is ROADMAP A 4)."""
+    if cfg.RNN_TYPE != "LSTM":
+        raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the port's text encoder is "
+                                  "the LSTM")
+    return cfg
+
+
 def config_to_dict(cfg: Config) -> Dict[str, Any]:
     """Every field under the JAX schema's names; the JAX package's
     `config_from_dict` reads it."""
@@ -206,20 +216,22 @@ def _merge(src: Dict[str, Any], dst: Any, path: str) -> Any:
     return dataclasses.replace(dst, **updates)
 
 
-def config_from_dict(d: Dict[str, Any]) -> Config:
+def config_from_dict(d: Dict[str, Any], check: Callable[[Config], Config] = check_served
+                     ) -> Config:
     """A Config from a dict of the JAX schema (a YAML file, a bundle's
     config.json), merged over the schema's defaults. Raises
-    NotImplementedError on a setting the port does not serve
-    (`check_served`), KeyError on a key the schema does not have, ValueError
+    NotImplementedError on a setting the port does not serve (`check`,
+    `check_served` unless the caller names another, as the DAMSM trainer's
+    `check_damsm`), KeyError on a key the schema does not have, ValueError
     on a mismatched type."""
-    return check_served(_merge(d, Config(), ""))
+    return check(_merge(d, Config(), ""))
 
 
-def config_from_file(path: str) -> Config:
+def config_from_file(path: str, check: Callable[[Config], Config] = check_served) -> Config:
     """A Config from a YAML file of the schema (configs/*.yml), merged over
     the defaults as `config_from_dict` does."""
     with open(path, encoding="utf-8") as f:
-        return config_from_dict(load_yaml(f.read(), path))
+        return config_from_dict(load_yaml(f.read(), path), check)
 
 
 # -- the YAML subset of configs/*.yml -----------------------------------------

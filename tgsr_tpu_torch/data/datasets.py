@@ -7,7 +7,8 @@ Ported: `Example`, the shared caption base, `TextDataset` and `TextSRDataset`
 (the train vocabulary the example sets of bird, flower and coco are encoded
 with), `TextFaceDataset` (CelebA attribute captions, and the sentence-caption
 variant), `TextExampleSRDataset` (the filename-list + caption-pickle eval set),
-`prepare_batch` and `load_arbitrary_eval_image`. Images are read by
+`TextSRGTDataset` (generated SR images and their captions, which
+`cli/eval_rank.py` ranks), `prepare_batch` and `load_arbitrary_eval_image`. Images are read by
 data/codec.py (PNG only; the face eval set is PNG) and resized by its PIL-exact
 filters, so every crop and resize equals the JAX package's PIL path bit for
 bit. The JAX package prefers its native C++ loader for the eval crop when that
@@ -411,6 +412,63 @@ class TextSRDataset(TextDataset):
         if self.split != "train" and sent_ix is None:
             sent_ix = 0  # the deterministic test caption
         return super().__getitem__(index, rng, sent_ix)
+
+
+class TextSRGTDataset(_CaptionDatasetBase):
+    """Generated SR images and their captions, for ranking (= datasets.py
+    :1721-1885; tgsr_tpu/data/datasets.py:614-677). Two caption formats in
+    `txt`: face, the attribute table (a header of attribute names, then
+    'name|<flags>' lines whose 1s name the caption's words); other,
+    'name|caption text' lines."""
+
+    embeddings_num = 1
+
+    def __init__(self, vocab: Vocab, data_dir: str, image_dir: str, txt: str = "testset.txt",
+                 dataset: str = "bird", words_num: int = 18, imsize: int = 256):
+        self.vocab = vocab
+        self.data_dir = data_dir
+        self.image_dir = image_dir
+        self.words_num = words_num
+        self.imsize = imsize
+        self.filenames: List[str] = []
+        raw_caps: List[List[str]] = []
+        with open(os.path.join(data_dir, txt)) as f:
+            lines = f.readlines()
+        if dataset == "face":
+            attr_list = lines[0].split(" ")[:-1]
+            for line in lines[1:]:
+                parts = line.split("|")
+                if len(parts) < 2:
+                    continue
+                self.filenames.append(parts[0])
+                attr = parts[1].split(" ")
+                raw_caps.append([attr_list[i - 1] for i in range(1, len(attr))
+                                 if attr[i] in ("1", "1\n")])
+        else:
+            for line in lines:
+                line = line.strip()
+                if not line:
+                    continue
+                parts = line.split("|")
+                self.filenames.append(parts[0])
+                raw_caps.append(tokenize_caption(parts[1] if len(parts) > 1 else ""))
+        self.captions = [vocab.encode_tokens(t) for t in raw_caps]
+        self.class_id = np.arange(len(self.filenames))
+
+    def _image(self, index, rng=None):
+        """= transforms.CenterCrop(imsize), no resize (datasets.py:1726): a
+        side below imsize is zero-padded around the image first, as
+        torchvision's CenterCrop pads."""
+        img = load_image_rgb(os.path.join(self.image_dir, self.filenames[index]))
+        h, w = img.shape[:2]
+        if h < self.imsize or w < self.imsize:
+            canvas = np.zeros((max(h, self.imsize), max(w, self.imsize), 3), img.dtype)
+            top, left = (canvas.shape[0] - h) // 2, (canvas.shape[1] - w) // 2
+            canvas[top:top + h, left:left + w] = img
+            img = canvas
+            h, w = img.shape[:2]
+        top, left = max(0, (h - self.imsize) // 2), max(0, (w - self.imsize) // 2)
+        return img[top:top + self.imsize, left:left + self.imsize]
 
 
 def prepare_batch(examples: Sequence[Example]) -> Dict[str, np.ndarray]:

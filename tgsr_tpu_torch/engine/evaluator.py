@@ -1,18 +1,22 @@
 """Batched evaluation harness (counterpart of tgsr_tpu/engine/evaluator.py
-`evaluate_sr`): HR uint8 -> antialiased bilinear degrade -> SR through the
-pipeline's `__call__` -> Y-channel PSNR and SSIM against the HR, on the
-pipeline's device. DAMSM retrieval ranking (`rank_r_precision`) needs the
-image encoder and is not ported yet.
+`evaluate_sr`, `_rank_sims` and `rank_r_precision`): HR uint8 ->
+antialiased bilinear degrade -> SR through the pipeline's `__call__` ->
+Y-channel PSNR and SSIM against the HR, on the pipeline's device; and the
+DAMSM retrieval ranking of generated images by their captions, the
+similarity matrices on the device (the captions in blocks), the ranking on
+the host.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tgsr_tpu_torch.engine.precision import float32_math
+from tgsr_tpu_torch.losses.damsm import sent_similarity, words_similarity
 from tgsr_tpu_torch.ops.image import (denormalize_to_uint8, normalize_uint8, psnr_batch,
                                       resize, rgb2y, ssim)
 
@@ -54,3 +58,49 @@ def evaluate_sr(pipeline, batches: Iterable[Dict[str, np.ndarray]],
         "images": n,
         "images_per_sec_host_e2e": n / dt if dt > 0 else float("nan"),
     }
+
+
+# the elements of one [images, captions, T, R] attention block of the
+# ranking: 2^27 float32 (512 MiB), a few such tensors live at once
+RANK_BLOCK_ELEMS = 1 << 27
+
+
+@torch.no_grad()
+@float32_math()
+def _rank_sims(image_features, cnn_codes, words_embs, sent_embs, cap_lens,
+               g1: float, g2: float, g3: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The [image, caption] word-level and sentence-level DAMSM similarity
+    matrices, on the device of the inputs. The words similarity takes the
+    captions in blocks against every image, so that its attention tensors
+    hold at most RANK_BLOCK_ELEMS elements each ([N, N, T, R] whole would
+    be 21 GB at N = 1,000); each column is the one a single call gives."""
+    n, r = image_features.shape[:2]
+    block = max(1, RANK_BLOCK_ELEMS // (n * words_embs.shape[1] * r))
+    words = torch.cat([words_similarity(image_features, words_embs[lo:lo + block],
+                                        cap_lens[lo:lo + block], g1, g2)
+                       for lo in range(0, words_embs.shape[0], block)], dim=1)
+    return words, sent_similarity(cnn_codes, sent_embs, g3)
+
+
+def rank_r_precision(image_features, cnn_codes, words_embs, sent_embs, cap_lens,
+                     gammas: Sequence[float] = (4.0, 5.0, 10.0), top_k: int = 1
+                     ) -> Dict[str, float]:
+    """DAMSM retrieval ranking over generated results (the TextSRGTDataset
+    use-case, datasets.py:1721-1885): for each image, every caption ranked
+    by the word- and the sentence-level similarity; R@k is the fraction of
+    images whose own caption ranks in the top k. Inputs: region features
+    [N, R, E], codes [N, E], word embeddings [N, T, E], sentences [N, E],
+    lengths [N], tensors (on any device) or numpy."""
+    t = lambda x: torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+    feats = t(image_features)
+    dev = feats.device
+    w_sim, s_sim = (x.cpu().numpy() for x in _rank_sims(
+        feats, t(cnn_codes).to(dev), t(words_embs).to(dev), t(sent_embs).to(dev),
+        t(cap_lens).to(dev), float(gammas[0]), float(gammas[1]), float(gammas[2])))
+    n = w_sim.shape[0]
+
+    def r_at_k(sim):  # [image, caption]; the ranking is host work
+        order = np.argsort(-sim, axis=1)[:, :top_k]
+        return float(np.mean((order == np.arange(n)[:, None]).any(axis=1).astype(np.float32)))
+
+    return {f"word_r@{top_k}": r_at_k(w_sim), f"sent_r@{top_k}": r_at_k(s_sim), "n": n}

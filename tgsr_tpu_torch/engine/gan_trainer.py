@@ -12,7 +12,13 @@ PyTorch, step for step:
   tests/test_remat.py:103 shows equal to its default of two): the D step
   on the detached fine pyramid, then the G step against the *updated* D,
   its loss (adv + KL + pixel MSE on both pyramids, `loss_weights`)
-  differentiated through that one forward;
+  differentiated through that one forward; with an `image_encoder`, the
+  DAMSM word and sentence terms of the finest fake inside adv (JAX's
+  `image_encoder_apply`): the encoder frozen, in eval mode, in float32 (the
+  loss dtype) whatever the compute dtype, as JAX's sees the float32 fake of
+  `g_composite`, and not part of the snapshot. The Inception family's
+  backbone runs without autograd (JAX's `stop_gradient`), so its terms add
+  to G's loss and send G no gradient; SimpleCNN's do (ROADMAP, Queue C 4);
 - BatchNorm in train mode everywhere, the running stats moved in JAX's call
   order: G's in its forward, D's through the D step (real features, fake
   features, then the conditional heads, the mismatched pair at batch b - 1)
@@ -26,39 +32,42 @@ PyTorch, step for step:
   logits back in float32 before the BCE. `compute_dtype=torch.float64`
   computes everything but the text encoder in float64, losses included:
   the reference a float32 step on the card is held against
-  (chip_smoke.py train_phase).
+  (chip_smoke.py train_phase);
+- TF32 off in the step and in `super_resolve`
+  (`engine/precision.float32_math`), whatever the process's switches say.
 
 Where JAX returns a new state from a jitted step, the port updates the
 state in place (its modules, optimizers and EMA) and returns the metrics,
 0-d tensors on the device (no host sync). JAX's CANet draws a c_code that
 nothing on the SR path reads; the port draws nothing, so a step uses no
-random numbers. Not ported (ROADMAP): the image encoder and the DAMSM terms
-(A 7), x16 training and `remat` (What comes next 1), `mesh` / `fsdp` (A
-10), `plan_batch`, `train_steps` and `clip_by_global_norm` (A 8).
+random numbers. Not ported (ROADMAP): x16 training and `remat` (What comes
+next 1), `mesh` / `fsdp` (A 10), `plan_batch`, `train_steps` and
+`clip_by_global_norm` (A 8).
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from tgsr_tpu_torch.checkpoints.from_jax import StateDict, netg_variables, netgh_variables
+from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, init_module, netg_variables,
+                                                 netgh_variables)
 from tgsr_tpu_torch.config import Config, check_trained
 from tgsr_tpu_torch.engine.inference import resolve_device
-from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, call_cast
+from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, call_cast, float32_math
 from tgsr_tpu_torch.losses.gan import discriminator_loss, generator_loss
 from tgsr_tpu_torch.losses.pixel import kl_loss, mse_pyramid
 from tgsr_tpu_torch.models.discriminator import DNet
+from tgsr_tpu_torch.models.image_encoder import CNNEncoder, SimpleCNNEncoder
 from tgsr_tpu_torch.models.models16 import make_generators
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
 from tgsr_tpu_torch.ops.image import denormalize_to_uint8, psnr_batch, rgb2y, ssim
 
-LOSS_TERMS = ("adv", "pixel", "kl")
+LOSS_TERMS = ("adv", "pixel", "kl", "damsm")
 TRAIN_DTYPES = COMPUTE_DTYPES + (torch.float64,)  # float64: the reference precision
 A_INIT = 0.5  # the JAX NetGHighWeight's init of params['a']
 EMA_DECAY = 0.999  # the JAX trainer's default, which its CLI keeps
@@ -109,21 +118,6 @@ class GANTrainState:
         return netg_variables(netg_sd), netgh_variables(netgh_sd, a)
 
 
-def _init_module(module: nn.Module, gen: torch.Generator) -> None:
-    """The JAX init's scales from `gen`: conv and Dense weights N(0, 1 /
-    fan_in) (flax's lecun_normal variance), biases 0, BN scale 1, bias 0,
-    running mean 0, var 1."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / math.sqrt(fan_in))
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-
-
 class GANTrainer:
     def __init__(self, cfg: Config, vocab_size: int, text_sd: Mapping[str, torch.Tensor],
                  image_encoder=None, compute_dtype: torch.dtype = torch.float32,
@@ -132,15 +126,18 @@ class GANTrainer:
                  d_lr: Optional[float] = None,
                  device: Union[str, torch.device] = "cuda"):
         """`text_sd` the frozen text encoder's weights (a RNN_ENCODER state
-        dict). `image_encoder` must be None (the DAMSM terms, ROADMAP A 7).
-        `loss_weights` scales the G terms 'adv', 'pixel' and 'kl' (1.0
-        each); the metrics report the unweighted terms and 'g_loss' the
-        weighted total. `device` is the card unless the caller asks for the
-        CPU, where every kernel site runs its plain version."""
+        dict). `image_encoder`: a DAMSM `CNNEncoder` or `SimpleCNNEncoder`
+        with its weights, frozen here, whose terms join adv. `loss_weights`
+        scales the G terms 'adv', 'pixel' and 'kl', and 'damsm' the DAMSM
+        terms inside adv (1.0 each); the metrics report the unweighted
+        terms and 'g_loss' the weighted total. `device` is the card unless
+        the caller asks for the CPU, where every kernel site runs its plain
+        version."""
         check_trained(cfg)
-        if image_encoder is not None:
-            raise NotImplementedError("GANTrainer(image_encoder=...): the image encoder and "
-                                      "losses/damsm.py are not ported yet (ROADMAP A 7)")
+        if image_encoder is not None and not isinstance(image_encoder,
+                                                        (CNNEncoder, SimpleCNNEncoder)):
+            raise TypeError(f"image_encoder: a CNNEncoder or SimpleCNNEncoder module, not "
+                            f"{type(image_encoder).__name__}")
         if compute_dtype not in TRAIN_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the port trains in {TRAIN_DTYPES}")
         if grad_accum < 1:
@@ -161,6 +158,11 @@ class GANTrainer:
         self.text_encoder = TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM)
         self.text_encoder.load_state_dict(text_sd, strict=True)
         self.text_encoder.to(self.device).eval().requires_grad_(False)
+        self.image_encoder = image_encoder
+        if image_encoder is not None:
+            image_encoder.to(self.device).eval().requires_grad_(False)
+        s = cfg.TRAIN.SMOOTH
+        self.gammas = (s.GAMMA1, s.GAMMA2, s.GAMMA3)
 
     # -- state -------------------------------------------------------------------
 
@@ -173,7 +175,7 @@ class GANTrainer:
         dnets = nn.ModuleDict({f"d{s}": DNet(ndf=cfg.GAN.DF_DIM, nef=cfg.TEXT.EMBEDDING_DIM,
                                              img_size=s) for s in self.sizes})
         for module in (netg, netgh, dnets):
-            _init_module(module, generator)
+            init_module(module, generator)
             module.to(self.device).train()
         a = torch.tensor(A_INIT, device=self.device, requires_grad=True)
         g_params = [*netg.parameters(), *netgh.parameters(), a]
@@ -245,6 +247,12 @@ class GANTrainer:
 
         return d_feat, d_cond, d_uncond
 
+    def _encode(self, img: torch.Tensor):
+        """The frozen image encoder on an NCHW fake in the loss dtype (eval
+        BN; float64 casts its weights for the reference step); CNNEncoder's
+        backbone frozen, as JAX's trainer applies it (freeze_backbone)."""
+        return call_cast(self.image_encoder, self.loss_dtype, nhwc(img), buffers=True)
+
     def _apply(self, opt, params, grads, acc: List[torch.Tensor], mini_step: int) -> bool:
         """One optimizer update, or (grad_accum > 1) the running mean of the
         micro-steps' gradients as optax.MultiSteps keeps it, applied on the
@@ -266,11 +274,13 @@ class GANTrainer:
             a.zero_()
         return True
 
+    @float32_math()
     def train_step(self, state: GANTrainState, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """One D update, then one G update, in place. `batch`: 'lr' [B, b, b,
         3] and 'real_pyramid' (a list of [B, s, s, 3]), NHWC in [-1, 1] as
-        `data.pipeline.device_preprocess` makes them, 'captions' [B, T] and
-        'cap_lens' [B]. Returns the metrics (JAX's keys)."""
+        `data.pipeline.device_preprocess` makes them, 'captions' [B, T],
+        'cap_lens' [B] and, for the DAMSM terms, 'class_ids' [B] (optional).
+        Returns the metrics (JAX's keys)."""
         lr, words, sent, mask = self._inputs(batch)
         real = [nchw(torch.as_tensor(x, device=self.device, dtype=self.loss_dtype))
                 for x in batch["real_pyramid"]]
@@ -289,7 +299,15 @@ class GANTrainer:
 
         # G, against the updated D, through the same forward
         ds = [self._d_closures(state.dnets[f"d{s}"]) for s in self.sizes]
-        adv, logs = generator_loss(ds, None, fine, sent)
+        lt = self.loss_dtype
+        cap_lens = torch.as_tensor(batch["cap_lens"], device=self.device)
+        class_ids = batch.get("class_ids")
+        if class_ids is not None:
+            class_ids = torch.as_tensor(class_ids, device=self.device)
+        dw = self.loss_weights.get("damsm", 1.0)
+        adv, logs = generator_loss(ds, self._encode if self.image_encoder is not None else None,
+                                   fine, sent.to(lt), words.to(lt), cap_lens, class_ids,
+                                   self.gammas, self.cfg.TRAIN.SMOOTH.LAMBDA, w=dw, s=dw)
         kl = kl_loss(mu, logvar)
         pix = mse_pyramid(fake, real) + mse_pyramid(fine, real)
         w = self.loss_weights
@@ -311,6 +329,7 @@ class GANTrainer:
     # -- evaluation -------------------------------------------------------------------
 
     @torch.no_grad()
+    @float32_math()
     def super_resolve(self, state: GANTrainState, batch: Mapping[str, Any]) -> torch.Tensor:
         """The generator chain in eval mode (EMA weights; BN on its running
         stats, nothing moves) on the batch's LR: the SR, the

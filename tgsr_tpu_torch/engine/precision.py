@@ -3,6 +3,9 @@
 Serving: `cast_floats`, which the JAX pipeline applies to its generator
 trees, casts a module once.
 
+`float32_math` turns TF32 off around the training steps and the DAMSM
+ranking, whatever the process's switches say.
+
 Training (`GANTrainer`, JAX's `compute_dtype`, gan_trainer.py:79-84,
 261-272): `call_cast` runs a module with its parameters cast at apply time,
 as the JAX trainer casts its parameter trees inside the differentiated
@@ -21,13 +24,30 @@ some ops it runs in float32) and its rules differ between the two devices.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+import contextlib
+from typing import Any, Iterator, Mapping, Optional
 
 import torch
 from torch import nn
 
 # the compute dtypes SRPipeline serves and GANTrainer trains in
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@contextlib.contextmanager
+def float32_math() -> Iterator[None]:
+    """TF32 off for the block, the switches restored after: cuDNN's
+    convolutions (on by PyTorch's default) and cuBLAS's GEMMs round
+    float32 operands to TF32's 10-bit mantissa when their switch is on. The
+    trainers' and the ranking's float32 is float32, as the JAX package's is
+    on the CPU they are held against. Also a decorator. Not thread-safe:
+    for single-threaded entry points."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 def cast_floats(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -6,9 +6,9 @@ The discriminator comes in as closures per scale, as in the JAX package:
 `d_features(img) -> features`, `d_cond(features, sent) -> [B] logits`,
 `d_uncond(features) -> [B] logits` or None. The trainer's closures run the
 port's `DNet` in train mode, so the call order below is the order in which
-its BatchNorm running stats move. The DAMSM terms of `generator_loss` need
-the image encoder, which is not ported yet (ROADMAP A 7); the other loss
-families (the "or" family, unconditional, ESRGAN) wait with it.
+its BatchNorm running stats move. `generator_loss` adds the DAMSM word and
+sentence terms when it is given an image encoder. The other loss families
+(the "or" family, unconditional, ESRGAN) are not ported (ROADMAP A 7).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from tgsr_tpu_torch.losses.damsm import sent_loss, words_loss
 
 DClosures = Tuple[Callable, Callable, Optional[Callable]]
 
@@ -58,13 +60,11 @@ def generator_loss(ds: Sequence[DClosures], image_encoder: Optional[Callable],
                    smooth_lambda: float = 1.0, w: float = 1.0, s: float = 1.0,
                    g: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """= generator_loss (losses.py:351-391): per scale the cond (+ uncond)
-    BCE against ones, times g. Returns (total, {"g_loss{i}": ...}).
-    `image_encoder` must be None: the DAMSM word and sentence terms wait for
-    the image encoder and losses/damsm.py (ROADMAP A 7)."""
-    if image_encoder is not None:
-        raise NotImplementedError("generator_loss with an image encoder: the DAMSM terms "
-                                  "need the image encoder and losses/damsm.py, not ported "
-                                  "yet (ROADMAP A 7)")
+    BCE against ones, times g; with an `image_encoder` (fake image ->
+    (region features [B, R, E], code [B, E])) on the finest fake, the DAMSM
+    words loss times w and the sentence loss times s, both times
+    `smooth_lambda`. Returns (total, {"g_loss{i}": ..., "w_loss",
+    "s_loss"})."""
     b = sent_emb.shape[0]
     ones = torch.ones(b, device=sent_emb.device)
     total = 0.0
@@ -77,4 +77,14 @@ def generator_loss(ds: Sequence[DClosures], image_encoder: Optional[Callable],
         loss = g * loss
         total = total + loss
         logs[f"g_loss{i}"] = loss
+    if image_encoder is not None:
+        if words_embs is None or cap_lens is None:
+            raise ValueError("generator_loss with an image encoder: the DAMSM terms need "
+                             "words_embs and cap_lens")
+        region_features, cnn_code = image_encoder(fake_imgs[-1])
+        w0, w1, _ = words_loss(region_features, words_embs, cap_lens, class_ids, *gammas)
+        s0, s1 = sent_loss(cnn_code, sent_emb, class_ids, gammas[2])
+        logs["w_loss"] = w * (w0 + w1) * smooth_lambda
+        logs["s_loss"] = s * (s0 + s1) * smooth_lambda
+        total = total + logs["w_loss"] + logs["s_loss"]
     return total, logs

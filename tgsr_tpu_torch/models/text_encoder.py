@@ -7,11 +7,19 @@ the backward direction treats t >= len as no-ops, and word outputs are zero
 beyond len. No sorting, and no `pack_padded_sequence`, which rejects the
 len == 0 of an empty caption. The `nn.LSTM` only holds the weights, under
 the reference's state-dict names (`rnn.weight_ih_l0[_reverse]`, ...).
+
+In train mode (`module.train()`, the DAMSM trainer) the embeddings go
+through inverted dropout at `drop_prob` (0.5, util.py:183), as flax's
+`nn.Dropout`: each entry kept with probability 1 - p and scaled by
+1 / (1 - p). The keep mask is drawn on the CPU from the caller's
+`torch.Generator` and then moved, so that a seeded step draws the same mask
+on the card and on the CPU. Eval mode (serving, the GAN trainer's frozen
+encoder) never draws.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,22 +45,38 @@ def _masked_lstm(xs, lens, w_ih, w_hh, b, reverse: bool):
     return torch.stack(outs, dim=1), h
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None
+            ) -> torch.Tensor:
+    """Inverted dropout as flax's `nn.Dropout`: keep an entry with
+    probability 1 - p and scale it by 1 / (1 - p), else 0. The mask is drawn
+    on the CPU from `generator` (the default generator when None)."""
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+
+
 class TextEncoder(nn.Module):
     """RNN_ENCODER(ntoken, ninput=300, nhidden) with a bidirectional LSTM;
     the per-direction hidden size is nhidden // 2 (util.py:191)."""
 
-    def __init__(self, vocab_size: int, emb_dim: int = 300, nhidden: int = 256):
+    def __init__(self, vocab_size: int, emb_dim: int = 300, nhidden: int = 256,
+                 drop_prob: float = 0.5):
         super().__init__()
+        self.drop_prob = drop_prob
         self.encoder = nn.Embedding(vocab_size, emb_dim)
         self.rnn = nn.LSTM(emb_dim, nhidden // 2, 1, batch_first=True,
                            bidirectional=True)
 
-    def forward(self, captions: torch.Tensor,
-                cap_lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """captions [B, T] token ids (0 = pad), cap_lens [B] ->
         (words [B, T, nhidden], sent [B, nhidden]); the feature axis is
-        [forward half, backward half]."""
+        [forward half, backward half]. `generator` (a CPU generator) draws
+        the train-mode dropout mask."""
         emb = self.encoder(captions)
+        if self.training and self.drop_prob > 0:
+            emb = dropout(emb, self.drop_prob, generator)
         outs, finals = [], []
         for suffix, reverse in (("", False), ("_reverse", True)):
             p = {n: getattr(self.rnn, f"{n}_l0{suffix}")

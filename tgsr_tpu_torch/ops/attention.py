@@ -1,10 +1,14 @@
-"""Word -> pixel cross-attention, plain PyTorch (counterpart of
+"""The two attentions of the reference, plain PyTorch (counterpart of
 tgsr_tpu/ops/attention.py).
 
 `word_pixel_attention` here is the plain version of the CUDA kernel in
 `ops/fused_attention.py`: the CPU path and the reference the kernel is held
 against. Layouts are the JAX package's: pixels [B, H, W, C], words
 [B, T, C], mask [B, T] (True = padded token), attention maps [B, T, H, W].
+
+`func_attention` is DAMSM's word -> region attention (Eq. 7-9), which the
+words loss runs. JAX computes it with einsums outside any Pallas kernel, and
+so does the port: `torch.einsum` on the card is cuBLAS's batched GEMM.
 """
 
 from __future__ import annotations
@@ -27,6 +31,27 @@ def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
     if mask is not None:
         logits = logits.masked_fill(mask, NEG_INF)
     return torch.softmax(logits, dim=dim)
+
+
+def func_attention(
+    words: torch.Tensor,  # [..., T, E] word features
+    regions: torch.Tensor,  # [..., R, E] image region features (R = 17 * 17)
+    gamma1: float,
+    word_mask: Optional[torch.Tensor] = None,  # [..., T] True where padded
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DAMSM attention (= GlobalAttention.py:33-74): for each region a
+    softmax over the unpadded words (Eq. 8), then, sharpened by gamma1, for
+    each word a softmax over the regions (Eq. 9); the context of word t is
+    sum_r attn[t, r] * regions[r]. Any leading batch axes broadcast (the
+    words loss pairs every caption with every image this way).
+
+    Returns (context [..., T, E], attn [..., T, R])."""
+    attn = torch.einsum("...re,...te->...rt", regions, words)  # Eq. 7
+    m = word_mask.unsqueeze(-2) if word_mask is not None else None
+    attn = masked_softmax(attn, m, dim=-1)
+    attn = torch.softmax(attn.transpose(-1, -2) * gamma1, dim=-1)
+    ctx = torch.einsum("...tr,...re->...te", attn, regions)
+    return ctx, attn
 
 
 def word_pixel_attention(

@@ -52,18 +52,20 @@ KERNELS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 def resize_weights(in_size: int, out_size: int, method: str = "bilinear",
-                   antialias: bool = True, device=None) -> torch.Tensor:
-    """The [in, out] float32 resampling matrix of `jax.image.resize`
+                   antialias: bool = True, device=None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The [in, out] resampling matrix of `jax.image.resize`
     (jax/_src/image/scale.py `compute_weight_mat`, translation 0): sample
     positions (o + 0.5) / scale - 0.5, the kernel widened by 1 / scale when
     downsampling with antialias, weights normalised per output sample, and
-    samples whose position lies outside the input zeroed."""
+    samples whose position lies outside the input zeroed. Computed in
+    `dtype`: float32, or float64 as JAX computes it with x64 on."""
     kernel = KERNELS[method]
     inv_scale = in_size / out_size
     kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
-    f32 = dict(dtype=torch.float32, device=device)
-    sample = (torch.arange(out_size, **f32) + 0.5) * inv_scale - 0.5
-    x = (sample[None, :] - torch.arange(in_size, **f32)[:, None]).abs() / kernel_scale
+    f = dict(dtype=dtype, device=device)
+    sample = (torch.arange(out_size, **f) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, **f)[:, None]).abs() / kernel_scale
     w = kernel(x)
     total = w.sum(0, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
@@ -78,15 +80,18 @@ def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear",
     """NHWC float resize, `jax.image.resize(x, (b, h, w, c), method,
     antialias)`: "linear" is a triangle kernel and "cubic" Keys' cubic with
     a = -0.5 (F.interpolate's bicubic is a = -0.75, with another
-    antialias); a dimension whose size does not change is left as it is."""
+    antialias); a dimension whose size does not change is left as it is.
+    The matrices are float32, float64 for a float64 x (a float64 step is
+    then float64 throughout, as JAX's with x64), in x's type when applied."""
     if method not in KERNELS:
         raise ValueError(f"resize method {method!r}: the port resizes with {sorted(KERNELS)}")
     h, w = x.shape[1:3]
+    wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     if h != size[0]:
-        wr = resize_weights(h, size[0], method, antialias, x.device).to(x.dtype)
+        wr = resize_weights(h, size[0], method, antialias, x.device, wdt).to(x.dtype)
         x = torch.einsum("bhwc,ho->bowc", x, wr)
     if w != size[1]:
-        wc = resize_weights(w, size[1], method, antialias, x.device).to(x.dtype)
+        wc = resize_weights(w, size[1], method, antialias, x.device, wdt).to(x.dtype)
         x = torch.einsum("bhwc,wp->bhpc", x, wc)
     return x
 
