@@ -24,7 +24,8 @@ attention, int8 conv, GLU-requant and requant kernels, hold >= 40 dB against
 the same int8 pipeline on the CPU and stay at or above INT8_PSNR_FLOOR
 against the float32 reference. On the card sr_batched replays the forward
 captured as a CUDA graph, so those launch counts are the captured counts
-times the replays; each path is profiled eager and under replay. Then the
+times the replays; each path is profiled eager and under replay. What
+TF32 does to the float32 path is printed (tf32_effect). Then the
 serving phase, per path: replay bit for bit against the eager __call__,
 sr_arbitrary at ragged LR shapes against the plain pipelines on the CPU,
 B = 1 latency and img/s eager against replay, the memory plan (bfloat16:
@@ -62,7 +63,16 @@ autograd of its plain version at the three training sites, one step on the
 card against the same step on the CPU (both held against a float64 step),
 ten steps at B = 16 in float32 and bfloat16 with their launches, times and
 memory, and the training CLI, whose last snapshot pair SRPipeline serves
-equal to the run's EMA generator. DAMSM (damsm_phase; the DAMSM face
+equal to the run's EMA generator. x16 training (x16_train_phase;
+configs/train_faceSR_S16.yml at full width, 32 px -> 512 px): the
+attention forward and backward kernels at its four training sites (B = 16,
+up to 256 px) against their plain versions, GANTrainer.plan_batch() in
+float32 and bfloat16 with remat False and 'all' (a fresh run at each plan
+under its budget), ten steps of each at B = 16 with their launches, times,
+memory and a profile, the remat step against the plain one bit for bit
+under deterministic algorithms, one step against a float64 CPU step (remat
+False and 'all'), and the CLI with --remat all, whose snapshot the x16
+SRPipeline serves equal to the run's EMA generator. DAMSM (damsm_phase; the DAMSM face
 configuration at full width: 299 px, T 18, nef 256): ten DAMSMTrainer steps
 with the seeded Inception-v3 encoder at B = 48 in float32 and bfloat16 (one
 step at B = 8 against the CPU's), the pretraining CLI for both encoder
@@ -329,9 +339,10 @@ def sums(rows, keys=("ms", "plain_ms", "library_ms", "bound_ms", "nbytes", "flop
     return tot
 
 
-def attention_phase(torch, rng, hws=(32, 64, 128)):
+def attention_phase(torch, rng, hws=(32, 64, 128), b=B, what="forward"):
     """The attention kernel against its plain version at the sites of one
-    forward (`hws`: x8's three, or the x16 family's four), in float32 and in
+    forward (`hws`: x8's three, or the x16 family's four; `b` images, the
+    serving phases' B = 64 or a training batch), in float32 and in
     bfloat16. The bfloat16 kernel is held
     against the plain version in float32 on the same bfloat16 inputs: it
     computes in float32 and rounds each output once, so |err| <= 2^-8 |ref|
@@ -341,10 +352,10 @@ def attention_phase(torch, rng, hws=(32, 64, 128)):
     from tgsr_tpu_torch.ops.attention import word_pixel_attention as plain
     from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
 
-    lens = rng.integers(1, T + 1, B)
+    lens = rng.integers(1, T + 1, b)
     lens[1] = 0  # one caption with every token padded
     mask = torch.as_tensor(np.arange(T)[None, :] >= lens[:, None], device="cuda")
-    words32 = torch.randn(B, T, C, device="cuda")
+    words32 = torch.randn(b, T, C, device="cuda")
     out = {}
     for dtype, esize, rate in ((torch.float32, 4, F32_FLOP_PER_S),
                                (torch.bfloat16, 2, BF16_FLOP_PER_S)):
@@ -352,13 +363,13 @@ def attention_phase(torch, rng, hws=(32, 64, 128)):
         words = words32.to(dtype)
         rows = []
         for hw in hws:
-            px = torch.randn(B, hw, hw, C, device="cuda").to(dtype)
+            px = torch.randn(b, hw, hw, C, device="cuda").to(dtype)
             ctx_k, attn_k = word_pixel_attention(px, words, mask)
             if dtype == torch.float32:
                 ctx_p, attn_p = plain(px, words, mask)
                 torch.cuda.synchronize()
                 err = max((ctx_k - ctx_p).abs().max().item(), (attn_k - attn_p).abs().max().item())
-                check(err <= 1e-4, f"attention kernel == plain at [{B},{hw},{hw},{C}] T {T} "
+                check(err <= 1e-4, f"attention kernel == plain at [{b},{hw},{hw},{C}] T {T} "
                                    f"(max abs err {err:.3e} <= 1e-4)")
             else:
                 ctx_p, attn_p = plain(px.float(), words.float(), mask)
@@ -368,9 +379,9 @@ def attention_phase(torch, rng, hws=(32, 64, 128)):
                 excess = max(((ctx_k.float() - ctx_p).abs() - 2 ** -8 * ctx_p.abs()).max().item(),
                              ((attn_k.float() - attn_p).abs() - 2 ** -8 * attn_p.abs()).max().item())
                 check(excess <= 1e-5, f"attention kernel bf16 == plain in f32 on the same "
-                                      f"inputs at [{B},{hw},{hw},{C}] T {T} (max abs err "
+                                      f"inputs at [{b},{hw},{hw},{C}] T {T} (max abs err "
                                       f"{err:.3e}, |err| - 2^-8 |ref| <= {excess:.2e} <= 1e-5)")
-            q, kv = px.reshape(B, hw * hw, C), words
+            q, kv = px.reshape(b, hw * hw, C), words
             keep = ~mask[:, None, :]
             # 50 calls: at the small sites each call takes the host longer than
             # the card, and one slow launch would move a mean of 10
@@ -380,8 +391,8 @@ def attention_phase(torch, rng, hws=(32, 64, 128)):
                                                                  return_attn=False), iters=20)
             p_ms = cuda_ms(lambda: plain(px, words, mask, return_attn=False))
             l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep, scale=1.0))
-            n = B * hw * hw
-            nbytes = esize * (2 * n * C + B * T * C) + B * T  # pixels in, ctx out, words, mask
+            n = b * hw * hw
+            nbytes = esize * (2 * n * C + b * T * C) + b * T  # pixels in, ctx out, words, mask
             flops = n * (4 * T * C + 5 * T)  # two T x C products + softmax
             bms, by = bound_ms(nbytes, flops, rate)
             print(f"  attention {tag} {hw}x{hw}: kernel {ms:.4f} ms (device time {d_ms:.4f}), "
@@ -398,8 +409,8 @@ def attention_phase(torch, rng, hws=(32, 64, 128)):
              "source": "tgsr_tpu_torch/csrc/word_pixel_attention.cu",
              "replaces": "tgsr_tpu/ops/pallas_attention.py:30", **out["float32"],
              "bfloat16": out["bfloat16"],
-             "shapes": f"B {B}, C {C}, T {T}, HW {'+'.join(f'{hw}^2' for hw in hws)} (one "
-                       f"forward's {len(hws)} sites); top level float32, 'bfloat16' the bf16 "
+             "shapes": f"B {b}, C {C}, T {T}, HW {'+'.join(f'{hw}^2' for hw in hws)} (one "
+                       f"{what}'s {len(hws)} sites); top level float32, 'bfloat16' the bf16 "
                        "instance; ms by CUDA events, device_ms with the host's launches "
                        "queued behind a spin kernel (the small sites take less than the "
                        "host's launch)"}
@@ -1163,6 +1174,43 @@ def x16_inputs(torch):
         return lr, cap, lens
 
     return cfg, sds, batch(2), batch(8), rng
+
+
+def tf32_effect(torch, card):
+    """What TF32 does to the float32 serving path (ROADMAP C 5): the face S8
+    float32 SRPipeline with pipeline_phase's seeded weights serves one batch
+    of B = 64 seeded requests eagerly with cuDNN's and cuBLAS's TF32
+    switches on (PyTorch's default for cuDNN), then off, both set after the
+    build (a float32 pipeline built on the card turns them off), restored
+    after. Prints the uint8 PSNR of the first SR against the second, the
+    largest difference in uint8 levels, the share of values that differ and
+    the largest float difference."""
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
+
+    cfg, n = face_s8_config(), 64
+    pipe = SRPipeline(cfg, 41, *init_seeded(cfg, 41, torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    lr = rng.integers(0, 256, (n, 32, 32, 3)).astype(np.float32) / 127.5 - 1.0
+    lens = rng.integers(0, T + 1, n)
+    cap = rng.integers(1, 41, (n, T))
+    cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    sr = {}
+    try:
+        for on in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+            sr[on] = pipe(lr, cap, lens)["sr"].float().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    d = (to_uint8(sr[True]).int() - to_uint8(sr[False]).int()).abs()
+    mse = d.double().square().mean().item()
+    psnr = float("inf") if mse == 0 else 10 * float(np.log10(255.0 ** 2 / mse))
+    print(f"  tf32 effect: float32 SR with TF32 on against TF32 off, face S8 seeded weights, "
+          f"B = {n}: uint8 PSNR {psnr:.2f} dB, max {int(d.max())} levels, "
+          f"{float((d > 0).double().mean()):.4%} of values differ, max abs err "
+          f"{float((sr[True] - sr[False]).abs().max()):.3e}, on {card}", flush=True)
 
 
 def x16_phase(torch, card, tmp, clients):
@@ -2373,6 +2421,7 @@ def cli_phase(torch, rng, card, tmp):
 
 # the three training sites of the attention (px), at the trainer's batch
 TRAIN_B = 16
+X16_TRAIN_B = 16  # configs/train_faceSR_S16.yml's TRAIN.BATCH_SIZE
 TRAIN_SITES = (32, 64, 128)
 # step_against_cpu: a card step's gradient tensors' L2 errors against the
 # float64 CPU step, in units of twice the CPU float32 step's + 1e-5 |g|: the
@@ -2437,11 +2486,11 @@ def attention_grads(torch, fn, px, wd, mask, g, ga):
     return again(), again
 
 
-def attention_bwd_phase(torch, rng, hws=TRAIN_SITES, b=TRAIN_B):
+def attention_bwd_phase(torch, rng, hws=TRAIN_SITES, b=TRAIN_B, ga_hw=64, what="x8"):
     """Row "1 bwd": the attention's backward kernel against autograd of its
     plain version on the card at the training sites (B = 16, C 32, T 18,
     ragged captions with one padded everywhere, a gradient on the attention
-    map at 64 px), float32 and bfloat16. float32: max abs error <= 1e-5
+    map at `ga_hw` px, none where it is None), float32 and bfloat16. float32: max abs error <= 1e-5
     max(1, |ref|max); bfloat16 (against float32 on the same inputs):
     |err| - 2^-8 |ref| <= 1e-5 max(1, |ref|max). Two calls give the same
     bits. Times the backward alone (the kernel's two launches) against the
@@ -2471,7 +2520,7 @@ def attention_bwd_phase(torch, rng, hws=TRAIN_SITES, b=TRAIN_B):
         for hw in hws:
             px, g = (torch.randn(b, hw, hw, C, device="cuda").to(dtype) for _ in range(2))
             wd = torch.randn(b, T, C, device="cuda").to(dtype)
-            ga = torch.randn(b, T, hw, hw, device="cuda").to(dtype) if hw == 64 else None
+            ga = torch.randn(b, T, hw, hw, device="cuda").to(dtype) if hw == ga_hw else None
             ref, plain_again = attention_grads(torch, plain, px.float(), wd.float(), mask,
                                                g.float(), ga.float() if ga is not None else None)
             got, _ = attention_grads(torch, word_pixel_attention, px, wd, mask, g, ga)
@@ -2527,26 +2576,27 @@ def attention_bwd_phase(torch, rng, hws=TRAIN_SITES, b=TRAIN_B):
             "source": "tgsr_tpu_torch/csrc/word_pixel_attention.cu",
             "replaces": "tgsr_tpu/ops/pallas_attention.py:30", **out["float32"],
             "bfloat16": out["bfloat16"],
-            "shapes": f"B {b}, C {C}, T {T}, HW {'+'.join(f'{hw}^2' for hw in hws)} (one training "
-                      "step's 3 sites, an attention-map gradient at 64^2); the backward alone (the "
-                      "tiles and their sum); no Pallas backward exists (JAX differentiates XLA's "
-                      "einsum path); library_ms: SDPA forward + backward, for scale, not the same "
-                      "function"}
+            "shapes": f"B {b}, C {C}, T {T}, HW {'+'.join(f'{hw}^2' for hw in hws)} (one {what} "
+                      f"training step's {len(hws)} sites"
+                      + (f", an attention-map gradient at {ga_hw}^2" if ga_hw in hws else "")
+                      + "); the backward alone (the tiles and their sum); no Pallas backward "
+                      "exists (JAX differentiates XLA's einsum path); library_ms: SDPA forward + "
+                      "backward, for scale, not the same function"}
 
 
-def train_batch(torch, rng, b, device="cuda", vocab=41, empty=True):
+def train_batch(torch, rng, b, device="cuda", vocab=41, empty=True, sizes=(64, 128, 256)):
     """A face S8 training batch of noise images (train-mode BN of a constant
     image divides by sqrt(eps) at every layer), ragged captions with one
     padded everywhere (`empty`; the DAMSM runs leave it out: the words loss
     of an empty caption is the -1e9 sentinel's, about 1e9 gamma3 / B, in
-    both packages); NHWC in [-1, 1]."""
+    both packages); NHWC in [-1, 1]; `sizes` the pyramid (x16: to 512 px)."""
     lens = rng.integers(1, T + 1, b)
     if empty:
         lens[min(1, b - 1)] = 0
     caps = rng.integers(1, vocab, (b, T))
     caps[np.arange(T)[None, :] >= lens[:, None]] = 0
     u = lambda s: torch.from_numpy(rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)).to(device)
-    return {"lr": u(32), "real_pyramid": [u(s) for s in (64, 128, 256)],
+    return {"lr": u(32), "real_pyramid": [u(s) for s in sizes],
             "captions": torch.from_numpy(caps).to(device),
             "cap_lens": torch.from_numpy(lens).to(device)}
 
@@ -2621,14 +2671,16 @@ def face_train_set(rng, root, n_images):
 
 
 def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
-                     d_lrs=(None, 0.0), control=None) -> dict:
-    """One float32 training step of the face S8 model on `batch` (B = 4, on
-    the CPU) on the card twice, cuDNN off and on (as training runs it), and
-    on the CPU, each held against the same step in float64 on the CPU; once
-    with D learning and once with D's learning rate 0. Returns {(D lr, card
-    step): {gradient tensor: its ratio}, (statistic, D lr, card step): their
-    median, 90th percentile and largest relative L2 error} (the ratios in
-    units of the tight gate).
+                     d_lrs=(None, 0.0), control=None, remats=(False,)) -> dict:
+    """One float32 training step of `cfg`'s model (the face S8 one, or x16)
+    on `batch` (B = 4 or 2, on the CPU) on the card twice, cuDNN off and on
+    (as training runs it), and on the CPU, each held against the same step in
+    float64 on the CPU; once with D learning and once with D's learning rate
+    0; the card steps once per policy of `remats` (the CPU's steps without
+    remat: there remat changes no bit, tests/test_torch_remat.py). Returns
+    {(D lr, card step): {gradient tensor: its ratio}, (statistic, D lr, card
+    step): their median, 90th percentile and largest relative L2 error} (the
+    ratios in units of the tight gate).
 
     A GAN step's gradients cancel (BN biases, the attention's projection,
     the heads' weight gradients, sums over every pixel), so two float32
@@ -2663,16 +2715,20 @@ def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
 
     from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
 
+    card_tags = [f"cuDNN {on}" + ("" if r is False else f", remat {r}")
+                 for r in remats for on in ("off", "on")]
+
     def one_step(d_lr):
         out = {}
-        runs = [("cpu", "cpu", torch.float32, True), ("f64", "cpu", torch.float64, True),
-                ("cuDNN off", "cuda", torch.float32, False),
-                ("cuDNN on", "cuda", torch.float32, True)]
-        runs += [(label, "cuda", torch.float32, False) for label in control or {}]
-        for tag, device, dtype, cudnn in runs:
+        runs = [("cpu", "cpu", torch.float32, True, False),
+                ("f64", "cpu", torch.float64, True, False)]
+        runs += [(tag, "cuda", torch.float32, tag.startswith("cuDNN on"), r)
+                 for tag, r in zip(card_tags, [r for r in remats for _ in range(2)])]
+        runs += [(label, "cuda", torch.float32, False, False) for label in control or {}]
+        for tag, device, dtype, cudnn, remat in runs:
             t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=d_lr,
                            image_encoder=copy.deepcopy(image_encoder),
-                           loss_weights=(control or {}).get(tag))
+                           loss_weights=(control or {}).get(tag), remat=remat)
             s = t.init_state(torch.Generator().manual_seed(0))
             t0 = time.perf_counter()
             # TF32 as PyTorch sets it by default: the trainer turns it off
@@ -2716,8 +2772,9 @@ def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
             readings["median", d_lr, label] = med
             print(f"  control, {what}{terms}: the card step (cuDNN off) with {label}: median "
                   f"{med:.3g} units (not gated)", flush=True)
-        for card_tag in ("cuDNN off", "cuDNN on"):
+        for card_tag in card_tags:
             m_g, p_g, s_g = out[card_tag]
+            gate = medians[card_tag.split(",")[0]]
             head = f"train f32 step card ({card_tag}) vs CPU, {what}{terms}"
             keys = ("d_loss", "kl", "pixel") if d_lr is None else sorted(m_c)
             worst, key = max((abs(m_g[k] - m_c[k]) / abs(m_c[k]), k) for k in keys)
@@ -2733,10 +2790,10 @@ def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
             readings["median", d_lr, card_tag] = med
             readings["p90", d_lr, card_tag] = p90
             readings["relative L2", d_lr, card_tag] = rel[far][0]
-            check(med <= medians[card_tag] and top <= GRAD_OUTLIER_FACTOR,
+            check(med <= gate and top <= GRAD_OUTLIER_FACTOR,
                   f"{head}: {len(mine)} gradient tensors against the float64 step's, in units "
                   f"of twice the CPU float32 step's L2 error + 1e-5 |g|: median {med:.3g} (<= "
-                  f"{medians[card_tag]}), worst {names} (<= {GRAD_OUTLIER_FACTOR}); 10th and "
+                  f"{gate}), worst {names} (<= {GRAD_OUTLIER_FACTOR}); 10th and "
                   f"90th percentiles {p10:.3g}, {p90:.3g}; relative L2 error at most "
                   f"{rel[far][0]:.3g} ({far}, the CPU's {rel[far][1]:.3g})")
             # Adam's first step is lr g / (|g| + eps) an entry: +-lr, the sign
@@ -2888,6 +2945,269 @@ def train_phase(torch, rng, card, tmp):
     del pipe, summary, state, trainer
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# -- x16 training (models16 in GANTrainer, remat, plan_batch) -----------------------
+
+X16_TRAIN_SITES = (32, 64, 128, 256)  # the attention's four sites in an x16 step
+X16_SIZES = (64, 128, 256, 512)
+X16_CPU_B = 2  # the card's x16 step held against a float64 CPU step
+# the face S16 training config (configs/train_faceSR_S16.yml at full width)
+# for the CLI run: BATCH_SIZE cut to 2 so that the example set's 4 train
+# images make 2 steps, one epoch, a snapshot every 2 steps
+FACE_S16_TRAIN_YAML = """# face S16 training: x16, 32 px -> 512 px (configs/train_faceSR_S16.yml)
+CONFIG_NAME: 'face_S16_train'
+METHOD: 'S16'
+TREE:
+    BRANCH_NUM: 5
+    BASE_SIZE: 32
+DATASET_NAME: 'face'
+TRAIN:
+    FLAG: True
+    BATCH_SIZE: 2
+    MAX_EPOCH: 1
+    SNAPSHOT_INTERVAL: 2
+GAN:
+    DF_DIM: 64
+    GF_DIM: 32
+    R_NUM: 2
+TEXT:
+    EMBEDDING_DIM: 256
+    CAPTIONS_PER_IMAGE: 1
+"""
+
+
+def x16_train_config():
+    from tgsr_tpu_torch.config import config_from_file
+
+    return config_from_file(os.path.join(HERE, "configs", "train_faceSR_S16.yml"))
+
+
+def same_bits(torch, a, b) -> list:
+    """The names where two (metrics, trainer_readout) runs differ in any bit."""
+    (ma, (pa, sa)), (mb, (pb, sb)) = a, b
+    out = [k for k in ma if ma[k] != mb[k]]
+    out += [n for n in pa if not all(torch.equal(x, y) for x, y in zip(pa[n], pb[n]))]
+    return out + [n for n in sa if not torch.equal(sa[n], sb[n])]
+
+
+def x16_train_kernel_rows(torch) -> dict:
+    """Rows 1 and 1 bwd at the four attention sites of an x16 training step
+    (B = 16, 32 to 256 px: 1,048,576 pixel rows at 256 px; ragged captions,
+    one padded everywhere; no attention-map gradient, as the step runs it),
+    each held against its plain version and timed (`attention_phase`,
+    `attention_bwd_phase`). Returns {kernel name: its numbers}, which main
+    sets under "x16_train" in that kernel's entry."""
+    rng = np.random.default_rng(162)
+    entries = [attention_phase(torch, rng, X16_TRAIN_SITES, b=X16_TRAIN_B,
+                               what="x16 training step"),
+               attention_bwd_phase(torch, rng, X16_TRAIN_SITES, b=X16_TRAIN_B, ga_hw=None,
+                                   what="x16")]
+    return {e["name"]: {k: v for k, v in e.items() if k not in ("name", "route", "source",
+                                                                 "replaces")}
+            for e in entries}
+
+
+def x16_train_phase(torch, rng, card, tmp):
+    """GAN training of the x16 family at full width on the card
+    (configs/train_faceSR_S16.yml: BRANCH_NUM 5, 32 px -> 512 px, GF_DIM 32,
+    DF_DIM 64, EMBEDDING_DIM 256, T 18; seeded weights, noise images).
+    (1) GANTrainer.plan_batch() in float32 and bfloat16, each with remat
+    False and 'all': the four answers and their probes' peaks; a fresh
+    run at each nonzero plan peaks under its budget, and 'all' plans at least
+    the batch False plans. (2) Ten steps at B = 16 (the plan where 16 does
+    not fit) per path and policy that fits: finite metrics, 4 attention
+    forward launches a step (8 with 'all', whose recompute runs each stage
+    again) and 4 backward, ms a step (host clock, synchronised, steps 2-10),
+    img/s, peak reserved memory, one profiled step; bf16's first-step
+    metrics within 15 % of f32's. (3) The remat='all' step against the
+    remat=False step at that B under torch.use_deterministic_algorithms: bit
+    for bit where two remat=False steps are (else G's BN running stats
+    equal, the rest held by (4)). (4) One float32 step at B = 2 against a
+    float64 CPU step (`step_against_cpu`), the card with remat False and
+    'all'. (5) The CLI with --remat all for 2 steps; its snapshot pair served
+    by the x16 SRPipeline on the card equal to the run's EMA generator.
+    Returns the launches of each run."""
+    import warnings
+
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.cli import train_gan
+    from tgsr_tpu_torch.data.datasets import TextFaceDataset
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = x16_train_config()
+    text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(16))
+    launches, plans = {}, {}
+    dtypes, policies = (torch.float32, torch.bfloat16), (False, "all")
+    name = lambda dtype, remat: f"train x16 {str(dtype).split('.')[-1]} remat {remat}"
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (1) plan_batch -------------------------------------------------------------
+    for dtype in dtypes:
+        for remat in policies:
+            tag = name(dtype, remat)
+            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
+            t0 = time.perf_counter()
+            plans[dtype, remat] = plan = t.plan_batch()
+            bp = t.batch_plan
+            gib = lambda x: "OOM" if x is None else f"{x / 2 ** 30:.2f} GiB"
+            print(f"  {tag}: plan_batch() = {plan} in {time.perf_counter() - t0:.1f} s (budget "
+                  f"{gib(bp['budget_bytes'])}; probes' peaks, in the order measured: "
+                  f"{', '.join(f'B={b}: {gib(v)}' for b, v in bp['probes'].items())}) "
+                  f"on {card}", flush=True)
+            if plan:
+                need = t.step_peak_bytes(plan, bp["budget_bytes"])
+                check(need is not None and need <= bp["budget_bytes"],
+                      f"{tag}: a fresh run at the plan, B = {plan}, with the allocator capped at "
+                      f"the budget {gib(bp['budget_bytes'])}, completes (peak {gib(need)})")
+            del t
+            free()
+        check(plans[dtype, "all"] >= max(1, plans[dtype, False]),
+              f"x16 train {str(dtype).split('.')[-1]}: remat 'all' plans B = "
+              f"{plans[dtype, 'all']} >= remat False's {plans[dtype, False]}, and at least 1")
+
+    # -- (2) ten steps a path and policy ------------------------------------------------
+    first, steps_b = {}, {}
+    for dtype in dtypes:
+        for remat in policies:
+            tag = name(dtype, remat)
+            b = min(X16_TRAIN_B, plans[dtype, remat])
+            if not b:
+                print(f"  {tag}: no batch fits; not run", flush=True)
+                continue
+            steps_b[dtype, remat] = b
+            batches = [train_batch(torch, np.random.default_rng(160 + i), b, sizes=X16_SIZES)
+                       for i in range(10)]
+            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
+            s = t.init_state(torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            times, metrics = [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                metrics.append(t.train_step(s, batch))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches[tag] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+            peak = torch.cuda.max_memory_reserved() / 2 ** 30
+            vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+            first[dtype, remat] = vals[0]
+            check(all(np.isfinite(v) for m in vals for v in m.values()),
+                  f"{tag}: 10 steps at B = {b}, every metric finite")
+            per = {k: launches[tag][k] / 10
+                   for k in ("word_pixel_attention", "word_pixel_attention_bwd")}
+            want = {"word_pixel_attention": 8 if remat else 4, "word_pixel_attention_bwd": 4}
+            check(per == want, f"{tag}: {want['word_pixel_attention']} attention forward (4 a "
+                               f"step{' and their recompute' if remat else ''}) and 4 backward "
+                               f"launches a step ({per})")
+            ms = 1e3 * float(np.mean(times[1:]))
+            TRAIN_MS[tag] = ms
+            print(f"  {tag}: step {ms:.2f} ms at B = {b} (host clock, synchronised, mean of "
+                  f"steps 2-10; first {1e3 * times[0]:.1f}), {b * 1e3 / ms:.1f} img/s, peak "
+                  f"reserved {peak:.2f} GiB, on {card}; d_loss {vals[0]['d_loss']:.4f} -> "
+                  f"{vals[-1]['d_loss']:.4f}, pixel {vals[0]['pixel']:.4f} -> "
+                  f"{vals[-1]['pixel']:.4f}", flush=True)
+            profile_step(torch, lambda: t.train_step(s, batches[0]), tag, b=b)
+            del t, s, batches
+            free()
+    for remat in policies:
+        if (torch.float32, remat) in first and (torch.bfloat16, remat) in first and \
+                steps_b[torch.float32, remat] == steps_b[torch.bfloat16, remat]:
+            f32, bf16 = first[torch.float32, remat], first[torch.bfloat16, remat]
+            worst = max(abs(bf16[k] - v) / abs(v) for k, v in f32.items() if abs(v) > 1e-3)
+            check(worst < 0.15, f"train x16 remat {remat}: bf16 first-step metrics within 15 % "
+                                f"of f32's (worst {worst:.3%})")
+
+    # -- (3) remat against no remat, the same B -------------------------------------------
+    b = steps_b.get((torch.float32, False)) or steps_b[torch.float32, "all"]
+    batch = train_batch(torch, np.random.default_rng(161), b, sizes=X16_SIZES)
+
+    def one(remat):
+        t = GANTrainer(cfg, 41, text_sd, remat=remat)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        m = {k: float(v) for k, v in t.train_step(s, batch).items()}
+        out = (m, trainer_readout(torch, s))
+        del t, s
+        free()
+        return out
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs = [one(False), one(False), one("all")]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    twice = same_bits(torch, runs[0], runs[1])
+    diff = same_bits(torch, runs[0], runs[2])
+    g_stats = [n for n in runs[0][1][1] if not n.startswith("d.")]
+    print(f"  x16 f32 remat 'all' against remat False at B = {b}, deterministic algorithms "
+          f"({len(ops)} ops without one: {ops[:4]}): two remat=False steps differ in "
+          f"{len(twice)} tensors, remat 'all' in {len(diff)} ({diff[:4]})", flush=True)
+    if not twice:
+        check(not diff, f"x16 f32: the remat 'all' step == the remat=False step at B = {b}, "
+                        f"bit for bit (metrics, parameters, Adam moments, BN running stats)")
+    else:
+        check(not [n for n in diff if n in g_stats],
+              f"x16 f32: remat 'all' leaves G's BN running stats of the remat=False step at "
+              f"B = {b} (the card's step is not bit-reproducible here: step_against_cpu holds "
+              f"the rest)")
+
+    # -- (4) the card's step against a float64 CPU step -------------------------------------
+    step_against_cpu(torch, cfg, text_sd,
+                     train_batch(torch, rng, X16_CPU_B, device="cpu", sizes=X16_SIZES),
+                     remats=(False, "all"))
+    free()
+
+    # -- (5) the CLI -------------------------------------------------------------------------
+    data = os.path.join(tmp, "face_train16")
+    face_train_set(rng, data, 5)
+    yml = os.path.join(tmp, "train_faceSR_S16.yml")
+    with open(yml, "w") as f:
+        f.write(FACE_S16_TRAIN_YAML)
+    n_words = TextFaceDataset(data, split="train", words_num=T, imsize=512).n_words
+    te = os.path.join(tmp, "train16_text_encoder.pth")
+    torch.save(seeded_text_state_dict(cfg, n_words, torch.Generator().manual_seed(17)), te)
+    out = os.path.join(tmp, "train16_out")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_gan.main(["--cfg", yml, "--data_dir", data, "--out_dir", out,
+                              "--text_encoder", te, "--remat", "all", "--log_every", "1"])
+    dt = time.perf_counter() - t0
+    launches["train x16 cli"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                 for k in _build.LAUNCHES}
+    snaps = sorted(os.listdir(os.path.join(out, "Model")))
+    print(f"  train x16 cli (--remat all): {summary['steps']} steps in {dt:.2f} s (host clock, "
+          f"whole run); snapshots {snaps}", flush=True)
+    run = launches["train x16 cli"]
+    check(summary["steps"] == 2 and snaps == ["netGH_it2.msgpack", "netG_it2.msgpack"]
+          and run["word_pixel_attention"] == 16 and run["word_pixel_attention_bwd"] == 8,
+          f"train x16 cli: 2 steps, a snapshot pair at 2, 16 attention forward and 8 backward "
+          f"launches ({run['word_pixel_attention']}, {run['word_pixel_attention_bwd']})")
+    state, trainer = summary["state"], summary["trainer"]
+    pipe = SRPipeline.from_reference_checkpoints(
+        trainer.cfg, n_words, os.path.join(out, "Model", "netG_it2.msgpack"),
+        text_encoder_path=te)
+    b = train_batch(torch, rng, 2, vocab=n_words, sizes=X16_SIZES)
+    served = pipe(b["lr"].cpu().numpy(), b["captions"].cpu().numpy(),
+                  b["cap_lens"].cpu().numpy())["sr"]
+    eager = trainer.super_resolve(state, b)
+    err = (served.to(eager.device) - eager).abs().max().item()
+    check(tuple(served.shape) == (2, 512, 512, 3) and err <= 1e-3,
+          f"train x16 cli: its snapshot pair served by the x16 SRPipeline on the card == the "
+          f"run's EMA generator eagerly, 512 px (max abs err {err:.3e} <= 1e-3)")
+    del pipe, summary, state, trainer
+    free()
     return launches
 
 
@@ -3622,9 +3942,11 @@ def main() -> int:
     t0 = time.perf_counter()
     # a stream of its own: the x8 phases' data does not depend on this phase
     x16_kernels = x16_kernel_phase(torch, np.random.default_rng(16))
+    x16_train_kernels = x16_train_kernel_rows(torch)
     print(f"x16 kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches, scales = pipeline_phase(torch, rng, card)
+    tf32_effect(torch, card)
     print(f"pipeline phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for tag, run in serving_phase(torch, rng, card, scales).items():
@@ -3654,6 +3976,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(train_phase(torch, rng, card, tmp))
     print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(x16_train_phase(torch, np.random.default_rng(16), card, tmp))
+    print(f"x16 train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     # under PyTorch's default TF32 switches (cuDNN's on), as a user's run of
     # the CLIs has them: the trainers and the ranking turn TF32 off
@@ -3686,6 +4012,10 @@ def main() -> int:
             k["x16"] = x16_kernels[k["name"]]
             k["x16"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()
                                        if tag.startswith("x16"))
+        if k["name"] in x16_train_kernels:
+            k["x16_train"] = x16_train_kernels[k["name"]]
+            k["x16_train"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()
+                                             if tag.startswith("train x16"))
         paths = [tag for tag, n in k["launches_by_path"].items() if n]
         check(k["launches"] > 0, f"{k['name']} launched on its path ({', '.join(paths)})")
     print(card, flush=True)

@@ -139,12 +139,18 @@ def test_init_netg_from_a_snapshot(env, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--resume"], "A 10"), (["--mesh", "8x1"], "A 10"), (["--fsdp"], "A 10"),
-    (["--remat"], "What comes next"), (["--remat", "all"], "What comes next"),
+    (["--remat", "bogus"], "argument --remat: invalid choice: 'bogus'"),
+    (["--resume", "--remat", "all"], "A 10"),
     (["--tensorboard"], "A 10"),
 ])
-def test_unported_flags_exit_with_their_roadmap_item(env, argv, item):
-    with pytest.raises(SystemExit, match=item):
+def test_unported_flags_exit_with_their_roadmap_item(env, argv, item, capsys):
+    """The flags that need unported parts exit naming their ROADMAP item
+    (--remat is ported: a policy outside JAX's choices exits with JAX's
+    argparse message, and --remat beside --resume still exits for
+    --resume)."""
+    with pytest.raises(SystemExit) as exc:
         train_gan.main(env["base"] + ["--out_dir", str(env["root"] / "never")] + argv)
+    assert item in str(exc.value) + capsys.readouterr().err
     assert not os.path.exists(env["root"] / "never")
 
 

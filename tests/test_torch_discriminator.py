@@ -102,3 +102,28 @@ def test_unconditional_dnet_matches_jax():
     np.testing.assert_allclose(unc.detach().numpy(), np.asarray(unc_ref), **TOL)
     with pytest.raises(ValueError, match="no conditional head"):
         pd.cond_logit(pd.features(_nchw(img)), torch.zeros(2, NEF))
+
+
+@pytest.mark.parametrize("ndf,size", [(8, 16), (16, 8), (12, 16), (16, 32)])
+def test_bf16_logits_on_the_cpu(ndf, size):
+    """The bfloat16 DNet on the CPU, train mode, fed channels_last as the
+    trainer feeds it (an NHWC image permuted): both logits within 0.03 of
+    the float64 DNet on the same bfloat16-rounded weights and image. Its
+    4x4, stride-4 logit convs see ndf (8 px), 2 ndf (16 px) or 4 ndf (32
+    px) channels; PyTorch's CPU bfloat16 convolution sums a channels_last
+    input of 16 or 24 channels there wrongly (`_logit_input`)."""
+    rng = np.random.default_rng(size + ndf)
+    torch.manual_seed(size + ndf)
+    d = DNet(ndf=ndf, nef=NEF, img_size=size).to(torch.bfloat16).train()
+    img = torch.from_numpy(rng.uniform(-1, 1, (B, size, size, 3)).astype(np.float32))
+    sent = torch.from_numpy(rng.normal(size=(B, NEF)).astype(np.float32))
+    x = img.permute(0, 3, 1, 2).to(torch.bfloat16)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        h = d.features(x)
+        got = [d.cond_logit(h, sent.to(torch.bfloat16)), d.uncond_logit(h)]
+        d64 = d.double()
+        h = d64.features(x.double())
+        ref = [d64.cond_logit(h, sent.to(torch.bfloat16).double()), d64.uncond_logit(h)]
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.double().numpy(), r.numpy(), rtol=0, atol=0.03)

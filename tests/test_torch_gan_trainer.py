@@ -97,26 +97,37 @@ def accum_run(jax_init):
     return run_both(jax_init, 2, grad_accum=2)
 
 
-def check_stats(jt, pt, part, scale):
+def stats_failures(jt, pt, part, scale):
     """Running var within scale * var, running mean within scale * (|mean| +
-    sqrt(var)): a mean near 0 is held at the spread of what it averages."""
+    sqrt(var)): a mean near 0 is held at the spread of what it averages.
+    The entries beyond their bound, as ("stats", part, tensor, index)."""
     fj, fp = flat(jt[part]), flat(pt[part])
     assert fj.keys() == fp.keys(), part
+    out = []
     for k in fj:
         var = fj[k[:-len("mean")] + "var"] if k.endswith("/mean") else 0.0
         bound = scale * (np.abs(fj[k]) + np.sqrt(var))
         err = np.abs(fp[k] - fj[k])
-        assert (err <= bound).all(), (part, k, err.max(), (err / bound).max())
+        out += [("stats", part, k, tuple(map(int, i))) for i in np.argwhere(~(err <= bound))]
+    return out
 
 
-def check_step(jm, jt, pm, pt, g_moved=False):
-    """One step's metrics, stats, gradients, params and EMA; `g_moved`: G's
-    forward ran on parameters an earlier update moved."""
+def check_stats(jt, pt, part, scale):
+    fails = stats_failures(jt, pt, part, scale)
+    assert not fails, fails[:10]
+
+
+def gate_failures(jm, jt, pm, pt, g_moved=False):
+    """Where one step's metrics, stats, gradients, params and EMA (`pm`, `pt`)
+    leave the gates above around the reference's (`jm`, `jt`): ("metric",
+    name), ("stats", ...), ("grad", net, tensor), ("param", tree, tensor,
+    index), and ("cap", excepted, entries) where more than 1 % of the entries
+    are excepted; `g_moved`: G's forward ran on parameters an earlier update
+    moved."""
     assert set(pm) == set(jm), (sorted(pm), sorted(jm))
-    for k in jm:
-        np.testing.assert_allclose(pm[k], jm[k], rtol=METRIC_RTOL, err_msg=k)
-    check_stats(jt, pt, "g_stats", STATS_SCALE * (10 if g_moved else 1))
-    check_stats(jt, pt, "d_stats", STATS_SCALE * 10)
+    fails = [("metric", k) for k in jm if not abs(pm[k] - jm[k]) <= METRIC_RTOL * abs(jm[k])]
+    fails += stats_failures(jt, pt, "g_stats", STATS_SCALE * (10 if g_moved else 1))
+    fails += stats_failures(jt, pt, "d_stats", STATS_SCALE * 10)
     bias = 1 - 0.999 ** max(jt["count"], 1)  # Adam's second-moment correction
     n_loose = [0, 0]
     for net in ("g", "d"):
@@ -124,16 +135,26 @@ def check_step(jm, jt, pm, pt, g_moved=False):
         assert mu_j.keys() == mu_p.keys()
         for k in mu_j:
             rel = np.linalg.norm(mu_p[k] - mu_j[k]) / max(np.linalg.norm(mu_j[k]), 1e-30)
-            assert rel <= GRAD_REL_L2, (net, k, rel)
+            if not rel <= GRAD_REL_L2:
+                fails.append(("grad", net, k))
             g = np.abs(mu_j[k])
             loose = (g < 1e-6 * g.max()) | (np.sqrt(nu_j[k] / bias) < 1000 * ADAM_EPS)
             n_loose[0] += loose.sum()
             n_loose[1] += loose.size
             for key in (f"{net}_params", "g_ema") if net == "g" else (f"{net}_params",):
                 pj, pp = flat(jt[key])[k], flat(pt[key])[k]
-                err = np.where(loose, 0.0, np.abs(pp - pj)).max()
-                assert err <= PARAM_ATOL, (key, k, err)
-    assert n_loose[0] <= 0.01 * n_loose[1], n_loose  # the exception stays an exception
+                err = np.where(loose, 0.0, np.abs(pp - pj))
+                fails += [("param", key, k, tuple(map(int, i)))
+                          for i in np.argwhere(~(err <= PARAM_ATOL))]
+    if n_loose[0] > 0.01 * n_loose[1]:  # the exception stays an exception
+        fails.append(("cap", int(n_loose[0]), int(n_loose[1])))
+    return fails
+
+
+def check_step(jm, jt, pm, pt, g_moved=False):
+    """One step at every gate above (`gate_failures`)."""
+    fails = gate_failures(jm, jt, pm, pt, g_moved)
+    assert not fails, fails[:10]
 
 
 def test_one_step_matches_jax(jax_init):
@@ -257,14 +278,22 @@ def test_device_preprocess_matches_jax(with_blur):
 
 
 def test_x16_and_the_image_encoder_are_refused():
-    """x16 training waits for ROADMAP What comes next 1; an image encoder
-    that is not a DAMSM encoder module is refused (the DAMSM terms take a
-    CNNEncoder or SimpleCNNEncoder, tests below)."""
-    _, tcfg16 = train_configs(branch_num=5)
+    """The families the port does not train are refused by name: BRANCH_NUM
+    3 and the GRU text encoder (x16, BRANCH_NUM 5, trains:
+    tests/test_torch_gan_trainer_x16.py); an image encoder that is not a
+    DAMSM encoder module is refused (the DAMSM terms take a CNNEncoder or
+    SimpleCNNEncoder, tests below)."""
+    import dataclasses
+
     tv = text_state_dict(text_vars())
-    with pytest.raises(NotImplementedError, match="What comes next"):
-        GANTrainer(tcfg16, VOCAB, tv, device="cpu")
     _, tcfg = train_configs()
+    _, tcfg3 = train_configs(branch_num=3)
+    with pytest.raises(NotImplementedError, match="BRANCH_NUM = 3"):
+        GANTrainer(tcfg3, VOCAB, tv, device="cpu")
+    with pytest.raises(NotImplementedError, match="RNN_TYPE = 'GRU'"):
+        GANTrainer(dataclasses.replace(tcfg, RNN_TYPE="GRU"), VOCAB, tv, device="cpu")
+    _, tcfg16 = train_configs(branch_num=5)
+    assert GANTrainer(tcfg16, VOCAB, tv, device="cpu").sizes == [8, 16, 32, 64]
     with pytest.raises(TypeError, match="CNNEncoder"):
         GANTrainer(tcfg, VOCAB, tv, image_encoder=lambda x: x, device="cpu")
 

@@ -28,6 +28,10 @@ The conv probe's four tensor-core kernels (`tap9`, `im2col`, `pair5`,
 one bfloat16 ulp elementwise (`conv_probe.max_ulps`: float32 sums in another
 order, each output rounded once).
 
+The attention forward and backward at the x16 family's 256 px training
+site (B = 16, ragged and edge masks), and C 5: a float32 pipeline built on
+the card runs with TF32 off whatever the process had set.
+
 DAMSM (no kernel of its own): a DAMSMTrainer step (SimpleCNN and
 Inception) and a GAN step with the DAMSM terms on the card against the
 same steps on the CPU (metrics rtol 1e-4; gradients relative L2 1e-3 per
@@ -124,20 +128,23 @@ def _attention_grads(px, wd, mask, g, ga, fn):
     return torch.autograd.grad(loss, (px, wd))
 
 
-def _check_backward(b, hw, t, lens, dtype, with_attn_grad, seed, device):
+def _check_backward(b, hw, t, lens, dtype, with_attn_grad, seed, device, mask=None):
     """The backward kernel (through autograd) against autograd of the plain
     version in float32 on the same inputs. float32: max abs error <= 1e-5
-    max(1, |ref|max) (T-term softmax sums and a dwords sum over up to 128^2
+    max(1, |ref|max) (T-term softmax sums and a dwords sum over up to 256^2
     pixels in another order); bfloat16: |err| <= 2^-8 |ref| + 1e-5 max(1,
     |ref|max) (float32 inside, each output rounded once). Two runs equal bit
-    for bit. Returns the kernel's grads."""
+    for bit. `mask` ([b, t], True = padded) in place of the one `lens`
+    makes. Returns the kernel's grads."""
     c = 32
     rng = np.random.default_rng(seed)
     px, wd, g = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device).to(dtype)
                  for shape in ((b, hw, hw, c), (b, t, c), (b, hw, hw, c)))
     ga = (torch.from_numpy(rng.normal(size=(b, t, hw, hw)).astype(np.float32)).to(device)
           .to(dtype) if with_attn_grad else None)
-    mask = (torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]).to(device)
+    if mask is None:
+        mask = torch.arange(t)[None, :] >= torch.tensor(lens)[:, None]
+    mask = mask.to(device)
     ref = _attention_grads(px.float(), wd.float(), mask, g.float(),
                            ga.float() if ga is not None else None, plain_wpa)
     before = dict(_build.LAUNCHES)
@@ -171,6 +178,82 @@ def test_attention_backward_ragged_tile_any_t(cuda_device, t, dtype):
     """20 x 20 pixels (a ragged last tile), T of every register bucket, the
     attention map's gradient on."""
     _check_backward(3, 20, t, [t, 0, (t + 1) // 2], dtype, True, t, cuda_device)
+
+
+def x16_train_mask(kind, b=16, t=18):
+    """The masks of the x16 train-site test, True = padded: ragged lengths
+    (one caption padded everywhere), every token padded, or no padding but
+    one token."""
+    if kind == "ragged":
+        lens = torch.from_numpy(np.random.default_rng(16).integers(1, t + 1, b))
+        lens[1] = 0
+        return torch.arange(t)[None, :] >= lens[:, None]
+    if kind == "all padded":
+        return torch.ones(b, t, dtype=torch.bool)
+    mask = torch.zeros(b, t, dtype=torch.bool)
+    mask[:, 5] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ragged", "all padded", "one token padded"])
+def test_attention_x16_train_site_256px(cuda_device, kind, dtype):
+    """The x16 family's largest training site: 256 px at B = 16 (1,048,576
+    pixel rows a call; the backward's tiles, its partial-dW buffer and the
+    second launch that sums it at that size), C 32, T 18, no attention-map
+    gradient (as the step runs it), forward and backward against the plain
+    version at the gates above."""
+    b, hw, t, c = 16, 256, 18, 32
+    mask = x16_train_mask(kind, b, t).to(cuda_device)
+    rng = np.random.default_rng(256)
+    px, wd = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+              .to(dtype) for shape in ((b, hw, hw, c), (b, t, c)))
+    # the plain version in float32 on the same (bfloat16-rounded) inputs
+    ctx_p, _ = plain_wpa(px.float(), wd.float(), mask, return_attn=False)
+    ctx_k, _ = word_pixel_attention(px, wd, mask, return_attn=False)
+    err = (ctx_k.float() - ctx_p).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5 * max(1.0, ctx_p.abs().max().item())
+    else:
+        assert (err - 2 ** -8 * ctx_p.abs()).max().item() <= 1e-5 * max(1.0, ctx_p.abs().max().item())
+    _check_backward(b, hw, t, None, dtype, False, 16, cuda_device, mask=mask)
+
+
+def test_float32_pipeline_turns_tf32_off(cuda_device, capsys):
+    """C 5: a float32 SRPipeline built on the card turns cuDNN's and cuBLAS's
+    TF32 off for the process, whatever the caller had set, so its B = 4
+    output equals, bit for bit, that of a pipeline built with TF32 off (the
+    face S8 geometry at full width, seeded weights), and logs it in one line
+    where it turned a switch off. The control: TF32 on again after the
+    build changes that output. bfloat16 and int8 pipelines leave the
+    switches as they are."""
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine.precision import FLOAT32_MATH_NOTE
+
+    cfg = face_s8_config()
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    lr = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (4, 18))
+    lens = np.array([18, 7, 0, 12])
+    cap[np.arange(18)[None, :] >= lens[:, None]] = 0
+    out = {}
+    for on in (True, False):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+        pipe = SRPipeline(cfg, 41, *sds, device=cuda_device)
+        assert pipe.pins_float32_math
+        assert capsys.readouterr().out.count(FLOAT32_MATH_NOTE) == (1 if on else 0)
+        assert not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+        out[on] = pipe(lr, cap, lens)["sr"]
+    assert torch.equal(out[True], out[False])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    assert not torch.equal(pipe(lr, cap, lens)["sr"], out[False])
+    bf16 = SRPipeline(cfg, 41, *sds, device=cuda_device, compute_dtype=torch.bfloat16)
+    scales = bf16.calibrate_quant(lr, cap, lens)
+    int8 = SRPipeline(cfg, 41, *sds, device=cuda_device, compute_dtype=torch.float32,
+                      quant_scales=scales)
+    assert not (bf16.pins_float32_math or int8.pins_float32_math)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
 
 
 def test_attention_backward_only_where_autograd_asks(cuda_device):
@@ -1272,6 +1355,30 @@ def test_gan_trainer_step_card_matches_cpu(cuda_device, dtype):
     rtol = 1e-4 if dtype == torch.float32 else 5e-2
     for k, v in metrics["cpu"].items():
         np.testing.assert_allclose(metrics[str(cuda_device)][k], v, rtol=rtol, err_msg=k)
+
+
+def test_plan_batch_on_the_card(cuda_device):
+    """GANTrainer.plan_batch on the card at a narrow x16 tree (BASE_SIZE 8,
+    GF_DIM 16, DF_DIM 16, remat 'all') with a 1 GiB budget and hi 64: a
+    positive multiple of 8 whose probe completed under the budget, a fresh
+    run at the answer completes with the allocator capped at the budget,
+    and the allocator's memory fraction is as it was after."""
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.config import EvalConfig
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+
+    cfg = Config(TREE=TreeConfig(5, 8), GAN=GanConfig(16, 10, 2, DF_DIM=16),
+                 TEXT=TextConfig(32, 6), EVAL=EvalConfig())
+    t = GANTrainer(cfg, 12, seeded_text_state_dict(cfg, 12, torch.Generator().manual_seed(3)),
+                   remat="all", device=cuda_device)
+    budget, index = 2 ** 30, torch.cuda.current_device()
+    before = torch.cuda.get_per_process_memory_fraction(index)
+    b = t.plan_batch(budget_bytes=budget, hi=64)
+    probes = t.batch_plan["probes"]
+    assert 0 < b <= 64 and b % 8 == 0 and probes[b] is not None and probes[b] <= budget
+    assert all(need is None or need > budget for k, need in probes.items() if k > b)
+    assert t.step_peak_bytes(b, budget) is not None
+    assert torch.cuda.get_per_process_memory_fraction(index) == before
 
 
 def _damsm_cfg():

@@ -164,3 +164,21 @@ def test_entry_points_need_a_card_unless_asked():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("switches", [True, False])
+def test_float32_pipeline_on_the_cpu_leaves_tf32(setup, monkeypatch, capsys, switches):
+    """A float32 pipeline turns TF32 off for the process only when it is
+    built on the card (tests/test_torch_kernels_cuda.py
+    test_float32_pipeline_turns_tf32_off): on the CPU, where there is no
+    TF32, building one touches neither switch, whichever way they stand,
+    and logs nothing about them."""
+    from tgsr_tpu_torch.engine.precision import FLOAT32_MATH_NOTE
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", switches)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", switches)
+    pipe = SRPipeline(setup["tcfg"], VOCAB, *setup["sds"], device="cpu")
+    assert not pipe.pins_float32_math
+    assert FLOAT32_MATH_NOTE not in capsys.readouterr().out
+    assert torch.backends.cudnn.allow_tf32 is switches
+    assert torch.backends.cuda.matmul.allow_tf32 is switches

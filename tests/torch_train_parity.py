@@ -1,8 +1,10 @@
 """Shared set-up of the tgsr_tpu_torch training tests: the tiny x8 training
 geometry of tests/test_cli_train_gan.py (BASE_SIZE 8, GF_DIM 16, DF_DIM 16;
-a 32-wide text embedding and 6 caption slots), a seeded JAX text encoder,
-numpy batches, one JAX `GANTrainer` state carried into the port's, and the
-port's state read back as JAX-shaped trees for comparison."""
+a 32-wide text embedding and 6 caption slots) and the tiny x16 one of
+tests/test_gan_trainer_x16.py (BRANCH_NUM 5, BASE_SIZE 4, GF_DIM 8, DF_DIM
+8; pyramid 8 to 64 px; `width` sets GF_DIM and DF_DIM), a seeded JAX text
+encoder, numpy batches, one JAX `GANTrainer` state carried into the port's,
+and the port's state read back as JAX-shaped trees for comparison."""
 
 import dataclasses
 
@@ -21,15 +23,22 @@ from tgsr_tpu_torch.checkpoints.from_jax import (dnet_state_dict, dnet_variables
 VOCAB, T, EMB = 12, 6, 32
 
 
-def train_configs(branch_num=4):
-    """(tgsr_tpu Config, tgsr_tpu_torch Config) of the tiny training tree."""
+# BRANCH_NUM -> (BASE_SIZE, GF_DIM, DF_DIM) of the tiny training trees
+GEOMETRY = {4: (8, 16, 16), 5: (4, 8, 8)}
+
+
+def train_configs(branch_num=4, width=None):
+    """(tgsr_tpu Config, tgsr_tpu_torch Config) of the tiny training tree of
+    the x8 (4) or x16 (5) family; `width`, if given, is GF_DIM and DF_DIM."""
+    base, gf, df = GEOMETRY.get(branch_num, GEOMETRY[4])
+    gf, df = (gf, df) if width is None else (width, width)
     out = []
     for mod in (jcfg_mod, tcfg_mod):
         cfg = mod.Config()
         out.append(dataclasses.replace(
             cfg, DATASET_NAME="face",
-            TREE=dataclasses.replace(cfg.TREE, BRANCH_NUM=branch_num, BASE_SIZE=8),
-            GAN=dataclasses.replace(cfg.GAN, GF_DIM=16, DF_DIM=16, CONDITION_DIM=10),
+            TREE=dataclasses.replace(cfg.TREE, BRANCH_NUM=branch_num, BASE_SIZE=base),
+            GAN=dataclasses.replace(cfg.GAN, GF_DIM=gf, DF_DIM=df, CONDITION_DIM=10),
             TEXT=dataclasses.replace(cfg.TEXT, EMBEDDING_DIM=EMB, WORDS_NUM=T)))
     return tuple(out)
 
@@ -44,13 +53,15 @@ def text_vars(seed=0):
 def batch(b, lens, seed=0, sizes=(16, 32, 64)):
     """A numpy training batch: LR and pyramid noise in [-1, 1] (noise, not
     constants: train-mode BN of a zero-variance image divides by
-    sqrt(eps) at every layer), captions padded past `lens`."""
+    sqrt(eps) at every layer), captions padded past `lens`; the LR at half
+    the first pyramid size."""
     rng = np.random.default_rng(seed)
     caps = rng.integers(1, VOCAB, (b, T)).astype(np.int32)
     lens = np.asarray(lens, np.int32)
     for i, n in enumerate(lens):
         caps[i, n:] = 0
-    return {"lr": rng.uniform(-1, 1, (b, 8, 8, 3)).astype(np.float32),
+    base = sizes[0] // 2
+    return {"lr": rng.uniform(-1, 1, (b, base, base, 3)).astype(np.float32),
             "real_pyramid": [rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)
                              for s in sizes],
             "captions": caps, "cap_lens": lens}
@@ -84,11 +95,14 @@ def flat(tree, prefix=""):
 
 def _g_trees(state, values):
     """netg and netgh trees of `values` (name -> tensor, the G parameter
-    names of `g_named_parameters`) with the modules' current stats."""
+    names of `g_named_parameters`) with the modules' current stats; a tied
+    module's aliases (x16) take the shared tensor's value."""
     trees = {}
     for prefix, module in (("netg", state.netg), ("netgh", state.netgh)):
         sd = dict(module.state_dict())
-        sd.update({n: values[f"{prefix}.{n}"] for n, _ in module.named_parameters()})
+        first = {id(p): n for n, p in module.named_parameters()}
+        sd.update({n: values[f"{prefix}.{first[id(p)]}"]
+                   for n, p in module.named_parameters(remove_duplicate=False)})
         trees[prefix] = (netg_variables(sd) if prefix == "netg"
                          else netgh_variables(sd, float(values["netgh.a"].detach())))
     return trees

@@ -202,7 +202,7 @@ def state_dicts_from_jax(text_vars: Mapping, netg_vars: Mapping,
     return text_state_dict(text_vars), netg_state_dict(netg_vars), netgh_sd, a
 
 
-# -- the port's weights as flax trees (x8 family), and the discriminators' ------
+# -- the port's weights as flax trees, and the discriminators' ------------------
 
 def _np(x) -> np.ndarray:
     return x.detach().to("cpu", torch.float32).numpy().copy()
@@ -229,18 +229,35 @@ def _get_convs(params: Dict[str, Any], sd: Mapping[str, torch.Tensor],
         _set(params, f"{key}/kernel", _np(sd[f"{path}.weight"]).transpose(2, 3, 1, 0))
 
 
+# the x16 G_SR_NET_low's aliases (models16.py:13-14): alias prefix -> the shared module's
+X16_NETG_ALIASES = {"h_net3.": "h_net2.", "h_net4.": "h_net2.", "img_net2.": "img_net1.",
+                    "img_net3.": "img_net1.", "img_net4.": "img_net1."}
+
+
 def netg_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The inverse of `netg_state_dict` for the x8 family: a G_SR_NET_low
-    state dict -> the JAX GSRNetLow's {'params', 'batch_stats'} tree of numpy
-    float32 arrays (HWIO kernels, Dense [in, out]). num_batches_tracked,
-    which the JAX tree has no place for, is dropped."""
+    """The inverse of `netg_state_dict`: a G_SR_NET_low state dict -> the JAX
+    GSRNetLow's {'params', 'batch_stats'} tree of numpy float32 arrays (HWIO
+    kernels, Dense [in, out]); the x16 family's (four stages, h_net3 / h_net4
+    and img_net2..4 the aliases of h_net2 and img_net1) -> the GSRNetLow16
+    tree, the shared stage and head written once (ValueError where an alias
+    holds other values). num_batches_tracked, which the JAX tree has no
+    place for, is dropped."""
     n_stages = _count({k.split(".")[0]: 0 for k in sd}, "h_net{}", start=1)
     r_num = _count({k.split(".")[2]: 0 for k in sd if k.startswith("h_net1.residual.")}, "{}")
+    tied = n_stages == 4  # only the x16 family has four stages
+    if tied:
+        for k, v in sd.items():
+            src = next((s + k[len(a):] for a, s in X16_NETG_ALIASES.items() if k.startswith(a)),
+                       None)
+            if src is not None and not (v.shape == sd[src].shape and torch.allclose(
+                    v, sd[src], rtol=0, atol=0, equal_nan=True)):
+                raise ValueError(f"{k} differs from {src}: not the x16 family's tied netG")
+        n_stages = 2
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     params = out["params"]
     _set(params, "ca_net/fc/kernel", _np(sd["ca_net.fc.weight"]).T.copy())
     _set(params, "ca_net/fc/bias", _np(sd["ca_net.fc.bias"]))
-    _get_convs(params, sd, netg_conv_sites(n_stages, r_num))
+    _get_convs(params, sd, netg_conv_sites(n_stages, r_num, tied))
     _get_bn(out, "h_net1/im2f_bn", sd, "h_net1.im2f.1")
     for k in range(1, n_stages + 1):
         w = _np(sd[f"h_net{k}.att.conv_context.weight"])[:, :, 0, 0]
@@ -254,8 +271,10 @@ def netg_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def netgh_variables(sd: Mapping[str, torch.Tensor], a: float) -> Dict[str, Any]:
-    """The inverse of `netgh_state_dict` for the x8 NetGHighWeight (low 'lr',
-    no weight map): (state dict, blend weight a) -> the JAX tree, with
+    """The inverse of `netgh_state_dict` for NetGHighWeight (low 'lr', no
+    weight map) and the x16 NetGHighWeight16, whose JAX tree has the same
+    keys (its declared residual816 / upscale16x never run, and a JAX tree
+    has none): (state dict, blend weight a) -> the JAX tree, with
     params['a'] of shape (1,)."""
     n_res = _count({k.split(".")[1]: 0 for k in sd if k.startswith("residual.")}, "{}")
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}

@@ -5,7 +5,12 @@ EMA weights, through `engine/gan_trainer.GANTrainer`.
 
   python -m tgsr_tpu_torch.cli.train_gan --cfg <train yml> --data_dir <root> \\
       [--text_encoder text_encoder.pth] [--image_encoder image_encoder0.msgpack] \\
-      [--epochs N] [--bf16] [--device cpu]
+      [--epochs N] [--bf16] [--remat [low|high|all]] [--device cpu]
+
+The x8 family (configs/train_faceSR_S8.yml) or the x16 one
+(configs/train_faceSR_S16.yml: 32 px -> 512 px, `--remat all` as the JAX
+CLI runs it); `--remat` alone or `all` rematerialises both generators in the
+backward, `low` / `high` GSRNetLow's stages / NetGHighWeight's blocks only.
 
 The JAX CLI's flags, defaults and messages, plus `--device` (default
 "cuda"; "cpu" runs every kernel site's plain version). Each step's batch is
@@ -16,7 +21,7 @@ TRAIN.SNAPSHOT_INTERVAL steps `<out_dir>/Model/netG_it{N}.msgpack` and
 JAX's `load_variables` and the port's `SRPipeline` read). A non-finite
 metric aborts (never snapshotted); SIGTERM and Ctrl-C write the last step's
 snapshot pair and stop. JAX's orbax train-state checkpoints and the flags
-that need them or other unported parts (--resume, --mesh, --fsdp, --remat,
+that need them or other unported parts (--resume, --mesh, --fsdp,
 --tensorboard) exit with the ROADMAP item that ports them. --image_encoder
 (a `cli.pretrain_damsm` snapshot, or a reference image_encoder .pth) adds
 the DAMSM terms; its family comes from the tree, as JAX's.
@@ -40,7 +45,6 @@ REFUSED = {
     "resume": "ROADMAP A 10 (orbax train-state checkpoints as torch.distributed.checkpoint)",
     "mesh": "ROADMAP A 10 (parallel/mesh.py as torch.distributed)",
     "fsdp": "ROADMAP A 10 (parallel/mesh.py as torch.distributed)",
-    "remat": "ROADMAP 'What comes next' item 1 (x16 training with remat)",
     "tensorboard": "ROADMAP A 10 (utils/observability.py's TensorBoard mirror)",
 }
 
@@ -59,7 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--manualSeed", type=int, default=100)
     parser.add_argument("--log_every", type=int, default=20)
     parser.add_argument("--remat", nargs="?", const=True, default=False,
-                        help="rematerialize G activations (not ported yet)")
+                        choices=[True, False, "all", "low", "high"],
+                        help="rematerialize G activations in the backward: --remat (both "
+                             "generators) or --remat low|high (GSRNetLow / NetGHighWeight "
+                             "only); memory only, the step is the same")
     parser.add_argument("--loss_weight", action="append", default=[], metavar="TERM=W",
                         help="scale a G composite term, e.g. --loss_weight adv=0.01 "
                              "(terms: adv, pixel, kl; default 1.0 each)")
@@ -192,7 +199,8 @@ def main(argv=None):
         print(f"DAMSM terms from {type(image_encoder).__name__} {args.image_encoder}")
     trainer = GANTrainer(cfg, ds.n_words, text_sd, image_encoder=image_encoder,
                          compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                         loss_weights=loss_weights or None, device=args.device)
+                         loss_weights=loss_weights or None, remat=args.remat,
+                         device=args.device)
     device = trainer.device
     state = trainer.init_state(torch.Generator().manual_seed(args.manualSeed))
     loader = BatchLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True, seed=args.manualSeed)

@@ -156,22 +156,20 @@ def check_served(cfg: Config) -> Config:
     return cfg
 
 
-# the families the port trains, by TREE.BRANCH_NUM: the x8 family only; x16
-# training (models16's tied modules called several times in train mode, with
-# remat) is ROADMAP "What comes next" item 1
-TRAINED_BRANCH_NUMS = (4,)
+# the families the port trains, by TREE.BRANCH_NUM: the x8 family and the x16
+# one (models16's tied modules, called several times in train mode)
+TRAINED_BRANCH_NUMS = (4, 5)
 
 
 def check_trained(cfg: Config) -> Config:
     """`cfg` as it is, or NotImplementedError naming the setting the port
-    does not train: what `check_served` refuses, or a family other than
-    x8 (TREE.BRANCH_NUM 4). The TRAIN fields are the JAX schema's, read as
-    the JAX trainer reads them."""
+    does not train: what `check_served` refuses (a BRANCH_NUM other than 4
+    and 5, the GRU, the blur inputs, weight maps and stage 1). The TRAIN
+    fields are the JAX schema's, read as the JAX trainer reads them."""
     check_served(cfg)
     if cfg.TREE.BRANCH_NUM not in TRAINED_BRANCH_NUMS:
         raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port trains "
-                                  "the x8 family (BRANCH_NUM 4) only; x16 training waits for "
-                                  "ROADMAP 'What comes next' item 1 (x16 training with remat)")
+                                  "the x8 (BRANCH_NUM 4) and x16 (BRANCH_NUM 5) families only")
     return cfg
 
 

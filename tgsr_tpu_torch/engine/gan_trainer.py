@@ -36,17 +36,30 @@ PyTorch, step for step:
 - TF32 off in the step and in `super_resolve`
   (`engine/precision.float32_math`), whatever the process's switches say.
 
+- the family switch of JAX's trainer (:143-169): BRANCH_NUM 4 the x8
+  generators, 5 the x16 family (models16: h_net2 called three times and
+  img_net1 four, residual48 and upscale8x twice, each call moving its BN
+  stats in JAX's order; a tied module is one tensor set, its gradients
+  summed over its calls, one Adam state), one DNet per pyramid scale (64 to
+  512 px at x16);
+- `remat` False / True / 'all' / 'low' / 'high' (:132-141) as activation
+  checkpointing (`utils/remat.py`): 'low' each GSRNetLow stage, 'high' each
+  NetGHighWeight block, True / 'all' both. Memory only: the step equals
+  the step without it bit for bit on the CPU, BN running stats included.
+
 Where JAX returns a new state from a jitted step, the port updates the
 state in place (its modules, optimizers and EMA) and returns the metrics,
 0-d tensors on the device (no host sync). JAX's CANet draws a c_code that
 nothing on the SR path reads; the port draws nothing, so a step uses no
-random numbers. Not ported (ROADMAP): x16 training and `remat` (What comes
-next 1), `mesh` / `fsdp` (A 10), `plan_batch`, `train_steps` and
+random numbers. `plan_batch` bisects capped probe runs where JAX bisects
+XLA's compile-time memory, and refuses the CPU (ROADMAP Queue C). Not
+ported (ROADMAP): `mesh` / `fsdp` (A 10), `train_steps` and
 `clip_by_global_norm` (A 8).
 """
 
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -66,6 +79,8 @@ from tgsr_tpu_torch.models.models16 import make_generators
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
 from tgsr_tpu_torch.ops.image import denormalize_to_uint8, psnr_batch, rgb2y, ssim
+from tgsr_tpu_torch.utils import memory
+from tgsr_tpu_torch.utils.remat import remat_policy
 
 LOSS_TERMS = ("adv", "pixel", "kl", "damsm")
 TRAIN_DTYPES = COMPUTE_DTYPES + (torch.float64,)  # float64: the reference precision
@@ -102,12 +117,14 @@ class GANTrainState:
 
     def g_state_dicts(self) -> Tuple[StateDict, StateDict, float]:
         """(netg state dict, netgh state dict, a): the EMA parameters with
-        the current BN running stats, on the CPU."""
+        the current BN running stats, on the CPU; a tied module's aliases
+        (x16's h_net3, img_net2, ...) carry its EMA too."""
         out = []
         for prefix, module in (("netg", self.netg), ("netgh", self.netgh)):
             sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
-            for name, _ in module.named_parameters():
-                sd[name] = self.g_ema[f"{prefix}.{name}"].detach().cpu().clone()
+            first = {id(p): name for name, p in module.named_parameters()}
+            for name, p in module.named_parameters(remove_duplicate=False):
+                sd[name] = self.g_ema[f"{prefix}.{first[id(p)]}"].detach().cpu().clone()
             out.append(sd)
         return out[0], out[1], float(self.g_ema["netgh.a"])
 
@@ -123,17 +140,21 @@ class GANTrainer:
                  image_encoder=None, compute_dtype: torch.dtype = torch.float32,
                  grad_accum: int = 1,
                  loss_weights: Optional[Mapping[str, float]] = None,
-                 d_lr: Optional[float] = None,
+                 d_lr: Optional[float] = None, remat=False,
                  device: Union[str, torch.device] = "cuda"):
         """`text_sd` the frozen text encoder's weights (a RNN_ENCODER state
         dict). `image_encoder`: a DAMSM `CNNEncoder` or `SimpleCNNEncoder`
-        with its weights, frozen here, whose terms join adv. `loss_weights`
+        with its weights, frozen here, whose terms join adv (on the finest
+        fake, 256 px at x8, 512 at x16). `loss_weights`
         scales the G terms 'adv', 'pixel' and 'kl', and 'damsm' the DAMSM
         terms inside adv (1.0 each); the metrics report the unweighted
-        terms and 'g_loss' the weighted total. `device` is the card unless
+        terms and 'g_loss' the weighted total. `remat`: JAX's policy, False /
+        True / 'all' / 'low' / 'high' (ValueError with JAX's message
+        otherwise). `device` is the card unless
         the caller asks for the CPU, where every kernel site runs its plain
         version."""
         check_trained(cfg)
+        remat_policy(remat)
         if image_encoder is not None and not isinstance(image_encoder,
                                                         (CNNEncoder, SimpleCNNEncoder)):
             raise TypeError(f"image_encoder: a CNNEncoder or SimpleCNNEncoder module, not "
@@ -152,6 +173,8 @@ class GANTrainer:
         # outputs, logits and losses: float32, or float64 for the reference
         self.loss_dtype = torch.promote_types(compute_dtype, torch.float32)
         self.grad_accum = grad_accum
+        self.remat = remat
+        self.batch_plan: Optional[Dict[str, Any]] = None  # plan_batch's last answer and probes
         self.loss_weights = dict(loss_weights or {})
         self.d_lr = cfg.TRAIN.DISCRIMINATOR_LR if d_lr is None else d_lr
         self.sizes = cfg.pyramid_sizes()
@@ -171,7 +194,7 @@ class GANTrainer:
         PRNGKey stream cannot be reproduced, so tests carry JAX's init across
         with `load_state`), zero optimizer state, the EMA a copy."""
         cfg = self.cfg
-        netg, netgh = make_generators(cfg)
+        netg, netgh = make_generators(cfg, remat=self.remat)
         dnets = nn.ModuleDict({f"d{s}": DNet(ndf=cfg.GAN.DF_DIM, nef=cfg.TEXT.EMBEDDING_DIM,
                                              img_size=s) for s in self.sizes})
         for module in (netg, netgh, dnets):
@@ -333,7 +356,7 @@ class GANTrainer:
     def super_resolve(self, state: GANTrainState, batch: Mapping[str, Any]) -> torch.Tensor:
         """The generator chain in eval mode (EMA weights; BN on its running
         stats, nothing moves) on the batch's LR: the SR, the
-        fine pyramid's top, NHWC [B, 256, 256, 3]."""
+        fine pyramid's top, NHWC [B, S, S, 3] (S 256 at x8, 512 at x16)."""
         lr, words, sent, mask = self._inputs(batch)
         state.netg.eval()
         state.netgh.eval()
@@ -356,3 +379,89 @@ class GANTrainer:
         y_sr = rgb2y(sr8).float()[..., None]
         y_gt = rgb2y(gt8).float()[..., None]
         return {"psnr_y": psnr_batch(y_sr, y_gt).mean(), "ssim_y": ssim(y_sr, y_gt).mean()}
+
+    # -- capacity planning ----------------------------------------------------------------
+
+    def _probe_batch(self, b: int) -> Dict[str, torch.Tensor]:
+        """A batch of b noise images on the device, full-length captions."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        dev, t = self.device, self.cfg.TEXT.WORDS_NUM
+        u = lambda s: torch.rand(b, s, s, 3, generator=gen, device=dev) * 2 - 1
+        return {"lr": u(self.cfg.TREE.BASE_SIZE), "real_pyramid": [u(s) for s in self.sizes],
+                "captions": torch.randint(1, self.vocab_size, (b, t), generator=gen, device=dev),
+                "cap_lens": torch.full((b,), t, device=dev),
+                "class_ids": torch.arange(b, device=dev)}
+
+    def step_peak_bytes(self, b: int, budget_bytes: int) -> Optional[int]:
+        """What a fresh run at batch b needs on the card: the peak of the
+        bytes the caching allocator reserves, above what it held before, for
+        a fresh state and two steps on noise images (the second with Adam's
+        moments resident), with the allocator capped at `budget_bytes` more
+        than it held (`utils.memory.reserved_cap`). Uncapped, cuDNN takes
+        larger workspaces where more memory is free, so a step's peak depends
+        on the card's state (x16 float32 at B = 32 peaked at 64.25 and at
+        75.24 GiB on one H100); capped, a run that completes fits. None
+        where the run runs out of memory under the cap. `plan_batch`'s
+        probe."""
+        def run() -> None:
+            with memory.reserved_cap(self.device, budget_bytes):
+                state = self.init_state(torch.Generator().manual_seed(0))
+                batch = self._probe_batch(b)
+                for _ in range(2):
+                    self.train_step(state, batch)
+
+        try:
+            return memory.peak_bytes(run, self.device)
+        except torch.cuda.OutOfMemoryError:
+            return None
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def plan_batch(self, budget_bytes: Optional[int] = None, lo: int = 8, hi: int = 1024,
+                   quantum: int = 8) -> int:
+        """The largest training batch in [lo, hi], lo or a multiple of
+        `quantum`, whose D + G step fits `budget_bytes` (default
+        `utils.memory.device_memory_budget`: 0.9 of the device memory free
+        now) under this trainer's remat policy, compute dtype and DAMSM
+        terms; 0 where `lo` does not fit. The counterpart of JAX's
+        (tgsr_tpu/engine/gan_trainer.py:572-615), which bisects XLA's
+        compile-time memory: the port bisects runs. A probe builds a fresh
+        state on the card and takes two steps on noise images with the
+        allocator capped at the budget (`step_peak_bytes`); a batch fits
+        where two such runs in a row complete: the first run at a new batch
+        size searches cuDNN's algorithms under the cap, and a later run can
+        then need more (a narrow x16 tree at B = 32 peaked at 1020 MiB of a
+        1024 MiB cap in its first run and ran out of memory in each of three
+        more, on one H100). lo is measured first, then the candidates above
+        it by bisection (8 probes for [8, 1024]). What the caller holds on
+        the card already counts against the free memory. Records each
+        probe's larger peak (None: out of memory) in `self.batch_plan`.
+        Raises ValueError on the
+        CPU, whose peak the port cannot measure (JAX answers there when
+        given `budget_bytes`: a deliberate difference, ROADMAP Queue C)."""
+        dev = self.device
+        if dev.type != "cuda":
+            raise ValueError(f"plan_batch measures a step's peak memory on a CUDA device; "
+                             f"the trainer is on {dev}, whose memory the port cannot measure")
+        lo, quantum = max(1, lo), max(1, quantum)
+        if budget_bytes is None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            budget_bytes = memory.device_memory_budget(dev)
+        probes: Dict[int, Optional[int]] = {}
+
+        def fits(b: int) -> bool:
+            first = self.step_peak_bytes(b, budget_bytes)
+            second = None if first is None else self.step_peak_bytes(b, budget_bytes)
+            probes[b] = None if second is None else max(first, second)
+            return probes[b] is not None
+
+        candidates = [lo] + list(range((lo // quantum + 1) * quantum, hi + 1, quantum))
+        good, bad = (0, len(candidates)) if fits(lo) else (-1, 0)
+        while bad - good > 1:  # candidates[good] fits, candidates[bad] does not
+            mid = (good + bad) // 2
+            good, bad = (mid, bad) if fits(candidates[mid]) else (good, mid)
+        best = candidates[good] if good >= 0 else 0
+        self.batch_plan = {"batch": best, "budget_bytes": budget_bytes, "probes": probes}
+        return best

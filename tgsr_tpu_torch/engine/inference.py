@@ -75,7 +75,7 @@ from tgsr_tpu_torch.checkpoints.reference import load_generator_pair, load_text_
 from tgsr_tpu_torch.config import Config, check_served, config_from_dict, config_to_dict
 from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.graphs import ForwardGraph
-from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats
+from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats, pin_float32_math
 from tgsr_tpu_torch.engine.quant import (SCALES_META_KEY, SPLIT_RES_GLU_SITES, check_scales,
                                          effective_split_glu, record_absmax,
                                          split_scales_meta, weights_fingerprint)
@@ -151,6 +151,15 @@ class SRPipeline:
             module.to(self.device).eval()
         self.netgh.a.fill_(self.a)
         self.quant_scales, self.quant_meta = split_scales_meta(quant_scales or {})
+        # float32 serving on the card is float32: PyTorch's default has cuDNN's
+        # TF32 on, which rounds the convolutions' operands to a 10-bit mantissa
+        # (70.0 dB, at most 1 uint8 level, on the face S8 path on an H100:
+        # PERF.md). Off for the process, not restored, in one logged line
+        # (`pin_float32_math`); bfloat16 and int8 leave the switches as they are
+        self.pins_float32_math = (compute_dtype == torch.float32 and not self.quant_scales
+                                  and self.device.type == "cuda")
+        if self.pins_float32_math:
+            pin_float32_math()
         check_scales(self.quant_scales, self.netg, self.netgh, meta=self.quant_meta)
         # the up-head sites of the generators served unquantized, folded (and
         # packed) once from the float32 weights; the text encoder stays

@@ -4,7 +4,9 @@ Serving: `cast_floats`, which the JAX pipeline applies to its generator
 trees, casts a module once.
 
 `float32_math` turns TF32 off around the training steps and the DAMSM
-ranking, whatever the process's switches say.
+ranking, whatever the process's switches say; `pin_float32_math` turns it
+off for the whole process, as a float32 `SRPipeline` built on the card does,
+and prints `FLOAT32_MATH_NOTE` where that turns a switch off.
 
 Training (`GANTrainer`, JAX's `compute_dtype`, gan_trainer.py:79-84,
 261-272): `call_cast` runs a module with its parameters cast at apply time,
@@ -50,6 +52,24 @@ def float32_math() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
+FLOAT32_MATH_NOTE = ("float32 serving: cuDNN's and cuBLAS's TF32 switched off for this "
+                     "process (torch.backends.cudnn.allow_tf32, "
+                     "torch.backends.cuda.matmul.allow_tf32)")
+
+
+def pin_float32_math() -> None:
+    """TF32 off for the rest of the process, cuDNN's and cuBLAS's switches
+    both. Serving's float32 runs on many threads (BatchingServer's collector,
+    the HTTP handlers, the callers of `SRPipeline.lock`), which a switch
+    restored at the end of a call would race with. Prints FLOAT32_MATH_NOTE
+    in one line where a switch was on (so a process whose TF32 was on by
+    PyTorch's default prints it once, at its first float32 pipeline)."""
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        print(FLOAT32_MATH_NOTE, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def cast_floats(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Casts every floating-point parameter and buffer of `module` in place
     to `dtype`: weights, BN scale and bias, BN running mean and var, the
@@ -89,4 +109,9 @@ def call_cast(module: nn.Module, dtype: torch.dtype, *args, method: str = "forwa
     tensors = {f"m.{name}": p.to(dtype) if p.is_floating_point() else p for name, p in named}
     for name, t in (overrides or {}).items():
         tensors[f"m.{name}"] = t.to(dtype)
-    return torch.func.functional_call(_Method(module, method), tensors, args, kwargs)
+    # a module bound under several names (the x16 family's tied stage and
+    # head) is swapped once, under the one name named_parameters() gives it:
+    # with tie_weights=True functional_call also swaps each alias, and its
+    # restore puts the alias's "original" (the swapped-in copy) back last
+    return torch.func.functional_call(_Method(module, method), tensors, args, kwargs,
+                                      tie_weights=False)

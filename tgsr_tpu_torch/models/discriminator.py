@@ -21,6 +21,16 @@ from tgsr_tpu_torch.ops.blocks import batch_norm
 LEAK = 0.2
 
 
+def _logit_input(x: torch.Tensor) -> torch.Tensor:
+    """The input of a 4x4, stride-4 logit conv, in NCHW order on the CPU. The
+    features reach it channels_last (the image comes NHWC), and PyTorch's
+    CPU bfloat16 convolution (oneDNN; torch 2.13 on a Xeon with AMX) sums a
+    channels_last input of 16 or 24 channels under that kernel wrongly, by
+    7-37 % of the terms' absolute sum (a 16 px DNet at ndf 8, an 8 px one at
+    ndf 16). The card's cuDNN takes it as it comes."""
+    return x.contiguous() if x.device.type == "cpu" else x
+
+
 class _Down(nn.Module):
     """conv4x4 stride 2 pad 1 [-> BN] -> LeakyReLU(0.2)."""
 
@@ -93,11 +103,11 @@ class DNet(nn.Module):
         b = h.shape[0]
         c = sent[:, :, None, None].expand(b, sent.shape[1], 4, 4)
         x = self.joint(torch.cat([h, c.to(h.dtype)], dim=1))
-        return self.cond_out(x).reshape(b)
+        return self.cond_out(_logit_input(x)).reshape(b)
 
     def uncond_logit(self, h: torch.Tensor) -> torch.Tensor:
         """UNCOND_DNET(features) -> [B] logits."""
-        return self.uncond_out(h).reshape(h.shape[0])
+        return self.uncond_out(_logit_input(h)).reshape(h.shape[0])
 
     def forward(self, img: torch.Tensor, sent: torch.Tensor):
         """(cond logit or None, uncond logit), as the JAX DNet's __call__."""

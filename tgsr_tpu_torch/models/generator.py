@@ -21,6 +21,7 @@ from torch import nn
 from tgsr_tpu_torch.ops.attention import WordPixelAttention
 from tgsr_tpu_torch.ops.blocks import GLU, ResBlock, UpBlock, batch_norm, conv3x3, glu
 from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
+from tgsr_tpu_torch.utils.remat import remat
 
 
 class CANet(nn.Module):
@@ -100,16 +101,21 @@ class GSRNetLow(nn.Module):
     need_attn), mu, logvar). `up_head` is the last stage's site function,
     `site(features, use_tanh=) -> NCHW image`, made once by the caller from
     `up_head_weights()`; without it the last stage runs `upsample`, then
-    its head, as training does (train mode: every BN on batch statistics)."""
+    its head, as training does (train mode: every BN on batch statistics).
+    `remat` (JAX's remat 'low', tgsr_tpu/models/generator.py:155-163): in
+    train mode each stage call is rematerialised (`utils/remat.py`), so
+    only the stage-boundary features are kept for the backward; CANet and
+    the image heads run as they are."""
 
     tied = False  # one module under several stage names (the x16 family, models16.py)
     # UpBlock convs (JAX paths) whose output feeds only the image head
     head_only_upblocks = frozenset({"h_net3/upsample/conv"})
 
     def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100,
-                 n_stages: int = 3, r_num: int = 2):
+                 n_stages: int = 3, r_num: int = 2, remat: bool = False):
         super().__init__()
         self.n_stages = n_stages
+        self.remat = remat
         self.ca_net = CANet(cdf, c_dim)
         self.h_net1 = InitStageGImgUp(ngf, cdf, r_num)
         for s in range(2, n_stages + 1):
@@ -134,7 +140,8 @@ class GSRNetLow(nn.Module):
             stage = getattr(self, f"h_net{s}")
             head = getattr(self, f"img_net{s}")
             if s < self.n_stages or up_head is None:
-                h, att = stage(h, words, mask, need_attn)
+                args = (h, words, mask, need_attn)
+                h, att = remat(stage, *args) if self.remat and self.training else stage(*args)
                 fake_imgs.append(head(h))
             else:
                 feats, att = stage.features(h, words, mask, need_attn)

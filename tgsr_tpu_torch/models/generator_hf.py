@@ -21,6 +21,7 @@ from torch import nn
 
 from tgsr_tpu_torch.ops.blocks import GLU, ResBlock, UpBlock, batch_norm, conv3x3
 from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
+from tgsr_tpu_torch.utils.remat import remat
 
 
 def _residual_seq(ngf: int) -> nn.Sequential:
@@ -31,11 +32,17 @@ def _residual_seq(ngf: int) -> nn.Sequential:
 
 
 class NetGHighWeight(nn.Module):
+    """= NetG_highweight. `remat` (JAX's remat 'high',
+    tgsr_tpu/models/generator_hf.py:110-113): in train mode every ResBlock,
+    residual sequence and UpBlock call is rematerialised
+    (`utils/remat.py`); convin and the shared head run as they are."""
+
     # UpBlock convs (JAX paths) whose output feeds only the image head
     head_only_upblocks = frozenset({"upscale8x/conv"})
 
-    def __init__(self, ngf: int = 32, n_res: int = 6):
+    def __init__(self, ngf: int = 32, n_res: int = 6, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.convin = nn.Sequential(conv3x3(3, ngf * 2), batch_norm(ngf * 2), GLU())
         self.residual = nn.Sequential(*[ResBlock(ngf) for _ in range(n_res)])
         self.upscale2x = UpBlock(ngf, ngf)
@@ -52,6 +59,17 @@ class NetGHighWeight(nn.Module):
         """`upscale8x` + the shared 5x5 head, folded for the kernel."""
         return fold_up_head(self.upscale8x, self.conv_output[0])
 
+    def block(self, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """module(x), rematerialised where `remat` says so."""
+        return remat(module, x) if self.remat and self.training else module(x)
+
+    def trunk(self, lr: torch.Tensor) -> torch.Tensor:
+        """convin, then the ResBlocks."""
+        out = self.convin(lr)
+        for res in self.residual:
+            out = self.block(res, out)
+        return out
+
     def forward(self, lr: torch.Tensor, srb: List[torch.Tensor],
                 up_head: Optional[Callable[..., torch.Tensor]] = None
                 ) -> List[torch.Tensor]:
@@ -60,14 +78,13 @@ class NetGHighWeight(nn.Module):
         use_tanh=) -> NCHW image`, made once by the caller from
         `up_head_weights()`; without it upscale8x and conv_output run as
         modules."""
-        out = self.residual(self.convin(lr))
-        out = self.upscale2x(out)
+        out = self.block(self.upscale2x, self.trunk(lr))
         ims2 = self.conv_output(out) + self.a * srb[0]
-        out = self.upscale4x(self.residual24(out))
+        out = self.block(self.upscale4x, self.block(self.residual24, out))
         ims4 = self.conv_output(out) + self.a * srb[1]
-        out = self.residual48(out)
+        out = self.block(self.residual48, out)
         if up_head is None:
-            ims8 = self.conv_output(self.upscale8x(out)) + self.a * srb[2]
+            ims8 = self.conv_output(self.block(self.upscale8x, out)) + self.a * srb[2]
         else:
             ims8 = up_head(out, srb=srb[2], a=self.a, use_tanh=True)
         return [ims2, ims4, ims8]

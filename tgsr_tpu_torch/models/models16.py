@@ -39,6 +39,7 @@ from tgsr_tpu_torch.config import Config, check_served
 from tgsr_tpu_torch.models.generator import GetImageG, GSRNetLow
 from tgsr_tpu_torch.models.generator_hf import NetGHighWeight, _residual_seq
 from tgsr_tpu_torch.ops.blocks import UpBlock
+from tgsr_tpu_torch.utils.remat import remat_policy
 
 # the declared blocks of NetG_highweight (x16) that its forward never runs
 UNUSED_BLOCKS = ("residual816", "upscale16x")
@@ -54,8 +55,9 @@ class GSRNetLow16(GSRNetLow):
     # the shared stage's upsample feeds the next stage on its first calls
     head_only_upblocks = frozenset()
 
-    def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100, r_num: int = 2):
-        super().__init__(ngf, cdf, c_dim, n_stages=2, r_num=r_num)
+    def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100, r_num: int = 2,
+                 remat: bool = False):
+        super().__init__(ngf, cdf, c_dim, n_stages=2, r_num=r_num, remat=remat)
         self.n_stages = 4
         self.h_net3 = self.h_net4 = self.h_net2
         self.img_net1 = GetImageG(ngf, use_tanh=True)
@@ -70,8 +72,9 @@ class NetGHighWeight16(NetGHighWeight):
     # upscale8x's 256 px output feeds residual48 as well as the head
     head_only_upblocks = frozenset()
 
-    def __init__(self, ngf: int = 32, n_res: int = 6, unused: Tuple[str, ...] = ()):
-        super().__init__(ngf, n_res)
+    def __init__(self, ngf: int = 32, n_res: int = 6, unused: Tuple[str, ...] = (),
+                 remat: bool = False):
+        super().__init__(ngf, n_res, remat=remat)
         if "residual816" in unused:
             self.residual816 = _residual_seq(ngf)
         if "upscale16x" in unused:
@@ -85,36 +88,38 @@ class NetGHighWeight16(NetGHighWeight):
         second call of upscale8x with the shared head), `site(features, srb=,
         a=, use_tanh=)`; without it upscale8x and conv_output run as
         modules."""
-        out = self.residual(self.convin(lr))
-        out = self.upscale2x(out)
+        block = self.block
+        out = block(self.upscale2x, self.trunk(lr))
         ims = [self.conv_output(out) + self.a * srb[0]]
-        out = self.upscale4x(self.residual24(out))
+        out = block(self.upscale4x, block(self.residual24, out))
         ims.append(self.conv_output(out) + self.a * srb[1])
-        out = self.upscale8x(self.residual48(out))
+        out = block(self.upscale8x, block(self.residual48, out))
         ims.append(self.conv_output(out) + self.a * srb[2])
         # models16.py:171-178: residual48 and upscale8x again, blended with
         # SRb8 (srb[2]) brought to 512 px by nearest x2
-        out = self.residual48(out)
+        out = block(self.residual48, out)
         srb8 = F.interpolate(srb[2], scale_factor=2, mode="nearest")
         if up_head is None:
-            ims.append(self.conv_output(self.upscale8x(out)) + self.a * srb8)
+            ims.append(self.conv_output(block(self.upscale8x, out)) + self.a * srb8)
         else:
             ims.append(up_head(out, srb=srb8, a=self.a, use_tanh=True))
         return ims
 
 
-def make_generators(cfg: Config, unused: Tuple[str, ...] = ()
+def make_generators(cfg: Config, unused: Tuple[str, ...] = (), remat=False
                     ) -> Tuple[nn.Module, nn.Module]:
     """(netG, netGH) of cfg's family, fresh, float32 on the CPU: the
     reference's family switch (trainer_objective.py:74-88), BRANCH_NUM 4 the
     x8 generators, 5 the x16 ones (`unused`: the x16 netGH's declared blocks
-    that the weights carry)."""
+    that the weights carry). `remat`: the JAX trainer's policy, False /
+    True / 'all' / 'low' / 'high' (`utils/remat.remat_policy`)."""
     ngf, emb = cfg.GAN.GF_DIM, cfg.TEXT.EMBEDDING_DIM
+    low, high = remat_policy(remat)
     if check_served(cfg).TREE.BRANCH_NUM == 5:
-        return (GSRNetLow16(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.GAN.R_NUM),
-                NetGHighWeight16(ngf, unused=unused))
-    return (GSRNetLow(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages, cfg.GAN.R_NUM),
-            NetGHighWeight(ngf))
+        return (GSRNetLow16(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.GAN.R_NUM, remat=low),
+                NetGHighWeight16(ngf, unused=unused, remat=high))
+    return (GSRNetLow(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages, cfg.GAN.R_NUM, remat=low),
+            NetGHighWeight(ngf, remat=high))
 
 
 def unused_blocks(netgh_sd) -> Tuple[str, ...]:

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tgsr_tpu_torch.utils import remat
+
 BN_EPS = 1e-5
 
 
@@ -55,7 +57,11 @@ class BatchNorm(nn.BatchNorm2d):
       in x's type;
     - running stats blended as 0.9 * old + 0.1 * batch with the *biased*
       variance. torch's own rule blends the unbiased one: a deliberate
-      difference from the reference's torch (ROADMAP, Queue C).
+      difference from the reference's torch (ROADMAP, Queue C);
+    - not blended again in the backward's recompute of a rematerialised
+      block (`utils/remat.recomputing()`), as flax's remat moves them once.
+      The output reads the batch's moments only, never the running stats,
+      so the recompute gives the forward's output whatever they hold.
 
     Eval mode is torch's, unchanged: every serving path runs it."""
 
@@ -66,15 +72,19 @@ class BatchNorm(nn.BatchNorm2d):
         dims = (0, 2, 3)
         mean = xf.mean(dims)
         var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        if not remat.recomputing():
+            self._blend(mean, var)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
+        return y.to(x.dtype)
+
+    def _blend(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             keep = 1.0 - self.momentum  # flax's momentum, 0.9
             self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
             self.running_var.mul_(keep).add_(var * (1.0 - keep))
             self.num_batches_tracked.add_(1)
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
-        return y.to(x.dtype)
 
 
 def batch_norm(ch: int) -> BatchNorm:

@@ -17,8 +17,9 @@ static inputs and outputs).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterator
 
 import torch
 
@@ -57,6 +58,24 @@ def peak_bytes(fn: Callable[[], object], device: torch.device) -> int:
     fn()
     torch.cuda.synchronize(device)
     return torch.cuda.max_memory_reserved(device) - base
+
+
+@contextlib.contextmanager
+def reserved_cap(device: torch.device, budget_bytes: int) -> Iterator[None]:
+    """For the block, the caching allocator may reserve at most what it
+    holds now plus `budget_bytes` (`set_per_process_memory_fraction`);
+    beyond that an allocation raises OutOfMemoryError, and cuDNN falls back
+    to an algorithm with a smaller workspace, as on a full card. The
+    fraction set before is restored after."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    total = torch.cuda.get_device_properties(index).total_memory
+    before = torch.cuda.get_per_process_memory_fraction(index)
+    cap = torch.cuda.memory_reserved(index) + budget_bytes
+    torch.cuda.set_per_process_memory_fraction(min(1.0, cap / total), index)
+    try:
+        yield
+    finally:
+        torch.cuda.set_per_process_memory_fraction(before, index)
 
 
 def fit(probes: Dict[int, int]):
