@@ -32,7 +32,12 @@ B = 1 latency and img/s eager against replay, the memory plan (bfloat16:
 N = plan + 1 under its budget), an int8 bundle and a .pth checkpoint round
 trip, and BatchingServer (bfloat16, 8 threads, 256 requests). Then the
 front door: three threads on one bfloat16 pipeline (each result bit for bit
-its solo call, one capture while the others run); the HTTP server of
+its solo call, one capture while the others run); the export entry points
+(aot_phase: each path's exported program, symbolic batch, loaded as an
+AOTPipeline, bit for bit the live pipeline at B = 1, 3 and 64 with the live
+path's launches, the float32 one loaded with TF32 switched on; x16 bf16 at
+B = 8; cli.export_aot tracing on the CPU, its program run on the card; a
+loader process that imports no model module; cli.serve --aot); the HTTP server of
 tgsr_tpu_torch.cli.serve booted from a YAML config, .pth files and a vocab
 pickle (bfloat16, the shipped NET_E) and from an int8 bundle, answering
 concurrent fixed-size and native POSTs against the direct pipeline; and
@@ -1816,6 +1821,290 @@ def concurrency_phase(torch, rng, card):
     return run_counts
 
 
+# launches of one forward per serving path (pipeline_phase's per_forward)
+PATH_KERNELS = {"float32": {"word_pixel_attention": 3, "up_head": 2},
+                "bfloat16": {"word_pixel_attention": 3, "up_head_packed": 2},
+                "int8": {"word_pixel_attention": 3, "int8_conv": 42, "glu_requant_one": 6,
+                         "glu_requant_pair": 10, "requant": 26}}
+# what a process that loads an exported program may import of the repo
+AOT_LOADER = r"""
+import sys
+import numpy as np
+from tgsr_tpu_torch.engine.aot import AOTPipeline
+d = np.load(sys.argv[2])
+out = AOTPipeline(sys.argv[1]).sr_uint8(d["lr"], d["cap"], d["lens"])
+np.save(sys.argv[3], out)
+mods = sorted(m for m in sys.modules if m.split(".")[0] in ("tgsr_tpu", "tgsr_tpu_torch"))
+print("AOT_LOADER_MODULES " + " ".join(mods), flush=True)
+"""
+
+
+def aot_phase(torch, rng, card, scales, tmp):
+    """The export entry points on the card (engine/aot.py, cli/export_aot.py,
+    cli/serve.py --aot). The face S8 pipeline at full width, seeded weights,
+    in float32, bfloat16 and int8 (pipeline_phase's scales) is exported with a
+    symbolic batch, saved and loaded as an AOTPipeline; its sr_uint8 at B = 1,
+    3 and 64 (a replay at graph_batch(B)) equals the live SRPipeline's bit for
+    bit, and each captured forward launches what the live one launches (int8:
+    3 attention, 42 int8_conv, 6 + 10 glu_requant, 26 requant), so the program
+    runs the kernels and not their plain versions. The float32 artifact is
+    loaded with TF32 switched on beforehand (it must turn it off). Then one x16
+    bfloat16 artifact at B = 8; `python -m tgsr_tpu_torch.cli.export_aot` in a
+    process of its own, tracing on the CPU (--f32 --batch 8 --platforms
+    cpu,cuda, the .pth files of a YAML), whose program the card runs fed 3
+    images (padded to the pin, a batch of 9 refused), within 1 uint8 level of
+    the same checkpoints' pipeline on the CPU; the int8 artifact loaded in a
+    process that imports the op registrations and no model module, bit for
+    bit; `cli.serve --aot` booted on the CLI's artifact (batch clamped to the
+    pin) answering fixed POSTs (within 1 level of its direct sr_uint8) and a
+    native POST with 400. Prints each path's export seconds and .pt2 size, and
+    the B = 1 p50 and the img/s at B = 64 under replay beside the live
+    pipeline's. Returns the launches of the artifacts' runs."""
+    import pickle
+    import subprocess
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.cli import serve
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.data.codec import decode_png, encode_png, resize_pil_bicubic
+    from tgsr_tpu_torch.engine import aot
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = face_s8_config()
+    vocab = len(FACE_WORDS)
+    sds = init_seeded(cfg, vocab, torch.Generator().manual_seed(0))
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+    # the CLI's export traces on the CPU in a process of its own while this
+    # one exports on the card
+    for name, sd in (("netG_epoch_7.pth", sds[1]), ("netGH_epoch_7.pth", sds[2])):
+        torch.save(sd, os.path.join(tmp, name))
+    words = dict(enumerate(FACE_WORDS))
+    vocab_pkl = os.path.join(tmp, "testset.pickle")
+    with open(vocab_pkl, "wb") as f:
+        pickle.dump([[], words, {w: i for i, w in words.items()}], f)
+    yml = os.path.join(tmp, "eval_faceSR.yml")
+    with open(yml, "w") as f:
+        f.write(FACE_S8_YAML.format(absent_net_e=os.path.join(tmp, "absent_text_encoder.pth")))
+    cli_out = os.path.join(tmp, "aot_cli")
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "tgsr_tpu_torch.cli.export_aot", "--cfg", yml, "--netg",
+         os.path.join(tmp, "netG_epoch_7.pth"), "--vocab_pickle", vocab_pkl, "--out", cli_out,
+         "--f32", "--batch", "8", "--device", "cpu", "--platforms", "cpu,cuda"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def batch(n):
+        lr = rng.integers(0, 256, (n, 32, 32, 3)).astype("float32") / 127.5 - 1.0
+        lens = rng.integers(1, T + 1, n)
+        lens[min(1, n - 1)] = 0  # an empty caption
+        cap = rng.integers(1, vocab, (n, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        return lr, cap, lens
+
+    lr, cap, lens = batch(64)
+    launches, pairs = {}, {}
+    loader = None
+    for tag in ("float32", "bfloat16", "int8"):
+        per_forward = dict(zero, **PATH_KERNELS[tag])
+        kw = dict(compute_dtype=torch.float32 if tag == "float32" else torch.bfloat16)
+        if tag == "int8":
+            kw["quant_scales"] = scales
+        live = SRPipeline(cfg, vocab, *sds, **kw)
+        t0 = time.perf_counter()
+        path = aot.export_serving(live, os.path.join(tmp, f"aot_{tag}"))
+        t_export = time.perf_counter() - t0
+        mb = os.path.getsize(os.path.join(path, aot.FORWARD_FILE)) / 2 ** 20
+        if tag == "float32":
+            # a float32 artifact pins float32 math, as a float32 SRPipeline does
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        t0 = time.perf_counter()
+        art = aot.AOTPipeline(path)
+        t_load = time.perf_counter() - t0
+        check(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+              and art.pins_float32_math == (tag == "float32"),
+              f"aot {tag}: TF32 off after the load (switched on before it: "
+              f"{tag == 'float32'}), pinned by the artifact: {art.pins_float32_math}")
+        check(art.meta["batch"] == "symbolic" and art.meta["quantized"] == (tag == "int8")
+              and art.meta["compute_dtype"] == ("float32" if tag == "float32" else "bfloat16"),
+              f"aot {tag}: meta.json {art.meta}")
+        _build.reset_launches()
+        got = {b: art.sr_uint8(lr[:b], cap[:b], lens[:b]) for b in (1, 3, 64)}
+        torch.cuda.synchronize()
+        run = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in zero}
+        replayed = dict(_build.REPLAYED)
+        ref = {b: live.sr_uint8(lr[:b], cap[:b], lens[:b]) for b in (1, 3, 64)}
+        launches[f"aot {tag}"] = run
+        check(replayed == {k: 3 * v for k, v in per_forward.items()}
+              and sorted(g_b for g_b, _ in art.graphs) == [1, 4, 64]
+              and all(g.launches == per_forward for g in art.graphs.values())
+              and all(g.launches == per_forward for g in live.graphs.values()),
+              f"aot {tag}: each captured forward of the artifact launches what the live "
+              f"pipeline's launches ({per_forward}); replayed {replayed}")
+        same = {b: bool(np.array_equal(got[b], ref[b])) for b in got}
+        check(all(same.values()), f"aot {tag}: the artifact's SR equals the live pipeline's "
+                                  f"bit for bit at B = 1, 3, 64 ({same})")
+        print(f"  aot {tag}: export {t_export:.2f} s, forward.pt2 {mb:.2f} MiB, load "
+              f"{t_load:.2f} s; B = 1, 3, 64 bit for bit the live pipeline {same}", flush=True)
+        if tag == "int8":
+            # a process of its own loads it while this one goes on
+            np.savez(os.path.join(tmp, "aot_in.npz"), lr=lr[:3], cap=cap[:3], lens=lens[:3])
+            loader = subprocess.Popen(
+                [sys.executable, "-c", AOT_LOADER, path, os.path.join(tmp, "aot_in.npz"),
+                 os.path.join(tmp, "aot_out.npy")],
+                cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            int8_ref3 = ref[3]
+        pairs[tag] = (live, art)
+    # the x16 family: one bfloat16 artifact at B = 8
+    cfg16, sds16, _, (lr16, cap16, lens16), _ = x16_inputs(torch)
+    lr16 = lr16.astype("float32") / 127.5 - 1.0
+    live16 = SRPipeline(cfg16, 41, *sds16, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    art16 = aot.AOTPipeline(aot.export_serving(live16, os.path.join(tmp, "aot_x16")))
+    t16 = time.perf_counter() - t0
+    _build.reset_launches()
+    got16 = art16.sr_uint8(lr16, cap16, lens16)
+    torch.cuda.synchronize()
+    launches["aot x16 bfloat16"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in zero}
+    replayed = dict(_build.REPLAYED)
+    want16 = dict(zero, word_pixel_attention=4, up_head_packed=2)
+    ref16 = live16.sr_uint8(lr16, cap16, lens16)
+    check(got16.shape == (8, 512, 512, 3) and np.array_equal(got16, ref16)
+          and replayed == want16
+          and all(g.launches == want16 for g in [*art16.graphs.values(), *live16.graphs.values()]),
+          f"aot x16 bfloat16: B = 8 bit for bit the live pipeline, 4 attention + 2 packed "
+          f"up-head launches a forward ({replayed})")
+    print(f"  aot x16 bfloat16: export and load {t16:.2f} s, B = 8 bit for bit the live "
+          f"pipeline: {np.array_equal(got16, ref16)}", flush=True)
+    del live16, art16
+    # the CLI's artifact: traced on the CPU, batch pinned at 8, run on the card
+    log, _ = cli.communicate(timeout=600)
+    t_cli = time.perf_counter() - t_cli
+    check(cli.returncode == 0 and "exported" in log,
+          f"aot cli: python -m tgsr_tpu_torch.cli.export_aot --device cpu exits "
+          f"{cli.returncode} ({log.strip().splitlines()[-1:] if log.strip() else ''})")
+    art_cli = aot.AOTPipeline(cli_out)
+    plain = SRPipeline.from_reference_checkpoints(cfg, vocab, os.path.join(tmp, "netG_epoch_7.pth"),
+                                                  device="cpu")
+    live_cli = SRPipeline.from_reference_checkpoints(cfg, vocab,
+                                                     os.path.join(tmp, "netG_epoch_7.pth"))
+    _build.reset_launches()
+    got = art_cli.sr_uint8(lr[:3], cap[:3], lens[:3])
+    torch.cuda.synchronize()
+    launches["aot cli float32"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in zero}
+    replayed = dict(_build.REPLAYED)
+    cpu = plain.sr_uint8(lr[:3], cap[:3], lens[:3])
+    sel = np.arange(8) % 3
+    card_ref = live_cli.sr_uint8(lr[sel], cap[sel], lens[sel])[:3]
+    worst = int(np.abs(got.astype(int) - cpu.astype(int)).max())
+    try:
+        art_cli.sr_uint8(lr[:9], cap[:9], lens[:9])
+        refused = False
+    except ValueError:
+        refused = True
+    check(art_cli.meta["batch"] == 8 and art_cli.meta["platforms"] == ["cpu", "cuda"]
+          and list(art_cli.graphs) == [(8, T)] and worst <= 1 and refused
+          and replayed == dict(zero, **PATH_KERNELS["float32"]),
+          f"aot cli: the CPU-traced float32 program (batch 8) on the card fed 3 images is "
+          f"within 1 uint8 level of the pipeline on the CPU (max {worst}), launches the "
+          f"float32 kernels ({replayed}), and refuses 9")
+    print(f"  aot cli: export on the CPU in its own process {t_cli:.2f} s (beside the card "
+          f"exports); fed 3 at pin 8: max {worst} level(s) from the CPU pipeline, bit for bit "
+          f"the live card pipeline at 8: {np.array_equal(got, card_ref)}", flush=True)
+    del plain, live_cli
+    # the loader process
+    log, _ = loader.communicate(timeout=600)
+    mods = next((ln.split()[1:] for ln in log.splitlines()
+                 if ln.startswith("AOT_LOADER_MODULES")), None)
+    out = (np.load(os.path.join(tmp, "aot_out.npy"))
+           if os.path.exists(os.path.join(tmp, "aot_out.npy")) else None)
+    check(loader.returncode == 0 and mods is not None and "tgsr_tpu_torch.ops.library" in mods
+          and not any(m == "tgsr_tpu" or m.startswith(("tgsr_tpu.", "tgsr_tpu_torch.models",
+                                                        "tgsr_tpu_torch.engine.inference"))
+                      for m in mods)
+          and out is not None and np.array_equal(out, int8_ref3),
+          f"aot loader: a process that imports the op registrations and no model module "
+          f"serves the int8 artifact bit for bit (exit {loader.returncode}, modules {mods}, "
+          f"{log.strip().splitlines()[-1:] if loader.returncode else ''})")
+    # cli.serve --aot on the CLI's artifact
+    pipe, vocab_s, args = serve.boot(["--aot", cli_out, "--vocab_pickle", vocab_pkl,
+                                      "--max_batch", "16"])
+    httpd = serve.make_server(pipe, vocab_s, port=0, max_batch=args.max_batch)
+    httpd.batcher.warmup()
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    imgs = [rng.integers(0, 256, (40, 40, 3)).astype("uint8") for _ in range(6)]
+    caps = face_captions(rng, 6)
+    answers = {}
+
+    def post(i, query=""):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/sr{query}",
+                                     data=encode_png(imgs[i], filter_rows=True),
+                                     headers={"X-Caption": caps[i]}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers[i, query] = (r.status, r.read())
+        except urllib.error.HTTPError as e:
+            answers[i, query] = (e.code, e.read())
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    post(0, "?mode=native")
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.batcher.close()
+    server.join(60)
+    worst, ok = 0, True
+    for i in range(6):
+        status, body = answers.get((i, ""), (None, b""))
+        ok &= status == 200
+        if status == 200:
+            c, n = serve.encode_caption_text(caps[i], vocab_s, T)
+            x = resize_pil_bicubic(imgs[i], (32, 32)).astype("float32") / 127.5 - 1.0
+            direct = pipe.sr_uint8(x[None], c[None], np.asarray([n]))[0]
+            worst = max(worst, int(np.abs(direct.astype(int) - decode_png(body).astype(int)).max()))
+    status, body = answers.get((0, "?mode=native"), (None, b"{}"))
+    check(ok and worst <= 1 and args.max_batch == 8 and status == 400
+          and "native mode unavailable" in json.loads(body).get("error", ""),
+          f"aot serve: cli.serve --aot (max_batch clamped to {args.max_batch}) answers 6 "
+          f"fixed POSTs within 1 level of the direct sr_uint8 (max {worst}) and a native POST "
+          f"with {status}")
+    print(f"  aot serve: 6 fixed POSTs, max {worst} level(s) from the direct call; native "
+          f"answered {status}", flush=True)
+    del pipe, art_cli
+    # replay times: the artifact beside the live pipeline, in turns
+    for tag, (live, art) in pairs.items():
+        ms = {"live": [], "aot": []}
+        for i in range(40):
+            for name, p in (("live", live), ("aot", art)) if i % 2 else (("aot", art),
+                                                                        ("live", live)):
+                t0 = time.perf_counter()
+                p.sr_uint8(lr[:1], cap[:1], lens[:1])
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        ips = {"live": [], "aot": []}
+        for i in range(6):
+            for name, p in (("live", live), ("aot", art)) if i % 2 else (("aot", art),
+                                                                        ("live", live)):
+                t0 = time.perf_counter()
+                p.sr_uint8(lr, cap, lens)
+                ips[name].append(64 / (time.perf_counter() - t0))
+        print(f"  aot {tag} under replay: B = 1 artifact {percentiles(ms['aot'][5:])}, live "
+              f"{percentiles(ms['live'][5:])}; B = 64 artifact "
+              f"{np.median(ips['aot']):.1f} img/s, live {np.median(ips['live']):.1f} img/s "
+              f"(host clock, uint8 to the host) on {card}", flush=True)
+    del pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def http_client(port: int, jobs) -> list:
     """One client process's POSTs to the server at `port`, one after
     another: jobs of (index, PNG body, caption, query); returns (index,
@@ -2670,8 +2959,44 @@ def face_train_set(rng, root, n_images):
                 g.write(encode_png(img))
 
 
+def _step_readout(torch, cfg, text_sd, batch, image_encoder, d_lr, tag, device, dtype,
+                  cudnn=True, remat=False, loss_weights=None):
+    """One fresh training step of `cfg`'s model on `batch`: (metrics,
+    trainer_readout). Under PyTorch's default TF32 switches on the card (the
+    trainer turns TF32 off); a CPU step touches no global switch."""
+    import contextlib
+    import copy
+
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+
+    t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=d_lr,
+                   image_encoder=copy.deepcopy(image_encoder), loss_weights=loss_weights,
+                   remat=remat)
+    s = t.init_state(torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    with (torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=True) if device == "cuda"
+          else contextlib.nullcontext()):
+        m = t.train_step(s, batch)
+    out = ({k: float(v) for k, v in m.items()}, *trainer_readout(torch, s))
+    print(f"  train step {str(dtype).split('.')[-1]} B={len(batch['lr'])} (D lr {t.d_lr}) on "
+          f"{device}{', ' + tag if device == 'cuda' else ''}: "
+          f"{time.perf_counter() - t0:.2f} s (host clock, first step)", flush=True)
+    return out
+
+
+def cpu_reference_steps(torch, cfg, text_sd, batch, image_encoder=None, d_lrs=(None, 0.0)):
+    """`step_against_cpu`'s CPU steps, float32 and float64, for each D
+    learning rate: {d_lr: {"cpu": readout, "f64": readout}}. They touch no
+    global switch, so they may run in a thread beside card work (x16_train_phase
+    runs them beside its plans)."""
+    return {d_lr: {tag: _step_readout(torch, cfg, text_sd, batch, image_encoder, d_lr, tag,
+                                      "cpu", dtype)
+                   for tag, dtype in (("cpu", torch.float32), ("f64", torch.float64))}
+            for d_lr in d_lrs}
+
+
 def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
-                     d_lrs=(None, 0.0), control=None, remats=(False,)) -> dict:
+                     d_lrs=(None, 0.0), control=None, remats=(False,), cpu_runs=None) -> dict:
     """One float32 training step of `cfg`'s model (the face S8 one, or x16)
     on `batch` (B = 4 or 2, on the CPU) on the card twice, cuDNN off and on
     (as training runs it), and on the CPU, each held against the same step in
@@ -2710,34 +3035,22 @@ def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
     learning, 0.0: D frozen); `control`: {label: loss_weights}, each for one
     more card step (cuDNN off) with those weights, whose median ratio is
     read (key ("median", D lr, label)) and not gated: what a fault of that
-    size reads."""
-    import copy
-
-    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
-
+    size reads. `cpu_runs`: the CPU steps made already by
+    `cpu_reference_steps` on the same inputs."""
     card_tags = [f"cuDNN {on}" + ("" if r is False else f", remat {r}")
                  for r in remats for on in ("off", "on")]
 
     def one_step(d_lr):
-        out = {}
-        runs = [("cpu", "cpu", torch.float32, True, False),
-                ("f64", "cpu", torch.float64, True, False)]
-        runs += [(tag, "cuda", torch.float32, tag.startswith("cuDNN on"), r)
-                 for tag, r in zip(card_tags, [r for r in remats for _ in range(2)])]
-        runs += [(label, "cuda", torch.float32, False, False) for label in control or {}]
-        for tag, device, dtype, cudnn, remat in runs:
-            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, device=device, d_lr=d_lr,
-                           image_encoder=copy.deepcopy(image_encoder),
-                           loss_weights=(control or {}).get(tag), remat=remat)
-            s = t.init_state(torch.Generator().manual_seed(0))
-            t0 = time.perf_counter()
-            # TF32 as PyTorch sets it by default: the trainer turns it off
-            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=True):
-                m = t.train_step(s, batch)
-            out[tag] = ({k: float(v) for k, v in m.items()}, *trainer_readout(torch, s))
-            print(f"  train step {str(dtype).split('.')[-1]} B={len(batch['lr'])} (D lr {t.d_lr}) on {device}"
-                  f"{', ' + tag if device == 'cuda' else ''}: "
-                  f"{time.perf_counter() - t0:.2f} s (host clock, first step)", flush=True)
+        if cpu_runs is None:
+            out = cpu_reference_steps(torch, cfg, text_sd, batch, image_encoder, (d_lr,))[d_lr]
+        else:
+            out = dict(cpu_runs[d_lr])
+        runs = [(tag, tag.startswith("cuDNN on"), r, None)
+                for tag, r in zip(card_tags, [r for r in remats for _ in range(2)])]
+        runs += [(label, False, False, weights) for label, weights in (control or {}).items()]
+        for tag, cudnn, remat, weights in runs:
+            out[tag] = _step_readout(torch, cfg, text_sd, batch, image_encoder, d_lr, tag,
+                                     "cuda", torch.float32, cudnn, remat, weights)
         return out
 
     def worst3(ratios):
@@ -2953,6 +3266,8 @@ def train_phase(torch, rng, card, tmp):
 X16_TRAIN_SITES = (32, 64, 128, 256)  # the attention's four sites in an x16 step
 X16_SIZES = (64, 128, 256, 512)
 X16_CPU_B = 2  # the card's x16 step held against a float64 CPU step
+# plan_batch's upper end in x16_train_phase: the four plans lie at 40-88 (PERF.md)
+X16_PLAN_HI = 128
 # the face S16 training config (configs/train_faceSR_S16.yml at full width)
 # for the CLI run: BATCH_SIZE cut to 2 so that the example set's 4 train
 # images make 2 steps, one epoch, a snapshot every 2 steps
@@ -3013,8 +3328,9 @@ def x16_train_phase(torch, rng, card, tmp):
     """GAN training of the x16 family at full width on the card
     (configs/train_faceSR_S16.yml: BRANCH_NUM 5, 32 px -> 512 px, GF_DIM 32,
     DF_DIM 64, EMBEDDING_DIM 256, T 18; seeded weights, noise images).
-    (1) GANTrainer.plan_batch() in float32 and bfloat16, each with remat
-    False and 'all': the four answers and their probes' peaks; a fresh
+    (1) GANTrainer.plan_batch(hi=X16_PLAN_HI) in float32 and bfloat16, each
+    with remat False and 'all' (while (4)'s CPU steps run in a thread beside
+    them): the four answers and their probes' peaks; a fresh
     run at each nonzero plan peaks under its budget, and 'all' plans at least
     the batch False plans. (2) Ten steps at B = 16 (the plan where 16 does
     not fit) per path and policy that fits: finite metrics, 4 attention
@@ -3030,6 +3346,7 @@ def x16_train_phase(torch, rng, card, tmp):
     by the x16 SRPipeline on the card equal to the run's EMA generator.
     Returns the launches of each run."""
     import warnings
+    from concurrent.futures import ThreadPoolExecutor
 
     from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
     from tgsr_tpu_torch.cli import train_gan
@@ -3049,28 +3366,37 @@ def x16_train_phase(torch, rng, card, tmp):
         torch.cuda.empty_cache()
 
     # -- (1) plan_batch -------------------------------------------------------------
-    for dtype in dtypes:
-        for remat in policies:
-            tag = name(dtype, remat)
-            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
-            t0 = time.perf_counter()
-            plans[dtype, remat] = plan = t.plan_batch()
-            bp = t.batch_plan
-            gib = lambda x: "OOM" if x is None else f"{x / 2 ** 30:.2f} GiB"
-            print(f"  {tag}: plan_batch() = {plan} in {time.perf_counter() - t0:.1f} s (budget "
-                  f"{gib(bp['budget_bytes'])}; probes' peaks, in the order measured: "
-                  f"{', '.join(f'B={b}: {gib(v)}' for b, v in bp['probes'].items())}) "
-                  f"on {card}", flush=True)
-            if plan:
-                need = t.step_peak_bytes(plan, bp["budget_bytes"])
-                check(need is not None and need <= bp["budget_bytes"],
-                      f"{tag}: a fresh run at the plan, B = {plan}, with the allocator capped at "
-                      f"the budget {gib(bp['budget_bytes'])}, completes (peak {gib(need)})")
-            del t
-            free()
-        check(plans[dtype, "all"] >= max(1, plans[dtype, False]),
-              f"x16 train {str(dtype).split('.')[-1]}: remat 'all' plans B = "
-              f"{plans[dtype, 'all']} >= remat False's {plans[dtype, False]}, and at least 1")
+    # (4)'s CPU steps, float32 and float64 (about 100 s of the host's CPU), run in
+    # a thread of their own beside the plans, which wait on the card
+    cpu_batch = train_batch(torch, rng, X16_CPU_B, device="cpu", sizes=X16_SIZES)
+    with ThreadPoolExecutor(1) as pool:
+        cpu_runs = pool.submit(cpu_reference_steps, torch, cfg, text_sd, cpu_batch)
+        for dtype in dtypes:
+            for remat in policies:
+                tag = name(dtype, remat)
+                t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
+                t0 = time.perf_counter()
+                # the four plans lie at 40-88 at full width (PERF.md)
+                plans[dtype, remat] = plan = t.plan_batch(hi=X16_PLAN_HI)
+                bp = t.batch_plan
+                gib = lambda x: "OOM" if x is None else f"{x / 2 ** 30:.2f} GiB"
+                print(f"  {tag}: plan_batch(hi={X16_PLAN_HI}) = {plan} in "
+                      f"{time.perf_counter() - t0:.1f} s (budget {gib(bp['budget_bytes'])}; "
+                      f"probes' peaks, in the order measured: "
+                      f"{', '.join(f'B={b}: {gib(v)}' for b, v in bp['probes'].items())}) "
+                      f"on {card}", flush=True)
+                if plan:
+                    need = t.step_peak_bytes(plan, bp["budget_bytes"])
+                    check(need is not None and need <= bp["budget_bytes"],
+                          f"{tag}: a fresh run at the plan, B = {plan}, with the allocator "
+                          f"capped at the budget {gib(bp['budget_bytes'])}, completes (peak "
+                          f"{gib(need)})")
+                del t
+                free()
+            check(plans[dtype, "all"] >= max(1, plans[dtype, False]),
+                  f"x16 train {str(dtype).split('.')[-1]}: remat 'all' plans B = "
+                  f"{plans[dtype, 'all']} >= remat False's {plans[dtype, False]}, and at least 1")
+        cpu_runs = cpu_runs.result()
 
     # -- (2) ten steps a path and policy ------------------------------------------------
     first, steps_b = {}, {}
@@ -3163,9 +3489,8 @@ def x16_train_phase(torch, rng, card, tmp):
               f"the rest)")
 
     # -- (4) the card's step against a float64 CPU step -------------------------------------
-    step_against_cpu(torch, cfg, text_sd,
-                     train_batch(torch, rng, X16_CPU_B, device="cpu", sizes=X16_SIZES),
-                     remats=(False, "all"))
+    step_against_cpu(torch, cfg, text_sd, cpu_batch, remats=(False, "all"),
+                     cpu_runs=cpu_runs)
     free()
 
     # -- (5) the CLI -------------------------------------------------------------------------
@@ -3955,6 +4280,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["concurrency"] = concurrency_phase(torch, rng, card)
     print(f"concurrency phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a stream of its own: the later phases' data does not depend on it
+        launches.update(aot_phase(torch, np.random.default_rng(17), card, scales, tmp))
+    print(f"aot phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             multiprocessing.get_context("spawn").Pool(8) as clients:

@@ -1506,3 +1506,156 @@ def test_attention_backward_through_the_damsm_gradient(cuda_device):
     for n, ref in grads["cpu"].items():
         rel = ((grads[str(cuda_device)][n] - ref).norm() / ref.norm().clamp(min=1e-30)).item()
         assert rel <= 1e-3, (n, rel)
+
+
+# -- the custom ops and exported serving programs ------------------------------
+
+def _op_cases(device):
+    """(op, args on the card, the plain version of the same function, the
+    comparison) of each tgsr:: op at a main-path shape."""
+    g = torch.Generator(device=device).manual_seed(17)
+    r = lambda *s, sd=1.0: torch.randn(*s, generator=g, device=device) * sd  # noqa: E731
+    px, wd = r(2, 32, 32, 32), r(2, 18, 32)
+    mask = torch.zeros(2, 18, dtype=torch.bool, device=device)
+    mask[1, 7:] = True
+    gctx, gattn = r(2, 32, 32, 32), r(2, 18, 32, 32)
+    w_up, w_head = r(3, 3, 32, 64, sd=0.2), r(5, 5, 32, 3, sd=0.2)
+    mul, add = 1 + r(64, sd=0.1), r(64, sd=0.1)
+    x, srb, a = r(2, 64, 64, 32), r(2, 128, 128, 3), torch.tensor(0.3, device=device)
+    pk = prepare_up_head_packed(w_up, mul, add, w_head, dtype=torch.bfloat16)
+    xq = torch.randint(-127, 128, (2, 32, 32, 64), generator=g, device=device, dtype=torch.int8)
+    wq = pack_int8_weight(torch.randint(-127, 128, (3, 3, 64, 128), generator=g, device=device,
+                                        dtype=torch.int8))
+    scale = torch.rand(128, generator=g, device=device) * 1e-5 + 1e-6
+    h = (1.5 * r(2, 32, 32, 128)).bfloat16()
+
+    def close(tol):
+        return lambda got, ref: torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+
+    def bwd_plain(p, w, m, gc, ga):
+        p, w = p.clone().requires_grad_(), w.clone().requires_grad_()
+        ctx, att = plain_wpa(p, w, m, True)
+        return torch.autograd.grad((ctx, att), (p, w), (gc, ga))
+
+    def int8_steps(got, ref):
+        d = (got.int() - ref.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).double().mean().item() <= 1e-3
+
+    return {
+        "word_pixel_attention": (torch.ops.tgsr.word_pixel_attention, (px, wd, mask, True),
+                                 lambda *a: plain_wpa(*a), close(1e-5)),
+        "word_pixel_attention_bwd": (torch.ops.tgsr.word_pixel_attention_bwd,
+                                     (px, wd, mask, gctx, gattn), bwd_plain,
+                                     lambda got, ref: (got - ref).abs().max() <= 1e-5 * max(
+                                         1.0, ref.abs().max().item())),
+        "up_head": (torch.ops.tgsr.up_head,
+                    (x, w_up, mul, add, w_head, None, srb, a, True, True),
+                    lambda x, w_up, mul, add, w_head, _, srb, a, t, bl: reference_up_head(
+                        x, w_up, mul, add, w_head, srb, a, use_tanh=t, blend=bl), close(1e-4)),
+        "up_head_packed": (torch.ops.tgsr.up_head_packed,
+                           (x.bfloat16(), *pk, srb.bfloat16(), a.bfloat16(), True, True),
+                           lambda x, *w: packed_up_head(x, type(pk)(*w[:4]), w[6], w[7],
+                                                        use_tanh=w[8], blend=w[9]),
+                           lambda got, ref: (got - ref).abs().max() <= 2e-2 * max(
+                               1.0, ref.abs().max().item())),
+        "int8_conv": (torch.ops.tgsr.int8_conv,
+                      (xq, wq.q, wq.packed, scale, mul[:1].expand(128).contiguous(),
+                       add[:1].expand(128).contiguous(), None, torch.float32, False),
+                      lambda x, q, p, s, bm, ba, res, dt, up2: int8_conv_plain(
+                          x, type(wq)(q, p), s, (bm, ba), res, dt, up2),
+                      lambda got, ref: torch.equal(got, ref)),
+        "glu_requant": (torch.ops.tgsr.glu_requant, (h, 3.0), glu_requant_plain, int8_steps),
+        "requant": (torch.ops.tgsr.requant, (h, 3.0), requant_plain,
+                    lambda got, ref: torch.equal(got, ref)),
+    }
+
+
+@pytest.mark.parametrize("name", ["word_pixel_attention", "word_pixel_attention_bwd", "up_head",
+                                  "up_head_packed", "int8_conv", "glu_requant", "requant"])
+def test_custom_op_matches_plain_and_fake(cuda_device, name):
+    """Each tgsr:: op on the card, called through torch.ops, against its
+    plain version on the same inputs (the gates of the kernels' own tests),
+    and its fake implementation against the real outputs' shapes, dtypes
+    and strides, with the op's schema (no input mutated or aliased)
+    checked by `torch.library.opcheck`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args, plain, compare = _op_cases(cuda_device)[name]
+    got = op(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    for gt, rt in zip(got, ref):
+        ok = compare(gt, rt.to(gt.dtype) if gt.dtype != rt.dtype and gt.is_floating_point()
+                     else rt)
+        assert ok is None or ok
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(t) if torch.is_tensor(t) else t for t in args))
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    for f, gt in zip(fake, got):
+        assert (f.shape, f.dtype, f.stride()) == (gt.shape, gt.dtype, gt.stride())
+    torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+
+
+def _aot_pipe(device, path, tmp_path):
+    """A narrow x8 card pipeline in `path` and its exported program, loaded
+    as an AOTPipeline."""
+    from tgsr_tpu_torch.engine import aot
+
+    pipe = _serving_pipe(device, path)
+    art = aot.export_serving(pipe, str(tmp_path / path))
+    return pipe, aot.AOTPipeline(art, device=device)
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8"])
+def test_aot_replay_equals_eager(cuda_device, path, b, tmp_path):
+    """A loaded artifact replays the program captured at graph_batch(B),
+    bit for bit its eager run on the same padded inputs, cropped, and the
+    live pipeline's replay; its launches per forward are the live path's."""
+    pipe, ap = _aot_pipe(cuda_device, path, tmp_path)
+    lr, cap, lens = _serving_batch(b, seed=b)
+    lrf = lr.astype(np.float32) / 127.5 - 1.0
+    g = SRPipeline.graph_batch(b)
+    ap.sr_uint8(lrf, cap, lens)  # captures
+    _build.reset_launches()
+    got = ap.sr_uint8(lrf, cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == ZERO
+    assert _build.REPLAYED == dict(ZERO, **PATH_LAUNCHES[path])
+    assert list(ap.graphs) == [(g, 6)]
+    sel = np.arange(g) % b
+    with torch.inference_mode():
+        eager = ap.module(torch.as_tensor(lrf[sel], device=cuda_device),
+                          torch.as_tensor(cap[sel], device=cuda_device),
+                          torch.as_tensor(lens[sel], device=cuda_device))[:b]
+    assert np.array_equal(got, eager.cpu().numpy())
+    assert np.array_equal(got, pipe.sr_uint8(lrf, cap, lens))
+
+
+def test_float32_artifact_turns_tf32_off(cuda_device, tmp_path):
+    """A float32 artifact (face S8 at full width, seeded weights) loaded with
+    TF32 switched on beforehand turns it off, as a float32 SRPipeline does,
+    and gives, bit for bit, the artifact loaded with TF32 off and the live
+    pipeline."""
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine import aot
+
+    cfg = face_s8_config()
+    pipe = SRPipeline(cfg, 41, *init_seeded(cfg, 41, torch.Generator().manual_seed(0)),
+                      device=cuda_device)
+    art = aot.export_serving(pipe, str(tmp_path / "f32"))
+    rng = np.random.default_rng(6)
+    lr = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (4, 18))
+    lens = np.array([18, 7, 0, 12])
+    cap[np.arange(18)[None, :] >= lens[:, None]] = 0
+    out = {}
+    for on in (True, False):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+        ap = aot.AOTPipeline(art, device=cuda_device)
+        assert ap.pins_float32_math
+        assert not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+        out[on] = ap.sr_uint8(lr, cap, lens)
+    assert np.array_equal(out[True], out[False])
+    assert np.array_equal(out[True], pipe.sr_uint8(lr, cap, lens))

@@ -47,7 +47,9 @@ def test_walk_covers_every_port_package():
     for rel in ("cli/serve.py", "cli/test.py", "cli/calibrate.py", "data/datasets.py",
                 "data/pipeline.py", "utils/visualize.py", "utils/skimage_compat.py",
                 "cli/pretrain_damsm.py", "cli/eval_rank.py", "engine/damsm_trainer.py",
-                "losses/damsm.py", "models/image_encoder.py"):
+                "losses/damsm.py", "models/image_encoder.py", "engine/aot.py",
+                "cli/export_aot.py", "cli/export_torch.py", "checkpoints/export_torch.py",
+                "ops/library.py", "ops/quantize.py"):
         assert os.path.join(ROOT, "tgsr_tpu_torch", *rel.split("/")) in files, rel
 
 

@@ -40,7 +40,9 @@ def _inputs(b, seed):
 def test_second_thread_waits_for_forward_scan(pipe, second, monkeypatch):
     events = []
     entered, release = threading.Event(), threading.Event()
-    serve, forward = pipe._serve, pipe._forward
+    # every entry point's forward is `pipe.serving` (engine/inference.py
+    # ServingForward); its `pyramid` is what a second thread would run
+    serve, forward = pipe._serve, pipe.serving.pyramid
 
     def blocking_serve(*args):
         name = threading.current_thread().name
@@ -57,7 +59,7 @@ def test_second_thread_waits_for_forward_scan(pipe, second, monkeypatch):
         return forward(*args)
 
     monkeypatch.setattr(pipe, "_serve", blocking_serve)
-    monkeypatch.setattr(pipe, "_forward", recording_forward)
+    monkeypatch.setattr(pipe.serving, "pyramid", recording_forward)
     lr, cap, lens = _inputs(2, 0)
     one = _inputs(1, 1)
     calls = {"sr_uint8": lambda: pipe.sr_uint8(*one),

@@ -213,7 +213,9 @@ def test_serve_main_arg_validation():
         serve.main(["--aot", "/tmp/nowhere"])
     with pytest.raises(SystemExit, match="export time"):
         serve.main(["--aot", "/tmp/nowhere", "--vocab_pickle", "v.pickle", "--int8"])
-    with pytest.raises(SystemExit, match="not ported"):
+    # --aot is served since the export entry points were ported: a directory
+    # without an exported program fails on its meta.json
+    with pytest.raises(FileNotFoundError, match="meta.json"):
         serve.main(["--aot", "/tmp/nowhere", "--vocab_pickle", "v.pickle"])
     with pytest.raises(SystemExit, match="scales selects int8"):
         serve.main(["--cfg", "x.yml", "--scales", "s.json", "--int8"])

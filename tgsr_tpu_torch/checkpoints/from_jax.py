@@ -164,6 +164,14 @@ def netgh_state_dict(variables: Mapping) -> Tuple[StateDict, float]:
     state dict, blend weight a); a NetGHighWeight16 tree gives the x16
     NetG_highweight's, with residual816 / upscale16x where the tree carries
     them."""
+    params = variables["params"]
+    return netgh_conv_bn_state_dict(variables), float(np.asarray(params["a"]).reshape(-1)[0])
+
+
+def netgh_conv_bn_state_dict(variables: Mapping) -> StateDict:
+    """The convs and BNs of a NetGHighWeight(16) tree under the reference's
+    keys: `netgh_state_dict` without the blend weight, for a tree with or
+    without a weight map."""
     params, stats = variables["params"], variables["batch_stats"]
     n_res = _count(params, "residual_{}")
     unused = tuple(n for n in UNUSED_BLOCKS if n in params)
@@ -179,14 +187,17 @@ def netgh_state_dict(variables: Mapping) -> Tuple[StateDict, float]:
     for name in ("residual24", "residual48", "residual816"):
         if name in params:
             _put_resblock_bn(out, name, params[name], stats[name])
-    return out, float(np.asarray(params["a"]).reshape(-1)[0])
+    return out
 
 
 def text_state_dict(variables: Mapping) -> StateDict:
-    """TextEncoder tree (LSTM) -> RNN_ENCODER state dict."""
+    """TextEncoder tree (LSTM) -> RNN_ENCODER state dict; a direction the
+    tree lacks (a unidirectional tree) is left out, as JAX's exporter does."""
     params = variables["params"]
     out: StateDict = {"encoder.weight": _t(params["embedding"])}
     for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        if f"w_ih_{d}" not in params:
+            continue
         out[f"rnn.weight_ih_l0{suffix}"] = _t(np.asarray(params[f"w_ih_{d}"]).T)
         out[f"rnn.weight_hh_l0{suffix}"] = _t(np.asarray(params[f"w_hh_{d}"]).T)
         out[f"rnn.bias_ih_l0{suffix}"] = _t(params[f"b_ih_{d}"])

@@ -4,6 +4,7 @@
   python -m tgsr_tpu_torch.cli.serve --artifact <bundle dir> [--port 8718]
   python -m tgsr_tpu_torch.cli.serve --cfg <eval yml> --netg <netG_epoch_7.pth> \\
       --vocab_pickle <testset.pickle> [--int8 | --scales s.json | --f32]
+  python -m tgsr_tpu_torch.cli.serve --aot <cli.export_aot dir> --vocab_pickle <pickle>
 
 Protocol (stdlib http.server; images through data/codec.py, PNG only):
   POST /sr     body = a PNG; bicubic-resized (PIL's filter) to the model's
@@ -13,7 +14,9 @@ Protocol (stdlib http.server; images through data/codec.py, PNG only):
   POST /sr?mode=native
                the body is the LR at its own size, cropped down to a
                multiple of the scale, through SRPipeline.sr_arbitrary with
-               bucket=64; native requests are not batched.
+               bucket=64; native requests are not batched. An exported
+               program (--aot, engine/aot.py AOTPipeline) has fixed shapes
+               and answers 400.
   GET /healthz JSON: request and batch counts, latency percentiles.
 A body that is not an 8-bit, non-interlaced PNG is answered 400 with the
 reason; an unknown path 404; a failed forward 500.
@@ -44,6 +47,17 @@ from tgsr_tpu_torch.data.codec import (decode_png, encode_png, resize_pil_bicubi
                                        unfilter_library)
 from tgsr_tpu_torch.data.tokenizer import Vocab, encode_caption, tokenize_caption
 from tgsr_tpu_torch.engine.serving import BatchingServer
+
+
+def aot_max_batch(meta, requested: int) -> int:
+    """A pinned-batch exported program (export_serving batch_size=N) runs
+    batches <= N only: the serving batch plan is clamped to the pin, so that
+    warm-up and coalesced batches never exceed it (AOTPipeline pads short
+    batches up to it). A symbolic-batch program passes `requested` through."""
+    pin = meta.get("batch")
+    if isinstance(pin, int) and requested > pin:
+        return pin
+    return requested
 
 
 def encode_caption_text(text: str, vocab: Vocab, words_num: int,
@@ -106,6 +120,10 @@ def make_server(pipeline, vocab: Vocab, host: str = "127.0.0.1", port: int = 871
             mode = query.get("mode", ["fixed"])[0]
             try:
                 if mode == "native":
+                    if not hasattr(pipeline, "sr_arbitrary"):
+                        return self._json(400, {
+                            "error": "native mode unavailable: this server runs an AOT "
+                                     "artifact with fixed shapes (export_serving)"})
                     # cropped down to a multiple of the scale
                     h0, w0 = (img.shape[0] // scale) * scale, (img.shape[1] // scale) * scale
                     if h0 < scale or w0 < scale:
@@ -133,7 +151,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="deployment bundle dir (SRPipeline.save_artifact) - replaces "
                              "--cfg/--netg/--vocab_pickle")
     parser.add_argument("--aot", default="",
-                        help="exported artifact dir: not ported (torch.export serving)")
+                        help="exported program dir (engine.aot.export_serving, cli.export_aot): "
+                             "serve the exported forward, no model code or checkpoints load; "
+                             "precision and int8 are fixed at export, so --int8/--f32 are "
+                             "refused. Needs --vocab_pickle. Native mode answers 400 (fixed "
+                             "shapes)")
     parser.add_argument("--cfg", dest="cfg_file", default="")
     parser.add_argument("--netg", default="",
                         help="reference netG_epoch_*.pth (netGH resolved alongside)")
@@ -163,7 +185,6 @@ def boot(argv=None):
     """(pipeline, vocab, args) from the command line, as `main` serves
     them. Raises SystemExit on an inconsistent set of arguments."""
     from tgsr_tpu_torch.cli.eval_rank import load_vocab
-    from tgsr_tpu_torch.engine.inference import SRPipeline
 
     args = parse_args(argv)
     if args.scales and (args.int8 or args.f32 or args.artifact or args.aot):
@@ -175,8 +196,26 @@ def boot(argv=None):
                              "drop --int8/--f32")
         if not args.vocab_pickle:
             raise SystemExit("--aot needs --vocab_pickle (caption encoding stays host-side)")
-        raise SystemExit("--aot: serving an exported (torch.export) artifact is not ported "
-                         "yet; serve a bundle with --artifact or checkpoints with --cfg/--netg")
+        from tgsr_tpu_torch.engine.aot import AOTPipeline
+
+        pipe = AOTPipeline(args.aot, device=args.device)
+        vocab = load_vocab(args.vocab_pickle)
+        # the embedding table is inside the program: ids of another vocabulary
+        # index past it (an error on the CPU, a fault on the card) or give
+        # garbage, so refuse up front
+        n_words = pipe.meta.get("n_words")
+        if n_words is not None and vocab.n_words != n_words:
+            raise SystemExit(f"--vocab_pickle has {vocab.n_words} words but the AOT artifact "
+                             f"was exported with a {n_words}-word vocabulary; serve the pickle "
+                             "the model was trained with")
+        clamped = aot_max_batch(pipe.meta, args.max_batch)
+        if clamped != args.max_batch:
+            print(f"[serve] artifact pins batch {clamped}: clamping --max_batch "
+                  f"{args.max_batch} -> {clamped}", flush=True)
+            args.max_batch = clamped
+        return pipe, vocab, args
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+
     if args.artifact:
         pipe, vocab = SRPipeline.load_artifact(
             args.artifact, device=args.device,
@@ -228,7 +267,7 @@ def main(argv=None):
                         max_batch=args.max_batch, max_delay_ms=args.max_delay_ms)
     print("warming up (a graph captured per planned batch size)...", flush=True)
     httpd.batcher.warmup()
-    kind = ("int8" if pipe.quant_scales
+    kind = ("aot" if args.aot else "int8" if pipe.quant_scales
             else "f32" if pipe.compute_dtype == torch.float32 else "bf16")
     print(f"serving on http://{args.host}:{httpd.server_address[1]} (max_batch "
           f"{args.max_batch}, delay {args.max_delay_ms} ms, {kind}, {pipe.device})", flush=True)

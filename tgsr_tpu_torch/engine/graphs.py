@@ -27,11 +27,31 @@ them, and replays it for every microbatch of that shape
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from collections import OrderedDict
+from typing import Callable, Hashable, Tuple
 
 import torch
 
 from tgsr_tpu_torch.ops import _build
+
+# sr_batched rounds its balanced microbatch up to a multiple of this, as the
+# JAX package does (which still leaves b = N for every N below the
+# microbatch); on the card a microbatch of b is replayed at `graph_batch(b)`
+MICROBATCH_QUANTUM = 64
+# the captured graphs a pipeline keeps, least recently used dropped first:
+# each holds its static inputs and output, which the memory plan counts
+MAX_GRAPHS = 16
+
+
+def graph_batch(b: int) -> int:
+    """The batch a microbatch of b replays at on the card: the next power of
+    two up to MICROBATCH_QUANTUM, then the next multiple of it. So the sizes
+    1..4096 map onto 70 graph batches, and a planned microbatch
+    (`memory.max_microbatch`) is one of them. `SRPipeline` and
+    `engine/aot.AOTPipeline` both pad to it."""
+    if b <= MICROBATCH_QUANTUM:
+        return 1 << (b - 1).bit_length()
+    return -(-b // MICROBATCH_QUANTUM) * MICROBATCH_QUANTUM
 
 
 class ForwardGraph:
@@ -65,3 +85,38 @@ class ForwardGraph:
         for name, n in self.launches.items():
             _build.REPLAYED[name] += n
         return self.out
+
+
+class GraphCache(OrderedDict):
+    """One pipeline's captured forwards by key, least recently used first,
+    all in one memory pool (`SRPipeline.graphs`, `aot.AOTPipeline.graphs`).
+
+    One pool for all of them, so that their working sets overlap instead of
+    adding up. Safe because of the owner's lock: whoever captures or replays
+    holds it from the copy-in to the copy of the output out, on one stream,
+    so no two replays or captures overlap and each replay's output is copied
+    out before any graph replays again; each kept graph's static inputs and
+    output stay allocated (no other capture takes them; a dropped graph is
+    never replayed again); what two graphs share is scratch that every
+    replay writes before it reads."""
+
+    def __init__(self):
+        super().__init__()
+        self.pool = None
+
+    def graph(self, key: Hashable, forward: Callable[..., torch.Tensor],
+              make_inputs: Callable[[], Tuple[torch.Tensor, ...]], limit: int,
+              device: torch.device) -> ForwardGraph:
+        """The graph of `key`, captured from `forward` on `make_inputs()` at
+        first use; past `limit` graphs the least recently used one is
+        dropped, with its inputs and output. The caller holds its lock."""
+        if key in self:
+            self.move_to_end(key)
+            return self[key]
+        if len(self) >= limit:
+            torch.cuda.synchronize(device)  # no replay of it is in flight
+            self.popitem(last=False)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        self[key] = ForwardGraph(forward, make_inputs(), self.pool)
+        return self[key]

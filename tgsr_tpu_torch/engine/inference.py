@@ -24,7 +24,15 @@ the blend `a` included) are cast; sr, the pyramid and the attention maps
 come back float32, and uint8 egress rounds the float32 of the last image.
 The up-head sites run `fused_up_head` (float32) or `fused_up_head_packed`
 (bfloat16), whose weights are folded and packed once from the float32
-weights before the cast.
+weights before the cast, and held as the buffers of a site module
+(`UpHeadSite`).
+
+`ServingForward` is the forward every entry point runs: the text encoder,
+the two served generators and their up-head sites as one `nn.Module` from
+(LR, token ids, lengths) to the uint8 SR. `SRPipeline._serve` (and with it
+every captured graph) calls it, `__call__` and `sr_arbitrary` call its
+`pyramid`, and `engine/aot.py` exports it, so the live pipeline and an
+exported program run one module.
 
 int8 serving (`quant_scales`, with bfloat16 or float32 compute; see
 engine/quant.py and models/quantized.py): the scales are checked against the
@@ -61,12 +69,11 @@ from __future__ import annotations
 import json
 import os
 import threading
-from collections import OrderedDict
-from functools import partial
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from tgsr_tpu_torch.checkpoints.from_jax import (conv_sites, seeded_text_state_dict,
                                                  state_dicts_from_jax)
@@ -74,7 +81,8 @@ from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
 from tgsr_tpu_torch.checkpoints.reference import load_generator_pair, load_text_encoder
 from tgsr_tpu_torch.config import Config, check_served, config_from_dict, config_to_dict
 from tgsr_tpu_torch.data.tokenizer import Vocab
-from tgsr_tpu_torch.engine.graphs import ForwardGraph
+from tgsr_tpu_torch.engine.graphs import (MAX_GRAPHS, MICROBATCH_QUANTUM, ForwardGraph,
+                                          GraphCache, graph_batch)
 from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats, pin_float32_math
 from tgsr_tpu_torch.engine.quant import (SCALES_META_KEY, SPLIT_RES_GLU_SITES, check_scales,
                                          effective_split_glu, record_absmax,
@@ -84,20 +92,12 @@ from tgsr_tpu_torch.models.quantized import quantize_generator
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
 from tgsr_tpu_torch.ops.image import bucket_shape
-from tgsr_tpu_torch.ops.up_head import up_head_site
+from tgsr_tpu_torch.ops.up_head import UpHeadSite, up_head_site
 from tgsr_tpu_torch.ops.up_head_packed import prepare_up_head_packed, up_head_packed_site
 from tgsr_tpu_torch.utils import memory
 
 # sr_batched's microbatch on the CPU, where no memory plan runs
 CPU_MICROBATCH = 64
-# sr_batched rounds its balanced microbatch up to a multiple of this, as the
-# JAX package does (which still leaves b = N for every N below the
-# microbatch); on the card a microbatch of b is replayed at `graph_batch(b)`
-MICROBATCH_QUANTUM = 64
-# the captured graphs a pipeline keeps, least recently used dropped first:
-# each holds its static inputs and output (engine/graphs.py), which the
-# memory plan counts
-MAX_GRAPHS = 16
 # a deployment bundle's weights: the three reference-named state dicts and a
 BUNDLE_WEIGHTS = "state_dicts.pt"
 DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -116,6 +116,44 @@ def to_uint8(sr: torch.Tensor) -> torch.Tensor:
     """[-1, 1] float -> uint8, round(clip((sr + 1) * 127.5, 0, 255)) with
     round-half-to-even, as the JAX package."""
     return torch.round(torch.clamp((sr + 1.0) * 127.5, 0, 255)).to(torch.uint8)
+
+
+class ServingForward(nn.Module):
+    """One pipeline's serving forward as a module (counterpart of the `fn`
+    that tgsr_tpu/engine/aot.py exports): lr float32 [B, h, w, 3] in
+    [-1, 1], captions [B, T] int64 token ids (0 = pad), cap_lens [B] int64
+    -> the final SR, uint8 [B, H, W, 3] (the save-time postprocess) or, with
+    `uint8` False, float32 in [-1, 1]. It holds the pipeline's modules (the
+    float32 text encoder, the served generators, int8 copies where
+    quantized, and their up-head site modules) and copies no weight."""
+
+    def __init__(self, text_encoder: nn.Module, netg: nn.Module, netgh: nn.Module,
+                 netg_up_head: Optional[nn.Module], netgh_up_head: Optional[nn.Module],
+                 compute_dtype: torch.dtype, uint8: bool = True):
+        super().__init__()
+        self.text_encoder, self.netg, self.netgh = text_encoder, netg, netgh
+        # None in int8 serving: the last UpBlock and its head are quantized modules
+        self.netg_up_head, self.netgh_up_head = netg_up_head, netgh_up_head
+        self.compute_dtype = compute_dtype
+        self.uint8 = uint8
+
+    def pyramid(self, lr: torch.Tensor, captions: torch.Tensor, cap_lens: torch.Tensor,
+                need_attn: bool = False):
+        """lr [B, h, w, 3] float32 -> (NCHW pyramid and attn maps, in the
+        compute dtype)."""
+        cdt = self.compute_dtype
+        words, sent = self.text_encoder(captions, cap_lens)
+        mask = captions == 0
+        lr_c = nchw(lr.contiguous()).to(cdt)
+        fake, att, _, _ = self.netg(lr_c, sent.to(cdt), words.to(cdt), mask,
+                                    need_attn, up_head=self.netg_up_head)
+        return self.netgh(lr_c, fake, up_head=self.netgh_up_head), att
+
+    def forward(self, lr: torch.Tensor, captions: torch.Tensor,
+                cap_lens: torch.Tensor) -> torch.Tensor:
+        fine, _ = self.pyramid(lr, captions, cap_lens)
+        sr = fine[-1].float()
+        return nhwc(to_uint8(sr)) if self.uint8 else nhwc(sr)
 
 
 class SRPipeline:
@@ -148,7 +186,9 @@ class SRPipeline:
         self.a = float(a)
         self.text_encoder, self.netg, self.netgh = _modules(cfg, vocab_size, *self.state_dicts)
         for module in (self.text_encoder, self.netg, self.netgh):
-            module.to(self.device).eval()
+            # serving only: no parameter takes a gradient (a tracer then sees
+            # the kernels' ops, not the autograd around them)
+            module.to(self.device).eval().requires_grad_(False)
         self.netgh.a.fill_(self.a)
         self.quant_scales, self.quant_meta = split_scales_meta(quant_scales or {})
         # float32 serving on the card is float32: PyTorch's default has cuDNN's
@@ -180,6 +220,7 @@ class SRPipeline:
                                SPLIT_RES_GLU_SITES)
             if self.quant_scales.get(group) else module
             for group, module in (("netg", self.netg), ("netgh", self.netgh)))
+        self.serving = self.serving_forward()
         # One re-entrant lock serialises every use of the device by this
         # pipeline: `_graph` (the LRU and any capture), each replay's copy-in,
         # replay and copy-out, the eager forwards of `__call__` /
@@ -192,8 +233,7 @@ class SRPipeline:
         # own beside the pipeline (engine/evaluator.py) take `lock` too.
         self.lock = threading.RLock()
         # on the card: the captured forwards (`_graph`) and the memory plan
-        self.graphs: "OrderedDict[tuple, ForwardGraph]" = OrderedDict()
-        self._graph_pool = None
+        self.graphs = GraphCache()
         self.memory_plan: Optional[memory.MemoryPlan] = None
 
     # -- construction from files -------------------------------------------
@@ -304,30 +344,24 @@ class SRPipeline:
         _, netg, netgh = _modules(self.cfg, self.vocab_size, *self.state_dicts)
         return weights_fingerprint(netg, netgh)
 
-    def _up_head_site(self, generator, group: str
-                      ) -> Optional[Callable[..., torch.Tensor]]:
+    def _up_head_site(self, generator, group: str) -> Optional[nn.Module]:
         if self.quant_scales.get(group):
             return None  # int8: the UpBlock and its head run as quantized modules
         wts = generator.up_head_weights()
         if self.compute_dtype == torch.float32:
-            return partial(up_head_site, wts)
-        return partial(up_head_packed_site, prepare_up_head_packed(
+            return UpHeadSite(up_head_site, wts)
+        return UpHeadSite(up_head_packed_site, prepare_up_head_packed(
             wts.w_up, wts.bn_mul, wts.bn_add, wts.w_head, dtype=self.compute_dtype))
+
+    def serving_forward(self, uint8: bool = True) -> ServingForward:
+        """The module of this pipeline's serving forward (`ServingForward`),
+        on its modules: uint8 out, or float32 with `uint8` False."""
+        return ServingForward(self.text_encoder, self.serve_netg, self.serve_netgh,
+                              self.netg_up_head, self.netgh_up_head, self.compute_dtype,
+                              uint8)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
-
-    def _forward(self, lr: torch.Tensor, captions: torch.Tensor,
-                 cap_lens: torch.Tensor, need_attn: bool):
-        """lr [B, h, w, 3] float32 on the device -> (NCHW pyramid and attn
-        maps, in the compute dtype)."""
-        cdt = self.compute_dtype
-        words, sent = self.text_encoder(captions, cap_lens)
-        mask = captions == 0
-        lr_c = nchw(lr.contiguous()).to(cdt)
-        fake, att, _, _ = self.serve_netg(lr_c, sent.to(cdt), words.to(cdt), mask,
-                                          need_attn, up_head=self.netg_up_head)
-        return self.serve_netgh(lr_c, fake, up_head=self.netgh_up_head), att
 
     @torch.inference_mode()
     def calibrate_quant(self, lr, captions, cap_lens, margin: float = 1.1
@@ -357,10 +391,10 @@ class SRPipeline:
         images NHWC (64, 128, 256 px at face S8; 64 to 512 px at S16), and
         'attn': [B, T, H, W] per stage when return_attn}."""
         with self.lock:
-            fine, att = self._forward(self._tensor(lr, torch.float32),
-                                      self._tensor(captions, torch.long),
-                                      self._tensor(cap_lens, torch.long),
-                                      self.return_attn)
+            fine, att = self.serving.pyramid(self._tensor(lr, torch.float32),
+                                             self._tensor(captions, torch.long),
+                                             self._tensor(cap_lens, torch.long),
+                                             self.return_attn)
             pyramid = [nhwc(f).float() for f in fine]
             out = {"sr": pyramid[-1], "pyramid": pyramid}
             if self.return_attn:
@@ -371,21 +405,13 @@ class SRPipeline:
                cap_lens: torch.Tensor) -> torch.Tensor:
         """The forward of one microbatch on the device, uint8 in or out:
         lr [B, h, w, 3] (uint8, normalized here, or float in [-1, 1]) ->
-        uint8 SR [B, H, W, 3]. What a graph captures."""
+        uint8 SR [B, H, W, 3] through `serving`. What a graph captures."""
         if lr.dtype == torch.uint8:
             lr = lr.float() / 127.5 - 1.0
-        fine, _ = self._forward(lr.float(), captions, cap_lens, False)
-        return nhwc(to_uint8(fine[-1].float()))
+        return self.serving(lr.float(), captions, cap_lens)
 
-    @staticmethod
-    def graph_batch(b: int) -> int:
-        """The batch a microbatch of b replays at on the card: the next
-        power of two up to MICROBATCH_QUANTUM, then the next multiple of
-        it. So the sizes 1..4096 map onto 70 graph batches, and a planned
-        microbatch (`memory.max_microbatch`) is one of them."""
-        if b <= MICROBATCH_QUANTUM:
-            return 1 << (b - 1).bit_length()
-        return -(-b // MICROBATCH_QUANTUM) * MICROBATCH_QUANTUM
+    # the batch a microbatch of b replays at on the card (engine/graphs.py)
+    graph_batch = staticmethod(graph_batch)
 
     def _graph(self, b: int, h: int, w: int, t: int, lr_dtype: torch.dtype) -> ForwardGraph:
         """The captured forward at batch b (a `graph_batch` size), LR h x w,
@@ -394,30 +420,12 @@ class SRPipeline:
         recently used graph is dropped, with its inputs and output. The
         caller holds `lock`."""
         lr_dtype = torch.uint8 if lr_dtype == torch.uint8 else torch.float32
-        key = (b, h, w, t, lr_dtype)
-        if key in self.graphs:
-            self.graphs.move_to_end(key)
-            return self.graphs[key]
-        if len(self.graphs) >= MAX_GRAPHS:
-            torch.cuda.synchronize(self.device)  # no replay of it is in flight
-            self.graphs.popitem(last=False)
-        if self._graph_pool is None:
-            # One memory pool for all of this pipeline's graphs, so their
-            # working sets overlap instead of adding up. Safe because of
-            # `lock`: whoever captures or replays holds it from the copy-in
-            # to the copy of the output out (`forward_scan`), on one stream,
-            # so no two replays or captures overlap and each replay's output
-            # is copied out before any graph replays again; each kept
-            # graph's static inputs and output stay allocated (no other
-            # capture takes them; a dropped graph is never replayed again);
-            # what two graphs share is scratch that every replay writes
-            # before it reads.
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        inputs = (torch.zeros((b, h, w, 3), dtype=lr_dtype, device=self.device),
-                  torch.ones((b, t), dtype=torch.long, device=self.device),
-                  torch.full((b,), t, dtype=torch.long, device=self.device))
-        self.graphs[key] = ForwardGraph(self._serve, inputs, self._graph_pool)
-        return self.graphs[key]
+        return self.graphs.graph(
+            (b, h, w, t, lr_dtype), self._serve,
+            lambda: (torch.zeros((b, h, w, 3), dtype=lr_dtype, device=self.device),
+                     torch.ones((b, t), dtype=torch.long, device=self.device),
+                     torch.full((b,), t, dtype=torch.long, device=self.device)),
+            MAX_GRAPHS, self.device)
 
     @torch.inference_mode()
     def forward_scan(self, lr, captions, cap_lens) -> torch.Tensor:

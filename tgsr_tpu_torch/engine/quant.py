@@ -25,8 +25,8 @@ from torch import nn
 
 from tgsr_tpu_torch.checkpoints.from_jax import conv_sites
 from tgsr_tpu_torch.ops.blocks import BN_EPS
+from tgsr_tpu_torch.ops.quantize import QMAX, act_step, quantize_act  # noqa: F401 (re-exported)
 
-QMAX = 127.0
 
 # UpBlocks whose GLU output feeds a following int8 conv (the next stage's
 # ResBlock, the next upscale); the split is numerically exact, so in the
@@ -83,21 +83,6 @@ def quantize_kernel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     step = torch.clamp(w32.abs().amax(dim=(1, 2, 3)), min=1e-12) / QMAX
     wq = torch.round(w32 / step[:, None, None, None]).to(torch.int8)
     return wq, step
-
-
-def act_step(scale: float) -> float:
-    """The activation step of a calibrated absmax, as a Python float (made
-    float32 where it is used)."""
-    return max(float(scale), 1e-12) / QMAX
-
-
-def quantize_act(x: torch.Tensor, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric quantization: (int8 xq, float32 step) with
-    x ~= xq * step; divides by the step (no reciprocal), rounds half to
-    even after the clip."""
-    step = torch.tensor(act_step(scale), dtype=torch.float32, device=x.device)
-    xq = torch.round(torch.clamp(x.float() / step, -QMAX, QMAX)).to(torch.int8)
-    return xq, step
 
 
 def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:

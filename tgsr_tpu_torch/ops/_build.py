@@ -220,6 +220,13 @@ def refuse_grad(what: str, *tensors) -> None:
                            "gradient (call it under torch.no_grad())")
 
 
+def check_device(x: torch.Tensor, what: str) -> None:
+    """Raises for a tensor on a device that has neither the kernel (CUDA)
+    nor the plain version (the CPU): a custom op dispatches by device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for {x.device}")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,20 +1,24 @@
 """Word -> pixel cross-attention as a CUDA kernel (counterpart of
 tgsr_tpu/ops/pallas_attention.py).
 
-`word_pixel_attention` takes the JAX package's layout. On a CPU tensor it
-runs the plain version (`ops/attention.py`), which autograd differentiates;
-on a CUDA tensor it launches `csrc/word_pixel_attention.cu` or raises. The
-kernel takes float32 or bfloat16 (pixels and words in one dtype), computes
-the logits, the softmax and ctx in float32, and returns ctx, and the
-attention map when `return_attn` is set, in the inputs' dtype.
+`word_pixel_attention` takes the JAX package's layout and calls the custom
+op `tgsr::word_pixel_attention` (`ops/library.py`), whose CPU implementation
+is the plain version (`ops/attention.py`) and whose CUDA implementation
+launches `csrc/word_pixel_attention.cu` or raises. The kernel takes float32
+or bfloat16 (pixels and words in one dtype), computes the logits, the
+softmax and ctx in float32, and returns ctx, and the attention map when
+`return_attn` is set, in the inputs' dtype. The op always returns two
+tensors (a custom op has no optional output): the map, or an empty tensor.
 
 Where autograd needs a gradient (grad mode on and pixels or words requiring
-one) the call goes through `_KernelAttention`, a `torch.autograd.Function`:
-its forward is the same launch, its backward the kernel's backward in the
-same source (`word_pixel_attention_bwd`: recomputes the softmax per pixel
-tile, writes dpixels, and sums dwords over the tiles in a second launch).
-Under `torch.no_grad()` and in graph capture the forward launches alone, as
-serving always has.
+one), a CPU call runs the plain version, which autograd differentiates, and
+a CUDA call goes through `_KernelAttention`, a `torch.autograd.Function`
+over two ops: its forward is the same op, its backward the op
+`tgsr::word_pixel_attention_bwd`, the kernel's backward in the same source
+(recomputes the softmax per pixel tile, writes dpixels, and sums dwords
+over the tiles in a second launch). Under `torch.no_grad()`, in graph
+capture and in an exported program the forward op runs alone, as serving
+always has.
 """
 
 from __future__ import annotations
@@ -82,6 +86,73 @@ def _launch(pixels, words, mask, return_attn: bool):
     return ctx, attn
 
 
+def _attn_shape(pixels: torch.Tensor, words: torch.Tensor, return_attn: bool) -> tuple:
+    b, h, w, _ = pixels.shape
+    return (b, words.shape[1], h, w) if return_attn else (0,)
+
+
+@torch.library.custom_op("tgsr::word_pixel_attention", mutates_args=(), device_types="cuda")
+def _attention_op(pixels: torch.Tensor, words: torch.Tensor, mask: Optional[torch.Tensor],
+                  return_attn: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(pixels, words, mask)
+    ctx, attn = _launch(pixels, words, mask, return_attn)
+    return ctx, attn if attn is not None else pixels.new_empty(0)
+
+
+@_attention_op.register_kernel("cpu")
+def _(pixels, words, mask, return_attn):
+    ctx, attn = plain_word_pixel_attention(pixels, words, mask, return_attn)
+    return ctx.contiguous(), attn if attn is not None else pixels.new_empty(0)
+
+
+@_attention_op.register_fake
+def _(pixels, words, mask, return_attn):
+    return pixels.new_empty(pixels.shape), pixels.new_empty(_attn_shape(pixels, words,
+                                                                        return_attn))
+
+
+@torch.library.custom_op("tgsr::word_pixel_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_bwd_op(pixels: torch.Tensor, words: torch.Tensor, mask: Optional[torch.Tensor],
+                      grad_ctx: torch.Tensor, grad_attn: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, h, w, c = pixels.shape
+    t = words.shape[1]
+    lib = _build.library(NAME)
+    dpixels = torch.empty_like(pixels)
+    dwords = torch.empty_like(words)
+    ws = torch.empty(lib.word_pixel_attention_bwd_workspace(b, h * w, c, t) // 4,
+                     dtype=torch.float32, device=pixels.device)
+    with torch.cuda.device(pixels.device):
+        err = lib.word_pixel_attention_bwd_launch(
+            pixels.data_ptr(), words.data_ptr(), mask.data_ptr() if mask is not None else None,
+            grad_ctx.data_ptr(), grad_attn.data_ptr() if grad_attn is not None else None,
+            dpixels.data_ptr(), dwords.data_ptr(), ws.data_ptr(), b, h * w, c, t,
+            _build.DTYPE_CODES[pixels.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, BWD_NAME)
+    _build.LAUNCHES[BWD_NAME] += 1
+    return dpixels, dwords
+
+
+@_attention_bwd_op.register_kernel("cpu")
+def _(pixels, words, mask, grad_ctx, grad_attn):
+    """The plain version's gradient, by autograd."""
+    with torch.enable_grad():
+        p, wd = pixels.detach().requires_grad_(), words.detach().requires_grad_()
+        ctx, attn = plain_word_pixel_attention(p, wd, mask, grad_attn is not None)
+        outs, grads = [ctx], [grad_ctx]
+        if grad_attn is not None:
+            outs.append(attn)
+            grads.append(grad_attn)
+        dp, dw = torch.autograd.grad(outs, (p, wd), grads)
+    return dp.contiguous(), dw.contiguous()
+
+
+@_attention_bwd_op.register_fake
+def _(pixels, words, mask, grad_ctx, grad_attn):
+    return pixels.new_empty(pixels.shape), words.new_empty(words.shape)
+
+
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """x contiguous and 16-byte aligned (a copy only where it is not)."""
     x = x.contiguous()
@@ -105,20 +176,7 @@ def word_pixel_attention_bwd(pixels: torch.Tensor, words: torch.Tensor,
         grad_attn = grad_attn.to(pixels.dtype).contiguous()
         if tuple(grad_attn.shape) != (b, t, h, w) or grad_attn.device != pixels.device:
             raise ValueError("word_pixel_attention_bwd: grad_attn must be [B, T, H, W]")
-    lib = _build.library(NAME)
-    dpixels = torch.empty_like(pixels)
-    dwords = torch.empty_like(words)
-    ws = torch.empty(lib.word_pixel_attention_bwd_workspace(b, h * w, c, t) // 4,
-                     dtype=torch.float32, device=pixels.device)
-    with torch.cuda.device(pixels.device):
-        err = lib.word_pixel_attention_bwd_launch(
-            pixels.data_ptr(), words.data_ptr(), mask.data_ptr() if mask is not None else None,
-            grad_ctx.data_ptr(), grad_attn.data_ptr() if grad_attn is not None else None,
-            dpixels.data_ptr(), dwords.data_ptr(), ws.data_ptr(), b, h * w, c, t,
-            _build.DTYPE_CODES[pixels.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, BWD_NAME)
-    _build.LAUNCHES[BWD_NAME] += 1
-    return dpixels, dwords
+    return torch.ops.tgsr.word_pixel_attention_bwd(pixels, words, mask, grad_ctx, grad_attn)
 
 
 class _KernelAttention(torch.autograd.Function):
@@ -127,7 +185,7 @@ class _KernelAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pixels, words, mask, return_attn):
-        out, attn = _launch(pixels, words, mask, return_attn)
+        out, attn = torch.ops.tgsr.word_pixel_attention(pixels, words, mask, return_attn)
         ctx.save_for_backward(pixels, words, mask)
         ctx.set_materialize_grads(False)
         return (out, attn) if return_attn else out
@@ -148,12 +206,12 @@ def word_pixel_attention(
     return_attn: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (ctx [B, H, W, C], attn [B, T, H, W] or None)."""
-    if pixels.device.type == "cpu":
-        return plain_word_pixel_attention(pixels, words, mask, return_attn)
-    if pixels.device.type != "cuda":
-        raise ValueError(f"word_pixel_attention: no kernel for {pixels.device}")
-    _check(pixels, words, mask)
+    _build.check_device(pixels, "word_pixel_attention")
     if torch.is_grad_enabled() and (pixels.requires_grad or words.requires_grad):
+        if pixels.device.type == "cpu":
+            return plain_word_pixel_attention(pixels, words, mask, return_attn)
+        _check(pixels, words, mask)
         out = _KernelAttention.apply(pixels, words, mask, return_attn)
         return out if return_attn else (out, None)
-    return _launch(pixels, words, mask, return_attn)
+    ctx, attn = torch.ops.tgsr.word_pixel_attention(pixels, words, mask, return_attn)
+    return ctx, attn if return_attn else None

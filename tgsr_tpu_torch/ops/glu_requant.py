@@ -11,20 +11,22 @@ step = max(scale, 1e-12) / 127 as a float32. `requant(x, scale)`: x bfloat16
 or float32 -> int8 of the same shape, the last step alone, equal to
 `engine.quant.quantize_act(x, scale)[0]` bit for bit.
 
-On a CPU tensor each runs its plain version; on a CUDA tensor it launches
-`csrc/glu_requant.cu` or raises: the `glu_requant_one` instance for c = 64,
-`glu_requant_pair` for c = 32, `requant` for the flat pass, each in
+Each is a custom op (`tgsr::glu_requant`, `tgsr::requant`; `ops/library.py`)
+whose CPU implementation is its plain version and whose CUDA implementation
+launches `csrc/glu_requant.cu` or raises: the `glu_requant_one` instance for
+c = 64, `glu_requant_pair` for c = 32, `requant` for the flat pass, each in
 bfloat16 or float32 by the input's type (counted apart, `_f32`). The kernel
 loads 16 bytes at a time, so a CUDA tensor must be contiguous and 16-byte
-aligned.
+aligned. The scale is a float argument of the op, so an exported program
+carries it as a constant.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tgsr_tpu_torch.engine.quant import act_step, quantize_act
 from tgsr_tpu_torch.ops import _build
+from tgsr_tpu_torch.ops.quantize import act_step, quantize_act
 
 NAME = "glu_requant"
 # kernel instance (launch counter) by the channels of one GLU half
@@ -44,26 +46,14 @@ def requant_plain(x: torch.Tensor, scale: float) -> torch.Tensor:
     return quantize_act(x, scale)[0]
 
 
-def _on_cpu(x: torch.Tensor, what: str) -> bool:
-    """True for a CPU tensor (the plain version runs), False for one the
-    kernel takes; raises for any other."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for {x.device}")
+def _check_cuda(x: torch.Tensor, what: str) -> None:
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: the tensor must be contiguous and 16-byte aligned")
-    return False
 
 
-def glu_requant(h: torch.Tensor, scale: float) -> torch.Tensor:
-    """h bfloat16 or float32 [..., 2c] -> int8 [..., c]."""
-    if h.dtype not in DTYPES or h.shape[-1] % 2:
-        raise TypeError(f"glu_requant: h must be bfloat16 or float32 [..., 2c], got {h.dtype} "
-                        f"{tuple(h.shape)}")
-    _build.refuse_grad("glu_requant", h)
-    if _on_cpu(h, "glu_requant"):
-        return glu_requant_plain(h, scale)
+@torch.library.custom_op("tgsr::glu_requant", mutates_args=(), device_types="cuda")
+def _glu_requant_op(h: torch.Tensor, scale: float) -> torch.Tensor:
+    _check_cuda(h, "glu_requant")
     c = h.shape[-1] // 2
     if c not in INSTANCES:
         raise ValueError(f"glu_requant: c = {c}; the kernel's instances take c in "
@@ -79,13 +69,19 @@ def glu_requant(h: torch.Tensor, scale: float) -> torch.Tensor:
     return out
 
 
-def requant(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """x bfloat16 or float32 -> int8 of the same shape."""
-    if x.dtype not in DTYPES:
-        raise TypeError(f"requant: x must be bfloat16 or float32, got {x.dtype}")
-    _build.refuse_grad("requant", x)
-    if _on_cpu(x, "requant"):
-        return requant_plain(x, scale)
+@_glu_requant_op.register_kernel("cpu")
+def _(h: torch.Tensor, scale: float) -> torch.Tensor:
+    return glu_requant_plain(h, scale)
+
+
+@_glu_requant_op.register_fake
+def _(h: torch.Tensor, scale: float) -> torch.Tensor:
+    return h.new_empty((*h.shape[:-1], h.shape[-1] // 2), dtype=torch.int8)
+
+
+@torch.library.custom_op("tgsr::requant", mutates_args=(), device_types="cuda")
+def _requant_op(x: torch.Tensor, scale: float) -> torch.Tensor:
+    _check_cuda(x, "requant")
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     lib = _build.library(NAME)
     launch = lib.requant_f32_launch if x.dtype == torch.float32 else lib.requant_launch
@@ -95,3 +91,32 @@ def requant(x: torch.Tensor, scale: float) -> torch.Tensor:
     _build.check(err, NAME)
     _build.LAUNCHES["requant" + DTYPES[x.dtype]] += 1
     return out
+
+
+@_requant_op.register_kernel("cpu")
+def _(x: torch.Tensor, scale: float) -> torch.Tensor:
+    return requant_plain(x, scale)
+
+
+@_requant_op.register_fake
+def _(x: torch.Tensor, scale: float) -> torch.Tensor:
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+def glu_requant(h: torch.Tensor, scale: float) -> torch.Tensor:
+    """h bfloat16 or float32 [..., 2c] -> int8 [..., c]."""
+    if h.dtype not in DTYPES or h.shape[-1] % 2:
+        raise TypeError(f"glu_requant: h must be bfloat16 or float32 [..., 2c], got {h.dtype} "
+                        f"{tuple(h.shape)}")
+    _build.refuse_grad("glu_requant", h)
+    _build.check_device(h, "glu_requant")
+    return torch.ops.tgsr.glu_requant(h, float(scale))
+
+
+def requant(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """x bfloat16 or float32 -> int8 of the same shape."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"requant: x must be bfloat16 or float32, got {x.dtype}")
+    _build.refuse_grad("requant", x)
+    _build.check_device(x, "requant")
+    return torch.ops.tgsr.requant(x, float(scale))

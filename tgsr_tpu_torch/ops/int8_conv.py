@@ -8,11 +8,13 @@ float32: acc * scale[c] (scale = x_step * w_step), then * mul[c] + add[c]
 for a folded BN, then the cast to float32 or bfloat16, then + residual in
 that type (as the JAX block adds its skip in its working type).
 
-On a CPU tensor the wrapper runs the plain version: `F.conv2d` in float64 on
-the int8 values, which is exact (every product and partial sum is an integer
-below 2^53; at most 127^2 * 800 here), then int32, then the same epilogue as
-separate torch ops. On a CUDA tensor it launches `csrc/int8_conv.cu` or
-raises; a float32 output is counted apart (`int8_conv_f32`).
+The wrapper calls the custom op `tgsr::int8_conv` (`ops/library.py`) on the
+weight's two layouts. Its CPU implementation is the plain version:
+`F.conv2d` in float64 on the int8 values, which is exact (every product and
+partial sum is an integer below 2^53; at most 127^2 * 800 here), then int32,
+then the same epilogue as separate torch ops. Its CUDA implementation
+launches `csrc/int8_conv.cu` or raises; a float32 output is counted apart
+(`int8_conv_f32`).
 """
 
 from __future__ import annotations
@@ -92,6 +94,64 @@ def int8_conv_plain(x, w: Int8Weight, scale, bn=None, residual=None,
     return dequant_epilogue(int8_conv_int32(x, w.q, up2), scale, bn, residual, out_dtype)
 
 
+@torch.library.custom_op("tgsr::int8_conv", mutates_args=(), device_types="cuda")
+def _int8_conv_op(x: torch.Tensor, q: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                  bn_mul: Optional[torch.Tensor], bn_add: Optional[torch.Tensor],
+                  residual: Optional[torch.Tensor], out_dtype: torch.dtype,
+                  up2: bool) -> torch.Tensor:
+    b, h, wd, cin = x.shape
+    k, _, cin_w, cout = q.shape
+    if cin_w != cin or k not in (3, 5) or q.shape[1] != k:
+        raise ValueError(f"int8_conv: weight {tuple(q.shape)} against x {tuple(x.shape)} "
+                         "(k 3 or 5)")
+    cp = cin_pad(cin)
+    if cp != cin:
+        x = F.pad(x, (0, cp - cin))
+    ho, wo = (2 * h, 2 * wd) if up2 else (h, wd)
+    tensors = [(x, torch.int8, (b, h, wd, cp)),
+               (packed, torch.int8, (cout_pad(cout), -(-k * k * cp // 32) * 32)),
+               (scale, torch.float32, (cout,))]
+    if bn_mul is not None:
+        tensors += [(bn_mul, torch.float32, (cout,)), (bn_add, torch.float32, (cout,))]
+    if residual is not None:
+        tensors.append((residual, out_dtype, (b, ho, wo, cout)))
+    for t, dtype, shape in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("int8_conv: inputs must be contiguous and on one device")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"int8_conv: a {t.dtype} {tuple(t.shape)} input where the "
+                             f"kernel takes {dtype} {shape}")
+    if any(t.data_ptr() % 16 for t, _, _ in tensors if t.dim() > 1):
+        raise ValueError("int8_conv: x, the weight and the residual must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
+    out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library(NAME).int8_conv_launch(
+            x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            bn_mul.data_ptr() if bn_mul is not None else None,
+            bn_add.data_ptr() if bn_add is not None else None,
+            residual.data_ptr() if residual is not None else None,
+            out.data_ptr(), b, h, wd, x.shape[-1], cout, k, int(up2),
+            _build.DTYPE_CODES[out_dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, NAME)
+    _build.LAUNCHES[NAME if out_dtype == torch.bfloat16 else NAME + "_f32"] += 1
+    return out
+
+
+@_int8_conv_op.register_kernel("cpu")
+def _(x, q, packed, scale, bn_mul, bn_add, residual, out_dtype, up2):
+    bn = (bn_mul, bn_add) if bn_mul is not None else None
+    return int8_conv_plain(x, Int8Weight(q, packed), scale, bn, residual, out_dtype,
+                           up2).contiguous()
+
+
+@_int8_conv_op.register_fake
+def _(x, q, packed, scale, bn_mul, bn_add, residual, out_dtype, up2):
+    b, h, wd, _ = x.shape
+    ho, wo = (2 * h, 2 * wd) if up2 else (h, wd)
+    return x.new_empty((b, ho, wo, q.shape[3]), dtype=out_dtype)
+
+
 def int8_conv(
     x: torch.Tensor,  # int8 [B, H, W, Cin]
     w: Int8Weight,
@@ -111,44 +171,7 @@ def int8_conv(
         raise TypeError(f"int8_conv: a {residual.dtype} residual to a {out_dtype} output; "
                         "the residual takes the output's type")
     _build.refuse_grad(NAME, scale, residual, *(bn or ()))
-    if x.device.type == "cpu":
-        return int8_conv_plain(x, w, scale, bn, residual, out_dtype, up2)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_conv: no kernel for {x.device}")
-    b, h, wd, cin = x.shape
-    k, _, cin_w, cout = w.q.shape
-    if cin_w != cin or k not in (3, 5) or w.q.shape[1] != k:
-        raise ValueError(f"int8_conv: weight {tuple(w.q.shape)} against x {tuple(x.shape)} "
-                         "(k 3 or 5)")
-    cp = cin_pad(cin)
-    if cp != cin:
-        x = F.pad(x, (0, cp - cin))
-    ho, wo = (2 * h, 2 * wd) if up2 else (h, wd)
-    tensors = [(x, torch.int8, (b, h, wd, cp)),
-               (w.packed, torch.int8, (cout_pad(cout), -(-k * k * cp // 32) * 32)),
-               (scale, torch.float32, (cout,))]
-    if bn is not None:
-        tensors += [(bn[0], torch.float32, (cout,)), (bn[1], torch.float32, (cout,))]
-    if residual is not None:
-        tensors.append((residual, out_dtype, (b, ho, wo, cout)))
-    for t, dtype, shape in tensors:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("int8_conv: inputs must be contiguous and on one device")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"int8_conv: a {t.dtype} {tuple(t.shape)} input where the "
-                             f"kernel takes {dtype} {shape}")
-    if any(t.data_ptr() % 16 for t, _, _ in tensors if t.dim() > 1):
-        raise ValueError("int8_conv: x, the weight and the residual must be 16-byte "
-                         "aligned (the kernel copies 16 bytes at a time)")
-    out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library(NAME).int8_conv_launch(
-            x.data_ptr(), w.packed.data_ptr(), scale.data_ptr(),
-            bn[0].data_ptr() if bn is not None else None,
-            bn[1].data_ptr() if bn is not None else None,
-            residual.data_ptr() if residual is not None else None,
-            out.data_ptr(), b, h, wd, x.shape[-1], cout, k, int(up2),
-            _build.DTYPE_CODES[out_dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, NAME)
-    _build.LAUNCHES[NAME if out_dtype == torch.bfloat16 else NAME + "_f32"] += 1
-    return out
+    _build.check_device(x, NAME)
+    bn_mul, bn_add = bn if bn is not None else (None, None)
+    return torch.ops.tgsr.int8_conv(x, w.q, w.packed, scale, bn_mul, bn_add, residual,
+                                    out_dtype, up2)

@@ -2,10 +2,13 @@
 tgsr_tpu/ops/pallas_up_head.py `fused_up_head`).
 
 `fused_up_head` takes the JAX package's layout (NHWC activations, HWIO
-weights). On a CPU tensor it runs the plain version `reference_up_head`; on
-a CUDA tensor it launches `csrc/up_head.cu` or raises. The kernel writes only
+weights) and calls the custom op `tgsr::up_head` (`ops/library.py`), whose
+CPU implementation is the plain version `reference_up_head` and whose CUDA
+implementation launches `csrc/up_head.cu` or raises. The kernel writes only
 the float32 [B, 2H, 2W, 3] image: the upsampled features never reach device
-memory.
+memory. `UpHeadSite` holds one generator site's folded (or packed)
+weights as buffers, so that a serving module carries them into an
+exported program.
 
 The kernel runs the up-conv per output parity class as a GEMM on the
 combined 2 x 2 weights of `fuse_upconv_kernel`, on the tensor cores in
@@ -18,7 +21,7 @@ lays it out in the kernel's mma fragment order, once per set of weights.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -153,11 +156,20 @@ def up_head_folded(
     or the combined weight made here from `wts.w_up` when it is None."""
     w_up, bn_mul, bn_add, w_head, w_frag = wts
     _build.refuse_grad(NAME, x, srb, a, *wts)
-    if x.device.type == "cpu":
-        return reference_up_head(x, w_up, bn_mul, bn_add, w_head, srb, a,
-                                 use_tanh=use_tanh, blend=blend)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_up_head: no kernel for {x.device}")
+    _build.check_device(x, "fused_up_head")
+    if blend and a is not None and not torch.is_tensor(a):
+        a = torch.tensor(float(a), device=x.device)
+    if not blend:
+        srb = a = None
+    return torch.ops.tgsr.up_head(x, w_up, bn_mul, bn_add, w_head, w_frag, srb, a,
+                                  use_tanh, blend)
+
+
+@torch.library.custom_op("tgsr::up_head", mutates_args=(), device_types="cuda")
+def _up_head_op(x: torch.Tensor, w_up: torch.Tensor, bn_mul: torch.Tensor,
+                bn_add: torch.Tensor, w_head: torch.Tensor, w_frag: Optional[torch.Tensor],
+                srb: Optional[torch.Tensor], a: Optional[torch.Tensor], use_tanh: bool,
+                blend: bool) -> torch.Tensor:
     if x.dim() != 4:
         raise ValueError("fused_up_head: x must be [B, H, W, Cin]")
     b, h, w, cin = x.shape
@@ -171,8 +183,6 @@ def up_head_folded(
     if blend:
         if srb is None or a is None or tuple(srb.shape) != (b, 2 * h, 2 * w, 3):
             raise ValueError("fused_up_head: blend needs srb [B, 2H, 2W, 3] and a")
-        if not torch.is_tensor(a):
-            a = torch.tensor(float(a), device=x.device)
         if a.numel() != 1:
             raise ValueError("fused_up_head: a must be a scalar")
         tensors += [srb, a]
@@ -207,6 +217,18 @@ def up_head_folded(
     return out
 
 
+@_up_head_op.register_kernel("cpu")
+def _(x, w_up, bn_mul, bn_add, w_head, w_frag, srb, a, use_tanh, blend):
+    return reference_up_head(x, w_up, bn_mul, bn_add, w_head, srb, a,
+                             use_tanh=use_tanh, blend=blend).contiguous()
+
+
+@_up_head_op.register_fake
+def _(x, w_up, bn_mul, bn_add, w_head, w_frag, srb, a, use_tanh, blend):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, 2 * h, 2 * w, 3), dtype=torch.float32)
+
+
 @torch.no_grad()
 def fold_up_head(up: UpBlock, head: nn.Conv2d) -> UpHeadWeights:
     """Folds the UpBlock's eval BN and lays both conv weights out as HWIO.
@@ -227,3 +249,23 @@ def up_head_site(wts: UpHeadWeights, x: torch.Tensor,
     y = up_head_folded(wts, nhwc(x), nhwc(srb) if srb is not None else None,
                        a, use_tanh=use_tanh, blend=srb is not None)
     return nchw(y)
+
+
+class UpHeadSite(nn.Module):
+    """One generator site's weights as buffers with the function that runs
+    them: `UpHeadSite(up_head_site, UpHeadWeights)` in float32, or
+    `UpHeadSite(up_head_packed_site, PackedUpHeadWeights)` in bfloat16,
+    called as `site(features NCHW, srb=, a=, use_tanh=) -> NCHW image`. A
+    module, so that the weights travel with the serving module into an
+    exported program."""
+
+    def __init__(self, site: Callable[..., torch.Tensor], wts: tuple):
+        super().__init__()
+        self.site, self.weights = site, type(wts)
+        for name, t in zip(wts._fields, wts):
+            self.register_buffer(name, t)
+
+    def forward(self, x: torch.Tensor, srb: Optional[torch.Tensor] = None,
+                a: Optional[torch.Tensor] = None, use_tanh: bool = False) -> torch.Tensor:
+        wts = self.weights(*(getattr(self, name) for name in self.weights._fields))
+        return self.site(wts, x, srb, a, use_tanh)

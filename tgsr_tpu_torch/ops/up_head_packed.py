@@ -9,9 +9,9 @@ back float32. One difference from JAX in bfloat16: JAX casts w_up to
 bfloat16 before it fuses the taps (pallas_up_head.py:268), the port fuses
 the float32 taps and casts the sums, which rounds once instead of twice.
 
-On a CPU tensor the wrapper runs the plain version
-(`packed_tail.packed_up_head`); on a CUDA tensor it launches
-`csrc/up_head_packed.cu` or raises. In bfloat16 the kernel runs both convs
+The wrapper calls the custom op `tgsr::up_head_packed` (`ops/library.py`),
+whose CPU implementation is the plain version (`packed_tail.packed_up_head`)
+and whose CUDA implementation launches `csrc/up_head_packed.cu` or raises. In bfloat16 the kernel runs both convs
 on the tensor cores (`mma.sync` m16n8k16) and reads both weights in its mma
 fragment order (`pack_upconv_frag`, `pack_head_frag`; `unpack_upconv_frag`
 and `unpack_head_frag` are their plain inverses), made once by
@@ -125,25 +125,37 @@ def fused_up_head_packed(
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"fused_up_head_packed: x is {x.dtype}; the kernel "
                         "takes float32 or bfloat16")
-    if x.device.type == "cpu":
-        return packed_up_head(x, wts, srb, a, use_tanh=use_tanh, blend=blend)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_up_head_packed: no kernel for {x.device}")
+    _build.check_device(x, "fused_up_head_packed")
+    if blend and a is not None and not torch.is_tensor(a):
+        # the kernel reads a in x's dtype; the plain version blends in float32
+        a = torch.tensor(float(a), device=x.device,
+                         dtype=x.dtype if x.device.type == "cuda" else torch.float32)
+    if not blend:
+        srb = a = None
+    return torch.ops.tgsr.up_head_packed(x, wts.w_up, wts.bn_mul, wts.bn_add, wts.w_head,
+                                         wts.w_up_frag, wts.w_head_frag, srb, a,
+                                         use_tanh, blend)
+
+
+@torch.library.custom_op("tgsr::up_head_packed", mutates_args=(), device_types="cuda")
+def _up_head_packed_op(x: torch.Tensor, w_up: torch.Tensor, bn_mul: torch.Tensor,
+                       bn_add: torch.Tensor, w_head: torch.Tensor,
+                       w_up_frag: Optional[torch.Tensor], w_head_frag: Optional[torch.Tensor],
+                       srb: Optional[torch.Tensor], a: Optional[torch.Tensor], use_tanh: bool,
+                       blend: bool) -> torch.Tensor:
     if x.dim() != 4:
         raise ValueError("fused_up_head_packed: x must be [B, H, W, Cin]")
     b, h, w, cin = x.shape
-    c2 = wts.bn_mul.shape[0]
-    if (tuple(wts.w_up.shape) != (2, 2, cin, 4 * c2)
-            or tuple(wts.w_head.shape) != (3, 3, 4 * (c2 // 2), 12)
-            or tuple(wts.bn_add.shape) != (c2,)):
+    c2 = bn_mul.shape[0]
+    if (tuple(w_up.shape) != (2, 2, cin, 4 * c2)
+            or tuple(w_head.shape) != (3, 3, 4 * (c2 // 2), 12)
+            or tuple(bn_add.shape) != (c2,)):
         raise ValueError("fused_up_head_packed: weight shapes do not match x")
-    tensors = [(x, x.dtype), (wts.w_up, x.dtype), (wts.w_head, x.dtype),
-               (wts.bn_mul, torch.float32), (wts.bn_add, torch.float32)]
+    tensors = [(x, x.dtype), (w_up, x.dtype), (w_head, x.dtype),
+               (bn_mul, torch.float32), (bn_add, torch.float32)]
     if blend:
         if srb is None or a is None or tuple(srb.shape) != (b, 2 * h, 2 * w, 3):
             raise ValueError("fused_up_head_packed: blend needs srb [B, 2H, 2W, 3] and a")
-        if not torch.is_tensor(a):
-            a = torch.tensor(float(a), dtype=x.dtype, device=x.device)
         if a.numel() != 1:
             raise ValueError("fused_up_head_packed: a must be a scalar")
         tensors += [(srb, x.dtype), (a, x.dtype)]
@@ -154,14 +166,13 @@ def fused_up_head_packed(
         if t.dtype != dtype:
             raise TypeError(f"fused_up_head_packed: a {t.dtype} input where "
                             f"the kernel takes {dtype}")
-    w_up, w_head = wts.w_up, wts.w_head
     if x.dtype == torch.bfloat16:
         # the tensor-core kernel copies x and both weights 16 bytes at a time
         if not _fits_tc(cin, c2):
             raise ValueError(f"fused_up_head_packed: bfloat16 takes Cin % 8 == 0 and C2 in "
                              f"{C2_TC}, not Cin {cin}, C2 {c2}")
-        w_up = wts.w_up_frag if wts.w_up_frag is not None else pack_upconv_frag(wts.w_up)
-        w_head = wts.w_head_frag if wts.w_head_frag is not None else pack_head_frag(wts.w_head)
+        w_up = w_up_frag if w_up_frag is not None else pack_upconv_frag(w_up)
+        w_head = w_head_frag if w_head_frag is not None else pack_head_frag(w_head)
         if (w_up.shape != (4, 4, _pad16(cin) // 16, c2 // 16, 32, 8)
                 or w_head.shape != (4, 9, _pad16(c2 // 2) // 16, 32, 8)
                 or any(t.dtype != x.dtype or t.device != x.device or not t.is_contiguous()
@@ -180,14 +191,26 @@ def fused_up_head_packed(
     out = torch.empty((b, 2 * h, 2 * w, 3), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.up_head_packed_launch(
-            x.data_ptr(), w_up.data_ptr(), wts.bn_mul.data_ptr(),
-            wts.bn_add.data_ptr(), w_head.data_ptr(),
+            x.data_ptr(), w_up.data_ptr(), bn_mul.data_ptr(),
+            bn_add.data_ptr(), w_head.data_ptr(),
             srb.data_ptr() if blend else None, a.data_ptr() if blend else None,
             out.data_ptr(), b, h, w, cin, c2, int(use_tanh), code,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out
+
+
+@_up_head_packed_op.register_kernel("cpu")
+def _(x, w_up, bn_mul, bn_add, w_head, w_up_frag, w_head_frag, srb, a, use_tanh, blend):
+    wts = PackedUpHeadWeights(w_up, bn_mul, bn_add, w_head)
+    return packed_up_head(x, wts, srb, a, use_tanh=use_tanh, blend=blend).contiguous()
+
+
+@_up_head_packed_op.register_fake
+def _(x, w_up, bn_mul, bn_add, w_head, w_up_frag, w_head_frag, srb, a, use_tanh, blend):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, 2 * h, 2 * w, 3), dtype=torch.float32)
 
 
 def up_head_packed_site(wts: PackedUpHeadWeights, x: torch.Tensor,
@@ -201,3 +224,4 @@ def up_head_packed_site(wts: PackedUpHeadWeights, x: torch.Tensor,
     y = fused_up_head_packed(nhwc(x), wts, nhwc(srb) if srb is not None else None,
                              a, use_tanh=use_tanh, blend=srb is not None)
     return nchw(y).to(x.dtype)
+
