@@ -84,8 +84,17 @@ step at B = 8 against the CPU's), the pretraining CLI for both encoder
 families with a resume, the GAN trainer with the DAMSM terms (ten steps at
 B = 16, the card's step against a float64 CPU step, the Inception terms
 giving G no gradient) and its CLI's --image_encoder, and the R-precision
-CLI on 64 images against the CPU's similarities. Prints one JSON line of per-kernel
-numbers, then, as the last line, {"ok": true, "device": {...}}.
+CLI on 64 images against the CPU's similarities. The EVAL switches
+(eval_variants_phase): the face S8 pipeline with INPUT_NETGH 'lr-lrblur' and
+weight maps (float32, bfloat16, int8), 'lrblur' (float32) and STAGE1 (all
+three) at B = 64 against the CPU, with their launches, the replay and a
+profile; x16 bfloat16 with the blur and maps; rows 2 and 3 blending a
+per-pixel map against their plain versions, timed beside the scalar; the
+weight-map program exported and loaded; GAN steps with the blur and maps (the
+card's step against a float64 CPU step, B = 16 steps, an x16 step, a
+snapshot served back); the HF branch's library modules on the card. Prints
+one JSON line of per-kernel numbers, then, as the last line, {"ok": true,
+"device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
 package is missing, or when any check fails.
 """
@@ -4162,6 +4171,404 @@ def damsm_input_grads(torch, enc, text_sd, batch, img) -> dict:
     return out
 
 
+# -- the EVAL switches: blurred-LR inputs, weight maps, stage 1 ---------------------
+
+# each variant's launches a forward (tgsr_tpu_torch/engine/inference.py): the
+# x8 map and blur paths launch what the main path does (the blur and the maps
+# are plain tensor ops, the 256 px site blends its map in the kernel); stage 1
+# attends once and has no up-head site in its low branch
+VARIANT_PER_FORWARD = {
+    "x8": {"float32": {"word_pixel_attention": 3, "up_head": 2},
+           "bfloat16": {"word_pixel_attention": 3, "up_head_packed": 2},
+           "int8": {"word_pixel_attention": 3, "int8_conv": 42, "glu_requant_one": 6,
+                    "glu_requant_pair": 10, "requant": 26}},
+    "stage1": {"float32": {"word_pixel_attention": 1, "up_head": 1},
+               "bfloat16": {"word_pixel_attention": 1, "up_head_packed": 1},
+               "int8": {"word_pixel_attention": 1, "int8_conv": 40, "glu_requant_one": 2,
+                        "glu_requant_pair": 9, "requant": 29}},
+}
+VARIANTS = (  # (name, EVAL fields, per-forward table, paths)
+    ("x8 lr-lrblur map", {"INPUT_NETGH": "lr-lrblur", "WEIGHTMAP": True}, "x8",
+     ("float32", "bfloat16", "int8")),
+    ("x8 lrblur", {"INPUT_NETGH": "lrblur"}, "x8", ("float32",)),
+    ("x8 stage1", {"STAGE1": True}, "stage1", ("float32", "bfloat16", "int8")),
+)
+VARIANT_B = 64
+VARIANT_TRAIN_B = 16
+# the 256 px site of the weight-map path: upscale8x + conv_output + a3 * srb
+MAP_SITE = (32, 64, 5, True, True, "upscale8x+conv_output+a3*srb")
+
+
+def weight_map_kernel_rows(torch, h=128):
+    """Rows 2 and 3 at the 256 px site of the x8 weight-map path (B = 64,
+    `MAP_SITE`), blending a per-pixel map a3 = 1 + U(-0.5, 0.5) [2H, 2W] read
+    by each output pixel, against their plain versions at the gates of
+    `up_head_phase` (row 2 and row 3 float32 1e-4, row 3 bfloat16 2e-2 of
+    max(1, |ref|max)); a map of one value gives the scalar's bits; each
+    timed with the map and with the scalar (CUDA events and `device_ms`).
+    Returns {"up_head": {...}, "up_head_packed": {...}}: the map instance's
+    numbers, its `scalar_ms` beside them."""
+    from tgsr_tpu_torch.ops.packed_tail import packed_up_head
+    from tgsr_tpu_torch.ops.up_head import (fold_bn, prepare_up_head, reference_up_head,
+                                            up_head_folded)
+    from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, prepare_up_head_packed
+
+    cin, c2, k, use_tanh, blend, site = MAP_SITE
+    w = h
+    x = torch.randn(B, h, w, cin, device="cuda")
+    w_up = torch.randn(3, 3, cin, c2, device="cuda") / (9 * cin) ** 0.5
+    mul, add = fold_bn(1 + 0.1 * torch.randn(c2, device="cuda"), 0.1 * torch.randn(c2, device="cuda"),
+                       0.2 * torch.randn(c2, device="cuda"), 0.5 + 1.5 * torch.rand(c2, device="cuda"))
+    w_head = torch.randn(k, k, c2 // 2, 3, device="cuda") / (k * k * c2 / 2) ** 0.5
+    srb = torch.rand(B, 2 * h, 2 * w, 3, device="cuda") * 2 - 1
+    amap = 1 + torch.rand(2 * h, 2 * w, device="cuda") - 0.5
+    scalar = torch.tensor(0.75, device="cuda")
+    kw = dict(use_tanh=use_tanh, blend=blend)
+    n_out = B * 4 * h * w
+    up_flops = n_out * 2 * 4 * cin * c2
+    rest_flops = n_out * (2 * k * k * (c2 // 2) * 3 + 8 * c2) + 2 * n_out * 3
+    rows = {}
+    # row 2, float32
+    wts = prepare_up_head(w_up, mul, add, w_head)
+    ref = reference_up_head(x, w_up, mul, add, w_head, srb, amap, **kw)
+    got = up_head_folded(wts, x, srb, amap, **kw)
+    const = up_head_folded(wts, x, srb, torch.full_like(amap, 0.75), **kw)
+    sc = up_head_folded(wts, x, srb, scalar, **kw)
+    torch.cuda.synchronize()
+    err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= 1e-4 * max(1.0, top), f"up-head kernel with a weight map == plain at {site} "
+                                       f"[{B},{h},{w},{cin}] (max abs err {err:.3e})")
+    check(torch.equal(const, sc), "up-head kernel: a map of one value gives the scalar's bits")
+    nbytes = 4 * (x.numel() + w_up.numel() + w_head.numel() + 2 * c2 + 3 * n_out * 2 + amap.numel())
+    t_ops = 3 * up_flops / TF32_FLOP_PER_S + rest_flops / F32_FLOP_PER_S
+    bms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+    run = lambda a: lambda: up_head_folded(wts, x, srb, a, **kw)  # noqa: E731
+    rows["up_head"] = dict(
+        ms=cuda_ms_median(run(amap), iters=5), device_ms=device_ms(torch, run(amap)),
+        scalar_ms=cuda_ms_median(run(scalar), iters=5),
+        scalar_device_ms=device_ms(torch, run(scalar)),
+        plain_ms=cuda_ms(lambda: reference_up_head(x, w_up, mul, add, w_head, srb, amap, **kw),
+                         iters=5),
+        bound_ms=bms, bound_by="bytes" if nbytes / HBM_BYTES_PER_S * 1e3 >= bms else "operations",
+        max_abs_err=err, library_ms=None,
+        shapes=f"B {B}, {h}->{2 * h} px, {site}, float32; a3 [{2 * h}, {2 * w}]; ms and "
+               f"scalar_ms by CUDA events (median of five 5-call means), device_ms with the "
+               f"host's launches queued behind a spin kernel")
+    # row 3, float32 (CUDA cores) and bfloat16 (tensor cores)
+    row3 = {}
+    for dtype, esize, rate, gate in ((torch.float32, 4, F32_FLOP_PER_S, 1e-4),
+                                     (torch.bfloat16, 2, BF16_FLOP_PER_S, 2e-2)):
+        tag = str(dtype).split(".")[-1]
+        pw = prepare_up_head_packed(w_up, mul, add, w_head, dtype=dtype)
+        xs, ss, am = x.to(dtype), srb.to(dtype), amap.to(dtype)
+        ref3 = packed_up_head(xs, pw, ss, am, **kw)
+        got3 = fused_up_head_packed(xs, pw, ss, am, **kw)
+        c3 = fused_up_head_packed(xs, pw, ss, torch.full_like(am, 0.75), **kw)
+        s3 = fused_up_head_packed(xs, pw, ss, scalar.to(dtype), **kw)
+        torch.cuda.synchronize()
+        err3, top3 = (got3 - ref3).abs().max().item(), ref3.abs().max().item()
+        check(err3 <= gate * max(1.0, top3), f"packed up-head kernel {tag} with a weight map == "
+                                             f"plain at {site} (max abs err {err3:.3e})")
+        check(torch.equal(c3, s3), f"packed up-head kernel {tag}: a map of one value gives the "
+                                   f"scalar's bits")
+        nb3 = (esize * (x.numel() + pw.w_up.numel() + pw.w_head.numel() + 3 * n_out + amap.numel())
+               + 4 * (2 * c2 + 3 * n_out))
+        bms3, by3 = bound_ms(nb3, up_flops + rest_flops, rate)
+        run3 = lambda a: lambda: fused_up_head_packed(xs, pw, ss, a, **kw)  # noqa: E731
+        row3[dtype] = dict(
+            ms=cuda_ms_median(run3(am), iters=5), device_ms=device_ms(torch, run3(am)),
+            scalar_ms=cuda_ms_median(run3(scalar.to(dtype)), iters=5),
+            scalar_device_ms=device_ms(torch, run3(scalar.to(dtype))),
+            plain_ms=cuda_ms(lambda: packed_up_head(xs, pw, ss, am, **kw), iters=5),
+            bound_ms=bms3, bound_by=by3, max_abs_err=err3, library_ms=None)
+    rows["up_head_packed"] = {
+        **row3[torch.bfloat16], "float32": row3[torch.float32],
+        "shapes": rows["up_head"]["shapes"].replace(
+            "float32;", "bfloat16 (top level; 'float32' the f32 instance);")}
+    for name, r in rows.items():
+        print(f"  {name} with a weight map at {site}: {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), scalar {r['scalar_ms']:.4f} ms (device "
+              f"{r['scalar_device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3e}",
+              flush=True)
+    return rows
+
+
+def library_modules_on_card(torch):
+    """The HF branch's library modules (no entry point builds them), one
+    float32 forward each at full width (GF_DIM 32, B = 2, seeded weights)
+    on the card against the CPU: max abs error <= 1e-3 (TF32 off)."""
+    from tgsr_tpu_torch.checkpoints.from_jax import _seed_module
+    from tgsr_tpu_torch.models.generator_hf import NetGHigh, NetGHighSRWeight, lr_blur
+    from tgsr_tpu_torch.models.models16 import NetGHigh16, NetGHighWeight16
+
+    gen = torch.Generator().manual_seed(18)
+    x8, x16 = (32, (64, 128, 256)), (32, (64, 128, 256, 512))
+    cases = (("NetGHigh", NetGHigh(32), x8, {"low": True}),
+             ("NetGHigh cat", NetGHigh(32, cat=True), x8, {}),
+             ("NetGHighSRWeight", NetGHighSRWeight(32, size=256), (32, (256,)), None),
+             ("NetGHigh16", NetGHigh16(32), x16, {"low": False}),
+             ("NetGHighWeight16 fix_bugs", NetGHighWeight16(32, low="lr-lrblur", weightmap=True,
+                                                            fix_bugs=True), x16, None))
+    for name, m, (s, sizes), kw in cases:
+        _seed_module(m, gen)
+        m.eval().requires_grad_(False)
+        lr = torch.rand(2, 3, s, s, generator=gen) * 2 - 1
+        srb = [torch.rand(2, 3, z, z, generator=gen) * 2 - 1 for z in sizes]
+        args = (lr, srb) + ((lr_blur(lr),) if kw is not None else ())
+        with torch.no_grad():
+            ref = m(*args, **(kw or {}))
+            ref = ref[0] if name == "NetGHighSRWeight" else ref
+            mc = m.cuda()
+            got = mc(*(a.cuda() if torch.is_tensor(a) else [t.cuda() for t in a] for a in args),
+                     **(kw or {}))
+            got = got[0] if name == "NetGHighSRWeight" else got
+        err = max((g.cpu() - r).abs().max().item() for g, r in zip(got, ref))
+        check(len(got) == len(sizes) and err <= 1e-3,
+              f"library {name}: one forward on the card == the CPU's (max abs err {err:.3e} "
+              f"<= 1e-3, {len(got)} scales)")
+
+
+def eval_variants_phase(torch, rng, card, tmp):
+    """The EVAL switches on the card (face S8 full width, seeded weights;
+    weight maps a1..a3 (x16 a1..a4) drawn 1 + U(-0.5, 0.5)):
+    (1) x8 'lr-lrblur' with weight maps in float32, bfloat16 and int8 (scales
+    from calibrate_quant on this pipeline), 'lrblur' in float32, and STAGE1 in
+    the three paths, one eager forward at B = 64 each against the same
+    pipeline on the CPU (float32 max abs error <= 1e-3 and uint8 within 1;
+    bfloat16 >= 40 dB against the CPU's float32 at B = 64; int8 >= 40 dB
+    against the CPU's int8 on the first 8 images), its launches as the path
+    states them (VARIANT_PER_FORWARD), the replay at B = 64 bit for bit the
+    eager forward, with the path's launches, and a profile of it; (2) x16 bfloat16 with 'lr-lrblur' and weight maps at B = 8
+    against the CPU's float32 (>= 40 dB), 4 attention and 2 packed up-head
+    launches; (3) rows 2 and 3 with a map against their plain versions, timed
+    with the map and the scalar (`weight_map_kernel_rows`); (4) the x8
+    weight-map program exported (bfloat16, symbolic batch) and loaded, bit
+    for bit the live pipeline at B = 1 and 64; (5) GAN training with
+    'lr-lrblur' and weight maps: the x8 step at B = 4 held by
+    `step_against_cpu`, steps at B = 16 in float32 and bfloat16 (finite,
+    bfloat16's first-step metrics within 15 % of float32's, 3 attention
+    forward and backward launches a step, the step's ms), an x16 bfloat16
+    step at B = 4, a
+    snapshot round trip (a1..a3 written, no `a`, served equal to the run's
+    EMA generator); (6) the library modules (`library_modules_on_card`).
+    Returns (the launches of each run, the weight-map kernel rows)."""
+    import dataclasses
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded, seeded_text_state_dict
+    from tgsr_tpu_torch.checkpoints.io import save_variables
+    from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
+    from tgsr_tpu_torch.config import EvalConfig, config_from_file, face_s8_config
+    from tgsr_tpu_torch.engine import aot
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
+    from tgsr_tpu_torch.ops import _build
+
+    vocab = 41
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+    launches = {}
+
+    def variant(cfg, **ev):
+        return dataclasses.replace(cfg, EVAL=dataclasses.replace(EvalConfig(), **ev))
+
+    def batch(n):
+        lr = rng.integers(0, 256, (n, 32, 32, 3)).astype("uint8")
+        lens = rng.integers(1, T + 1, n)
+        lens[min(1, n - 1)] = 0  # an empty caption
+        cap = rng.integers(1, vocab, (n, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        return lr, cap, lens
+
+    lr8, cap8, lens8 = batch(8)
+    lr8f = lr8.astype("float32") / 127.5 - 1.0
+    lr, cap, lens = batch(VARIANT_B)
+    lrf = lr.astype("float32") / 127.5 - 1.0
+    lrc, capc, lensc = batch(16)
+    lr_d, cap_d, lens_d = (torch.as_tensor(v, device="cuda") for v in (lr, cap, lens))
+    live_map = None
+    # -- (1) the x8 variants ---------------------------------------------------------
+    for name, ev, table, paths in VARIANTS:
+        cfg = variant(face_s8_config(), **ev)
+        sds = init_seeded(cfg, vocab, torch.Generator().manual_seed(18))
+        t0 = time.perf_counter()
+        ref = SRPipeline(cfg, vocab, *sds, device="cpu")(lrf, cap, lens)["sr"]
+        print(f"  {name}: plain reference on the CPU, B={VARIANT_B}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        scales = None
+        for path in paths:
+            tag = f"{name} {path}"
+            per_forward = dict(zero, **VARIANT_PER_FORWARD[table][path])
+            kw = dict(compute_dtype=torch.float32 if path == "float32" else torch.bfloat16)
+            if path == "int8":
+                kw["quant_scales"] = scales
+            kern = SRPipeline(cfg, vocab, *sds, device="cuda", **kw)
+            _build.reset_launches()
+            got = kern(lrf, cap, lens)["sr"]
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            check(counts == per_forward, f"{tag}: one forward launches {per_forward} ({counts})")
+            check(tuple(got.shape) == (VARIANT_B, 256, 256, 3) and bool(torch.isfinite(got).all())
+                  and float(got.std()) > 1e-3, f"{tag}: SR finite, not constant, "
+                                               f"{tuple(got.shape)}")
+            du8 = (to_uint8(got).cpu().int() - to_uint8(ref).int()).abs().max().item()
+            if path == "float32":
+                err = (got.cpu() - ref).abs().max().item()
+                check(err <= 1e-3 and du8 <= 1, f"{tag}: the card's SR == the CPU's (max abs "
+                                                f"err {err:.3e} <= 1e-3, uint8 {du8} <= 1)")
+            elif path == "bfloat16":
+                psnr = psnr_u8(got, ref)
+                check(psnr >= 40, f"{tag}: uint8 SR on the card vs float32 on the CPU: PSNR "
+                                  f"{psnr:.2f} dB >= 40")
+                t0 = time.perf_counter()
+                scales = kern.calibrate_quant(lrc.astype("float32") / 127.5 - 1.0, capc, lensc)
+                print(f"  {tag}: calibrate_quant on the card, B=16: "
+                      f"{time.perf_counter() - t0:.1f} s, {sum(map(len, scales.values()))} scales",
+                      flush=True)
+                if name.endswith("map"):
+                    live_map = kern
+            else:
+                cref = SRPipeline(cfg, vocab, *sds, device="cpu", **kw)(
+                    lrf[:8], cap[:8], lens[:8])["sr"]
+                psnr = psnr_u8(got[:8], cref)
+                check(psnr >= 40, f"{tag}: uint8 SR on the card vs the same int8 pipeline on "
+                                  f"the CPU: PSNR {psnr:.2f} dB >= 40 (vs float32 on the CPU "
+                                  f"{psnr_u8(got, ref):.2f} dB)")
+            # the replay at B = 64 against the eager forward, with the path's launches
+            with torch.inference_mode():
+                eager = kern._serve(lr_d, cap_d, lens_d)
+            kern.forward_scan(lr[None], cap[None], lens[None])  # captures the graph
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            replay = kern.forward_scan(lr[None], cap[None], lens[None])[0]
+            torch.cuda.synchronize()
+            launches[f"variants {tag}"] = run = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                                for k in zero}
+            check(torch.equal(replay, eager) and run == per_forward,
+                  f"{tag}: the replay at B = {VARIANT_B} == the eager forward bit for bit, "
+                  f"launches {run}")
+            profile_forward(torch, lambda: kern.forward_scan(lr[None], cap[None], lens[None]),
+                            tag, "replay", VARIANT_B)
+            if kern is not live_map:
+                del kern
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (2) x16 bfloat16 with the blur and weight maps --------------------------------
+    cfg16 = variant(config_from_file(os.path.join(HERE, "configs", "eval_faceSR_S16.yml")),
+                    INPUT_NETGH="lr-lrblur", WEIGHTMAP=True)
+    sds16 = init_seeded(cfg16, vocab, torch.Generator().manual_seed(19))
+    ref16 = SRPipeline(cfg16, vocab, *sds16, device="cpu")(lr8f, cap8, lens8)["sr"]
+    kern16 = SRPipeline(cfg16, vocab, *sds16, compute_dtype=torch.bfloat16)
+    _build.reset_launches()
+    got16 = kern16(lr8f, cap8, lens8)["sr"]
+    torch.cuda.synchronize()
+    launches["variants x16 lr-lrblur map bfloat16"] = run = dict(_build.LAUNCHES)
+    want = dict(zero, word_pixel_attention=4, up_head_packed=2)
+    psnr = psnr_u8(got16, ref16)
+    check(run == want and tuple(got16.shape) == (8, 512, 512, 3) and psnr >= 40,
+          f"x16 lr-lrblur map bfloat16, B = 8: launches {run}, uint8 SR vs float32 on the CPU "
+          f"PSNR {psnr:.2f} dB >= 40")
+    del kern16
+    gc.collect()
+
+    # -- (3) rows 2 and 3 with a map ---------------------------------------------------------
+    rows = weight_map_kernel_rows(torch)
+
+    # -- (4) the exported weight-map program --------------------------------------------------
+    t0 = time.perf_counter()
+    art = aot.AOTPipeline(aot.export_serving(live_map, os.path.join(tmp, "aot_map")))
+    t_export = time.perf_counter() - t0
+    _build.reset_launches()
+    outs = {1: art.sr_uint8(lr8f[:1], cap8[:1], lens8[:1]),
+            VARIANT_B: art.sr_uint8(lrf, cap, lens)}
+    torch.cuda.synchronize()
+    launches["variants aot map bfloat16"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                             for k in zero}
+    refs = {1: live_map.sr_uint8(lr8f[:1], cap8[:1], lens8[:1]),
+            VARIANT_B: live_map.sr_uint8(lrf, cap, lens)}
+    same = {b: bool(np.array_equal(outs[b], refs[b])) for b in outs}
+    check(all(same.values()), f"aot x8 lr-lrblur map bfloat16: the exported program's SR == "
+                              f"the live pipeline's at B = 1, {VARIANT_B} ({same}); export and "
+                              f"load {t_export:.2f} s")
+    del art, live_map
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (5) GAN training with the blur and weight maps -------------------------------------
+    tcfg = variant(face_s8_config(), INPUT_NETGH="lr-lrblur", WEIGHTMAP=True)
+    text_sd = seeded_text_state_dict(tcfg, vocab, torch.Generator().manual_seed(20))
+    step_against_cpu(torch, tcfg, text_sd, train_batch(torch, rng, 4, device="cpu"))
+    first = {}
+    tb = [train_batch(torch, rng, VARIANT_TRAIN_B) for _ in range(3)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "variants train map " + str(dtype).split(".")[-1]
+        t = GANTrainer(tcfg, vocab, text_sd, compute_dtype=dtype)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        _build.reset_launches()
+        ms, times = [], []
+        for b in tb:
+            t0 = time.perf_counter()
+            ms.append(t.train_step(s, b))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = [{k: float(v) for k, v in m.items()} for m in ms]
+        launches[tag] = run = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in zero}
+        first[dtype] = ms[0]
+        check(s.a is None and all(np.isfinite(v) for m in ms for v in m.values())
+              and run["word_pixel_attention"] == run["word_pixel_attention_bwd"] == 9,
+              f"{tag}: 3 steps at B = {VARIANT_TRAIN_B}, finite, no trained a, 3 attention "
+              f"forward and backward launches a step ({run['word_pixel_attention']}, "
+              f"{run['word_pixel_attention_bwd']})")
+        print(f"  {tag}: step {1e3 * float(np.mean(times[1:])):.2f} ms at B = {VARIANT_TRAIN_B} "
+              f"(host clock, synchronised, mean of steps 2-3; first {1e3 * times[0]:.1f}) on "
+              f"{card}", flush=True)
+        if dtype == torch.float32:
+            snap = os.path.join(tmp, "Model")
+            os.makedirs(snap, exist_ok=True)
+            netg_v, netgh_v = s.snapshot_variables()
+            save_variables(os.path.join(snap, "netG_it2.msgpack"), netg_v)
+            save_variables(os.path.join(snap, "netGH_it2.msgpack"), netgh_v)
+            back = load_variables(os.path.join(snap, "netGH_it2.msgpack"))["params"]
+            te = os.path.join(tmp, "variants_text_encoder.pth")
+            torch.save(text_sd, te)
+            pipe = SRPipeline.from_reference_checkpoints(
+                tcfg, vocab, os.path.join(snap, "netG_it2.msgpack"), text_encoder_path=te)
+            bb = train_batch(torch, rng, 4)
+            served = pipe(bb["lr"].cpu().numpy(), bb["captions"].cpu().numpy(),
+                          bb["cap_lens"].cpu().numpy())["sr"]
+            err = (served.to("cuda") - t.super_resolve(s, bb)).abs().max().item()
+            check({"a1", "a2", "a3"} <= set(back) and "a" not in back and err <= 1e-3,
+                  f"train map snapshot: a1..a3 written, no a; served by SRPipeline == the EMA "
+                  f"generator (max abs err {err:.3e} <= 1e-3)")
+            del pipe
+        del t, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(abs(first[torch.bfloat16][k] - v) / abs(v)
+                for k, v in first[torch.float32].items() if abs(v) > 1e-3)
+    check(worst < 0.15, f"train map bf16 first-step metrics within 15 % of f32's "
+                        f"(worst {worst:.3%})")
+    c16 = variant(x16_train_config(), INPUT_NETGH="lr-lrblur", WEIGHTMAP=True)
+    t = GANTrainer(c16, vocab, seeded_text_state_dict(c16, vocab, torch.Generator().manual_seed(21)),
+                   compute_dtype=torch.bfloat16)
+    s = t.init_state(torch.Generator().manual_seed(0))
+    _build.reset_launches()
+    m = {k: float(v) for k, v in t.train_step(s, train_batch(torch, rng, 4, sizes=X16_SIZES)).items()}
+    torch.cuda.synchronize()
+    launches["variants train x16 map bfloat16"] = run = {k: _build.LAUNCHES[k] for k in zero}
+    check(all(np.isfinite(v) for v in m.values()) and "a4" in dict(s.netgh.named_parameters())
+          and run["word_pixel_attention"] == run["word_pixel_attention_bwd"] == 4,
+          f"train x16 lr-lrblur map bfloat16: a step at B = 4, finite, a1..a4 trained, 4 "
+          f"attention forward and backward launches ({run})")
+    del t, s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (6) the library modules ------------------------------------------------------------
+    library_modules_on_card(torch)
+    return launches, rows
+
+
 def step_readings(torch, seeds: list, out_path: str, damsm: bool = False) -> int:
     """`step_against_cpu` on the face S8 batches of `seeds`: per card step,
     the 10th, 50th and 90th percentiles and the largest relative L2 error on
@@ -4318,6 +4725,13 @@ def main() -> int:
         launches.update(damsm_phase(torch, rng, card, tmp))
     print(f"damsm phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a stream of its own: the other phases' data does not depend on it
+        variant_launches, map_rows = eval_variants_phase(torch, np.random.default_rng(18), card,
+                                                         tmp)
+    launches.update(variant_launches)
+    print(f"eval variants phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows
     print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4342,6 +4756,10 @@ def main() -> int:
             k["x16"] = x16_kernels[k["name"]]
             k["x16"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()
                                        if tag.startswith("x16"))
+        if k["name"] in map_rows:  # rows 2 and 3 blending a weight map (EVAL.WEIGHTMAP)
+            k["weight_map"] = map_rows[k["name"]]
+            k["weight_map"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()
+                                              if tag.startswith("variants") and "map" in tag)
         if k["name"] in x16_train_kernels:
             k["x16_train"] = x16_train_kernels[k["name"]]
             k["x16_train"]["launches"] = sum(run[k["name"]] for tag, run in launches.items()

@@ -9,20 +9,24 @@ against tgsr_tpu's on the CPU.
 - The port's own bundle round-trips bit for bit (float32, bfloat16, int8),
   with its vocab, under JAX's `use_quant` and `return_attn` contract; scales
   stamped for other weights, and a config.json the port does not serve,
-  raise.
+  raise. A weight-map bundle, the port's and JAX's, loads.
 """
 
+import dataclasses
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.core import unfreeze
 
 from tgsr_tpu.data.tokenizer import Vocab as JVocab
 from tgsr_tpu.engine.inference import SRPipeline as JSRPipeline
-from tgsr_tpu_torch.checkpoints.from_jax import state_dicts_from_jax
+from tgsr_tpu.models.generator_hf import NetGHighWeight as JNetGHighWeight
+from tgsr_tpu_torch.checkpoints.from_jax import init_seeded, state_dicts_from_jax
 from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
 from tgsr_tpu_torch.models.quantized import QuantConv
@@ -138,9 +142,51 @@ def test_fingerprint_mismatch_raises(setup, tmp_path):
 
 
 def test_unsupported_config_raises(setup, tmp_path):
+    """A config.json the port does not serve (the GRU text encoder) raises;
+    a weight-map bundle (EVAL.WEIGHTMAP, 'lr-lrblur', at BASE_SIZE 32, where
+    the x8 maps fit) saves its maps a1..a3 in netgh and no `a`, and loads
+    back bit for bit."""
     SRPipeline(setup["tcfg"], VOCAB, *setup["sds"], device="cpu").save_artifact(str(tmp_path))
     cfg = json.load(open(tmp_path / "config.json"))
-    cfg["EVAL"]["WEIGHTMAP"] = True
+    cfg["RNN_TYPE"] = "GRU"
     json.dump(cfg, open(tmp_path / "config.json", "w"))
-    with pytest.raises(NotImplementedError, match="WEIGHTMAP"):
+    with pytest.raises(NotImplementedError, match="RNN_TYPE"):
         SRPipeline.load_artifact(str(tmp_path), device="cpu")
+    wcfg = dataclasses.replace(setup["tcfg"], TREE=dataclasses.replace(setup["tcfg"].TREE,
+                                                                         BASE_SIZE=32),
+                               EVAL=dataclasses.replace(setup["tcfg"].EVAL, WEIGHTMAP=True,
+                                                        INPUT_NETGH="lr-lrblur"))
+    sds = init_seeded(wcfg, VOCAB, torch.Generator().manual_seed(3))
+    assert sds[3] is None
+    pipe = SRPipeline(wcfg, VOCAB, *sds, device="cpu")
+    pipe.save_artifact(str(tmp_path / "wm"))
+    w = torch.load(tmp_path / "wm" / "state_dicts.pt", weights_only=True)
+    assert "a" not in w and {"a1", "a2", "a3"} <= set(w["netgh"])
+    back, _ = SRPipeline.load_artifact(str(tmp_path / "wm"), device="cpu")
+    assert back.cfg.EVAL == wcfg.EVAL and back.a is None
+    lr, cap, lens = inputs(2, 32, T, [T, 3], seed=32)
+    assert torch.equal(back(lr, cap, lens)["sr"], pipe(lr, cap, lens)["sr"])
+
+
+def test_jax_weight_map_bundle_loads(tmp_path):
+    """JAX's own weight-map bundle (variables.msgpack: netgh params a1..a3,
+    no 'a'; 'lr-lrblur') serves in the port at JAX's float32 outputs."""
+    jcfg, tcfg = configs(base_size=32)
+    jcfg = dataclasses.replace(jcfg, EVAL=dataclasses.replace(jcfg.EVAL, WEIGHTMAP=True,
+                                                              INPUT_NETGH="lr-lrblur"))
+    text, netg, _ = jax_trees(jcfg)
+    gh = JNetGHighWeight(ngf=jcfg.GAN.GF_DIM, weightmap=True, low="lr-lrblur")
+    lr0 = jnp.zeros((1, 32, 32, 3))
+    netgh = unfreeze(jax.tree.map(np.asarray, gh.init(
+        jax.random.PRNGKey(5), lr0, [jnp.zeros((1, z, z, 3)) for z in (64, 128, 256)], lr0)))
+    rng = np.random.default_rng(5)
+    for k in ("a1", "a2", "a3"):
+        netgh["params"][k] = (1 + rng.uniform(-0.5, 0.5, netgh["params"][k].shape)).astype(
+            np.float32)
+    jpipe = JSRPipeline(jcfg, VOCAB, text, netg, netgh)
+    jpipe.save_artifact(str(tmp_path))
+    got, _ = SRPipeline.load_artifact(str(tmp_path), device="cpu")
+    assert got.cfg.EVAL.WEIGHTMAP and got.a is None
+    lr, cap, lens = inputs(2, 32, T, [T, 3], seed=33)
+    np.testing.assert_allclose(got(lr, cap, lens)["sr"].numpy(),
+                               np.asarray(jpipe(lr, cap, lens)["sr"]), **PYR)

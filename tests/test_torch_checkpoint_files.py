@@ -23,7 +23,7 @@ from tgsr_tpu.data.tokenizer import Vocab as JVocab
 from tgsr_tpu.engine.inference import SRPipeline as JSRPipeline
 from tgsr_tpu.ops.image import bucket_shape as jax_bucket_shape
 from tgsr_tpu_torch.checkpoints.reference import load_generator_pair, paired_path
-from tgsr_tpu_torch.config import config_from_dict, config_to_dict, face_s8_config
+from tgsr_tpu_torch.config import check_trained, config_from_dict, config_to_dict, face_s8_config
 from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.inference import SRPipeline
 from tgsr_tpu_torch.ops.image import bucket_shape
@@ -89,14 +89,33 @@ def test_config_dict_round_trips_with_jax():
 
 @pytest.mark.parametrize("section, key, value", [
     ("TREE", "BRANCH_NUM", 3), ("TREE", "BRANCH_NUM", 6), (None, "RNN_TYPE", "GRU"),
-    ("EVAL", "INPUT_NETGH", "lrblur"),
-    ("EVAL", "WEIGHTMAP", True), ("EVAL", "STAGE1", True),
 ])
 def test_config_refuses_what_the_port_does_not_serve(section, key, value):
     d = jconfig.config_to_dict(_jax_face_s8())
     (d[section] if section else d)[key] = value
     with pytest.raises(NotImplementedError, match=key):
         config_from_dict(d)
+
+
+@pytest.mark.parametrize("key, value", [
+    ("INPUT_NETGH", "lrblur"), ("INPUT_NETGH", "lr-lrblur"),
+    ("WEIGHTMAP", True), ("STAGE1", True),
+])
+def test_config_round_trips_the_eval_switches(key, value):
+    """The EVAL switches JAX's SRPipeline reads are served: JAX's dict builds
+    the port's config with the switch set, and the port's dict gives JAX the
+    same config back. Training takes the blur inputs and weight maps, not
+    STAGE1 (JAX's GANTrainer never builds the stage-1 generator)."""
+    d = jconfig.config_to_dict(_jax_face_s8())
+    d["EVAL"][key] = value
+    cfg = config_from_dict(d)
+    assert getattr(cfg.EVAL, key) == value
+    assert jconfig.config_from_dict(config_to_dict(cfg)) == jconfig.config_from_dict(d)
+    if key == "STAGE1":
+        with pytest.raises(NotImplementedError, match="STAGE1"):
+            check_trained(cfg)
+    else:
+        assert check_trained(cfg) is cfg
 
 
 def test_config_refuses_unknown_keys_and_types():

@@ -9,9 +9,10 @@ carries the declared residual816 / upscale16x blocks; a weight-map netGH
 (EVAL.WEIGHTMAP, a1..a3, no `a`); a SimpleCNN image encoder, which both skip.
 Gates: the same file names, and in each file the same keys, dtypes, shapes
 and values, bit for bit; the port's files load with strict=True into the
-port's modules where the port has them (every family but the weight map).
+port's modules.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -25,6 +26,7 @@ from tgsr_tpu_torch.checkpoints.from_jax import (cnn_encoder_variables, init_see
                                                  seeded_cnn_encoder_state_dict, text_variables)
 from tgsr_tpu_torch.checkpoints.io import save_variables
 from tgsr_tpu_torch.cli import export_torch as tcli
+from tgsr_tpu_torch.models.generator_hf import X8_MAP_SIZES
 from tgsr_tpu_torch.models.image_encoder import make_image_encoder
 from tgsr_tpu_torch.models.models16 import make_generators, unused_blocks
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
@@ -138,12 +140,13 @@ def test_x16_pair_with_the_unused_blocks(tmp_path):
 
 
 def test_weightmap_netgh(tmp_path):
-    """A weight-map netGH (a1..a3, no `a`) exports its maps, as JAX's does;
-    the port serves no weight map, so no port module loads it."""
+    """A weight-map netGH (a1..a3 at the x8 maps' 64 / 128 / 256 px, no `a`)
+    exports its maps, as JAX's does, and the file loads with strict=True
+    into the port's weight-map netGH (EVAL.WEIGHTMAP)."""
     netg, netgh, _, tcfg = _trees(4, seed=2)
     rng = np.random.default_rng(2)
     del netgh["params"]["a"]
-    for i, size in enumerate(tcfg.pyramid_sizes(), 1):
+    for i, size in enumerate(X8_MAP_SIZES, 1):
         netgh["params"][f"a{i}"] = rng.uniform(0, 1, (size, size)).astype(np.float32)
     save_variables(str(tmp_path / "netG_wm.msgpack"), netg)
     save_variables(str(tmp_path / "netGH_wm.msgpack"), netgh)
@@ -152,6 +155,10 @@ def test_weightmap_netgh(tmp_path):
                                               "--netg", str(tmp_path / "netG_wm.msgpack")])
     files = _assert_same_files(jax_dir, port_dir)
     assert {"a1", "a2", "a3"} <= set(files["netGH_wm.pth"])
+    wcfg = dataclasses.replace(tcfg, EVAL=dataclasses.replace(tcfg.EVAL, WEIGHTMAP=True))
+    gh = make_generators(wcfg)[1]
+    gh.load_state_dict(files["netGH_wm.pth"], strict=True)
+    assert torch.equal(gh.a2, torch.from_numpy(netgh["params"]["a2"]))
 
 
 def test_simple_cnn_encoder_is_skipped(tmp_path, image_encoders, capsys):

@@ -54,7 +54,7 @@ import pytest
 import torch
 
 from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
-from tgsr_tpu_torch.config import Config, GanConfig, TextConfig, TreeConfig
+from tgsr_tpu_torch.config import Config, EvalConfig, GanConfig, TextConfig, TreeConfig
 from tgsr_tpu_torch.engine import inference
 from tgsr_tpu_torch.engine.quant import act_step
 from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
@@ -1659,3 +1659,88 @@ def test_float32_artifact_turns_tf32_off(cuda_device, tmp_path):
         out[on] = ap.sr_uint8(lr, cap, lens)
     assert np.array_equal(out[True], out[False])
     assert np.array_equal(out[True], pipe.sr_uint8(lr, cap, lens))
+
+
+# -- the EVAL switches: rows 2 and 3 blending a weight map, the variant paths --------------
+
+@pytest.mark.parametrize("shape", [(3, 24, 40), (2, 128, 128)])
+@pytest.mark.parametrize("row", ["up_head", "up_head_packed float32", "up_head_packed bfloat16"])
+def test_up_head_weight_map_matches_plain(cuda_device, row, shape):
+    """Rows 2 and 3 at the weight-map site (Cin 32, C2 64, 5 x 5 head, tanh,
+    + a3 * srb) with a [2H, 2W] map read per output pixel, against their plain
+    versions (row 2 and row 3 float32 1e-4, row 3 bfloat16 2e-2 of max(1,
+    |ref|max)); 24 x 40 leaves partial tiles. A map of one value gives the
+    scalar's bits, and a map of another size is refused."""
+    b, h, w = shape
+    cin, c2, k = 32, 64, 5
+    g = torch.Generator().manual_seed(h + w)
+    r = lambda *s, sd=1.0: (torch.randn(*s, generator=g) * sd).to(cuda_device)  # noqa: E731
+    x, w_up, w_head = r(b, h, w, cin), r(3, 3, cin, c2, sd=0.2), r(k, k, c2 // 2, 3, sd=0.05)
+    mul, add = fold_bn(1 + r(c2, sd=0.1), r(c2, sd=0.1), r(c2, sd=0.1),
+                       (1 + r(c2, sd=0.2)).abs())
+    srb = r(b, 2 * h, 2 * w, 3)
+    amap = (1 + torch.rand(2 * h, 2 * w, generator=g) - 0.5).to(cuda_device)
+    kw = dict(use_tanh=True, blend=True)
+    if row == "up_head":
+        wts = prepare_up_head(w_up, mul, add, w_head)
+        ref = reference_up_head(x, w_up, mul, add, w_head, srb, amap, **kw)
+        run = lambda a: up_head_folded(wts, x, srb, a, **kw)  # noqa: E731
+        dtype, gate = torch.float32, 1e-4
+    else:
+        dtype = torch.float32 if row.endswith("float32") else torch.bfloat16
+        gate = 1e-4 if dtype == torch.float32 else 2e-2
+        wts = prepare_up_head_packed(w_up, mul, add, w_head, dtype=dtype)
+        xs, srb = x.to(dtype), srb.to(dtype)
+        ref = packed_up_head(xs, wts, srb, amap.to(dtype), **kw)
+        run = lambda a: fused_up_head_packed(xs, wts, srb, a.to(dtype), **kw)  # noqa: E731
+    name = row.split()[0]
+    before = _build.LAUNCHES[name]
+    got = run(amap)
+    const, scalar = run(torch.full_like(amap, 0.75)), run(torch.tensor(0.75, device=cuda_device))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 3
+    err = (got - ref).abs().max().item()
+    assert err <= gate * max(1.0, ref.abs().max().item()), err
+    assert torch.equal(const, scalar)
+    assert not torch.equal(got, scalar)
+    with pytest.raises(ValueError, match="map"):
+        run(amap[:-2])
+
+
+@pytest.mark.parametrize("variant", ["lr-lrblur map", "lrblur", "stage1", "stage1 map"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipeline_eval_variants_card_matches_cpu(cuda_device, variant, dtype):
+    """The EVAL switches served on the card at a narrow x8 tree (BASE_SIZE
+    32, the x8 maps' size; GF_DIM 8) against the same pipeline on the CPU:
+    float32 at the pipeline gate, bfloat16 >= 40 dB against the CPU's
+    float32; one forward's launches (stage 1: one attention, one up-head
+    site); the replay at B = 4 bit for bit the eager forward."""
+    ev = {"lr-lrblur map": dict(INPUT_NETGH="lr-lrblur", WEIGHTMAP=True),
+          "lrblur": dict(INPUT_NETGH="lrblur"), "stage1": dict(STAGE1=True),
+          "stage1 map": dict(STAGE1=True, INPUT_NETGH="lr-lrblur", WEIGHTMAP=True)}[variant]
+    cfg = Config(TREE=TreeConfig(4, 32), GAN=GanConfig(8, 10, 2), TEXT=TextConfig(32, 6),
+                 EVAL=EvalConfig(**ev))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    kern = SRPipeline(cfg, 41, *sds, device=cuda_device, compute_dtype=dtype)
+    plain = SRPipeline(cfg, 41, *sds, device="cpu")
+    rng = np.random.default_rng(0)
+    lr = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (4, 6))
+    cap[1, :] = 0
+    cap[2, 3:] = 0
+    lens = np.array([6, 0, 3, 6])
+    ref = plain(lr, cap, lens)
+    _build.reset_launches()
+    got = kern(lr, cap, lens)
+    torch.cuda.synchronize()
+    n_att = 1 if variant.startswith("stage1") else 3
+    site = "up_head" if dtype == torch.float32 else "up_head_packed"
+    assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=n_att, **{site: min(n_att, 2)})
+    if dtype == torch.float32:
+        for p, pr in zip(got["pyramid"], ref["pyramid"]):
+            torch.testing.assert_close(p.cpu(), pr, rtol=1e-3, atol=2e-4)
+    else:
+        d = got["sr"].cpu().double() - ref["sr"].double()
+        assert 10 * np.log10(4.0 / d.square().mean().item()) >= 40
+    eager = to_uint8(got["sr"])
+    assert np.array_equal(kern.sr_uint8(lr, cap, lens), eager.cpu().numpy())

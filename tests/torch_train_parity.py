@@ -27,11 +27,14 @@ VOCAB, T, EMB = 12, 6, 32
 GEOMETRY = {4: (8, 16, 16), 5: (4, 8, 8)}
 
 
-def train_configs(branch_num=4, width=None):
+def train_configs(branch_num=4, width=None, base_size=None, **eval_switches):
     """(tgsr_tpu Config, tgsr_tpu_torch Config) of the tiny training tree of
-    the x8 (4) or x16 (5) family; `width`, if given, is GF_DIM and DF_DIM."""
+    the x8 (4) or x16 (5) family; `width`, if given, is GF_DIM and DF_DIM,
+    `base_size` BASE_SIZE, and `eval_switches` set EVAL fields (INPUT_NETGH,
+    WEIGHTMAP)."""
     base, gf, df = GEOMETRY.get(branch_num, GEOMETRY[4])
     gf, df = (gf, df) if width is None else (width, width)
+    base = base if base_size is None else base_size
     out = []
     for mod in (jcfg_mod, tcfg_mod):
         cfg = mod.Config()
@@ -39,7 +42,8 @@ def train_configs(branch_num=4, width=None):
             cfg, DATASET_NAME="face",
             TREE=dataclasses.replace(cfg.TREE, BRANCH_NUM=branch_num, BASE_SIZE=base),
             GAN=dataclasses.replace(cfg.GAN, GF_DIM=gf, DF_DIM=df, CONDITION_DIM=10),
-            TEXT=dataclasses.replace(cfg.TEXT, EMBEDDING_DIM=EMB, WORDS_NUM=T)))
+            TEXT=dataclasses.replace(cfg.TEXT, EMBEDDING_DIM=EMB, WORDS_NUM=T),
+            EVAL=dataclasses.replace(cfg.EVAL, **eval_switches)))
     return tuple(out)
 
 
@@ -103,8 +107,9 @@ def _g_trees(state, values):
         first = {id(p): n for n, p in module.named_parameters()}
         sd.update({n: values[f"{prefix}.{first[id(p)]}"]
                    for n, p in module.named_parameters(remove_duplicate=False)})
+        a = values.get("netgh.a")  # none under a weight map
         trees[prefix] = (netg_variables(sd) if prefix == "netg"
-                         else netgh_variables(sd, float(values["netgh.a"].detach())))
+                         else netgh_variables(sd, None if a is None else float(a.detach())))
     return trees
 
 
@@ -141,7 +146,8 @@ def load_jax_opt(state, jt):
         sd = {f"netg.{k}": v for k, v in netg_state_dict(
             {"params": tree["netg"], "batch_stats": jt["g_stats"]["netg"]}).items()}
         sd.update({f"netgh.{k}": v for k, v in netgh.items()})
-        sd["netgh.a"] = torch.tensor(a)
+        if a is not None:
+            sd["netgh.a"] = torch.tensor(a)
         return sd
 
     step = torch.tensor(float(jt["count"]))

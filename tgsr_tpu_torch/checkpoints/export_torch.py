@@ -27,10 +27,9 @@ from __future__ import annotations
 
 from typing import Mapping
 
-from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, _t, cnn_encoder_state_dict,
+from tgsr_tpu_torch.checkpoints.from_jax import (WEIGHT_MAPS, StateDict, _t,
+                                                 cnn_encoder_state_dict,
                                                  netgh_conv_bn_state_dict)
-
-WEIGHT_MAPS = ("a1", "a2", "a3", "a4")
 
 
 def export_netgh(variables: Mapping, weightmap: bool = False) -> StateDict:

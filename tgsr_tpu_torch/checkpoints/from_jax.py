@@ -10,23 +10,28 @@ for runs without JAX. Layout rules, as the JAX exporter's:
   BN scale/bias + mean/var -> weight/bias/running_mean/running_var
     (+ num_batches_tracked = 0, which eval never reads);
   LSTM w_ih [in, 4H] -> weight_ih_l0 [4H, in]; bwd -> `_reverse` keys.
-The blend `a` is not a reference state-dict entry; it is returned apart.
-Conv weights are placed through one table of JAX conv paths (the keys of
-`tgsr_tpu`'s calibrated int8 scales, `h_net1/residual_0/conv1`) to port
-module paths (`h_net1.residual.0.block.0`): `netg_conv_sites`,
-`netgh_conv_sites`, `conv_sites`.
+The blend `a` is not a reference state-dict entry; it is returned apart
+(None for a weight-map netGH, whose maps a1..a4 are state-dict entries, as
+in the reference). Conv weights are placed through one table of JAX conv
+paths (the keys of `tgsr_tpu`'s calibrated int8 scales,
+`h_net1/residual_0/conv1`) to port module paths
+(`h_net1.residual.0.block.0`): `netg_conv_sites`, `stage1_conv_sites`,
+`netgh_conv_sites`, `conv_sites`. The stage-1 generator (EVAL.STAGE1, JAX's
+GSRNetLowStage1) has no BN, so its tree has params only, as JAX's
+convert_netg_low_stage1 makes it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from tgsr_tpu_torch.config import Config
+from tgsr_tpu_torch.models.generator import GSRNetLowStage1
 from tgsr_tpu_torch.models.models16 import UNUSED_BLOCKS, make_generators
 
 StateDict = Dict[str, torch.Tensor]
@@ -78,10 +83,29 @@ def netg_conv_sites(n_stages: int, r_num: int, tied: bool = False) -> Dict[str, 
     return sites
 
 
+def stage1_conv_sites(r_num: int) -> Dict[str, str]:
+    """GSRNetLowStage1: JAX conv path -> the port's module path. Its blocks
+    have no BN: a ResBlock is Sequential(conv, GLU, conv), an UpBlockNoBN
+    Sequential(Upsample, conv, GLU); `up1` is Sequential(conv, LeakyReLU,
+    UpBlockNoBN), called twice under one key each."""
+    sites = {"h_net1/im2f_conv": "h_net1.im2f.0"}
+    for j in range(r_num):
+        sites[f"h_net1/residual_{j}/conv1"] = f"h_net1.residual.{j}.block.0"
+        sites[f"h_net1/residual_{j}/conv2"] = f"h_net1.residual.{j}.block.2"
+    sites.update({"h_net1/upsample/conv": "h_net1.upsample.1", "up1_conv": "up1.0",
+                  "up1_up/conv": "up1.2.1"})
+    for name in ("h_net2", "h_net3"):
+        sites[f"{name}/conv1"] = f"{name}.block.0"
+        sites[f"{name}/conv2"] = f"{name}.block.2"
+    for k in (1, 2, 3):
+        sites[f"img_net{k}/conv"] = f"img_net{k}.img.0"
+    return sites
+
+
 def netgh_conv_sites(n_res: int, unused: Tuple[str, ...] = ()) -> Dict[str, str]:
-    """NetGHighWeight (low 'lr', no weight map), or the x16 NetGHighWeight16
-    with the declared blocks `unused` that its weights carry (residual816,
-    upscale16x): JAX conv path -> the port's module path."""
+    """NetGHighWeight (any input, with or without a weight map), or the x16
+    NetGHighWeight16 with the declared blocks `unused` that its weights carry
+    (residual816, upscale16x): JAX conv path -> the port's module path."""
     sites = {"convin/conv": "convin.0"}
     for j in range(n_res):
         sites.update(_resblock_sites(f"residual_{j}", f"residual.{j}.block"))
@@ -103,7 +127,9 @@ def conv_sites(netg: nn.Module, netgh: nn.Module) -> Dict[str, Dict[str, str]]:
     calibration, `check_scales` and `weights_fingerprint` all use. A module
     bound under several names (the x16 family's tied stage and head) is
     named once, under the JAX tree's name."""
-    return {"netg": netg_conv_sites(netg.n_stages, len(netg.h_net1.residual), netg.tied),
+    r_num = len(netg.h_net1.residual)
+    return {"netg": (stage1_conv_sites(r_num) if isinstance(netg, GSRNetLowStage1)
+                     else netg_conv_sites(netg.n_stages, r_num, netg.tied)),
             "netgh": netgh_conv_sites(len(netgh.residual),
                                       tuple(n for n in UNUSED_BLOCKS if hasattr(netgh, n)))}
 
@@ -130,7 +156,11 @@ def netg_state_dict(variables: Mapping) -> StateDict:
     """GSRNetLow tree -> G_SR_NET_low state dict; a GSRNetLow16 tree (one
     shared stage h_net2 and one shared head img_net1, no img_net2) -> the
     x16 G_SR_NET_low state dict, whose h_net3 / h_net4 and img_net2..4 key
-    sets repeat the shared tensors (models16.py:13-14)."""
+    sets repeat the shared tensors (models16.py:13-14); a GSRNetLowStage1
+    tree (params only) -> the G_SR_NET_low_stage1 state dict without the
+    reference's dead `up2` (`stage1_state_dict`)."""
+    if "up1_conv" in variables["params"]:
+        return stage1_state_dict(variables)
     params, stats = variables["params"], variables["batch_stats"]
     n_stages = _count(params, "h_net{}", start=1)
     tied = n_stages == 2 and "img_net2" not in params
@@ -159,13 +189,34 @@ def netg_state_dict(variables: Mapping) -> StateDict:
     return out
 
 
-def netgh_state_dict(variables: Mapping) -> Tuple[StateDict, float]:
-    """NetGHighWeight tree (low 'lr', no weight map) -> (NetG_highweight
-    state dict, blend weight a); a NetGHighWeight16 tree gives the x16
-    NetG_highweight's, with residual816 / upscale16x where the tree carries
-    them."""
+def stage1_state_dict(variables: Mapping) -> StateDict:
+    """A GSRNetLowStage1 tree -> the G_SR_NET_low_stage1 state dict (no BN;
+    the reference's unused `up2` left out, as JAX's converter drops it)."""
     params = variables["params"]
-    return netgh_conv_bn_state_dict(variables), float(np.asarray(params["a"]).reshape(-1)[0])
+    out: StateDict = {
+        "ca_net.fc.weight": _t(np.asarray(params["ca_net"]["fc"]["kernel"]).T),
+        "ca_net.fc.bias": _t(params["ca_net"]["fc"]["bias"]),
+        "h_net1.att.conv_context.weight": _t(np.asarray(
+            params["h_net1"]["att"]["conv_context"]["kernel"]).T[:, :, None, None]),
+    }
+    _put_convs(out, params, stage1_conv_sites(_count(params["h_net1"], "residual_{}")))
+    return out
+
+
+WEIGHT_MAPS = ("a1", "a2", "a3", "a4")  # NetG_highweight's maps (EVAL.WEIGHTMAP)
+
+
+def netgh_state_dict(variables: Mapping) -> Tuple[StateDict, Optional[float]]:
+    """NetGHighWeight tree -> (NetG_highweight state dict, blend weight a):
+    with a weight map the tree's a1..a3 (x16 a1..a4) are state-dict entries
+    and a is None; without one a is params['a']. A NetGHighWeight16 tree
+    gives the x16 NetG_highweight's, with residual816 / upscale16x where the
+    tree carries them."""
+    params = variables["params"]
+    out = netgh_conv_bn_state_dict(variables)
+    out.update({n: _t(params[n]) for n in WEIGHT_MAPS if n in params})
+    a = float(np.asarray(params["a"]).reshape(-1)[0]) if "a" in params else None
+    return out, a
 
 
 def netgh_conv_bn_state_dict(variables: Mapping) -> StateDict:
@@ -207,7 +258,7 @@ def text_state_dict(variables: Mapping) -> StateDict:
 
 def state_dicts_from_jax(text_vars: Mapping, netg_vars: Mapping,
                          netgh_vars: Mapping
-                         ) -> Tuple[StateDict, StateDict, StateDict, float]:
+                         ) -> Tuple[StateDict, StateDict, StateDict, Optional[float]]:
     """JAX variable trees -> (text_sd, netg_sd, netgh_sd, a)."""
     netgh_sd, a = netgh_state_dict(netgh_vars)
     return text_state_dict(text_vars), netg_state_dict(netg_vars), netgh_sd, a
@@ -251,8 +302,12 @@ def netg_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     kernels, Dense [in, out]); the x16 family's (four stages, h_net3 / h_net4
     and img_net2..4 the aliases of h_net2 and img_net1) -> the GSRNetLow16
     tree, the shared stage and head written once (ValueError where an alias
-    holds other values). num_batches_tracked, which the JAX tree has no
-    place for, is dropped."""
+    holds other values); a G_SR_NET_low_stage1 state dict -> the
+    GSRNetLowStage1 tree ({'params'} only: no BN; `up2`, which never runs,
+    dropped as JAX's convert_netg_low_stage1 drops it). num_batches_tracked,
+    which the JAX tree has no place for, is dropped."""
+    if "up1.0.weight" in sd:
+        return stage1_variables(sd)
     n_stages = _count({k.split(".")[0]: 0 for k in sd}, "h_net{}", start=1)
     r_num = _count({k.split(".")[2]: 0 for k in sd if k.startswith("h_net1.residual.")}, "{}")
     tied = n_stages == 4  # only the x16 family has four stages
@@ -281,12 +336,26 @@ def netg_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return out
 
 
-def netgh_variables(sd: Mapping[str, torch.Tensor], a: float) -> Dict[str, Any]:
-    """The inverse of `netgh_state_dict` for NetGHighWeight (low 'lr', no
-    weight map) and the x16 NetGHighWeight16, whose JAX tree has the same
-    keys (its declared residual816 / upscale16x never run, and a JAX tree
-    has none): (state dict, blend weight a) -> the JAX tree, with
-    params['a'] of shape (1,)."""
+def stage1_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `stage1_state_dict` (= JAX's convert_netg_low_stage1):
+    a G_SR_NET_low_stage1 state dict -> the GSRNetLowStage1 tree."""
+    r_num = _count({k.split(".")[2]: 0 for k in sd if k.startswith("h_net1.residual.")}, "{}")
+    params: Dict[str, Any] = {}
+    _set(params, "ca_net/fc/kernel", _np(sd["ca_net.fc.weight"]).T.copy())
+    _set(params, "ca_net/fc/bias", _np(sd["ca_net.fc.bias"]))
+    _set(params, "h_net1/att/conv_context/kernel",
+         _np(sd["h_net1.att.conv_context.weight"])[:, :, 0, 0].T.copy())
+    _get_convs(params, sd, stage1_conv_sites(r_num))
+    return {"params": params}
+
+
+def netgh_variables(sd: Mapping[str, torch.Tensor], a: Optional[float]) -> Dict[str, Any]:
+    """The inverse of `netgh_state_dict` for NetGHighWeight and the x16
+    NetGHighWeight16, whose JAX tree has the same keys (its declared
+    residual816 / upscale16x never run, and a JAX tree has none): (state
+    dict, blend weight a) -> the JAX tree, with params['a'] of shape (1,),
+    or, for a weight-map state dict (a None), the maps a1..a4 it carries and
+    no 'a'."""
     n_res = _count({k.split(".")[1]: 0 for k in sd if k.startswith("residual.")}, "{}")
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     _get_convs(out["params"], sd, netgh_conv_sites(n_res))
@@ -299,7 +368,11 @@ def netgh_variables(sd: Mapping[str, torch.Tensor], a: float) -> Dict[str, Any]:
     for name in ("residual24", "residual48"):
         for bn, idx in (("bn1", 1), ("bn2", 4)):
             _get_bn(out, f"{name}/{bn}", sd, f"{name}.{idx}")
-    out["params"]["a"] = np.full((1,), a, np.float32)
+    maps = [n for n in WEIGHT_MAPS if n in sd]
+    if maps:
+        out["params"].update({n: _np(sd[n]) for n in maps})
+    else:
+        out["params"]["a"] = np.full((1,), a, np.float32)
     return out
 
 
@@ -399,19 +472,25 @@ def _seed_module(module: nn.Module, gen: torch.Generator) -> StateDict:
                 bound = 1.0 / math.sqrt(m.hidden_size)
                 for p in m.parameters():
                     p.copy_(uniform(p.shape, -bound, bound))
+        for name in WEIGHT_MAPS:
+            if isinstance(getattr(module, name, None), nn.Parameter):
+                getattr(module, name).copy_(uniform(getattr(module, name).shape, 0.5, 1.5))
     return {k: v.clone() for k, v in module.state_dict().items()}
 
 
 def init_seeded(cfg: Config, vocab_size: int, generator: torch.Generator
-                ) -> Tuple[StateDict, StateDict, StateDict, float]:
+                ) -> Tuple[StateDict, StateDict, StateDict, Optional[float]]:
     """Random weights for the pipeline of cfg's family, made from `generator`
     on the CPU: (text_sd, netg_sd, netgh_sd, a), in the form
     `state_dicts_from_jax` returns (x16: without the netGH blocks that never
     run, as a JAX init). A tied module is drawn once. `a` is 0.5, the JAX
-    init."""
+    init; under EVAL.WEIGHTMAP it is None and the maps a1.. are drawn
+    non-uniform, 1 + U(-0.5, 0.5) (a map of ones would hide an indexing
+    fault)."""
     text = seeded_text_state_dict(cfg, vocab_size, generator)
     netg, netgh = make_generators(cfg)
-    return text, _seed_module(netg, generator), _seed_module(netgh, generator), 0.5
+    return (text, _seed_module(netg, generator), _seed_module(netgh, generator),
+            None if cfg.EVAL.WEIGHTMAP else 0.5)
 
 
 def seeded_text_state_dict(cfg: Config, vocab_size: int, generator: torch.Generator

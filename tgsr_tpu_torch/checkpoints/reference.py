@@ -16,9 +16,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from tgsr_tpu_torch.checkpoints.from_jax import (StateDict, cnn_encoder_state_dict,
-                                                 netg_state_dict, netgh_state_dict,
-                                                 text_state_dict)
+from tgsr_tpu_torch.checkpoints.from_jax import (WEIGHT_MAPS, StateDict,
+                                                 cnn_encoder_state_dict, netg_state_dict,
+                                                 netgh_state_dict, text_state_dict)
 from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
 from tgsr_tpu_torch.config import Config, check_served
 
@@ -38,15 +38,22 @@ def _load_pth(path: str) -> StateDict:
 
 
 def load_generator_pair(cfg: Config, netg_path: str, netgh_path: Optional[str] = None
-                        ) -> Tuple[StateDict, StateDict, float]:
+                        ) -> Tuple[StateDict, StateDict, Optional[float]]:
     """(netg_sd, netgh_sd, a). netgh_path defaults to netg_path's pair. A
     `.pth` netGH carries no `a` (it is not a registered parameter of the
     reference), so a is 0.5 unless the file has one; a `.msgpack` pair
-    carries its trained `a`. An x16 `.pth` carries the reference's aliased
-    key sets (h_net2/3/4, img_net1..4), which the port's tied modules take
-    as they are, and residual816 / upscale16x, which its netGH then declares
-    (`models16.unused_blocks`)."""
+    carries its trained `a`. Under EVAL.WEIGHTMAP a is None and the netGH
+    state dict keeps the file's maps a1..a4 (without it they are dropped, as
+    JAX's convert_netgh_weight(weightmap=False) drops them). An x16 `.pth`
+    carries the reference's aliased key sets (h_net2/3/4, img_net1..4), which
+    the port's tied modules take as they are, and residual816 / upscale16x,
+    which its netGH then declares (`models16.unused_blocks`). Under
+    EVAL.STAGE1 (x8) netG is a G_SR_NET_low_stage1 file, read as JAX's
+    convert_netg_low_stage1 reads it: its dead `up2` dropped. JAX's own
+    `load_generator_pair` converts every x8 `.pth` with convert_netg_low,
+    whatever STAGE1 says, and so cannot read one (ROADMAP, Queue C 4)."""
     check_served(cfg)
+    wm = cfg.EVAL.WEIGHTMAP
     if netgh_path is None:
         netgh_path = paired_path(netg_path, "netG", "netGH")
     if netg_path.endswith(".msgpack"):
@@ -54,7 +61,12 @@ def load_generator_pair(cfg: Config, netg_path: str, netgh_path: Optional[str] =
         return netg_state_dict(load_variables(netg_path)), netgh_sd, a
     netgh_sd = dict(_load_pth(netgh_path))
     a = float(netgh_sd.pop("a").reshape(-1)[0]) if "a" in netgh_sd else DEFAULT_A
-    return _load_pth(netg_path), netgh_sd, a
+    if not wm:
+        netgh_sd = {k: v for k, v in netgh_sd.items() if k not in WEIGHT_MAPS}
+    netg_sd = _load_pth(netg_path)
+    if cfg.EVAL.STAGE1 and cfg.TREE.BRANCH_NUM == 4:
+        netg_sd = {k: v for k, v in netg_sd.items() if not k.startswith("up2.")}
+    return netg_sd, netgh_sd, None if wm else a
 
 
 def load_text_encoder(path: str) -> StateDict:

@@ -16,7 +16,8 @@ Protocol (stdlib http.server; images through data/codec.py, PNG only):
                multiple of the scale, through SRPipeline.sr_arbitrary with
                bucket=64; native requests are not batched. An exported
                program (--aot, engine/aot.py AOTPipeline) has fixed shapes
-               and answers 400.
+               and answers 400, as does a pipeline with weight maps
+               (EVAL.WEIGHTMAP) at an LR size its maps do not fit.
   GET /healthz JSON: request and batch counts, latency percentiles.
 A body that is not an 8-bit, non-interlaced PNG is answered 400 with the
 reason; an unknown path 404; a failed forward 500.
@@ -47,6 +48,7 @@ from tgsr_tpu_torch.data.codec import (decode_png, encode_png, resize_pil_bicubi
                                        unfilter_library)
 from tgsr_tpu_torch.data.tokenizer import Vocab, encode_caption, tokenize_caption
 from tgsr_tpu_torch.engine.serving import BatchingServer
+from tgsr_tpu_torch.models.generator_hf import WeightMapSizeError
 
 
 def aot_max_batch(meta, requested: int) -> int:
@@ -136,6 +138,8 @@ def make_server(pipeline, vocab: Vocab, host: str = "127.0.0.1", port: int = 871
                     sr = batcher.submit(lr, cap, length).result(timeout=600)
                 else:
                     return self._json(400, {"error": f"bad mode {mode!r}"})
+            except WeightMapSizeError as e:  # an LR size the weight maps do not fit
+                return self._json(400, {"error": str(e)})
             except Exception as e:  # the request thread answers; the server lives on
                 return self._json(500, {"error": str(e)})
             self._send(200, encode_png(sr), "image/png")

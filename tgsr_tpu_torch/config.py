@@ -129,24 +129,27 @@ def face_s8_config() -> Config:
     return Config(TREE=TreeConfig(BRANCH_NUM=4, BASE_SIZE=32), GAN=GanConfig(GF_DIM=32))
 
 
-# the EVAL settings the port serves, and only these (SRPipeline: the low
-# branch, then the HF branch on the LR, no weight map)
-SERVED_EVAL = {"STAGE1": False, "INPUT_NETGH": "lr", "WEIGHTMAP": False}
+# EVAL.INPUT_NETGH, what the HF branch reads: the LR, its blur, or the LR less
+# its blur (model.py:267-272; models/generator_hf.py `hf_input`)
+SERVED_INPUT_NETGH = ("lr", "lrblur", "lr-lrblur")
 # the model families the port serves, by TREE.BRANCH_NUM, as the reference's
 # family switch picks them (trainer_objective.py:74-88): 4 the x8 family
-# (model.py: GSRNetLow, NetGHighWeight), 5 the x16 family (models16.py:
-# GSRNetLow16, NetGHighWeight16)
+# (model.py: GSRNetLow, or GSRNetLowStage1 under EVAL.STAGE1, and
+# NetGHighWeight), 5 the x16 family (models16.py: GSRNetLow16,
+# NetGHighWeight16; EVAL.STAGE1 not read, as JAX's SRPipeline builds
+# GSRNetLow16 whatever it says)
 SERVED_BRANCH_NUMS = (4, 5)
 
 
 def check_served(cfg: Config) -> Config:
     """`cfg` as it is, or NotImplementedError naming the setting the port
-    does not serve: a BRANCH_NUM outside SERVED_BRANCH_NUMS, a GRU text
-    encoder, or an EVAL setting other than SERVED_EVAL's."""
-    for k, v in SERVED_EVAL.items():
-        if getattr(cfg.EVAL, k) != v:
-            raise NotImplementedError(f"EVAL.{k} = {getattr(cfg.EVAL, k)!r}: the port serves "
-                                      f"EVAL.{k} = {v!r} only")
+    does not serve: a BRANCH_NUM outside SERVED_BRANCH_NUMS or a GRU text
+    encoder; ValueError for an EVAL.INPUT_NETGH outside SERVED_INPUT_NETGH
+    (JAX's NetGHighWeight raises at its first call). Every EVAL.WEIGHTMAP
+    and EVAL.STAGE1 is served, wherever JAX's SRPipeline serves it."""
+    if cfg.EVAL.INPUT_NETGH not in SERVED_INPUT_NETGH:
+        raise ValueError(f"EVAL.INPUT_NETGH = {cfg.EVAL.INPUT_NETGH!r}: one of "
+                         f"{SERVED_INPUT_NETGH}")
     if cfg.TREE.BRANCH_NUM not in SERVED_BRANCH_NUMS:
         raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port serves "
                                   "the x8 (BRANCH_NUM 4) and x16 (BRANCH_NUM 5) families only")
@@ -164,12 +167,20 @@ TRAINED_BRANCH_NUMS = (4, 5)
 def check_trained(cfg: Config) -> Config:
     """`cfg` as it is, or NotImplementedError naming the setting the port
     does not train: what `check_served` refuses (a BRANCH_NUM other than 4
-    and 5, the GRU, the blur inputs, weight maps and stage 1). The TRAIN
-    fields are the JAX schema's, read as the JAX trainer reads them."""
+    and 5, the GRU), and EVAL.STAGE1: JAX's GANTrainer never builds
+    GSRNetLowStage1 (tgsr_tpu/engine/gan_trainer.py:146-150), it trains
+    GSRNetLow whatever STAGE1 says, so a stage-1 run would train another
+    model than the one the config names (ROADMAP, Queue C). The blur inputs
+    and weight maps train, x8 and x16. The TRAIN fields are the JAX
+    schema's, read as the JAX trainer reads them."""
     check_served(cfg)
     if cfg.TREE.BRANCH_NUM not in TRAINED_BRANCH_NUMS:
         raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port trains "
                                   "the x8 (BRANCH_NUM 4) and x16 (BRANCH_NUM 5) families only")
+    if cfg.EVAL.STAGE1:
+        raise NotImplementedError("EVAL.STAGE1 = True: the port does not train the stage-1 "
+                                  "generator (the JAX trainer never builds it and trains "
+                                  "GSRNetLow instead)")
     return cfg
 
 

@@ -7,6 +7,9 @@
 // two sites, both 128 -> 256 px:
 //   h_net3.upsample + img_net3      Cin 64, C2 64, 3x3 head
 //   upscale8x + conv_output + a*srb Cin 32, C2 64, 5x5 head, tanh, blend
+// The blend weight a is one scalar, or with EVAL.WEIGHTMAP a [2H, 2W] map
+// (a3 at x8, a4 at x16) read at each output pixel, broadcast over batch and
+// channel.
 //
 // What bounds it on an H100: arithmetic. After a nearest x2 upsample each
 // output parity class (di, dj) sees only 2 x 2 distinct source pixels, so per
@@ -50,7 +53,8 @@
 //
 // Layouts: x [B, H, W, Cin] with Cin % 8 == 0; wf the split combined weight
 // in fragment order [4 class][4 tap][Cin / 8][C2 / 16][2 part][32 lane][4];
-// BN [C2]; w_head [k, k, C2 / 2, 3]; srb and out [B, 2H, 2W, 3].
+// BN [C2]; w_head [k, k, C2 / 2, 3]; srb and out [B, 2H, 2W, 3]; a one float
+// (a_ld 0) or a [2H, 2W] map of row stride a_ld = 2W.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -163,9 +167,9 @@ up_head_kernel(const float* __restrict__ x,       // [B, H, W, Cin]
                const float* __restrict__ bn_add,  // [C2]
                const float* __restrict__ w_head,  // [k, k, C2/2, 3]
                const float* __restrict__ srb,     // [B, 2H, 2W, 3] or null
-               const float* __restrict__ a,       // scalar or null
+               const float* __restrict__ a,       // scalar, [2H, 2W] map or null
                float* __restrict__ out,           // [B, 2H, 2W, 3]
-               int h, int w, int cin, int k, int use_tanh) {
+               int h, int w, int cin, int k, int use_tanh, int a_ld) {
   constexpr int C = C2 / 2, NT = C2 / 8;
   extern __shared__ __align__(16) float smem[];
   const Geometry geo = geometry(cin, C2, k);
@@ -312,7 +316,9 @@ up_head_kernel(const float* __restrict__ x,       // [B, H, W, Cin]
   }
   __syncthreads();
 
-  // ---- k x k head -> [tanh] -> [+ a * srb], P output pixels of one column a thread ----
+  // ---- k x k head -> [tanh] -> [+ a * srb], P output pixels of one column a thread;
+  // a_ld 0: one scalar a, else a is a [2H, 2W] map of row stride a_ld, read at
+  // the output pixel ----
   constexpr int P = TOH * TOW / THREADS;
   const int ox = tid % TOW, oy = (tid / TOW) * P;
   float y[P][3] = {};
@@ -332,7 +338,7 @@ up_head_kernel(const float* __restrict__ x,       // [B, H, W, Cin]
         }
       }
     }
-  const float av = (srb && a) ? *a : 0.f;
+  const float av = (srb && a && !a_ld) ? *a : 0.f;
   const int xo = x0 + ox;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -342,7 +348,7 @@ up_head_kernel(const float* __restrict__ x,       // [B, H, W, Cin]
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       float r = use_tanh ? tanhf(y[p][j]) : y[p][j];
-      if (srb) r = fmaf(av, srb[o + j], r);
+      if (srb) r = fmaf(a_ld ? a[(size_t)yo * a_ld + xo] : av, srb[o + j], r);
       out[o + j] = r;
     }
   }
@@ -364,15 +370,16 @@ extern "C" long long up_head_smem_bytes(int cin, int c2, int k) {
 extern "C" int up_head_launch(const float* x, const float* wf, const float* bn_mul,
                               const float* bn_add, const float* w_head, const float* srb,
                               const float* a, float* out, int b, int h, int w, int cin, int c2,
-                              int k, int use_tanh, void* stream) {
+                              int k, int use_tanh, int a_ld, void* stream) {
   const long long smem = up_head_smem_bytes(cin, c2, k);
-  if (smem == 0 || b < 1 || b > 65535 || h < 1 || w < 1 || (srb && !a))
+  if (smem == 0 || b < 1 || b > 65535 || h < 1 || w < 1 || (srb && !a)
+      || (a_ld != 0 && a_ld != 2 * w))
     return (int)cudaErrorInvalidValue;
   auto kernel = c2 == 64 ? up_head_kernel<64> : c2 == 32 ? up_head_kernel<32> : up_head_kernel<16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((2 * w + TOW - 1) / TOW, (2 * h + TOH - 1) / TOH, b);
   kernel<<<grid, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      x, wf, bn_mul, bn_add, w_head, srb, a, out, h, w, cin, k, use_tanh);
+      x, wf, bn_mul, bn_add, w_head, srb, a, out, h, w, cin, k, use_tanh, a_ld);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,8 @@
 // bfloat16 x8 face-SR path it runs at two sites, both 128 -> 256 px:
 //   h_net3.upsample + img_net3      Cin 64, C2 64, 3x3 head
 //   upscale8x + conv_output + a*srb Cin 32, C2 64, 5x5 head, tanh, blend
+// a is one scalar, or with EVAL.WEIGHTMAP a [2H, 2W] map read at each output
+// pixel (`a_ld`, its row stride), in the working type as srb is.
 // Inputs come packed by tgsr_tpu_torch/ops/packed_tail.py `pack_up_head`:
 // w_up [2, 2, Cin, 4*C2] (class-major channels), w_head [3, 3, 4*C, 12]
 // (C = C2/2); BN folded to float32 (mul, add). The bfloat16 kernel takes both
@@ -132,9 +134,9 @@ up_head_packed_f32_kernel(const float* __restrict__ x,       // [B, H, W, Cin]
                           const float* __restrict__ bn_add,  // [C2]
                           const float* __restrict__ w_head,  // [3, 3, 4*C, 12]
                           const float* __restrict__ srb,     // [B, 2H, 2W, 3] or null
-                          const float* __restrict__ a,       // scalar or null
+                          const float* __restrict__ a,       // scalar, [2H, 2W] map or null
                           float* __restrict__ out,           // [B, 2H, 2W, 3]
-                          int h, int w, int cin, int c2, int use_tanh) {
+                          int h, int w, int cin, int c2, int use_tanh, int a_ld) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geometry geo = geometry(cin, c2);
   const int c = c2 / 2, cin_s = geo.cin_s, c_s = geo.c_s;
@@ -258,16 +260,17 @@ up_head_packed_f32_kernel(const float* __restrict__ x,       // [B, H, W, Cin]
   const int pi = i0 + hr, pj = j0 + hc;
   if (pi >= h || pj >= w) return;
   const int oh = 2 * h, ow = 2 * w, dy = half;
-  const float blend_a = (srb && a) ? *a : 0.f;
+  const float blend_a = (srb && a && !a_ld) ? *a : 0.f;
 #pragma unroll
   for (int dx = 0; dx < 2; ++dx) {
     const size_t o = (((size_t)b * oh + 2 * pi + dy) * ow + 2 * pj + dx) * 3;
+    const float av = a_ld ? a[(size_t)(2 * pi + dy) * a_ld + 2 * pj + dx] : blend_a;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       // constant indices keep y in registers
       float r = dy ? y[(2 + dx) * 3 + k] : y[dx * 3 + k];
       if (use_tanh) r = tanhf(r);
-      if (srb) r = fmaf(blend_a, srb[o + k], r);
+      if (srb) r = fmaf(av, srb[o + k], r);
       out[o + k] = r;
     }
   }
@@ -281,7 +284,7 @@ long long smem_bytes(int cin, int c2) {
 
 int launch(const float* x, const float* w_up, const float* bn_mul, const float* bn_add,
            const float* w_head, const float* srb, const float* a, float* out, int b, int h,
-           int w, int cin, int c2, int use_tanh, cudaStream_t stream) {
+           int w, int cin, int c2, int use_tanh, int a_ld, cudaStream_t stream) {
   const long long smem = smem_bytes(cin, c2);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -289,7 +292,7 @@ int launch(const float* x, const float* w_up, const float* bn_mul, const float* 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + TC - 1) / TC, (h + TR - 1) / TR, b);
   up_head_packed_f32_kernel<<<grid, THREADS, (size_t)smem, stream>>>(
-      x, w_up, bn_mul, bn_add, w_head, srb, a, out, h, w, cin, c2, use_tanh);
+      x, w_up, bn_mul, bn_add, w_head, srb, a, out, h, w, cin, c2, use_tanh, a_ld);
   return (int)cudaGetLastError();
 }
 
@@ -382,9 +385,9 @@ up_head_packed_tc_kernel(const bf16* __restrict__ x,        // [B, H, W, Cin]
                          const float* __restrict__ bn_add,  // [C2]
                          const uint4* __restrict__ wf_head, // [4][9][Cp/16][32][8] bf16
                          const bf16* __restrict__ srb,      // [B, 2H, 2W, 3] or null
-                         const bf16* __restrict__ a,        // scalar or null
+                         const bf16* __restrict__ a,        // scalar, [2H, 2W] map or null
                          float* __restrict__ out,           // [B, 2H, 2W, 3]
-                         int h, int w, int cin, int use_tanh) {
+                         int h, int w, int cin, int use_tanh, int a_ld) {
   constexpr int C = C2 / 2, NT = C2 / 8, NP = C2 / 16;
   constexpr int CP = (C + 15) & ~15, KSH = CP / 16;
   constexpr int WN = warps_n<C2>(), THREADS = threads<C2>(), WARPS = WM * WN;
@@ -579,14 +582,18 @@ up_head_packed_tc_kernel(const bf16* __restrict__ x,        // [B, H, W, Cin]
 
   // ---- tanh, + a * srb, store: consecutive threads on consecutive floats ----
   const int oh = 2 * h, ow = 2 * w, y0 = 2 * i0, x0 = 2 * j0;
-  const float blend_a = (srb && a) ? __bfloat162float(*a) : 0.f;
+  const float blend_a = (srb && a && !a_ld) ? __bfloat162float(*a) : 0.f;
   for (int i = tid; i < 2 * TR * 2 * TC * 3; i += THREADS) {
     const int row = i / (2 * TC * 3), col = i % (2 * TC * 3);
     if (y0 + row >= oh || x0 + col / 3 >= ow) continue;
     const size_t o = (((size_t)b * oh + y0 + row) * ow + x0) * 3 + col;
     float r = y_s[i];
     if (use_tanh) r = tanhf(r);
-    if (srb) r = fmaf(blend_a, __bfloat162float(srb[o]), r);
+    if (srb) {
+      const float av =
+          a_ld ? __bfloat162float(a[(size_t)(y0 + row) * a_ld + x0 + col / 3]) : blend_a;
+      r = fmaf(av, __bfloat162float(srb[o]), r);
+    }
     out[o] = r;
   }
 }
@@ -599,7 +606,7 @@ long long smem_bytes(int cin, int c2) {
 
 int launch(const void* x, const void* wf_up, const float* bn_mul, const float* bn_add,
            const void* wf_head, const void* srb, const void* a, float* out, int b, int h,
-           int w, int cin, int c2, int use_tanh, cudaStream_t stream) {
+           int w, int cin, int c2, int use_tanh, int a_ld, cudaStream_t stream) {
   const long long smem = smem_bytes(cin, c2);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   auto kernel = c2 == 64 ? up_head_packed_tc_kernel<64>
@@ -612,7 +619,7 @@ int launch(const void* x, const void* wf_up, const float* bn_mul, const float* b
   kernel<<<grid, nthreads, (size_t)smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint4*>(wf_up), bn_mul, bn_add,
       static_cast<const uint4*>(wf_head), static_cast<const bf16*>(srb),
-      static_cast<const bf16*>(a), out, h, w, cin, use_tanh);
+      static_cast<const bf16*>(a), out, h, w, cin, use_tanh, a_ld);
   return (int)cudaGetLastError();
 }
 
@@ -631,7 +638,8 @@ extern "C" long long up_head_packed_smem_bytes(int cin, int c2, int dtype) {
 // dtype 0: float32, x, w_up [2, 2, Cin, 4*C2], w_head [3, 3, 4*C, 12], srb
 // and a in float32; 1: bfloat16, x, srb and a in bfloat16, w_up and w_head
 // the fragment-ordered weights (16-byte aligned, as x). BN and out are
-// float32. Returns the CUDA error code of the launch (0 = success). The
+// float32. a_ld 0: a is one scalar; 2W: a is a [2H, 2W] map (a per-pixel
+// blend weight, broadcast over batch and channel), a_ld its row stride. Returns the CUDA error code of the launch (0 = success). The
 // launch is asynchronous on `stream`; nothing is allocated and nothing
 // synchronises.
 extern "C" int up_head_packed_launch(const void* x, const void* w_up,
@@ -639,16 +647,17 @@ extern "C" int up_head_packed_launch(const void* x, const void* w_up,
                                      const void* w_head, const void* srb,
                                      const void* a, float* out, int b, int h,
                                      int w, int cin, int c2, int use_tanh,
-                                     int dtype, void* stream) {
-  if (b < 1 || b > 65535 || h < 1 || w < 1 || (srb && !a)) return (int)cudaErrorInvalidValue;
+                                     int dtype, int a_ld, void* stream) {
+  if (b < 1 || b > 65535 || h < 1 || w < 1 || (srb && !a) || (a_ld != 0 && a_ld != 2 * w))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return f32::launch(static_cast<const float*>(x), static_cast<const float*>(w_up), bn_mul,
                        bn_add, static_cast<const float*>(w_head),
                        static_cast<const float*>(srb), static_cast<const float*>(a), out, b,
-                       h, w, cin, c2, use_tanh, s);
+                       h, w, cin, c2, use_tanh, a_ld, s);
   if (dtype == 1)
     return tc::launch(x, w_up, bn_mul, bn_add, w_head, srb, a, out, b, h, w, cin, c2,
-                      use_tanh, s);
+                      use_tanh, a_ld, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,11 @@ AttnGAN-style one its loss API implies, and this is that trainer in
 PyTorch, step for step:
 
 - Adam(lr, b1 0.5, b2 0.999) per network (G = netG + netGH with its blend
-  weight `a`; D = one `DNet` per pyramid scale);
+  weight `a`, or under EVAL.WEIGHTMAP its maps a1.. as netGH parameters and
+  no `a`; D = one `DNet` per pyramid scale);
+- netGH's input as EVAL.INPUT_NETGH names it, the blur of the batch's LR
+  taken inside netGH's forward (JAX blurs in the step, as here; the batch
+  carries no blur), in the step and in `eval_metrics`;
 - the frozen text encoder, its outputs detached; masks from captions == 0;
 - one generator forward a step (JAX's `reuse_g_forward=True`, which
   tests/test_remat.py:103 shows equal to its default of two): the D step
@@ -93,15 +97,16 @@ class GANTrainState:
     """What a step reads and updates, in place. `netg`, `netgh` and `dnets`
     hold the float32 master parameters and the BN running stats; `a` is
     netGH's trained blend weight (params['a'] in JAX; the module's own `a`
-    is a buffer, overridden by this one in every call); `g_ema` the EMA of
-    every G parameter by name ("netg.<param>", "netgh.<param>", "netgh.a").
+    is a buffer, overridden by this one in every call), None under a weight
+    map, whose maps are netGH parameters; `g_ema` the EMA of every G
+    parameter by name ("netg.<param>", "netgh.<param>", "netgh.a").
     `mini_step` counts the micro-steps since the last update, `g_acc` /
     `d_acc` their running-mean gradients (grad_accum > 1 only)."""
 
     step: int
     netg: nn.Module
     netgh: nn.Module
-    a: torch.Tensor
+    a: Optional[torch.Tensor]
     dnets: nn.ModuleDict
     g_ema: Dict[str, torch.Tensor]
     g_opt: torch.optim.Optimizer
@@ -113,12 +118,13 @@ class GANTrainState:
     def g_named_parameters(self) -> List[Tuple[str, torch.Tensor]]:
         return ([(f"netg.{n}", p) for n, p in self.netg.named_parameters()]
                 + [(f"netgh.{n}", p) for n, p in self.netgh.named_parameters()]
-                + [("netgh.a", self.a)])
+                + ([] if self.a is None else [("netgh.a", self.a)]))
 
-    def g_state_dicts(self) -> Tuple[StateDict, StateDict, float]:
+    def g_state_dicts(self) -> Tuple[StateDict, StateDict, Optional[float]]:
         """(netg state dict, netgh state dict, a): the EMA parameters with
         the current BN running stats, on the CPU; a tied module's aliases
-        (x16's h_net3, img_net2, ...) carry its EMA too."""
+        (x16's h_net3, img_net2, ...) carry its EMA too. Under a weight map
+        the maps' EMA is in the netgh state dict and a is None."""
         out = []
         for prefix, module in (("netg", self.netg), ("netgh", self.netgh)):
             sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
@@ -126,11 +132,12 @@ class GANTrainState:
             for name, p in module.named_parameters(remove_duplicate=False):
                 sd[name] = self.g_ema[f"{prefix}.{first[id(p)]}"].detach().cpu().clone()
             out.append(sd)
-        return out[0], out[1], float(self.g_ema["netgh.a"])
+        return out[0], out[1], None if self.a is None else float(self.g_ema["netgh.a"])
 
     def snapshot_variables(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """The (netG, netGH) flax trees a snapshot writes: the JAX trainer
-        saves {'params': g_ema, 'batch_stats': g_stats} of each."""
+        saves {'params': g_ema, 'batch_stats': g_stats} of each (a weight-map
+        netGH's params: a1.., no 'a')."""
         netg_sd, netgh_sd, a = self.g_state_dicts()
         return netg_variables(netg_sd), netgh_variables(netgh_sd, a)
 
@@ -200,8 +207,9 @@ class GANTrainer:
         for module in (netg, netgh, dnets):
             init_module(module, generator)
             module.to(self.device).train()
-        a = torch.tensor(A_INIT, device=self.device, requires_grad=True)
-        g_params = [*netg.parameters(), *netgh.parameters(), a]
+        a = (None if cfg.EVAL.WEIGHTMAP
+             else torch.tensor(A_INIT, device=self.device, requires_grad=True))
+        g_params = [*netg.parameters(), *netgh.parameters(), *([] if a is None else [a])]
         state = GANTrainState(
             step=0, netg=netg, netgh=netgh, a=a, dnets=dnets, g_ema={},
             g_opt=torch.optim.Adam(g_params, lr=self.cfg.TRAIN.GENERATOR_LR, betas=(0.5, 0.999)),
@@ -210,16 +218,18 @@ class GANTrainer:
         return state
 
     def load_state(self, state: GANTrainState, netg_sd: Mapping[str, torch.Tensor],
-                   netgh_sd: Mapping[str, torch.Tensor], a: float,
+                   netgh_sd: Mapping[str, torch.Tensor], a: Optional[float],
                    dnet_sds: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None) -> None:
         """Loads generator weights (reference-named state dicts, strict) and
-        `a` into `state`, and the discriminators' ({"d64": sd, ...}) where
-        given; the EMA restarts from the loaded weights (JAX's --init_netg).
-        The optimizer state is left as it is."""
+        `a` into `state` (a weight map's maps come in netgh_sd, and `a` is
+        not read), and the discriminators' ({"d64": sd, ...}) where given;
+        the EMA restarts from the loaded weights (JAX's --init_netg). The
+        optimizer state is left as it is."""
         with torch.no_grad():
             state.netg.load_state_dict(netg_sd, strict=True)
             state.netgh.load_state_dict(netgh_sd, strict=True)
-            state.a.fill_(float(a))
+            if state.a is not None:
+                state.a.fill_(float(a))
             for name, sd in (dnet_sds or {}).items():
                 state.dnets[name].load_state_dict(sd, strict=True)
         self._reset_ema(state)
@@ -250,8 +260,9 @@ class GANTrainer:
                      if n.startswith(k + ".")} for k in ("netg", "netgh")}
         fake, _, mu, logvar = call_cast(state.netg, dt, lr_c, sent.to(dt), words.to(dt), mask,
                                         overrides=split["netg"], buffers=buffers)
+        a = {} if state.a is None else {"a": state.a}
         fine = call_cast(state.netgh, dt, lr_c, fake, buffers=buffers,
-                         overrides={"a": state.a, **split["netgh"]})
+                         overrides={**a, **split["netgh"]})
         lt = self.loss_dtype
         return [f.to(lt) for f in fake], [f.to(lt) for f in fine], mu.to(lt), logvar.to(lt)
 

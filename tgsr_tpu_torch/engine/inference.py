@@ -1,9 +1,14 @@
 """Text-guided SR inference (counterpart of tgsr_tpu/engine/inference.py
 `SRPipeline`): caption -> TextEncoder -> low branch -> HF branch -> SR, for
 the families `config.check_served` names: x8 (BRANCH_NUM 4, GSRNetLow ->
-NetGHighWeight, 256 px from 32 px at face S8) and x16 (BRANCH_NUM 5,
-GSRNetLow16 -> NetGHighWeight16, models/models16.py, 512 px), picked by
-`models16.make_generators` as the JAX package's family switch picks them.
+NetGHighWeight, 256 px from 32 px at face S8; GSRNetLowStage1 under
+EVAL.STAGE1) and x16 (BRANCH_NUM 5, GSRNetLow16 -> NetGHighWeight16,
+models/models16.py, 512 px), picked by `models16.make_generators` as the
+JAX package's family switch picks them. The HF branch reads the input
+EVAL.INPUT_NETGH names (the LR, its blur, or the LR less its blur: JAX's
+`_lr_blur`, taken inside netGH's forward, so every graph and exported
+program holds it) and blends a scalar `a` or, under EVAL.WEIGHTMAP, its
+per-pixel maps.
 
 Public layouts are the JAX package's: lr [B, h, w, 3] in [-1, 1] (or uint8
 for `forward_scan` / `sr_batched`), captions [B, T] token ids with 0 = pad,
@@ -11,8 +16,9 @@ sr [B, H, W, 3]. Inside, the generators run NCHW, in channels_last memory on
 the card, so NHWC <-> NCHW at the kernel sites costs no copy.
 
 The pipeline runs on `device`, "cuda" unless the caller asks for the CPU.
-On the card the attention site of each stage (3 in x8, 4 in x16) and the two
-up-head sites launch the port's CUDA kernels; on the CPU they run the plain versions, so a pipeline
+On the card the attention site of each stage (3 in x8, 4 in x16; 1 under
+STAGE1) and the up-head sites (two; one under STAGE1, whose low branch has
+none) launch the port's CUDA kernels; on the CPU they run the plain versions, so a pipeline
 built with device="cpu" on the same weights is the reference the card's is
 held against.
 
@@ -78,7 +84,8 @@ from torch import nn
 from tgsr_tpu_torch.checkpoints.from_jax import (conv_sites, seeded_text_state_dict,
                                                  state_dicts_from_jax)
 from tgsr_tpu_torch.checkpoints.msgpack_io import load_variables
-from tgsr_tpu_torch.checkpoints.reference import load_generator_pair, load_text_encoder
+from tgsr_tpu_torch.checkpoints.reference import (DEFAULT_A, load_generator_pair,
+                                                  load_text_encoder)
 from tgsr_tpu_torch.config import Config, check_served, config_from_dict, config_to_dict
 from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.graphs import (MAX_GRAPHS, MICROBATCH_QUANTUM, ForwardGraph,
@@ -160,13 +167,14 @@ class SRPipeline:
     """Text-guided SR inference: (LR, captions, cap_lens) -> SR.
 
     Construct from reference-named state dicts (`checkpoints.from_jax`) and
-    the blend weight `a`, which the reference state dict does not carry.
-    `quant_scales` ({"netg": {...}, "netgh": {...}}, optionally with
-    '_meta') selects int8 serving."""
+    the blend weight `a`, which the reference state dict does not carry
+    (None for 0.5; not read under EVAL.WEIGHTMAP, whose maps are netGH
+    state-dict entries). `quant_scales` ({"netg": {...}, "netgh": {...}},
+    optionally with '_meta') selects int8 serving."""
 
     def __init__(self, cfg: Config, vocab_size: int,
                  text_sd: Mapping[str, Any], netg_sd: Mapping[str, Any],
-                 netgh_sd: Mapping[str, Any], a: float = 0.5,
+                 netgh_sd: Mapping[str, Any], a: Optional[float] = 0.5,
                  device: Union[str, torch.device] = "cuda",
                  return_attn: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
@@ -183,13 +191,15 @@ class SRPipeline:
         # the float32 weights as given, for save_artifact
         self.state_dicts = tuple({k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
                                  for sd in (text_sd, netg_sd, netgh_sd))
-        self.a = float(a)
+        # the scalar blend weight; None under a weight map
+        self.a = None if cfg.EVAL.WEIGHTMAP else DEFAULT_A if a is None else float(a)
         self.text_encoder, self.netg, self.netgh = _modules(cfg, vocab_size, *self.state_dicts)
         for module in (self.text_encoder, self.netg, self.netgh):
             # serving only: no parameter takes a gradient (a tracer then sees
             # the kernels' ops, not the autograd around them)
             module.to(self.device).eval().requires_grad_(False)
-        self.netgh.a.fill_(self.a)
+        if self.a is not None:
+            self.netgh.a.fill_(self.a)
         self.quant_scales, self.quant_meta = split_scales_meta(quant_scales or {})
         # float32 serving on the card is float32: PyTorch's default has cuDNN's
         # TF32 on, which rounds the convolutions' operands to a 10-bit mantissa
@@ -265,13 +275,15 @@ class SRPipeline:
         dtype, return_attn), quant_scales.json (an int8 pipeline's scales,
         stamped with the weights' fingerprint), vocab.json (optional), and
         the weights in BUNDLE_WEIGHTS: {'text', 'netg', 'netgh'} float32
-        state dicts and 'a', where JAX writes variables.msgpack. Load with
+        state dicts and 'a' (none under a weight map: netgh carries a1..),
+        where JAX writes variables.msgpack. Load with
         `SRPipeline.load_artifact(path)`."""
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(config_to_dict(self.cfg), f, indent=1, sort_keys=True)
         text_sd, netg_sd, netgh_sd = self.state_dicts
-        torch.save({"text": text_sd, "netg": netg_sd, "netgh": netgh_sd, "a": self.a},
+        torch.save({"text": text_sd, "netg": netg_sd, "netgh": netgh_sd,
+                    **({} if self.a is None else {"a": self.a})},
                    os.path.join(path, BUNDLE_WEIGHTS))
         if self.quant_scales:
             # the bundle's scales are bound to the bundle's weights
@@ -306,7 +318,7 @@ class SRPipeline:
         weights = os.path.join(path, BUNDLE_WEIGHTS)
         if os.path.exists(weights):
             w = torch.load(weights, map_location="cpu", weights_only=True)
-            sds = (w["text"], w["netg"], w["netgh"], w["a"])
+            sds = (w["text"], w["netg"], w["netgh"], w.get("a"))
         else:
             v = load_variables(os.path.join(path, "variables.msgpack"))
             sds = state_dicts_from_jax(v["text"], v["netg"], v["netgh"])
@@ -345,8 +357,10 @@ class SRPipeline:
         return weights_fingerprint(netg, netgh)
 
     def _up_head_site(self, generator, group: str) -> Optional[nn.Module]:
-        if self.quant_scales.get(group):
-            return None  # int8: the UpBlock and its head run as quantized modules
+        if self.quant_scales.get(group) or not generator.has_up_head_site:
+            # int8: the UpBlock and its head run as quantized modules; the
+            # stage-1 low branch has no upsample that feeds only a head
+            return None
         wts = generator.up_head_weights()
         if self.compute_dtype == torch.float32:
             return UpHeadSite(up_head_site, wts)

@@ -1,6 +1,7 @@
 """Low-frequency text-attentive SR generator (counterpart of
 tgsr_tpu/models/generator.py; = CA_NET, INIT_STAGE_GImgup, NEXT_STAGE_G,
-GET_IMAGE_G_noAct and G_SR_NET_low, util.py / model.py:34-78).
+GET_IMAGE_G_noAct and G_SR_NET_low, util.py / model.py:34-78, and the
+ablation G_SR_NET_low_stage1, model.py:81-130, EVAL.STAGE1).
 
 NCHW inside; module names are the reference's state-dict keys. The last
 stage's upsample feeds only its image head, so the float32 and bfloat16
@@ -16,10 +17,12 @@ from __future__ import annotations
 from typing import Callable, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tgsr_tpu_torch.ops.attention import WordPixelAttention
-from tgsr_tpu_torch.ops.blocks import GLU, ResBlock, UpBlock, batch_norm, conv3x3, glu
+from tgsr_tpu_torch.ops.blocks import (GLU, LEAKY_SLOPE, ResBlock, UpBlock, UpBlockNoBN,
+                                       batch_norm, conv3x3, glu)
 from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
 from tgsr_tpu_torch.utils.remat import remat
 
@@ -44,13 +47,14 @@ class CANet(nn.Module):
 
 class NextStageG(nn.Module):
     """= NEXT_STAGE_G (util.py:781-823): attend, concat, R_NUM ResBlocks on
-    2*ngf, then an UpBlock to ngf."""
+    2*ngf, then an UpBlock to ngf; without BN (`use_bn` False, stage 1's
+    first stage) the ResBlocks and the UpBlock have none."""
 
-    def __init__(self, ngf: int, cdf: int, r_num: int):
+    def __init__(self, ngf: int, cdf: int, r_num: int, use_bn: bool = True):
         super().__init__()
         self.att = WordPixelAttention(ngf, cdf)
-        self.residual = nn.Sequential(*[ResBlock(ngf * 2) for _ in range(r_num)])
-        self.upsample = UpBlock(ngf * 2, ngf)
+        self.residual = nn.Sequential(*[ResBlock(ngf * 2, use_bn) for _ in range(r_num)])
+        self.upsample = UpBlock(ngf * 2, ngf) if use_bn else UpBlockNoBN(ngf * 2, ngf)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -68,11 +72,13 @@ class NextStageG(nn.Module):
 
 class InitStageGImgUp(NextStageG):
     """= INIT_STAGE_GImgup (util.py:726-777): `im2f` embeds the LR image to
-    ngf channels, then as NextStageG."""
+    ngf channels, then as NextStageG; `use_bn` False drops every BN
+    (im2f is then Sequential(conv3x3, GLU))."""
 
-    def __init__(self, ngf: int, cdf: int, r_num: int):
-        super().__init__(ngf, cdf, r_num)
-        self.im2f = nn.Sequential(conv3x3(3, ngf * 2), batch_norm(ngf * 2), GLU())
+    def __init__(self, ngf: int, cdf: int, r_num: int, use_bn: bool = True):
+        super().__init__(ngf, cdf, r_num, use_bn)
+        self.im2f = (nn.Sequential(conv3x3(3, ngf * 2), batch_norm(ngf * 2), GLU()) if use_bn
+                     else nn.Sequential(conv3x3(3, ngf * 2), GLU()))
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         return self.im2f(x)
@@ -110,6 +116,7 @@ class GSRNetLow(nn.Module):
     tied = False  # one module under several stage names (the x16 family, models16.py)
     # UpBlock convs (JAX paths) whose output feeds only the image head
     head_only_upblocks = frozenset({"h_net3/upsample/conv"})
+    has_up_head_site = True  # the last stage runs as one fused up-head site when served
 
     def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100,
                  n_stages: int = 3, r_num: int = 2, remat: bool = False):
@@ -148,4 +155,55 @@ class GSRNetLow(nn.Module):
                 fake_imgs.append(up_head(feats, use_tanh=head.use_tanh))
             if need_attn:
                 att_maps.append(att)
+        return fake_imgs, att_maps, mu, logvar
+
+
+class GSRNetLowStage1(nn.Module):
+    """= G_SR_NET_low_stage1 (model.py:81-130; JAX's GSRNetLowStage1,
+    tgsr_tpu/models/generator.py:188-230), the EVAL.STAGE1 ablation: word
+    attention at the first stage only, no BN anywhere. h_net1 is
+    INIT_STAGE_GImgup without BN; then the shared `up1` (conv3x3(ngf ->
+    2ngf) -> LeakyReLU(0.2) -> upBlocknoBN(2ngf -> ngf)) and a plain no-BN
+    ResBlock, twice (h_net2, h_net3); every image head has a tanh. The
+    reference calls `up1` for both steps (model.py:116, :123): it is one
+    module called twice, and the declared `up2` never runs, so its keys in a
+    reference `.pth` are dead weights (`checkpoints.reference` drops them,
+    as JAX's convert_netg_low_stage1 does). The attention maps of stages 2
+    and 3 are the first stage's, nearest-upsampled.
+
+    Same call as GSRNetLow. No upsample of it feeds an image head alone, so
+    it has no fused up-head site (`up_head` must be None): served in float32
+    or bfloat16, it launches the attention once a forward and its netGH the
+    one up-head site."""
+
+    tied = False
+    head_only_upblocks = frozenset()
+    has_up_head_site = False
+
+    def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100, r_num: int = 2):
+        super().__init__()
+        self.n_stages = 3
+        self.ca_net = CANet(cdf, c_dim)
+        self.h_net1 = InitStageGImgUp(ngf, cdf, r_num, use_bn=False)
+        self.up1 = nn.Sequential(conv3x3(ngf, ngf * 2), nn.LeakyReLU(LEAKY_SLOPE),
+                                 UpBlockNoBN(ngf * 2, ngf))
+        self.h_net2 = ResBlock(ngf, use_bn=False)
+        self.h_net3 = ResBlock(ngf, use_bn=False)
+        for s in range(1, 4):
+            setattr(self, f"img_net{s}", GetImageG(ngf, use_tanh=True))
+
+    def forward(self, lr, sent, words, mask: Optional[torch.Tensor],
+                need_attn: bool = False,
+                up_head: Optional[Callable[..., torch.Tensor]] = None):
+        if up_head is not None:
+            raise ValueError("GSRNetLowStage1 has no fused up-head site")
+        mu, logvar = self.ca_net(sent)
+        h1, att = self.h_net1(lr, words, mask, need_attn)
+        h2 = self.h_net2(self.up1(h1))
+        h3 = self.h_net3(self.up1(h2))
+        fake_imgs = [self.img_net1(h1), self.img_net2(h2), self.img_net3(h3)]
+        att_maps: List[torch.Tensor] = []
+        if need_attn:
+            att_maps = [att, F.interpolate(att, scale_factor=2, mode="nearest"),
+                        F.interpolate(att, scale_factor=4, mode="nearest")]
         return fake_imgs, att_maps, mu, logvar

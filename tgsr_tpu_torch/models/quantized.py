@@ -15,12 +15,14 @@ buffers:
 - `QuantResBlock` (ResBlock and the residual sequences of `split_res`):
   conv1 over all 2c channels in one launch with the folded BN, glu_requant
   with conv2's scale, conv2 whose epilogue takes the float32 sums through
-  its BN in float32, casts, and adds x (no skip for a residual sequence).
+  its BN in float32, casts, and adds x (no skip for a residual sequence);
+  a ResBlock without BN (the stage-1 generator's) folds none.
   One conv1 over 2c channels equals JAX's value/gate split bit for bit in
   int32: weight quantization and the conv are both separable by output
   channel.
 - `QuantUpBlock`: quantize, int8 conv on the nearest-x2 upsample with the
-  folded BN, then GLU in the compute dtype; or, when its only consumer is an
+  folded BN (an UpBlockNoBN has none: JAX quantizes its conv's upsampled
+  input, the same int8 values), then GLU in the compute dtype; or, when its only consumer is an
   int8 head (FUSED_UP_OUT_CONSUMER, in the split set, and in the generator's
   `head_only_upblocks`: not the x16 upscale8x, whose 256 px output also
   feeds residual48), glu_requant with the head's scale, so the int8 leaves
@@ -40,7 +42,7 @@ from torch import nn
 
 from tgsr_tpu_torch.engine.quant import (FUSED_UP_OUT_CONSUMER, act_step, bn_affine,
                                          quantize_kernel)
-from tgsr_tpu_torch.ops.blocks import UpBlock, glu, nchw, nhwc
+from tgsr_tpu_torch.ops.blocks import UpBlock, UpBlockNoBN, glu, nchw, nhwc
 from tgsr_tpu_torch.ops.glu_requant import glu_requant, requant
 from tgsr_tpu_torch.ops.int8_conv import Int8Weight, int8_conv, pack_int8_weight
 
@@ -85,45 +87,53 @@ class QuantConv(_Int8Conv):
 
 class QuantResBlock(nn.Module):
     """conv1 -> BN -> GLU -> conv2 -> BN [+ x] of a Sequential(conv, BN, GLU,
-    conv, BN) (`block` of a ResBlock, or a residual sequence)."""
+    conv, BN) (`block` of a ResBlock, or a residual sequence), or conv1 ->
+    GLU -> conv2 [+ x] of a Sequential(conv, GLU, conv) (a no-BN ResBlock)."""
 
     def __init__(self, seq: nn.Sequential, scale1: float, scale2: float, skip: bool):
         super().__init__()
+        use_bn = len(seq) == 5
         self.conv1 = _Int8Conv(seq[0], scale1)
-        self.conv2 = _Int8Conv(seq[3], scale2)
-        for name, bn in (("bn1", seq[1]), ("bn2", seq[4])):
+        self.conv2 = _Int8Conv(seq[3 if use_bn else 2], scale2)
+        self.use_bn = use_bn
+        for name, bn in ((("bn1", seq[1]), ("bn2", seq[4])) if use_bn else ()):
             mul, add = bn_affine(bn)
             self.register_buffer(f"{name}_mul", mul)
             self.register_buffer(f"{name}_add", add)
         self.skip = skip
+
+    def bn(self, i: int):
+        return (getattr(self, f"bn{i}_mul"), getattr(self, f"bn{i}_add")) if self.use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x in the compute dtype, bfloat16 or float32; conv1's output and
         the GLU in that dtype, as JAX's `_res_block_split`. conv2's epilogue
         is the JAX block's tail: float32 sums, BN in float32, the cast, + x."""
         h = int8_conv(self.conv1.quantize(x), self.conv1.weight, self.conv1.scale,
-                      bn=(self.bn1_mul, self.bn1_add), out_dtype=x.dtype)
+                      bn=self.bn(1), out_dtype=x.dtype)
         hq = glu_requant(h, self.conv2.in_scale)
-        return nchw(int8_conv(hq, self.conv2.weight, self.conv2.scale,
-                              bn=(self.bn2_mul, self.bn2_add),
+        return nchw(int8_conv(hq, self.conv2.weight, self.conv2.scale, bn=self.bn(2),
                               residual=nhwc(x) if self.skip else None, out_dtype=x.dtype))
 
 
 class QuantUpBlock(nn.Module):
-    """nearest x2 -> int8 conv3x3 -> BN -> GLU; with `out_scale`, the GLU
+    """nearest x2 -> int8 conv3x3 -> [BN] -> GLU; with `out_scale`, the GLU
     output leaves as int8 quantized with that (its head's) scale."""
 
-    def __init__(self, up: UpBlock, scale: float, out_scale: Optional[float] = None):
+    def __init__(self, up: nn.Sequential, scale: float, out_scale: Optional[float] = None):
         super().__init__()
         self.conv = _Int8Conv(up.conv, scale)
-        mul, add = bn_affine(up.bn)
-        self.register_buffer("bn_mul", mul)
-        self.register_buffer("bn_add", add)
+        self.use_bn = up.bn is not None
+        if self.use_bn:
+            mul, add = bn_affine(up.bn)
+            self.register_buffer("bn_mul", mul)
+            self.register_buffer("bn_add", add)
         self.out_scale = out_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn = (self.bn_mul, self.bn_add) if self.use_bn else None
         y = int8_conv(self.conv.quantize(x), self.conv.weight, self.conv.scale,
-                      bn=(self.bn_mul, self.bn_add), out_dtype=x.dtype, up2=True)
+                      bn=bn, out_dtype=x.dtype, up2=True)
         if self.out_scale is not None:
             return nchw(glu_requant(y, self.out_scale))
         return nchw(glu(y, dim=-1))
@@ -158,7 +168,7 @@ def quantize_generator(generator: nn.Module, sites: Mapping[str, str],
             continue
         parent_path = path.rsplit(".", 1)[0]
         parent = gen.get_submodule(parent_path)
-        if isinstance(parent, UpBlock):
+        if isinstance(parent, (UpBlock, UpBlockNoBN)):
             head = FUSED_UP_OUT_CONSUMER.get(key)
             out_scale = (scales[head] if key in split_glu and head in scales
                          and key in head_only else None)

@@ -51,14 +51,14 @@ SIGNATURES = {
     },
     "up_head": {
         # x, w_up, bn_mul, bn_add, w_head, srb, a, out, B, H, W, Cin, C2, k,
-        # tanh, stream
-        "up_head_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
+        # tanh, a's row stride (0: a scalar a), stream
+        "up_head_launch": ([_P] * 8 + [_I] * 8 + [_P], _I),
         "up_head_smem_bytes": ([_I] * 3, ctypes.c_longlong),
     },
     "up_head_packed": {
         # x, w_up, bn_mul, bn_add, w_head, srb, a, out, B, H, W, Cin, C2,
-        # tanh, dtype, stream
-        "up_head_packed_launch": ([_P] * 8 + [_I] * 7 + [_P], _I),
+        # tanh, dtype, a's row stride (0: a scalar a), stream
+        "up_head_packed_launch": ([_P] * 8 + [_I] * 8 + [_P], _I),
         "up_head_packed_smem_bytes": ([_I] * 3, ctypes.c_longlong),
     },
     "glu_requant": {

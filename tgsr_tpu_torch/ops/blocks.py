@@ -3,8 +3,11 @@
 Modules run NCHW (channels_last memory on the card) and carry the
 reference's Sequential layouts, so their state-dict keys are the reference
 checkpoint's: an UpBlock is Sequential(Upsample, conv3x3, BN, GLU) with keys
-`1.weight` and `2.*`; a ResBlock keeps its Sequential under `block.{0,1,3,4}`.
-The free functions keep the JAX package's NHWC layout.
+`1.weight` and `2.*`; a ResBlock keeps its Sequential under `block.{0,1,3,4}`;
+without BN (the stage-1 generator's, util.py:83-88, :110-130) an UpBlockNoBN
+is Sequential(Upsample, conv3x3, GLU), key `1.weight`, and a ResBlock's
+Sequential holds `block.{0,2}`. The free functions keep the JAX package's
+NHWC layout.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ class GLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return glu(x, dim=1)
+
+
+# the JAX package's leaky_relu slope (tgsr_tpu/ops/blocks.py:46), the
+# reference's nn.LeakyReLU(0.2)
+LEAKY_SLOPE = 0.2
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
@@ -109,14 +117,32 @@ class UpBlock(nn.Sequential):
         return self[2]
 
 
-class ResBlock(nn.Module):
-    """conv3x3(c->2c) -> BN -> GLU -> conv3x3(c->c) -> BN, + identity
-    (= util.py:110-130)."""
+class UpBlockNoBN(nn.Sequential):
+    """nearest x2 -> conv3x3(in -> 2*out) -> GLU (= upBlocknoBN, util.py:83-88)."""
 
-    def __init__(self, ch: int):
+    def __init__(self, cin: int, cout: int):
+        super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
+                         conv3x3(cin, cout * 2), GLU())
+
+    @property
+    def conv(self) -> nn.Conv2d:
+        return self[1]
+
+    bn = None
+
+
+class ResBlock(nn.Module):
+    """conv3x3(c->2c) -> [BN] -> GLU -> conv3x3(c->c) -> [BN], + identity
+    (= util.py:110-130); without BN (`use_bn` False) the Sequential is
+    (conv, GLU, conv)."""
+
+    def __init__(self, ch: int, use_bn: bool = True):
         super().__init__()
-        self.block = nn.Sequential(conv3x3(ch, ch * 2), batch_norm(ch * 2),
-                                   GLU(), conv3x3(ch, ch), batch_norm(ch))
+        if use_bn:
+            self.block = nn.Sequential(conv3x3(ch, ch * 2), batch_norm(ch * 2),
+                                       GLU(), conv3x3(ch, ch), batch_norm(ch))
+        else:
+            self.block = nn.Sequential(conv3x3(ch, ch * 2), GLU(), conv3x3(ch, ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x) + x

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from tgsr_tpu_torch.ops.blocks import depth_to_space, glu, nchw, nhwc
 from tgsr_tpu_torch.ops.fused_upsample import fuse_upconv_kernel
+from tgsr_tpu_torch.ops.up_head import blend_weight
 
 
 def pack_head_kernel(wh: torch.Tensor) -> torch.Tensor:
@@ -113,8 +114,8 @@ def packed_up_head(x: torch.Tensor, wts: PackedUpHeadWeights,
                    a: Optional[Union[torch.Tensor, float]] = None,
                    use_tanh: bool = False, blend: bool = False) -> torch.Tensor:
     """Plain version of the packed kernel: x [B, H, W, Cin] in the working
-    type (float32 or bfloat16), `wts` in the same type, srb [B, 2H, 2W, 3].
-    Returns float32 [B, 2H, 2W, 3]."""
+    type (float32 or bfloat16), `wts` in the same type, srb [B, 2H, 2W, 3],
+    a a scalar or a [2H, 2W] map. Returns float32 [B, 2H, 2W, 3]."""
     g = packed_bn_glu(upconv2x_packed(x.float(), wts.w_up.float()),
                       wts.bn_mul.float(), wts.bn_add.float())
     y = packed_head_conv(g.to(x.dtype).float(), wts.w_head.float())
@@ -122,5 +123,5 @@ def packed_up_head(x: torch.Tensor, wts: PackedUpHeadWeights,
         y = torch.tanh(y)
     y = depth_to_space(y, 2)
     if blend:
-        y = y + torch.as_tensor(a, device=y.device).float() * srb.float()
+        y = y + blend_weight(torch.as_tensor(a, device=y.device).float()) * srb.float()
     return y

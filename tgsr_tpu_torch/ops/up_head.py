@@ -44,7 +44,8 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
 def reference_up_head(x, w_up, bn_mul, bn_add, w_head, srb=None, a=None,
                       use_tanh: bool = False, blend: bool = False):
     """Plain version: nearest x2 -> conv3x3 (SAME) -> folded BN -> GLU ->
-    k x k head (SAME) [-> tanh] [+ a * srb]. NHWC in, NHWC float32 out."""
+    k x k head (SAME) [-> tanh] [+ a * srb], a a scalar or a [2H, 2W] map.
+    NHWC in, NHWC float32 out."""
     h = F.conv2d(nchw(upsample_nearest2x(x)), w_up.permute(3, 2, 0, 1), padding=1)
     return up_head_tail(h, bn_mul, bn_add, w_head, srb, a, use_tanh, blend)
 
@@ -52,7 +53,8 @@ def reference_up_head(x, w_up, bn_mul, bn_add, w_head, srb=None, a=None,
 def up_head_tail(h, bn_mul, bn_add, w_head, srb=None, a=None,
                  use_tanh: bool = False, blend: bool = False):
     """The part after the up-conv: NCHW conv output -> folded BN -> GLU ->
-    k x k head (SAME) [-> tanh] [+ a * srb] -> NHWC float32."""
+    k x k head (SAME) [-> tanh] [+ a * srb] -> NHWC float32; a is a scalar
+    or a [2H, 2W] map (`blend_weight`)."""
     h = h * bn_mul[:, None, None] + bn_add[:, None, None]
     g = glu(h, dim=1)
     k = w_head.shape[0]
@@ -61,8 +63,26 @@ def up_head_tail(h, bn_mul, bn_add, w_head, srb=None, a=None,
         y = torch.tanh(y)
     y = nhwc(y)
     if blend:
-        y = y + a * srb
+        y = y + blend_weight(a) * srb
     return y
+
+
+def blend_weight(a):
+    """The blend weight as it multiplies an NHWC srb: a scalar as it is, a
+    [2H, 2W] map (EVAL.WEIGHTMAP) with a channel axis, broadcast over batch
+    and channel."""
+    return a[..., None] if torch.is_tensor(a) and a.dim() == 2 else a
+
+
+def blend_ld(a: torch.Tensor, h: int, w: int, what: str) -> int:
+    """The kernels' row stride of the blend weight: 0 for a scalar, 2W for
+    a [2H, 2W] map; ValueError for any other shape."""
+    if a.numel() == 1 and a.dim() <= 1:
+        return 0
+    if tuple(a.shape) == (2 * h, 2 * w):
+        return 2 * w
+    raise ValueError(f"{what}: a must be a scalar or a [2H, 2W] = [{2 * h}, {2 * w}] map, "
+                     f"not {list(a.shape)}")
 
 
 def _rna_tf32(v: torch.Tensor) -> torch.Tensor:
@@ -133,7 +153,7 @@ def fused_up_head(
     bn_add: torch.Tensor,  # [C2]
     w_head: torch.Tensor,  # [k, k, C2 // 2, 3]
     srb: Optional[torch.Tensor] = None,  # [B, 2H, 2W, 3]
-    a: Optional[Union[torch.Tensor, float]] = None,  # scalar blend weight
+    a: Optional[Union[torch.Tensor, float]] = None,  # scalar or [2H, 2W] blend weight
     use_tanh: bool = False,
     blend: bool = False,
 ) -> torch.Tensor:
@@ -148,7 +168,7 @@ def up_head_folded(
     wts: UpHeadWeights,
     x: torch.Tensor,  # [B, H, W, Cin]
     srb: Optional[torch.Tensor] = None,  # [B, 2H, 2W, 3]
-    a: Optional[Union[torch.Tensor, float]] = None,  # scalar blend weight
+    a: Optional[Union[torch.Tensor, float]] = None,  # scalar or [2H, 2W] blend weight
     use_tanh: bool = False,
     blend: bool = False,
 ) -> torch.Tensor:
@@ -180,11 +200,11 @@ def _up_head_op(x: torch.Tensor, w_up: torch.Tensor, bn_mul: torch.Tensor,
             or tuple(bn_mul.shape) != (c2,) or tuple(bn_add.shape) != (c2,)):
         raise ValueError("fused_up_head: weight shapes do not match x")
     tensors = [x, w_up, bn_mul, bn_add, w_head]
+    a_ld = 0
     if blend:
         if srb is None or a is None or tuple(srb.shape) != (b, 2 * h, 2 * w, 3):
             raise ValueError("fused_up_head: blend needs srb [B, 2H, 2W, 3] and a")
-        if a.numel() != 1:
-            raise ValueError("fused_up_head: a must be a scalar")
+        a_ld = blend_ld(a, h, w, "fused_up_head")
         tensors += [srb, a]
     for t in tensors:
         if t.device != x.device or not t.is_contiguous():
@@ -210,7 +230,7 @@ def _up_head_op(x: torch.Tensor, w_up: torch.Tensor, bn_mul: torch.Tensor,
             x.data_ptr(), w_frag.data_ptr(), bn_mul.data_ptr(), bn_add.data_ptr(),
             w_head.data_ptr(), srb.data_ptr() if blend else None,
             a.data_ptr() if blend else None, out.data_ptr(),
-            b, h, w, cin, c2, k, int(use_tanh),
+            b, h, w, cin, c2, k, int(use_tanh), a_ld,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from tgsr_tpu_torch.ops import _build
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
 from tgsr_tpu_torch.ops.packed_tail import PackedUpHeadWeights, pack_up_head, packed_up_head
+from tgsr_tpu_torch.ops.up_head import blend_ld
 
 NAME = "up_head_packed"
 C2_TC = (16, 32, 64)  # the bfloat16 kernel's instances
@@ -116,11 +117,12 @@ def fused_up_head_packed(
     x: torch.Tensor,  # [B, H, W, Cin] float32 or bfloat16
     wts: PackedUpHeadWeights,  # w_up and w_head in x's dtype, BN float32
     srb: Optional[torch.Tensor] = None,  # [B, 2H, 2W, 3] in x's dtype
-    a: Optional[Union[torch.Tensor, float]] = None,  # scalar blend weight
+    a: Optional[Union[torch.Tensor, float]] = None,  # scalar or [2H, 2W], x's dtype
     use_tanh: bool = False,
     blend: bool = False,
 ) -> torch.Tensor:
-    """Returns float32 [B, 2H, 2W, 3] = head(GLU(BN(conv(up2(x))))) [+a*srb]."""
+    """Returns float32 [B, 2H, 2W, 3] = head(GLU(BN(conv(up2(x))))) [+a*srb];
+    a one blend weight or a [2H, 2W] map of them (EVAL.WEIGHTMAP)."""
     _build.refuse_grad(NAME, x, srb, a, *wts)
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"fused_up_head_packed: x is {x.dtype}; the kernel "
@@ -153,11 +155,11 @@ def _up_head_packed_op(x: torch.Tensor, w_up: torch.Tensor, bn_mul: torch.Tensor
         raise ValueError("fused_up_head_packed: weight shapes do not match x")
     tensors = [(x, x.dtype), (w_up, x.dtype), (w_head, x.dtype),
                (bn_mul, torch.float32), (bn_add, torch.float32)]
+    a_ld = 0
     if blend:
         if srb is None or a is None or tuple(srb.shape) != (b, 2 * h, 2 * w, 3):
             raise ValueError("fused_up_head_packed: blend needs srb [B, 2H, 2W, 3] and a")
-        if a.numel() != 1:
-            raise ValueError("fused_up_head_packed: a must be a scalar")
+        a_ld = blend_ld(a, h, w, "fused_up_head_packed")
         tensors += [(srb, x.dtype), (a, x.dtype)]
     for t, dtype in tensors:
         if t.device != x.device or not t.is_contiguous():
@@ -194,7 +196,7 @@ def _up_head_packed_op(x: torch.Tensor, w_up: torch.Tensor, bn_mul: torch.Tensor
             x.data_ptr(), w_up.data_ptr(), bn_mul.data_ptr(),
             bn_add.data_ptr(), w_head.data_ptr(),
             srb.data_ptr() if blend else None, a.data_ptr() if blend else None,
-            out.data_ptr(), b, h, w, cin, c2, int(use_tanh), code,
+            out.data_ptr(), b, h, w, cin, c2, int(use_tanh), code, a_ld,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
