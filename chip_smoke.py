@@ -92,7 +92,13 @@ profile; x16 bfloat16 with the blur and maps; rows 2 and 3 blending a
 per-pixel map against their plain versions, timed beside the scalar; the
 weight-map program exported and loaded; GAN steps with the blur and maps (the
 card's step against a float64 CPU step, B = 16 steps, an x16 step, a
-snapshot served back); the HF branch's library modules on the card. Prints
+snapshot served back); the HF branch's library modules on the card. The
+GRU text encoder (gru_phase: RNN_TYPE 'GRU' in float32, bfloat16 and int8
+against the CPU with the LSTM path's launches, replay, an exported program,
+the text encoders timed, a GAN and a DAMSM step against the CPU) and the
+library the JAX package exports (library_phase: the blocks, weighted
+attention, variants, ESRGANDNet, VGG16, orthogonal_reinit and the loss
+families, each on the card against the CPU). Prints
 one JSON line of per-kernel numbers, then, as the last line, {"ok": true,
 "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
@@ -4569,6 +4575,328 @@ def eval_variants_phase(torch, rng, card, tmp):
     return launches, rows
 
 
+def gru_phase(torch, rng, card, tmp):
+    """RNN_TYPE 'GRU' through the serving, export and training entry points
+    (face S8 at full width: EMBEDDING_DIM 256, T 18, seeded weights). Per
+    path (float32, bfloat16, int8 with scales from calibrate_quant on the
+    card): one eager forward at B = 8 with the LSTM path's launches (3
+    attention; 2 up_head / up_head_packed; int8 3 / 42 / 6 / 10 / 26) against
+    the same pipeline on the CPU (float32 max abs error <= 1e-3; bfloat16 >=
+    40 dB against the CPU's float32; int8 >= 40 dB against the CPU's int8 on
+    4 images and >= INT8_PSNR_FLOOR against float32), then sr_batched at
+    B = 64 (a graph replay) bit for bit the eager __call__. The bfloat16
+    pipeline exported (symbolic batch) and loaded as an AOTPipeline, bit for
+    bit the live one at B = 1 and 3. The GRU text encoder's device ms at
+    B = 64 beside the LSTM's. One float32 GAN step (D frozen) and one DAMSM
+    step (Inception) with a GRU text encoder against the CPU, by
+    `step_against_cpu` and `damsm_step_against_cpu`. Returns the launches of
+    each path's runs."""
+    import dataclasses
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded, seeded_text_state_dict
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine import aot
+    from tgsr_tpu_torch.engine.inference import SRPipeline, to_uint8
+    from tgsr_tpu_torch.models.text_encoder import TextEncoder
+    from tgsr_tpu_torch.ops import _build
+
+    cfg = dataclasses.replace(face_s8_config(), RNN_TYPE="GRU")
+    vocab = 41
+    sds = init_seeded(cfg, vocab, torch.Generator().manual_seed(19))
+    check(tuple(sds[0]["rnn.weight_hh_l0"].shape) == (3 * 128, 128),
+          "gru: the seeded text encoder holds a GRU's [3H, H] recurrent weights")
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+
+    def batch(n):
+        lr = rng.integers(0, 256, (n, 32, 32, 3)).astype("uint8")
+        lens = rng.integers(1, T + 1, n)
+        lens[min(1, n - 1)] = 0  # an empty caption
+        cap = rng.integers(1, vocab, (n, T))
+        cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+        return lr, cap, lens
+
+    lr8, cap8, lens8 = batch(8)
+    lr8f = lr8.astype("float32") / 127.5 - 1.0
+    step_batch = train_batch(torch, rng, 4, device="cpu")
+    ref = SRPipeline(cfg, vocab, *sds, device="cpu")(lr8f, cap8, lens8)["sr"]
+    lr64, cap64, lens64 = batch(64)
+    lrc, capc, lensc = batch(16)
+    launches, scales = {}, None
+    for tag in ("float32", "bfloat16", "int8"):
+        per_forward = dict(zero, **PATH_KERNELS[tag])
+        kw = dict(compute_dtype=torch.float32 if tag == "float32" else torch.bfloat16)
+        if tag == "int8":
+            kw["quant_scales"] = scales
+        kern = SRPipeline(cfg, vocab, *sds, device="cuda", **kw)
+        _build.reset_launches()
+        got = kern(lr8f, cap8, lens8)["sr"]
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        check(counts == per_forward and kern.text_encoder.rnn_type == "GRU",
+              f"gru {tag}: one forward launches the LSTM path's {PATH_KERNELS[tag]} ({counts})")
+        check(tuple(got.shape) == (8, 256, 256, 3) and bool(torch.isfinite(got).all())
+              and float(got.std()) > 1e-3, f"gru {tag}: SR finite, not constant, "
+                                           f"{tuple(got.shape)}")
+        if tag == "float32":
+            err = (got.cpu() - ref).abs().max().item()
+            check(err <= 1e-3, f"gru float32: SR on the card == the CPU's (max abs err "
+                               f"{err:.3e} <= 1e-3)")
+        elif tag == "bfloat16":
+            psnr = psnr_u8(got, ref)
+            check(psnr >= 40, f"gru bfloat16 on the card vs float32 on the CPU: PSNR "
+                              f"{psnr:.2f} dB >= 40")
+        else:
+            cref = SRPipeline(cfg, vocab, *sds, device="cpu", **kw)(
+                lr8f[:4], cap8[:4], lens8[:4])["sr"]
+            psnr_cpu, psnr = psnr_u8(got[:4], cref), psnr_u8(got, ref)
+            check(psnr_cpu >= 40 and psnr >= INT8_PSNR_FLOOR,
+                  f"gru int8 on the card vs int8 on the CPU (same scales): PSNR {psnr_cpu:.2f} "
+                  f"dB >= 40; vs float32 on the CPU {psnr:.2f} dB >= {INT8_PSNR_FLOOR}")
+        kern.sr_batched(lr64, cap64, lens64, microbatch=64)  # captures
+        _build.reset_launches()
+        out = kern.sr_batched(lr64, cap64, lens64, microbatch=64)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES == zero and _build.REPLAYED == per_forward,
+              f"gru {tag}: one replay at B = 64 launched the captured counts "
+              f"({_build.REPLAYED}) and nothing eagerly")
+        launches[f"gru {tag}"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in zero}
+        with torch.inference_mode():
+            lr_f = torch.as_tensor(lr64, device="cuda").float() / 127.5 - 1.0
+            eager = to_uint8(kern(lr_f, cap64, lens64)["sr"]).cpu().numpy()
+        check(np.array_equal(out, eager), f"gru {tag}: sr_batched at B = 64 (replay) == the "
+                                          f"eager __call__, bit for bit "
+                                          f"({int((out != eager).sum())} values differ)")
+        if tag == "bfloat16":
+            scales = kern.calibrate_quant(lrc.astype("float32") / 127.5 - 1.0, capc, lensc)
+            t0 = time.perf_counter()
+            art = aot.AOTPipeline(aot.export_serving(kern, os.path.join(tmp, "aot_gru")))
+            t_export = time.perf_counter() - t0
+            lr3 = lr64[:3].astype("float32") / 127.5 - 1.0
+            _build.reset_launches()
+            got_art = {b: art.sr_uint8(lr3[:b], cap64[:b], lens64[:b]) for b in (1, 3)}
+            torch.cuda.synchronize()
+            replayed = dict(_build.REPLAYED)
+            launches["gru aot"] = {k: _build.LAUNCHES[k] + replayed[k] for k in zero}
+            same = {b: bool(np.array_equal(g, kern.sr_uint8(lr3[:b], cap64[:b], lens64[:b])))
+                    for b, g in got_art.items()}
+            check(all(same.values()) and replayed == {k: 2 * v for k, v in per_forward.items()},
+                  f"gru aot bfloat16: the exported GRU program == the live pipeline bit for "
+                  f"bit at B = 1, 3 ({same}; export and load {t_export:.1f} s, replayed "
+                  f"{replayed})")
+            del art
+        del kern
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the text encoder alone at B = 64, GRU beside LSTM
+    capd = torch.as_tensor(cap64, device="cuda")
+    lensd = torch.as_tensor(lens64, device="cuda")
+    times = {}
+    for rnn in ("LSTM", "GRU"):
+        c = dataclasses.replace(cfg, RNN_TYPE=rnn)
+        te = TextEncoder(vocab, 300, 256, rnn_type=rnn)
+        te.load_state_dict(seeded_text_state_dict(c, vocab, torch.Generator().manual_seed(20)))
+        te = te.cuda().eval().requires_grad_(False)
+        with torch.inference_mode():
+            eager = cuda_ms_median(lambda: te(capd, lensd), repeats=3, iters=10)
+            # its device time: the same forward captured and replayed, the
+            # host's launch gaps gone (2 x 18 steps of small kernels)
+            te(capd, lensd)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                te(capd, lensd)
+            times[rnn] = (eager, cuda_ms_median(graph.replay, repeats=3, iters=10))
+            del graph
+    for rnn, (ms, dms) in times.items():
+        print(f"  text encoder {rnn} B=64 T={T}: {ms:.4f} ms eager (events), {dms:.4f} ms "
+              f"under graph replay, on {card}", flush=True)
+    check(all(np.isfinite(v).all() for v in times.values()),
+          f"gru: the text encoders timed ({times})")
+
+    # one GAN step (D frozen: G's step reads the GRU's words) and one DAMSM step
+    print("  gru: the GAN step and the DAMSM step below train with a GRU text encoder",
+          flush=True)
+    # its CPU steps run alone: in a thread beside the CPU references above the
+    # CPU float32 step's error (the gate's unit) moved (PERF.md, §7)
+    step_against_cpu(torch, cfg, sds[0], step_batch, d_lrs=(0.0,))
+    damsm_step_against_cpu(torch, dataclasses.replace(damsm_config(), RNN_TYPE="GRU"),
+                           damsm_batch(rng, DAMSM_CPU_B))
+    return launches
+
+
+def _loss_closures(torch, gen, device, sizes, b, e=256, r=289):
+    """Small closures for the loss families (the discriminators of `sizes`,
+    an image encoder, their weights drawn from `gen` on the CPU) and their
+    inputs, on `device`: (ds, image_encoder, fakes, reals, sent, words,
+    cap_lens, class_ids, word_scale)."""
+    n = lambda *shape: torch.randn(shape, generator=gen)
+    d = [{"wf": n(3, 16), "wc": n(16), "ws": n(e) * 0.05, "wu": n(16)} for _ in sizes]
+    enc = {"we": n(3, e), "wcode": n(e, e) * 0.05}
+    imgs = [[n(b, 3, s, s).clamp(-1, 1) for s in sizes] for _ in range(2)]
+    lens = torch.randint(1, T + 1, (b,), generator=gen)
+    mv = lambda x: x.to(device)
+    d = [{k: mv(v) for k, v in p.items()} for p in d]
+    enc = {k: mv(v) for k, v in enc.items()}
+
+    def scale(p):
+        return (lambda img: torch.tanh(img.mean(dim=(2, 3)) @ p["wf"]),
+                lambda f, sent: f @ p["wc"] + sent @ p["ws"], lambda f: f @ p["wu"])
+
+    def image_encoder(img):
+        regions = img.flatten(2).transpose(1, 2)[:, :r] @ enc["we"]
+        return regions, regions.mean(dim=1) @ enc["wcode"]
+
+    return ([scale(p) for p in d], image_encoder, [[mv(x) for x in s] for s in imgs],
+            mv(n(b, e)), mv(n(b, T, e)), mv(lens), mv(torch.arange(b) % 3),
+            mv(torch.rand((b, T), generator=gen) + 0.5))
+
+
+def library_phase(torch):
+    """The library the JAX package exports and no entry point builds, one
+    call of each module and loss on the card against the same call on the
+    CPU (TF32 off; max abs error <= 1e-3): the blocks DownBlock, Block3x3Relu,
+    PlainResidualBlock; WordPixelAttentionWeighted, word_region_attention;
+    every module of models/variants.py at GF_DIM 32 and nef 256 (the stages
+    that attend, InitStageGImg and NextStageGLR, through row 1's kernel,
+    their launches counted under the path "library"); ESRGANDNet (ndf 64,
+    128 px); VGG16Features (64 px); orthogonal_reinit (the same draw on the
+    card as on the CPU); the loss families of losses/gan.py and
+    losses/mani.py on small closures (VGG16Features as the Mani loss's VGG).
+    Returns {"library": launches}."""
+    import copy
+
+    from tgsr_tpu_torch.checkpoints.from_jax import _seed_module
+    from tgsr_tpu_torch.losses import gan as lg
+    from tgsr_tpu_torch.losses import mani as lm
+    from tgsr_tpu_torch.models import variants as v
+    from tgsr_tpu_torch.models.discriminator import ESRGANDNet
+    from tgsr_tpu_torch.models.vgg import VGG16Features
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.ops import attention as att
+    from tgsr_tpu_torch.ops import blocks
+    from tgsr_tpu_torch.utils.init import orthogonal_reinit
+
+    gen = torch.Generator().manual_seed(21)
+    u = lambda *shape: torch.rand(shape, generator=gen) * 2 - 1
+    words = u(2, T, 256)
+    mask = torch.arange(T)[None, :] >= torch.tensor([T, 5])[:, None]
+    cases = (
+        ("DownBlock", blocks.DownBlock(32, 64), (u(2, 32, 64, 64),)),
+        ("Block3x3Relu", blocks.Block3x3Relu(64, 32), (u(2, 64, 64, 64),)),
+        ("PlainResidualBlock", blocks.PlainResidualBlock(64, use_norm=True),
+         (u(2, 64, 64, 64),)),
+        ("WordPixelAttentionWeighted", att.WordPixelAttentionWeighted(32, 256),
+         (u(2, 32, 64, 64), words, mask)),
+        ("InitStageG", v.InitStageG(512, 200), (u(2, 100), u(2, 100))),
+        ("InitStageGup4", v.InitStageGup4(512, 200), (u(2, 100), u(2, 100))),
+        ("InitStageGim", v.InitStageGim(32, 8, 100), (u(2, 3, 32, 32), u(2, 100))),
+        ("InitStageGf", v.InitStageGf(32, 8, 100, 32), (u(2, 32, 32, 32), u(2, 100))),
+        ("InitStageGfc", v.InitStageGfc(32, 8, 100), (u(2, 100),)),
+        ("InitStageGfc scale 1", v.InitStageGfc(32, 1, 100), (u(2, 100),)),
+        ("InitStageGImg", v.InitStageGImg(32, 2, cdf=256), (u(2, 3, 32, 32), words, mask)),
+        ("InitStageGImg weightatten", v.InitStageGImg(32, 2, True, cdf=256),
+         (u(2, 3, 32, 32), words, mask)),
+        ("NextStageGNoAttn", v.NextStageGNoAttn(32, 2, 32), (u(2, 32, 64, 64),)),
+        ("NextStageGLR", v.NextStageGLR(32, 2, 256), (u(2, 32, 64, 64), words, mask)),
+        ("EDCoder", v.EDCoder(32), (u(2, 3, 64, 64),)),
+        ("IAWD", v.IAWD(256, 32), (u(2, 32, 16, 16), words)),
+        ("WordAtten", v.WordAtten(256, 32), (u(2, 32, 16, 16), words)),
+        ("IAWDSent", v.IAWDSent(32), (u(2, 32, 32, 32), u(2, 256))),
+        ("IAWDWord", v.IAWDWord(32), (u(2, 32, 32, 32), u(2, 256, T))),
+        ("IAWDSpatial", v.IAWDSpatial(), (u(2, 32, 16, 16), words)),
+        ("ESRGANDNet", ESRGANDNet(64), (u(2, 3, 128, 128),)),
+        ("VGG16Features", VGG16Features(), (u(2, 3, 64, 64),)),
+    )
+    zero = {name: 0 for name in _build.LAUNCH_NAMES}
+    library = dict(zero)
+    for name, m, args in cases:
+        _seed_module(m, gen)
+        m.eval().requires_grad_(False)
+        with torch.no_grad():
+            ref = m(*args)
+            mc = copy.deepcopy(m).cuda()
+            _build.reset_launches()
+            got = mc(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            for k in zero:
+                library[k] += _build.LAUNCHES[k]
+        ref, got = (x if isinstance(x, (tuple, list)) else (x,) for x in (ref, got))
+        err = max((g.cpu() - r).abs().max().item() for g, r in zip(got, ref) if r is not None)
+        check(err <= 1e-3, f"library {name}: one forward on the card == the CPU's (max abs err "
+                           f"{err:.3e} <= 1e-3)")
+    check(library["word_pixel_attention"] == 2,
+          f"library: InitStageGImg and NextStageGLR went through row 1's kernel, one launch "
+          f"each ({library['word_pixel_attention']})")
+    regions, w4 = u(2, 289, 256), words
+    ctx = [att.word_region_attention(w4.to(dev), regions.to(dev), 4.0, mask.to(dev))[0].cpu()
+           for dev in ("cpu", "cuda")]
+    err = (ctx[1] - ctx[0]).abs().max().item()
+    check(err <= 1e-3, f"library word_region_attention on the card == the CPU's ({err:.3e})")
+    m_cpu, m_card = ESRGANDNet(64), ESRGANDNet(64).cuda()
+    orthogonal_reinit(m_cpu, torch.Generator().manual_seed(22))
+    orthogonal_reinit(m_card, torch.Generator().manual_seed(22))
+    err = max((m_card.state_dict()[k].cpu() - x).abs().max().item()
+              for k, x in m_cpu.state_dict().items())
+    check(err <= 1e-6, f"library orthogonal_reinit on the card == on the CPU ({err:.3e})")
+
+    vgg = VGG16Features()
+    _seed_module(vgg, gen)
+    vggs = {"cpu": vgg.eval(), "cuda": copy.deepcopy(vgg).cuda().eval()}
+    losses = {
+        "generator_loss word_scale": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg: lg.generator_loss(
+            ds, en, fk, s, w, ln, ci, word_scale=ws),
+        "generator_loss_oneim": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.generator_loss_oneim(ds[-1], en, fk, s, w, ln, ci),
+        "discriminator_loss_sigmoid": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.discriminator_loss_sigmoid(*ds[-1], rl[-1], fk[-1], s),
+        "generator_loss_sigmoid": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.generator_loss_sigmoid(ds, en, fk, s, w, ln, ci),
+        "generator_loss_wordsent_only": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.generator_loss_wordsent_only(en, fk, s, w, ln, ci),
+        "generator_loss_no_wordsent": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.generator_loss_no_wordsent(ds, fk, s),
+        "generator_loss_face": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.generator_loss_face(ds, en, fk, s, w, ln, ci, g=[0.5, 1.5]),
+        "generator_loss_uncond": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.generator_loss_uncond(ds, fk),
+        "discriminator_loss_uncond": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.discriminator_loss_uncond(ds[0][0], ds[0][2], rl[0], fk[0]),
+        "esrgan_g_loss": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.esrgan_g_loss(lambda x: ds[1][2](ds[1][0](x)), fk[1], rl[1]),
+        "esrgan_d_loss": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.esrgan_d_loss(lambda x: ds[1][2](ds[1][0](x)), rl[1], fk[1]),
+        "relativistic_g_loss": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.relativistic_g_loss(ds[0][0], ds[0][2], fk[0], rl[0]),
+        "relativistic_d_loss": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lg.relativistic_d_loss(ds[0][0], ds[0][2], rl[0], fk[0]),
+        "word_level_correlation": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lm.word_level_correlation(en(rl[-1])[0], w, ln, (ci > 0).float()),
+        "discriminator_loss_mani": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lm.discriminator_loss_mani(*ds[-1], rl[-1], fk[-1], s, en, w, ln),
+        "generator_loss_mani": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lm.generator_loss_mani(ds, en, vg, fk, rl, s, w, ln, ci),
+        "dcm_generator_loss": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg:
+            lm.dcm_generator_loss(*ds[-1], en, fk[-1], s, w, ln, ci),
+    }
+    for name, fn in losses.items():
+        vals = {}
+        for dev in ("cpu", "cuda"):
+            ds, en, (fk, rl), s, w, ln, ci, ws = _loss_closures(
+                torch, torch.Generator().manual_seed(23), dev, (64, 128), 2)
+            with torch.no_grad():
+                out = fn(ds, en, fk, rl, s, w, ln, ci, ws, vggs[dev])
+            out = out if isinstance(out, tuple) else (out, {})
+            vals[dev] = {"total": out[0], **out[1]}
+        both_nan = all(bool(torch.isnan(x["total"]).all()) for x in vals.values())
+        err = 0.0 if both_nan else max(
+            (vals["cuda"][k].cpu() - x).abs().max().item() for k, x in vals["cpu"].items())
+        check(err <= 1e-3 and sorted(vals["cuda"]) == sorted(vals["cpu"]),
+              f"library loss {name} on the card == the CPU's ({len(vals['cpu'])} terms, max "
+              f"abs err {err:.3e} <= 1e-3{'; NaN in both, as JAX' if both_nan else ''})")
+    return {"library": library}
+
+
 def step_readings(torch, seeds: list, out_path: str, damsm: bool = False) -> int:
     """`step_against_cpu` on the face S8 batches of `seeds`: per card step,
     the 10th, 50th and 90th percentiles and the largest relative L2 error on
@@ -4731,6 +5059,14 @@ def main() -> int:
                                                          tmp)
     launches.update(variant_launches)
     print(f"eval variants phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a stream of its own: the other phases' data does not depend on it
+        launches.update(gru_phase(torch, np.random.default_rng(19), card, tmp))
+    print(f"gru phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(library_phase(torch))
+    print(f"library phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows

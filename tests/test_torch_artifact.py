@@ -142,13 +142,14 @@ def test_fingerprint_mismatch_raises(setup, tmp_path):
 
 
 def test_unsupported_config_raises(setup, tmp_path):
-    """A config.json the port does not serve (the GRU text encoder) raises;
+    """A config.json the port does not serve (an RNN_TYPE other than LSTM
+    and GRU) raises;
     a weight-map bundle (EVAL.WEIGHTMAP, 'lr-lrblur', at BASE_SIZE 32, where
     the x8 maps fit) saves its maps a1..a3 in netgh and no `a`, and loads
     back bit for bit."""
     SRPipeline(setup["tcfg"], VOCAB, *setup["sds"], device="cpu").save_artifact(str(tmp_path))
     cfg = json.load(open(tmp_path / "config.json"))
-    cfg["RNN_TYPE"] = "GRU"
+    cfg["RNN_TYPE"] = "RNN_TANH"
     json.dump(cfg, open(tmp_path / "config.json", "w"))
     with pytest.raises(NotImplementedError, match="RNN_TYPE"):
         SRPipeline.load_artifact(str(tmp_path), device="cpu")

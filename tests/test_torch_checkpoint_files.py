@@ -88,7 +88,7 @@ def test_config_dict_round_trips_with_jax():
 
 
 @pytest.mark.parametrize("section, key, value", [
-    ("TREE", "BRANCH_NUM", 3), ("TREE", "BRANCH_NUM", 6), (None, "RNN_TYPE", "GRU"),
+    ("TREE", "BRANCH_NUM", 3), ("TREE", "BRANCH_NUM", 6), (None, "RNN_TYPE", "RNN_TANH"),
 ])
 def test_config_refuses_what_the_port_does_not_serve(section, key, value):
     d = jconfig.config_to_dict(_jax_face_s8())

@@ -279,7 +279,8 @@ def test_device_preprocess_matches_jax(with_blur):
 
 def test_x16_and_the_image_encoder_are_refused():
     """The families the port does not train are refused by name: BRANCH_NUM
-    3 and the GRU text encoder (x16, BRANCH_NUM 5, trains:
+    3 and a text encoder other than the LSTM and the GRU (the GRU trains:
+    tests/test_torch_gru_paths.py; x16, BRANCH_NUM 5, trains:
     tests/test_torch_gan_trainer_x16.py); an image encoder that is not a
     DAMSM encoder module is refused (the DAMSM terms take a CNNEncoder or
     SimpleCNNEncoder, tests below)."""
@@ -290,8 +291,8 @@ def test_x16_and_the_image_encoder_are_refused():
     _, tcfg3 = train_configs(branch_num=3)
     with pytest.raises(NotImplementedError, match="BRANCH_NUM = 3"):
         GANTrainer(tcfg3, VOCAB, tv, device="cpu")
-    with pytest.raises(NotImplementedError, match="RNN_TYPE = 'GRU'"):
-        GANTrainer(dataclasses.replace(tcfg, RNN_TYPE="GRU"), VOCAB, tv, device="cpu")
+    with pytest.raises(NotImplementedError, match="RNN_TYPE = 'RNN_TANH'"):
+        GANTrainer(dataclasses.replace(tcfg, RNN_TYPE="RNN_TANH"), VOCAB, tv, device="cpu")
     _, tcfg16 = train_configs(branch_num=5)
     assert GANTrainer(tcfg16, VOCAB, tv, device="cpu").sizes == [8, 16, 32, 64]
     with pytest.raises(TypeError, match="CNNEncoder"):

@@ -1744,3 +1744,83 @@ def test_pipeline_eval_variants_card_matches_cpu(cuda_device, variant, dtype):
         assert 10 * np.log10(4.0 / d.square().mean().item()) >= 40
     eager = to_uint8(got["sr"])
     assert np.array_equal(kern.sr_uint8(lr, cap, lens), eager.cpu().numpy())
+
+
+# -- the GRU text encoder and the library modules (no kernel of their own) -----
+
+@pytest.mark.parametrize("path", ["float32", "bfloat16", "int8"])
+def test_gru_graph_replay_equals_eager(cuda_device, path):
+    """A GRU text encoder (RNN_TYPE 'GRU'): the forward replayed at B = 3
+    (graph batch 4) launches the LSTM path's kernels and equals the uint8 of
+    the eager __call__ bit for bit."""
+    cfg = Config(RNN_TYPE="GRU", TREE=TreeConfig(4, 8),
+                 GAN=GanConfig(32 if path == "int8" else 8, 10, 2), TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(1))
+    kw = {} if path == "float32" else dict(compute_dtype=torch.bfloat16)
+    if path == "int8":
+        lr, cap, lens = _serving_batch(4, seed=9)
+        kw["quant_scales"] = SRPipeline(cfg, 41, *sds, device=cuda_device, **kw
+                                        ).calibrate_quant(lr / 127.5 - 1.0, cap, lens)
+    pipe = SRPipeline(cfg, 41, *sds, device=cuda_device, **kw)
+    assert pipe.text_encoder.rnn_type == pipe.cfg.RNN_TYPE == "GRU"
+    lr, cap, lens = _serving_batch(3, seed=2)
+    pipe.forward_scan(lr[None], cap[None], lens[None])  # captures
+    _build.reset_launches()
+    got = pipe.forward_scan(lr[None], cap[None], lens[None])[0]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == ZERO
+    assert _build.REPLAYED == dict(ZERO, **PATH_LAUNCHES[path])
+    sel = np.arange(4) % 3
+    lrf = torch.as_tensor(lr, device=cuda_device).float() / 127.5 - 1.0
+    assert torch.equal(got, to_uint8(pipe(lrf[sel], cap[sel], lens[sel])["sr"])[:3])
+
+
+def test_weighted_attention_on_the_card_matches_the_cpu(cuda_device):
+    """WordPixelAttentionWeighted (plain torch on every device) on the card
+    against the CPU, TF32 off: rtol = atol = 1e-5, attention maps too."""
+    from tgsr_tpu_torch.ops.attention import WordPixelAttentionWeighted
+
+    gen = torch.Generator().manual_seed(3)
+    m = WordPixelAttentionWeighted(32, 256)
+    torch.nn.init.normal_(m.conv_context.weight, std=0.05, generator=gen)
+    px = torch.randn(4, 32, 64, 64, generator=gen)
+    words = torch.randn(4, 18, 256, generator=gen)
+    mask = torch.arange(18)[None, :] >= torch.tensor([18, 3, 0, 9])[:, None]
+    with torch.no_grad():
+        ref = m(px, words, mask, need_attn=True)
+        got = m.to(cuda_device)(px.to(cuda_device), words.to(cuda_device),
+                                mask.to(cuda_device), need_attn=True)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["InitStageGImg", "NextStageGLR", "EDCoder", "InitStageGim"])
+def test_variants_on_the_card_match_the_cpu(cuda_device, name):
+    """Library stages of models/variants.py at GF_DIM 32 on the card against
+    the CPU in eval mode (TF32 off, max abs error <= 1e-3); the two that
+    attend launch row 1's kernel once."""
+    from tgsr_tpu_torch.checkpoints.from_jax import _seed_module
+    from tgsr_tpu_torch.models import variants
+
+    gen = torch.Generator().manual_seed(4)
+    u = lambda *s: torch.rand(s, generator=gen) * 2 - 1
+    words = u(2, 18, 256)
+    mask = torch.arange(18)[None, :] >= torch.tensor([18, 4])[:, None]
+    m, args, attends = {
+        "InitStageGImg": (variants.InitStageGImg(32, 2, cdf=256), (u(2, 3, 32, 32), words, mask),
+                          1),
+        "NextStageGLR": (variants.NextStageGLR(32, 2, 256), (u(2, 32, 64, 64), words, mask), 1),
+        "EDCoder": (variants.EDCoder(32), (u(2, 3, 64, 64),), 0),
+        "InitStageGim": (variants.InitStageGim(32, 8, 100), (u(2, 3, 32, 32), u(2, 100)), 0),
+    }[name]
+    _seed_module(m, gen)
+    m.eval().requires_grad_(False)
+    with torch.no_grad():
+        ref = m(*args)
+        _build.reset_launches()
+        got = m.to(cuda_device)(*(a.to(cuda_device) for a in args))
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES["word_pixel_attention"] == attends
+    ref, got = (x if isinstance(x, tuple) else (x,) for x in (ref, got))
+    for g, r in zip(got, ref):
+        assert (g.cpu() - r).abs().max().item() <= 1e-3

@@ -41,7 +41,8 @@ def _port_files():
 def test_walk_covers_every_port_package():
     """The walk reaches each subpackage of the port, the CLIs included."""
     dirs = {os.path.relpath(os.path.dirname(p), ROOT) for p in _port_files()}
-    for sub in ("cli", "data", "engine", "ops", "checkpoints", "models", "utils", "probes"):
+    for sub in ("cli", "data", "engine", "ops", "checkpoints", "models", "utils", "probes",
+                "losses"):
         assert os.path.join("tgsr_tpu_torch", sub) in dirs
     files = _port_files()
     for rel in ("cli/serve.py", "cli/test.py", "cli/calibrate.py", "data/datasets.py",
@@ -49,7 +50,8 @@ def test_walk_covers_every_port_package():
                 "cli/pretrain_damsm.py", "cli/eval_rank.py", "engine/damsm_trainer.py",
                 "losses/damsm.py", "models/image_encoder.py", "engine/aot.py",
                 "cli/export_aot.py", "cli/export_torch.py", "checkpoints/export_torch.py",
-                "ops/library.py", "ops/quantize.py"):
+                "ops/library.py", "ops/quantize.py", "models/variants.py", "models/vgg.py",
+                "losses/mani.py", "utils/init.py"):
         assert os.path.join(ROOT, "tgsr_tpu_torch", *rel.split("/")) in files, rel
 
 

@@ -9,7 +9,9 @@ for runs without JAX. Layout rules, as the JAX exporter's:
   the word projection Dense -> conv_context [idf, cdf, 1, 1];
   BN scale/bias + mean/var -> weight/bias/running_mean/running_var
     (+ num_batches_tracked = 0, which eval never reads);
-  LSTM w_ih [in, 4H] -> weight_ih_l0 [4H, in]; bwd -> `_reverse` keys.
+  RNN w_ih [in, G*H] -> weight_ih_l0 [G*H, in] (G = 4 gates for the LSTM,
+    3 for the GRU; the gate order kept by the transpose); bwd -> `_reverse`
+    keys.
 The blend `a` is not a reference state-dict entry; it is returned apart
 (None for a weight-map netGH, whose maps a1..a4 are state-dict entries, as
 in the reference). Conv weights are placed through one table of JAX conv
@@ -242,8 +244,9 @@ def netgh_conv_bn_state_dict(variables: Mapping) -> StateDict:
 
 
 def text_state_dict(variables: Mapping) -> StateDict:
-    """TextEncoder tree (LSTM) -> RNN_ENCODER state dict; a direction the
-    tree lacks (a unidirectional tree) is left out, as JAX's exporter does."""
+    """TextEncoder tree (LSTM or GRU, the gate count read from the shapes) ->
+    RNN_ENCODER state dict; a direction the tree lacks (a unidirectional
+    tree) is left out, as JAX's exporter does."""
     params = variables["params"]
     out: StateDict = {"encoder.weight": _t(params["embedding"])}
     for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
@@ -460,7 +463,7 @@ def _seed_module(module: nn.Module, gen: torch.Generator) -> StateDict:
                 m.weight.copy_(normal(m.weight.shape, 1.0 / math.sqrt(fan_in)))
                 if m.bias is not None:
                     m.bias.copy_(normal(m.bias.shape, 0.1))
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
                 n = m.num_features
                 m.weight.copy_(normal(n, 0.1, 1.0))
                 m.bias.copy_(normal(n, 0.1))
@@ -468,7 +471,7 @@ def _seed_module(module: nn.Module, gen: torch.Generator) -> StateDict:
                 m.running_var.copy_(uniform(n, 0.5, 2.0))
             elif isinstance(m, nn.Embedding):
                 m.weight.copy_(uniform(m.weight.shape, -0.1, 0.1))
-            elif isinstance(m, nn.LSTM):
+            elif isinstance(m, (nn.LSTM, nn.GRU)):
                 bound = 1.0 / math.sqrt(m.hidden_size)
                 for p in m.parameters():
                     p.copy_(uniform(p.shape, -bound, bound))
@@ -495,16 +498,19 @@ def init_seeded(cfg: Config, vocab_size: int, generator: torch.Generator
 
 def seeded_text_state_dict(cfg: Config, vocab_size: int, generator: torch.Generator
                            ) -> StateDict:
-    """Random TextEncoder weights from `generator` (the first of
-    `init_seeded`'s draws)."""
+    """Random weights of cfg's TextEncoder (cfg.RNN_TYPE) from `generator`
+    (the first of `init_seeded`'s draws): the embedding U(-0.1, 0.1), the
+    LSTM's or GRU's tensors U(-1 / sqrt(H), 1 / sqrt(H))."""
     from tgsr_tpu_torch.models.text_encoder import TextEncoder
 
-    return _seed_module(TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM), generator)
+    return _seed_module(TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM,
+                                    rnn_type=cfg.RNN_TYPE), generator)
 
 
 def text_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of `text_state_dict`: a RNN_ENCODER state dict -> the JAX
-    TextEncoder's {'params'} tree (LSTM weights [in, 4H])."""
+    TextEncoder's {'params'} tree (weights [in, 4H] for the LSTM, [in, 3H]
+    for the GRU)."""
     params: Dict[str, Any] = {"embedding": _np(sd["encoder.weight"])}
     for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
         params[f"w_ih_{d}"] = _np(sd[f"rnn.weight_ih_l0{suffix}"]).T.copy()
@@ -589,3 +595,106 @@ def seeded_cnn_encoder_state_dict(simple: bool, nef: int, generator: torch.Gener
     from tgsr_tpu_torch.models.image_encoder import make_image_encoder
 
     return _seed_module(make_image_encoder(simple, nef), generator)
+
+
+# -- the library modules (ops/blocks, models/variants, ESRGANDNet, VGG16) ------
+# These carry the JAX package's flax names as module names, or list them in a
+# `flax_names` attribute ({port child path: flax path}, the reference's
+# Sequential indices of a block -> JAX's `conv` / `bn`), so one walk gives the
+# table from port modules to JAX tree paths. JAX has no converter for them
+# (no reference weights exist), except VGG16's torchvision one.
+
+_LEAVES = (nn.Conv2d, nn.Linear, nn.modules.batchnorm._BatchNorm)
+
+
+def flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, nn.Module]]:
+    """{port module path: (JAX tree path, module)} for every conv, Linear and
+    BatchNorm under `module`: a child's flax name is its `flax_names` entry
+    in its parent, else its own name."""
+    out: Dict[str, Tuple[str, nn.Module]] = {}
+
+    def walk(m: nn.Module, port: str, flax: str) -> None:
+        if isinstance(m, _LEAVES):
+            out[port] = (flax, m)
+            return
+        names = dict(getattr(m, "flax_names", None) or {})
+        heads = {k.split(".")[0] for k in names}
+        names.update({n: n for n, _ in m.named_children() if n not in heads})
+        for rel, fl in names.items():
+            walk(m.get_submodule(rel), f"{port}.{rel}" if port else rel,
+                 f"{flax}/{fl}" if flax else fl)
+
+    walk(module, "", "")
+    return out
+
+
+def library_state_dict(module: nn.Module, variables: Mapping) -> StateDict:
+    """A JAX tree of the library module that `module` ports -> `module`'s
+    state dict (strict): conv kernels HWIO -> OIHW, Dense [in, out] ->
+    [out, in] (a word projection `conv_context` -> a 1x1 conv), BN scale /
+    bias / mean / var -> weight / bias / running stats."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: StateDict = {}
+    for port, (flax, m) in flax_leaves(module).items():
+        p = _at(params, flax)
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            _put_bn(out, port, p, _at(stats, flax))
+            continue
+        if isinstance(m, nn.Linear):
+            out[f"{port}.weight"] = _t(np.asarray(p["kernel"]).T)
+        elif flax.endswith("conv_context"):
+            out[f"{port}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None, None])
+        else:
+            out[f"{port}.weight"] = _conv(p["kernel"])
+        if m.bias is not None:
+            out[f"{port}.bias"] = _t(p["bias"])
+    return out
+
+
+def library_variables(module: nn.Module) -> Dict[str, Any]:
+    """The inverse of `library_state_dict`: `module`'s weights -> the JAX
+    tree {'params'[, 'batch_stats']}."""
+    sd = module.state_dict()
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for port, (flax, m) in flax_leaves(module).items():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            _get_bn(out, flax, sd, port)
+            continue
+        w = _np(sd[f"{port}.weight"])
+        if isinstance(m, nn.Linear):
+            w = w.T.copy()
+        elif flax.endswith("conv_context"):
+            w = w[:, :, 0, 0].T.copy()
+        else:
+            w = w.transpose(2, 3, 1, 0).copy()
+        _set(out["params"], f"{flax}/kernel", w)
+        if m.bias is not None:
+            _set(out["params"], f"{flax}/bias", _np(sd[f"{port}.bias"]))
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
+
+
+def vgg16_state_dict(variables: Mapping) -> StateDict:
+    """A JAX VGG16Features tree (conv0..conv12) -> the port's VGG16Features
+    state dict under torchvision's `features.N` keys, the inverse of JAX's
+    `convert_vgg16` (tgsr_tpu/models/vgg.py:49)."""
+    from tgsr_tpu_torch.models.vgg import CONV_INDICES
+
+    params = variables["params"]
+    out: StateDict = {}
+    for li, i in enumerate(CONV_INDICES):
+        out[f"features.{i}.weight"] = _conv(params[f"conv{li}"]["kernel"])
+        out[f"features.{i}.bias"] = _t(params[f"conv{li}"]["bias"])
+    return out
+
+
+def vgg16_variables(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A torchvision `vgg16` state dict (its `features.N`; `classifier.`
+    ignored) or the port's VGG16Features' -> the JAX tree, as JAX's
+    `convert_vgg16` makes it."""
+    from tgsr_tpu_torch.models.vgg import CONV_INDICES
+
+    return {"params": {f"conv{li}": {"kernel": _np(sd[f"features.{i}.weight"]).transpose(
+        2, 3, 1, 0).copy(), "bias": _np(sd[f"features.{i}.bias"])}
+        for li, i in enumerate(CONV_INDICES)}}

@@ -12,7 +12,7 @@ and `from_jax`.
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -69,11 +69,30 @@ def load_generator_pair(cfg: Config, netg_path: str, netgh_path: Optional[str] =
     return netg_sd, netgh_sd, None if wm else a
 
 
-def load_text_encoder(path: str) -> StateDict:
-    """A reference text_encoder `.pth`, or a flax TextEncoder tree."""
-    if path.endswith(".pth"):
-        return _load_pth(path)
-    return text_state_dict(load_variables(path))
+def rnn_type_of(sd: Mapping[str, torch.Tensor]) -> str:
+    """'LSTM' or 'GRU': the recurrence of a RNN_ENCODER state dict, read from
+    its gate count (weight_hh_l0 is [4H, H] for the LSTM, [3H, H] for the
+    GRU)."""
+    rows, hidden = sd["rnn.weight_hh_l0"].shape
+    gates = {4: "LSTM", 3: "GRU"}.get(rows // hidden if rows % hidden == 0 else 0)
+    if gates is None:
+        raise ValueError(f"rnn.weight_hh_l0 of shape {tuple(sd['rnn.weight_hh_l0'].shape)} is "
+                         "neither an LSTM's [4H, H] nor a GRU's [3H, H]")
+    return gates
+
+
+def load_text_encoder(path: str, rnn_type: str = "LSTM") -> StateDict:
+    """A reference text_encoder `.pth`, or a flax TextEncoder tree, of the
+    recurrence `rnn_type` (cfg.RNN_TYPE). A file of the other recurrence is
+    refused with ValueError naming both (JAX's `convert_text_encoder(sd,
+    rnn_type)` converts either and its TextEncoder then fails on the
+    shapes)."""
+    sd = _load_pth(path) if path.endswith(".pth") else text_state_dict(load_variables(path))
+    found = rnn_type_of(sd)
+    if found != rnn_type:
+        raise ValueError(f"{path} holds a {found} text encoder; the config's RNN_TYPE is "
+                         f"{rnn_type!r}")
+    return sd
 
 
 # the parts of torchvision's inception_v3 that CNN_ENCODER does not keep

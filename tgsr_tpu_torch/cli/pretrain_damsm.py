@@ -148,7 +148,7 @@ def main(argv=None):
                                  img_path)
         else:
             print(f"paired image encoder not found at {img_path}; text encoder only")
-        text_sd = load_text_encoder(args.resume_from)
+        text_sd = load_text_encoder(args.resume_from, cfg.RNN_TYPE)
         trainer.load_state(state, text_sd, cnn_sd)
         print(f"resumed encoders from {args.resume_from}; continuing at epoch {start_epoch}")
 

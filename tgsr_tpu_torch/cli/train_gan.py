@@ -188,7 +188,7 @@ def main(argv=None):
     np.random.seed(args.manualSeed)
     ds = _dataset(cfg, "train")
     if args.text_encoder:
-        text_sd = load_text_encoder(args.text_encoder)
+        text_sd = load_text_encoder(args.text_encoder, cfg.RNN_TYPE)
     else:
         print("WARNING: no trained text encoder given; using seeded init")
         text_sd = seeded_text_state_dict(cfg, ds.n_words,

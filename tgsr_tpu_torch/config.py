@@ -4,8 +4,9 @@ The JAX package's schema, under the same names and with the same defaults
 and strict merge (unknown key -> KeyError, mismatched type -> ValueError, an
 int for a float promoted), so that one dict or YAML file builds both.
 `check_served` is the one statement of what the port serves (the x8 and x16
-families, LSTM, LR input to the HF branch, no weight map, no stage 1), and
-`check_trained` of what it trains (the same, x8 only);
+families, the LSTM and GRU text encoders, every HF-branch input, weight maps
+and stage 1), `check_trained` of what it trains (the same, x8 and x16,
+without stage 1) and `check_damsm` of what DAMSM pretraining reads;
 `config_from_dict` and every entry point that builds or loads a model call
 it, and it raises NotImplementedError on anything else. YAML is
 read by the port's own reader of the subset that configs/*.yml use
@@ -141,10 +142,20 @@ SERVED_INPUT_NETGH = ("lr", "lrblur", "lr-lrblur")
 SERVED_BRANCH_NUMS = (4, 5)
 
 
+# RNN_TYPE, the text encoder's recurrence (models/text_encoder.py RNN_TYPES)
+SERVED_RNN_TYPES = ("LSTM", "GRU")
+
+
+def _check_rnn_type(cfg: Config) -> None:
+    if cfg.RNN_TYPE not in SERVED_RNN_TYPES:
+        raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the text encoder is one of "
+                                  f"{SERVED_RNN_TYPES}")
+
+
 def check_served(cfg: Config) -> Config:
     """`cfg` as it is, or NotImplementedError naming the setting the port
-    does not serve: a BRANCH_NUM outside SERVED_BRANCH_NUMS or a GRU text
-    encoder; ValueError for an EVAL.INPUT_NETGH outside SERVED_INPUT_NETGH
+    does not serve: a BRANCH_NUM outside SERVED_BRANCH_NUMS or an RNN_TYPE
+    outside SERVED_RNN_TYPES; ValueError for an EVAL.INPUT_NETGH outside SERVED_INPUT_NETGH
     (JAX's NetGHighWeight raises at its first call). Every EVAL.WEIGHTMAP
     and EVAL.STAGE1 is served, wherever JAX's SRPipeline serves it."""
     if cfg.EVAL.INPUT_NETGH not in SERVED_INPUT_NETGH:
@@ -153,9 +164,7 @@ def check_served(cfg: Config) -> Config:
     if cfg.TREE.BRANCH_NUM not in SERVED_BRANCH_NUMS:
         raise NotImplementedError(f"TREE.BRANCH_NUM = {cfg.TREE.BRANCH_NUM}: the port serves "
                                   "the x8 (BRANCH_NUM 4) and x16 (BRANCH_NUM 5) families only")
-    if cfg.RNN_TYPE != "LSTM":
-        raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the port's text encoder is "
-                                  "the LSTM")
+    _check_rnn_type(cfg)
     return cfg
 
 
@@ -167,7 +176,7 @@ TRAINED_BRANCH_NUMS = (4, 5)
 def check_trained(cfg: Config) -> Config:
     """`cfg` as it is, or NotImplementedError naming the setting the port
     does not train: what `check_served` refuses (a BRANCH_NUM other than 4
-    and 5, the GRU), and EVAL.STAGE1: JAX's GANTrainer never builds
+    and 5, an RNN_TYPE other than LSTM and GRU), and EVAL.STAGE1: JAX's GANTrainer never builds
     GSRNetLowStage1 (tgsr_tpu/engine/gan_trainer.py:146-150), it trains
     GSRNetLow whatever STAGE1 says, so a stage-1 run would train another
     model than the one the config names (ROADMAP, Queue C). The blur inputs
@@ -186,11 +195,9 @@ def check_trained(cfg: Config) -> Config:
 
 def check_damsm(cfg: Config) -> Config:
     """`cfg` as it is, or NotImplementedError: DAMSM pretraining reads any
-    tree geometry (its configs are BRANCH_NUM 1 at 299 px) and needs only
-    the LSTM text encoder (the GRU is ROADMAP A 4)."""
-    if cfg.RNN_TYPE != "LSTM":
-        raise NotImplementedError(f"RNN_TYPE = {cfg.RNN_TYPE!r}: the port's text encoder is "
-                                  "the LSTM")
+    tree geometry (its configs are BRANCH_NUM 1 at 299 px) and either text
+    encoder, LSTM or GRU (another RNN_TYPE raises, naming it)."""
+    _check_rnn_type(cfg)
     return cfg
 
 

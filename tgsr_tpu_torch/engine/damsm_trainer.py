@@ -1,7 +1,7 @@
 """DAMSM encoder pretraining (counterpart of tgsr_tpu/engine/damsm_trainer.py,
 `DAMSMTrainer` :46-368; = pretrain_DAMSM.py).
 
-The bi-LSTM text encoder and the CNN image encoder train together on the
+The bidirectional LSTM or GRU text encoder and the CNN image encoder train together on the
 symmetric words + sentence contrastive losses, step for step as the JAX
 trainer:
 
@@ -20,7 +20,7 @@ trainer:
   `rnn_grad_norm`;
 - `compute_dtype=torch.bfloat16`: the CNN computes in bfloat16 from float32
   masters (`engine/precision.call_cast`), its BN moments and stats in
-  float32; the LSTM and the losses stay float32;
+  float32; the text encoder and the losses stay float32;
 - dropout on the word embeddings from a CPU generator seeded by (seed,
   global step), so that a resume at an epoch boundary replays the
   uninterrupted run exactly (JAX's `fast_forward_key`);
@@ -109,11 +109,11 @@ class DAMSMTrainer:
 
     def init_state(self, generator: torch.Generator) -> DAMSMState:
         """Fresh encoders from `generator` (a CPU generator) with the JAX
-        init's distributions: the embedding U(-0.1, 0.1), the LSTM U(-1 /
+        init's distributions: the embedding U(-0.1, 0.1), the LSTM or GRU U(-1 /
         sqrt(H), 1 / sqrt(H)), convs and Dense N(0, 1 / fan_in), the
         Inception heads U(-0.1, 0.1), biases 0, BN (1, 0) and stats (0, 1)."""
         cfg = self.cfg
-        text = TextEncoder(self.vocab_size, 300, cfg.TEXT.EMBEDDING_DIM)
+        text = TextEncoder(self.vocab_size, 300, cfg.TEXT.EMBEDDING_DIM, rnn_type=cfg.RNN_TYPE)
         text.load_state_dict(seeded_text_state_dict(cfg, self.vocab_size, generator))
         cnn = make_image_encoder(not self.use_inception, cfg.TEXT.EMBEDDING_DIM)
         init_module(cnn, generator)

@@ -185,7 +185,8 @@ class GANTrainer:
         self.loss_weights = dict(loss_weights or {})
         self.d_lr = cfg.TRAIN.DISCRIMINATOR_LR if d_lr is None else d_lr
         self.sizes = cfg.pyramid_sizes()
-        self.text_encoder = TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM)
+        self.text_encoder = TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM,
+                                        rnn_type=cfg.RNN_TYPE)
         self.text_encoder.load_state_dict(text_sd, strict=True)
         self.text_encoder.to(self.device).eval().requires_grad_(False)
         self.image_encoder = image_encoder

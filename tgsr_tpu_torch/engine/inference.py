@@ -262,7 +262,7 @@ class SRPipeline:
         does not reproduce the JAX package's PRNGKey(text_seed) init)."""
         netg_sd, netgh_sd, a = load_generator_pair(cfg, netg_path, netgh_path)
         if text_encoder_path:
-            text_sd = load_text_encoder(text_encoder_path)
+            text_sd = load_text_encoder(text_encoder_path, cfg.RNN_TYPE)
         else:
             text_sd = seeded_text_state_dict(cfg, vocab_size,
                                              torch.Generator().manual_seed(text_seed))
@@ -577,7 +577,7 @@ def _modules(cfg: Config, vocab_size: int, text_sd: Mapping[str, Any],
              netg_sd: Mapping[str, Any], netgh_sd: Mapping[str, Any]):
     """(TextEncoder, netG, netGH of cfg's family) on the CPU in float32,
     with the state dicts loaded strictly."""
-    modules = (TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM),
+    modules = (TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM, rnn_type=cfg.RNN_TYPE),
                *make_generators(cfg, unused_blocks(netgh_sd)))
     for module, sd in zip(modules, (text_sd, netg_sd, netgh_sd)):
         module.load_state_dict(sd, strict=True)

@@ -7,7 +7,8 @@ JAX package builds the AttnGAN convention those calls pin down, and this is
 that network in PyTorch, NCHW, with the JAX tree's names as module names
 (`downs.0.conv` for `downs_0/conv`; `dnet_state_dict` in
 `checkpoints/from_jax.py` carries a tree across). Outputs are logits.
-`ESRGANDNet` is not ported yet (ROADMAP A 7).
+`ESRGANDNet`, the ESRGAN / relativistic family's plain D, carries JAX's flax
+names as they are (`down_0`, `fc1`; `from_jax.library_state_dict`).
 """
 
 from __future__ import annotations
@@ -114,3 +115,26 @@ class DNet(nn.Module):
         h = self.features(img)
         return (self.cond_logit(h, sent) if self.b_condition else None,
                 self.uncond_logit(h))
+
+
+class ESRGANDNet(nn.Module):
+    """The plain unconditional SR discriminator of the ESRGAN / relativistic
+    loss family (losses.py:813-883; JAX's ESRGANDNet,
+    tgsr_tpu/models/discriminator.py:136-151): four `_Down`s (ndf, 2, 4, 8
+    ndf; BN from the second), the spatial mean, Dense 100, LeakyReLU(0.2),
+    Dense 1. img [B, 3, S, S] -> [B] logits."""
+
+    def __init__(self, ndf: int = 64):
+        super().__init__()
+        widths = [3, ndf, ndf * 2, ndf * 4, ndf * 8]
+        for i in range(4):
+            self.add_module(f"down_{i}", _Down(widths[i], widths[i + 1], use_bn=i > 0))
+        self.fc1 = nn.Linear(ndf * 8, 100)
+        self.fc2 = nn.Linear(100, 1)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        x = img
+        for i in range(4):
+            x = getattr(self, f"down_{i}")(x)
+        x = F.leaky_relu(self.fc1(x.mean(dim=(2, 3))), LEAK)
+        return self.fc2(x).reshape(-1)

@@ -96,3 +96,34 @@ class WordPixelAttention(nn.Module):
         ctx, attn = fused_attention.word_pixel_attention(
             nhwc(pixels), words_proj.contiguous(), mask, return_attn=need_attn)
         return nchw(ctx), attn
+
+
+def word_region_attention(*args, **kwargs):
+    """Alias of `func_attention` (the DAMSM loss's name for it)."""
+    return func_attention(*args, **kwargs)
+
+
+class WordPixelAttentionWeighted(nn.Module):
+    """= GlobalAttentionGeneral_weight (GlobalAttention.py:135-185; JAX's
+    WordPixelAttentionWeighted, tgsr_tpu/ops/attention.py:142-164): the
+    attention of `WordPixelAttention`, whose per-word mass averaged over the
+    pixels rescales the projected words before the value product. Plain
+    torch on every device, as JAX computes it with einsums outside any
+    Pallas kernel: the value operand is words_proj * mean_pixels(attn), not
+    the projected words that row 1's kernel reads."""
+
+    def __init__(self, idf: int, cdf: int):
+        super().__init__()
+        self.conv_context = nn.Conv2d(cdf, idf, 1, bias=False)
+
+    def forward(self, pixels: torch.Tensor, words: torch.Tensor,
+                mask: Optional[torch.Tensor], need_attn: bool = False):
+        """pixels NCHW, words [B, T, cdf] -> (ctx NCHW, attn [B, T, H, W] or
+        None)."""
+        words_proj = F.linear(words, self.conv_context.weight.flatten(1))
+        logits = torch.einsum("bchw,btc->bhwt", pixels, words_proj)
+        m = mask[:, None, None, :] if mask is not None else None
+        attn = masked_softmax(logits, m, dim=-1)  # [B, H, W, T]
+        words_w = words_proj * attn.mean(dim=(1, 2))[:, :, None]  # [B, T, idf]
+        ctx = torch.einsum("bhwt,btc->bchw", attn, words_w)
+        return ctx, (attn.permute(0, 3, 1, 2).contiguous() if need_attn else None)

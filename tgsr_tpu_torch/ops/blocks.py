@@ -54,7 +54,33 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=False)
 
 
-class BatchNorm(nn.BatchNorm2d):
+class _FlaxTrainMode:
+    """Flax's train-mode BatchNorm over every axis but the channel axis 1
+    (`BatchNorm`'s docstring); eval mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as flax
+        dims = (0, *range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        if not remat.recomputing():
+            self._blend(mean, var)
+        shape = (1, -1, *[1] * (x.dim() - 2))
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
+        return y.to(x.dtype)
+
+    def _blend(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            keep = 1.0 - self.momentum  # flax's momentum, 0.9
+            self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
+            self.running_var.mul_(keep).add_(var * (1.0 - keep))
+            self.num_batches_tracked.add_(1)
+
+
+class BatchNorm(_FlaxTrainMode, nn.BatchNorm2d):
     """`nn.BatchNorm2d` (eps 1e-5, the reference's keys) whose train mode is
     flax's `BatchNorm` (the JAX package's `batch_norm(train=True)`,
     tgsr_tpu/ops/blocks.py:116-121), the one the port is held against:
@@ -73,26 +99,10 @@ class BatchNorm(nn.BatchNorm2d):
 
     Eval mode is torch's, unchanged: every serving path runs it."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as flax
-        dims = (0, 2, 3)
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
-        if not remat.recomputing():
-            self._blend(mean, var)
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
-        return y.to(x.dtype)
 
-    def _blend(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        with torch.no_grad():
-            keep = 1.0 - self.momentum  # flax's momentum, 0.9
-            self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
-            self.running_var.mul_(keep).add_(var * (1.0 - keep))
-            self.num_batches_tracked.add_(1)
+class BatchNorm1d(_FlaxTrainMode, nn.BatchNorm1d):
+    """`BatchNorm`'s rules over [B, C] features (flax's BatchNorm on a Dense
+    output: the fc stem of models/variants.py)."""
 
 
 def batch_norm(ch: int) -> BatchNorm:
@@ -103,6 +113,10 @@ def batch_norm(ch: int) -> BatchNorm:
 
 class UpBlock(nn.Sequential):
     """nearest x2 -> conv3x3(in -> 2*out) -> BN -> GLU (= util.py:74-80)."""
+
+    # the JAX module's names of the parameterised children
+    # (`checkpoints/from_jax.flax_leaves`)
+    flax_names = {"1": "conv", "2": "bn"}
 
     def __init__(self, cin: int, cout: int):
         super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
@@ -144,8 +158,56 @@ class ResBlock(nn.Module):
         else:
             self.block = nn.Sequential(conv3x3(ch, ch * 2), GLU(), conv3x3(ch, ch))
 
+    # the JAX module's names of the BN layout's children (`flax_leaves`)
+    flax_names = {"block.0": "conv1", "block.1": "bn1", "block.3": "conv2", "block.4": "bn2"}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x) + x
+
+
+class DownBlock(nn.Sequential):
+    """conv4x4 stride 2 pad 1 -> BN -> LeakyReLU(0.2) (= downBlock,
+    util.py:92-98; JAX's DownBlock, tgsr_tpu/ops/blocks.py:187): keys `0.weight`
+    and `1.*`, as the reference's Sequential."""
+
+    flax_names = {"0": "conv", "1": "bn"}
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(nn.Conv2d(cin, cout, 4, stride=2, padding=1, bias=False),
+                         batch_norm(cout), nn.LeakyReLU(LEAKY_SLOPE))
+
+
+class Block3x3Relu(nn.Sequential):
+    """conv3x3(in -> 2*out) -> BN -> GLU, spatial size kept (= Block3x3_relu,
+    util.py:102-107; JAX's Block3x3Relu, tgsr_tpu/ops/blocks.py:201): keys
+    `0.weight` and `1.*`."""
+
+    flax_names = {"0": "conv", "1": "bn"}
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(conv3x3(cin, cout * 2), batch_norm(cout * 2), GLU())
+
+
+class PlainResidualBlock(nn.Module):
+    """conv3x3 -> [BN] -> LeakyReLU(0.2) -> conv3x3 -> [BN], + identity
+    (= model.py:8-30 `_Residual_Block`; JAX's PlainResidualBlock,
+    tgsr_tpu/ops/blocks.py:235), under JAX's names conv1, in1, conv2, in2."""
+
+    def __init__(self, ch: int = 64, use_norm: bool = False):
+        super().__init__()
+        self.conv1 = conv3x3(ch, ch)
+        self.in1 = batch_norm(ch) if use_norm else None
+        self.conv2 = conv3x3(ch, ch)
+        self.in2 = batch_norm(ch) if use_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(x)
+        if self.in1 is not None:
+            h = self.in1(h)
+        h = self.conv2(F.leaky_relu(h, LEAKY_SLOPE))
+        if self.in2 is not None:
+            h = self.in2(h)
+        return h + x
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:

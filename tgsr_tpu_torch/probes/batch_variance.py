@@ -168,7 +168,7 @@ def main(device: str = "cuda", seeds=(0, 1, 2, 3), draws: int = 8, cfg=None,
 
     cfg = cfg or face_s8_config()
     size, t = cfg.TREE.BASE_SIZE, cfg.TEXT.WORDS_NUM
-    net_e = shipped_net_e(VOCAB)
+    net_e = shipped_net_e(VOCAB, cfg.RNN_TYPE)
     result = {"device": torch.cuda.get_device_name(0) if device == "cuda" else "cpu",
               "geometry": {"BRANCH_NUM": cfg.TREE.BRANCH_NUM, "BASE_SIZE": size,
                            "GF_DIM": cfg.GAN.GF_DIM, "imsize": cfg.imsize},
@@ -176,7 +176,7 @@ def main(device: str = "cuda", seeds=(0, 1, 2, 3), draws: int = 8, cfg=None,
     for seed in seeds:
         text, netg, netgh, a = init_seeded(cfg, VOCAB, torch.Generator().manual_seed(seed))
         if net_e is not None and cfg.TEXT.EMBEDDING_DIM == 256:
-            text = load_text_encoder(net_e)
+            text = load_text_encoder(net_e, cfg.RNN_TYPE)
         sds = (text, netg, netgh, a)
         calib = SRPipeline(cfg, VOCAB, *sds, device=device, compute_dtype=torch.bfloat16)
         crng = np.random.default_rng(1000 + seed)
