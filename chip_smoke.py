@@ -98,7 +98,15 @@ against the CPU with the LSTM path's launches, replay, an exported program,
 the text encoders timed, a GAN and a DAMSM step against the CPU) and the
 library the JAX package exports (library_phase: the blocks, weighted
 attention, variants, ESRGANDNet, VGG16, orthogonal_reinit and the loss
-families, each on the card against the CPU). Prints
+families, each on the card against the CPU). Training that resumes and
+spreads over ranks (train_scale_phase: world size 1 over NCCL, face S8 at
+full width, B = 16; the data-parallel and --fsdp steps bit for bit the
+plain step under deterministic algorithms with rows 1 and 1 bwd launched 3
+times a step, the train-state checkpoint's bytes, save, write and restore
+times and the step's time while a write is in flight, and cli.train_gan
+--mesh 1x1 stopped by SIGTERM and resumed, ending on the whole run's
+snapshot bytes; `--step-readings` also prints how many of its batches
+exceed the cuDNN-off median gate, ROADMAP C 6). Prints
 one JSON line of per-kernel numbers, then, as the last line, {"ok": true,
 "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
@@ -3276,6 +3284,366 @@ def train_phase(torch, rng, card, tmp):
     return launches
 
 
+# -- training that resumes and spreads over ranks (parallel/, checkpoints/dcp_io) ---
+
+SCALE_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+def scale_run(torch, cfg, text_sd, batch, steps, dtype, coupled=False, **kw):
+    """`steps` steps of a fresh seeded GANTrainer (kw: mesh, fsdp,
+    image_encoder, loss_weights) on one batch: (metrics of each step as
+    floats, the state whole on the CPU), the launches of the steps, and how
+    many parameters the state stores sharded. `coupled`: within
+    `data_parallel.couple_one_rank` (a group of one rank kept)."""
+    import contextlib
+
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.parallel import data_parallel
+    from tgsr_tpu_torch.parallel.multihost import fetch_to_host
+
+    with data_parallel.couple_one_rank() if coupled else contextlib.nullcontext():
+        t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, **kw)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        ms = [t.train_step(s, batch) for _ in range(steps)]
+        torch.cuda.synchronize()
+        counts = {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+        out = ([{k: float(v) for k, v in m.items()} for m in ms],
+               fetch_to_host(s.state_dict()))
+        n_sharded = len(s.shards)
+    del t, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts, n_sharded
+
+
+def state_diff(torch, a, b) -> list:
+    """The metrics and state tensors in which two `scale_run` results differ
+    in any bit."""
+    (ma, sa), (mb, sb) = a, b
+    out = [f"step {i} {k}" for i, (x, y) in enumerate(zip(ma, mb)) for k in x if x[k] != y[k]]
+    return out + [k for k in sa if not torch.equal(sa[k], sb[k])]
+
+
+# how far one float32 step of the data-parallel code may lie from the plain
+# step (tests/test_torch_data_parallel.py's float32 gates): metrics rtol,
+# Adam's moments relative L2 a tensor, BN running stats relative L2 a
+# tensor, and the share of parameter and EMA entries more than 1e-6 apart
+# (where Adam's first step turns on a gradient's last bits). G's moments are
+# held with D frozen: with D learning, G's gradient runs through the updated
+# D, whose first Adam step follows the sign of each gradient entry, so a
+# last-bit change in a near-zero entry moves that weight by 2 lr (face S8 at
+# B = 16 on the card: G's moments 1.3e-2 apart that way, D's before its
+# update within the gate)
+COUPLED_GATES = {"metrics": 1e-4, "moments": 1e-3, "stats": 1e-4, "params": 0.01}
+
+
+def coupled_gaps(torch, ref, got, moments_of=("g_opt.", "d_opt.")) -> dict:
+    """The `COUPLED_GATES` readings of `scale_run` result `got` against
+    `ref`, the moments those of the optimizers `moments_of`."""
+    (mr, sr), (mg, sg) = ref, got
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        n = a.norm()
+        return float((a - b).norm() / n) if n > 0 else float((a - b).norm())
+
+    params = [k for k in sr if sr[k].is_floating_point() and "running_" not in k
+              and not k.startswith(("g_opt.", "d_opt."))]
+    moments = sorted((rel(sr[k], sg[k]), k) for k in sr if k.startswith(moments_of)
+                     and k.endswith(("exp_avg", "exp_avg_sq")))
+    return {"metrics": max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30)
+                           for x, y in zip(mr, mg) for k in x),
+            "moments": moments[-1][0], "worst moment": moments[-1][1],
+            "stats": max(rel(sr[k], sg[k]) for k in sr if "running_" in k),
+            "params": sum(int(((sr[k] - sg[k]).abs() > 1e-6).sum()) for k in params)
+            / sum(sr[k].numel() for k in params)}
+
+
+def train_scale_phase(torch, rng, card, tmp):
+    """Training that resumes and spreads over ranks, on the card, world size
+    1 over NCCL (the launcher's variables set here; NCCL refuses two ranks
+    on one device, so the two-rank maths is held on the CPU under gloo,
+    tests/test_torch_data_parallel.py). Face S8 at full width, B = 16.
+    (1) Under torch.use_deterministic_algorithms: the plain step twice, the
+    data-parallel step (`mesh`, a 1x1 `parallel.mesh.make_mesh`) and the
+    `fsdp` step, two steps each in float32 and one in bfloat16; DP and fsdp
+    bit for bit the plain step (metrics and every tensor of the train
+    state), rows 1 and 1 bwd launched 3 times a step on both paths. A group
+    of one rank is dropped there, so those steps run the single-process
+    code. (1b) Within `data_parallel.couple_one_rank` (the group kept), one
+    float32 step with SimpleCNN's DAMSM terms: BN's global moments, the DP
+    losses and gathers run (counted), the DP and fsdp (sharded as over two
+    ranks) steps within `COUPLED_GATES` of the plain step (G's moments with
+    D frozen, `d_lr` 0), fsdp bit for bit DP, rows 1 and 1 bwd 3 times
+    each. (2) The
+    train-state checkpoint (`checkpoints/dcp_io.TrainCheckpointer`): its
+    bytes, save() (the blocking device-to-host copy) and the write's
+    seconds, a restore's, the restored state bit for bit the saved one, and
+    the step's time while a write is in flight against without one (host
+    clock, synchronised). (3) `cli.train_gan.main` (what `python -m
+    tgsr_tpu_torch.cli.train_gan` runs) with `--mesh 1x1`, under
+    deterministic algorithms and within `couple_one_rank`: whole (4 steps),
+    and again with `--fsdp` (a sharded checkpoint), stopped by a SIGTERM
+    sent to the process during its second step, then rerun with `--resume`:
+    the resumed run's last snapshot pair is the whole run's, byte for
+    byte. Returns the launches of (1)'s DP and fsdp runs."""
+    import signal
+    import warnings
+
+    import torch.distributed as dist
+
+    from tgsr_tpu_torch.checkpoints import dcp_io
+    from tgsr_tpu_torch.checkpoints.from_jax import (seeded_cnn_encoder_state_dict,
+                                                     seeded_text_state_dict)
+    from tgsr_tpu_torch.cli import train_gan
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.data.datasets import TextFaceDataset
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.models.image_encoder import make_image_encoder
+    from tgsr_tpu_torch.parallel import data_parallel, multihost
+    from tgsr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = face_s8_config()
+    text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(14))
+    launches = {}
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(multihost.free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        rank = multihost.initialize_distributed("cuda")
+        mesh = make_mesh(1, 1, device="cuda")
+        check(rank == 0 and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"scale: a process group of 1 rank over {dist.get_backend()}, mesh "
+              f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
+
+        # -- (1) DP and fsdp against the plain step, bit for bit -------------------------
+        batch = train_batch(torch, np.random.default_rng(20), TRAIN_B)
+        for dtype, steps in ((torch.float32, 2), (torch.bfloat16, 1)):
+            name = str(dtype).split(".")[-1]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    plain = [scale_run(torch, cfg, text_sd, batch, steps, dtype)[0]
+                             for _ in range(2)]
+                    dp, n_dp, _ = scale_run(torch, cfg, text_sd, batch, steps, dtype, mesh=mesh)
+                    fs, n_fs, _ = scale_run(torch, cfg, text_sd, batch, steps, dtype, mesh=mesh,
+                                            fsdp=True)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                          if "deterministic" in str(w.message)})
+            launches[f"train dp {name}"], launches[f"train fsdp {name}"] = n_dp, n_fs
+            twice = state_diff(torch, plain[0], plain[1])
+            print(f"  scale {name}: {steps} steps at B = {TRAIN_B}, deterministic algorithms "
+                  f"({len(ops)} ops without one: {ops[:4]}); two plain runs differ in "
+                  f"{len(twice)} tensors, DP in {len(state_diff(torch, plain[0], dp))}, fsdp in "
+                  f"{len(state_diff(torch, plain[0], fs))}", flush=True)
+            check(not twice, f"scale {name}: the plain step repeats bit for bit under "
+                             f"deterministic algorithms ({twice[:4]})")
+            for tag, run in (("DP (--mesh 1x1)", dp), ("fsdp (--mesh 1x1 --fsdp)", fs)):
+                diff = state_diff(torch, plain[0], run)
+                check(not diff, f"scale {name}: the {tag} step == the plain step, bit for bit "
+                                f"(metrics, parameters, BN stats, EMA, both Adams; world size "
+                                f"1 drops the group of one rank, so this step is the "
+                                f"single-process code plus a 1-rank all-reduce of gradients "
+                                f"and metrics, and (1b) drives the coupled code; "
+                                f"{len(diff)} differ: {diff[:4]})")
+            for tag, n in (("DP", n_dp), ("fsdp", n_fs)):
+                per = {k: n[k] / steps for k in ("word_pixel_attention",
+                                                 "word_pixel_attention_bwd")}
+                check(per == {"word_pixel_attention": 3, "word_pixel_attention_bwd": 3},
+                      f"scale {name} {tag}: rows 1 and 1 bwd launched 3 times a step ({per})")
+
+        # -- (1b) the data-parallel code itself, over the group of one rank ---------------
+        # (1)'s DP and fsdp steps drop a group of one rank and run the single-process
+        # code; within couple_one_rank the group is kept: BN's global moments, the DP
+        # discriminator loss, the DAMSM terms' gathers and the fsdp storage (sharded as
+        # over two ranks, each chunk whole) run their NCCL collectives on the card
+        enc = make_image_encoder(True, 256)
+        enc.load_state_dict(seeded_cnn_encoder_state_dict(True, 256,
+                                                          torch.Generator().manual_seed(21)))
+        crng = np.random.default_rng(21)
+        cb = {**train_batch(torch, crng, TRAIN_B, empty=False),
+              "class_ids": torch.from_numpy(crng.integers(0, TRAIN_B // 2, TRAIN_B)).cuda()}
+        ckw = dict(image_encoder=enc, loss_weights={"damsm": 0.5})
+        calls = {"all_reduce_sum": 0, "gather_rows": 0}
+        real = {k: getattr(data_parallel, k) for k in calls}
+
+        def counted(name):
+            def run(*args, **kw):
+                calls[name] += 1
+                return real[name](*args, **kw)
+            return run
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            cplain = scale_run(torch, cfg, text_sd, cb, 1, torch.float32, **ckw)[0]
+            frozen = scale_run(torch, cfg, text_sd, cb, 1, torch.float32, d_lr=0.0, **ckw)[0]
+            for k in calls:
+                setattr(data_parallel, k, counted(k))
+            try:
+                cdp, n_cdp, _ = scale_run(torch, cfg, text_sd, cb, 1, torch.float32, mesh=mesh,
+                                          coupled=True, **ckw)
+                dp_calls = dict(calls)
+                cfs, n_cfs, n_sharded = scale_run(torch, cfg, text_sd, cb, 1, torch.float32,
+                                                  mesh=mesh, fsdp=True, coupled=True, **ckw)
+                frozen_dp = scale_run(torch, cfg, text_sd, cb, 1, torch.float32, mesh=mesh,
+                                      coupled=True, d_lr=0.0, **ckw)[0]
+            finally:
+                for k, f in real.items():
+                    setattr(data_parallel, k, f)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        launches["train dp coupled float32"] = n_cdp
+        launches["train fsdp coupled float32"] = n_cfs
+        gaps = {tag: coupled_gaps(torch, cplain, run, moments_of=("d_opt.",))
+                for tag, run in (("DP", cdp), ("fsdp", cfs))}
+        gaps["DP, D frozen"] = coupled_gaps(torch, frozen, frozen_dp)
+        between = state_diff(torch, cdp, cfs)
+        print(f"  scale coupled float32 (one step at B = {TRAIN_B}, SimpleCNN's DAMSM terms, "
+              f"the group of one rank kept): collectives a DP step {dp_calls}; against the "
+              f"plain step (D's moments; G's too with D frozen) {gaps}; fsdp ({n_sharded} "
+              f"parameters sharded) against DP {len(between)} tensors differ", flush=True)
+        check(dp_calls["all_reduce_sum"] > 0 and dp_calls["gather_rows"] > 0,
+              f"scale coupled: the DP step over the group of one rank runs BN's global moments "
+              f"and the cross-rank gathers ({dp_calls})")
+        for tag, g in gaps.items():
+            check(all(g[k] <= COUPLED_GATES[k] for k in COUPLED_GATES),
+                  f"scale coupled: the {tag} step over the group of one rank within "
+                  f"{COUPLED_GATES} of the plain step ({g})")
+        check(n_sharded > 0 and not between,
+              f"scale coupled: fsdp stores {n_sharded} parameters sharded over the one rank and "
+              f"equals DP bit for bit ({between[:4]})")
+        for tag, n in (("DP", n_cdp), ("fsdp", n_cfs)):
+            per = {k: n[k] for k in ("word_pixel_attention", "word_pixel_attention_bwd")}
+            check(per == {"word_pixel_attention": 3, "word_pixel_attention_bwd": 3},
+                  f"scale coupled {tag}: rows 1 and 1 bwd launched 3 times in its step ({per})")
+        del enc, cplain, cdp, cfs, frozen, frozen_dp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (2) the train-state checkpoint ---------------------------------------------
+        t = GANTrainer(cfg, 41, text_sd, mesh=mesh)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        batches = [train_batch(torch, rng, TRAIN_B) for _ in range(4)]
+
+        def timed_step(b):
+            t0 = time.perf_counter()
+            t.train_step(s, b)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        for b in batches[:2]:  # warm-up
+            timed_step(b)
+        plain_ms = [timed_step(b) for b in batches for _ in range(2)]
+        ckpt = os.path.join(tmp, "scale_ckpt")
+        save_s, write_s, during_ms, saved_steps = [], [], [], []
+        with dcp_io.TrainCheckpointer(ckpt, max_to_keep=2) as w:
+            for i, b in enumerate(batches[:3]):
+                saved_steps.append(s.step)
+                if i == 1:
+                    saved = multihost.fetch_to_host(s.state_dict())
+                    saved_step = s.step
+                t0 = time.perf_counter()
+                w.save(s.step, s.state_dict())
+                save_s.append(time.perf_counter() - t0)
+                during_ms.append(timed_step(b))
+                t0 = time.perf_counter()
+                w.wait()
+                write_s.append(time.perf_counter() - t0 + during_ms[-1])
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs_ in os.walk(
+            os.path.join(ckpt, str(saved_step))) for f in fs_)
+        back = t.init_state(torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd, _ = dcp_io.restore_train_state(ckpt, back.state_dict(), step=saved_step)
+        back.load_state_dict(sd)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = multihost.fetch_to_host(back.state_dict())
+        diff = [k for k in saved if not torch.equal(saved[k], got[k])]
+        steps_kept = dcp_io.all_steps(ckpt)
+        print(f"  scale checkpoint: {nbytes / 2 ** 20:.2f} MiB a step ({len(saved)} tensors), "
+              f"save() {1e3 * float(np.median(save_s)):.2f} ms (median of {len(save_s)}; the "
+              f"device-to-host copy), save to committed {1e3 * float(np.median(write_s)):.1f} "
+              f"ms, restore {1e3 * restore_s:.1f} ms; the f32 step at B = {TRAIN_B} "
+              f"{1e3 * float(np.median(plain_ms)):.2f} ms without a write in flight, "
+              f"{1e3 * float(np.median(during_ms)):.2f} ms with one (medians, host clock, "
+              f"synchronised), on {card}", flush=True)
+        check(not diff and steps_kept == saved_steps[-2:],
+              f"scale checkpoint: the restored state == the saved one, bit for bit ({diff[:4]}); "
+              f"the newest 2 of {saved_steps} kept ({steps_kept})")
+        del t, s, back, sd, saved, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for v in SCALE_VARS:
+            os.environ.pop(v, None)
+
+    # -- (3) the CLI: --mesh 1x1, stopped by SIGTERM, --resume ------------------------------
+    data = os.path.join(tmp, "face_train_scale")
+    face_train_set(rng, data, 5)
+    yml = os.path.join(tmp, "train_faceSR_S8_scale.yml")
+    with open(yml, "w") as f:
+        f.write(FACE_S8_TRAIN_YAML)
+    n_words = TextFaceDataset(data, split="train", words_num=T, imsize=256).n_words
+    te = os.path.join(tmp, "scale_text_encoder.pth")
+    torch.save(seeded_text_state_dict(cfg, n_words, torch.Generator().manual_seed(15)), te)
+    base = ["--cfg", yml, "--data_dir", data, "--text_encoder", te, "--log_every", "1",
+            "--mesh", "1x1"]
+    whole, part = os.path.join(tmp, "scale_whole"), os.path.join(tmp, "scale_part")
+    real_step = GANTrainer.train_step
+
+    def step_then_sigterm(self, state, batch):
+        metrics = real_step(self, state, batch)
+        if state.step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)  # as a scheduler stops the run
+        return metrics
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # the group of one rank kept: the runs step through the data-parallel
+        # code, and --fsdp checkpoints sharded parameters (DTensors)
+        with data_parallel.couple_one_rank():
+            runs = {"whole": train_gan.main(base + ["--out_dir", whole])}
+            GANTrainer.train_step = step_then_sigterm
+            try:
+                runs["stopped"] = train_gan.main(base + ["--out_dir", part, "--fsdp"])
+            finally:
+                GANTrainer.train_step = real_step
+            runs["resumed"] = train_gan.main(base + ["--out_dir", part, "--resume"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    dt = time.perf_counter() - t0
+    snaps = {}
+    for tag, out in (("whole", whole), ("resumed", part)):
+        for name in ("netG_it4.msgpack", "netGH_it4.msgpack"):
+            p = os.path.join(out, "Model", name)
+            snaps[tag, name] = open(p, "rb").read() if os.path.exists(p) else None
+    r = {tag: (run["start_step"], run["steps"], run["stopped"]) for tag, run in runs.items()}
+    print(f"  scale cli (start step, end step, stopped): {r}; three runs in {dt:.1f} s (host "
+          f"clock, checkpoints written)", flush=True)
+    check(r == {"whole": (0, 4, False), "stopped": (0, 2, True), "resumed": (2, 4, False)}
+          and runs["stopped"]["trainer"].fsdp and runs["stopped"]["state"].shards
+          and dcp_io.latest_step(runs["stopped"]["ckpt_dir"]),
+          "scale cli: --mesh 1x1 runs 4 steps; --mesh 1x1 --fsdp (parameters sharded over the "
+          "one rank) stops at the SIGTERM after step 2 with its checkpoint; --resume (no "
+          "--fsdp) continues from step 2 to 4")
+    check(all(snaps["whole", n] is not None and snaps["whole", n] == snaps["resumed", n]
+              for n in ("netG_it4.msgpack", "netGH_it4.msgpack")),
+          "scale cli: the resumed run's step-4 snapshot pair == the whole run's, byte for byte")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- x16 training (models16 in GANTrainer, remat, plan_batch) -----------------------
 
 X16_TRAIN_SITES = (32, 64, 128, 256)  # the attention's four sites in an x16 step
@@ -4944,6 +5312,14 @@ def step_readings(torch, seeds: list, out_path: str, damsm: bool = False) -> int
                                                         fake).items():
                     stats.setdefault(f"encoder backward ({part})", {}).setdefault(
                         run, []).append(v)
+    if not damsm:  # how often the cuDNN-off median gate is exceeded (ROADMAP C 6)
+        gate = GRAD_MEDIAN["cuDNN off"]
+        for d_lr in ("None", "0.0"):
+            meds = stats.get(f"D lr {d_lr}, cuDNN off", {}).get("median", [])
+            over = sum(m > gate for m in meds)
+            print(f"C 6, D lr {d_lr}: {over} of {len(meds)} seeded batches exceed the cuDNN-off "
+                  f"median gate {gate} (medians {', '.join(f'{m:.3g}' for m in meds)})",
+                  flush=True)
     for key, vals in stats.items():
         per = "; ".join(f"{q} {', '.join(f'{v:.3g}' for v in vs)}" for q, vs in vals.items())
         top = sorted(most.get(key, {}).items(), key=lambda kv: -kv[1])[:10]
@@ -5068,14 +5444,20 @@ def main() -> int:
     launches.update(library_phase(torch))
     print(f"library phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a stream of its own: the other phases' data does not depend on it
+        launches.update(train_scale_phase(torch, np.random.default_rng(20), card, tmp))
+    print(f"train scale phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     probe_rows, launches["conv_probe"] = conv_probe_phase(torch)
     kernels += probe_rows
     print(f"conv probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # launches: the runs of each path, the serving forward in f32, bf16 and
     # int8, the CLIs' runs, the x16 family's runs, the training runs ("train
     # float32", "train bfloat16", "train cli"), the DAMSM terms' GAN runs
-    # ("damsm gan float32", "damsm gan bfloat16", "damsm gan cli") and the
-    # conv probe (counted
+    # ("damsm gan float32", "damsm gan bfloat16", "damsm gan cli"), the
+    # data-parallel and sharded steps ("train dp float32", "train fsdp
+    # float32", and in bfloat16) and the conv probe (counted
     # apart per path; "launches" is their sum); "x16": the kernel at the x16
     # family's shapes, its launches those of the x16 runs
     for k in kernels:

@@ -11,7 +11,8 @@ one test image: 2 steps an epoch), two epochs with a snapshot each.
   encoders take, and compute there what they compute in the port (rtol =
   atol = 1e-4, the encoders' gate in tests/test_torch_image_encoder.py);
   snapshots JAX writes resume in the port;
-- a family mismatch, --mesh and --tensorboard exit with their reason.
+- a family mismatch, and a --mesh the process cannot run, exit with their
+  reason.
 """
 
 import json
@@ -158,7 +159,7 @@ def test_jax_snapshots_resume_in_the_port(env, tmp_path, capsys):
             assert torch.equal(v, want[k]), k
 
 
-def test_refusals(env):
+def test_refusals(env, capsys):
     snap = os.path.join(env["full"]["out_dir"], "Model", "text_encoder0.msgpack")
     base = [a for a in env["base"] if a != "--simple-cnn"]
     with pytest.raises(SystemExit, match="pass --simple-cnn"):
@@ -166,7 +167,9 @@ def test_refusals(env):
                                     "--resume_from", snap])
     with pytest.raises(SystemExit, match="must point at a text_encoder"):
         _run(env, str(env["root"] / "never"), "--resume_from", snap + ".bak")
-    for flag in (["--mesh", "8x1"], ["--tensorboard"]):
-        with pytest.raises(SystemExit, match="A 10"):
+    for flag, why in ((["--mesh", "2x1"], "torchrun"),
+                      (["--mesh", "2x2"], "no model-parallel axis")):
+        with pytest.raises(SystemExit):
             _run(env, str(env["root"] / "never"), *flag)
+        assert why in capsys.readouterr().err
     assert not os.path.exists(env["root"] / "never")

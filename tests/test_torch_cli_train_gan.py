@@ -5,7 +5,8 @@ step), the JAX CLI's metric rows, snapshots that JAX's `load_variables`
 reads into the tree JAX's generators take (and that then compute what the
 port's generators compute, within the float32 pipeline gate of
 tests/test_torch_pipeline.py: rtol 1e-3, atol 2e-4), `--init_netg` from a
-snapshot, and the refused flags.
+snapshot, and the flags' misuse (their use: tests/test_torch_train_resume.py,
+test_torch_mesh.py, test_torch_data_parallel.py).
 """
 
 import json
@@ -138,16 +139,20 @@ def test_init_netg_from_a_snapshot(env, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--resume"], "A 10"), (["--mesh", "8x1"], "A 10"), (["--fsdp"], "A 10"),
+    (["--mesh", "2x1"], "torchrun --nproc_per_node 2"), (["--mesh", "8"], "--mesh expects"),
+    (["--fsdp"], "--fsdp requires --mesh"),
     (["--remat", "bogus"], "argument --remat: invalid choice: 'bogus'"),
-    (["--resume", "--remat", "all"], "A 10"),
-    (["--tensorboard"], "A 10"),
+    (["--resume", "--remat", "all", "--mesh", "3x1"],
+     "TRAIN.BATCH_SIZE=2 not divisible by the data axis (3)"),
+    (["--tensorboard", "--mesh", "1x2"], "torchrun --nproc_per_node 2"),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(env, argv, item, capsys):
-    """The flags that need unported parts exit naming their ROADMAP item
-    (--remat is ported: a policy outside JAX's choices exits with JAX's
-    argparse message, and --remat beside --resume still exits for
-    --resume)."""
+    """The flags once refused are ported (--resume, --mesh, --fsdp,
+    --tensorboard); each misuse exits before anything is written, with JAX's
+    message: --fsdp without --mesh, a malformed mesh, a batch the data axis
+    does not divide, and a mesh over more ranks than the process has, which
+    names torchrun (one process per GPU). A --remat policy outside JAX's
+    choices exits with JAX's argparse message."""
     with pytest.raises(SystemExit) as exc:
         train_gan.main(env["base"] + ["--out_dir", str(env["root"] / "never")] + argv)
     assert item in str(exc.value) + capsys.readouterr().err

@@ -42,7 +42,7 @@ def test_walk_covers_every_port_package():
     """The walk reaches each subpackage of the port, the CLIs included."""
     dirs = {os.path.relpath(os.path.dirname(p), ROOT) for p in _port_files()}
     for sub in ("cli", "data", "engine", "ops", "checkpoints", "models", "utils", "probes",
-                "losses"):
+                "losses", "parallel"):
         assert os.path.join("tgsr_tpu_torch", sub) in dirs
     files = _port_files()
     for rel in ("cli/serve.py", "cli/test.py", "cli/calibrate.py", "data/datasets.py",
@@ -51,7 +51,8 @@ def test_walk_covers_every_port_package():
                 "losses/damsm.py", "models/image_encoder.py", "engine/aot.py",
                 "cli/export_aot.py", "cli/export_torch.py", "checkpoints/export_torch.py",
                 "ops/library.py", "ops/quantize.py", "models/variants.py", "models/vgg.py",
-                "losses/mani.py", "utils/init.py"):
+                "losses/mani.py", "utils/init.py", "parallel/mesh.py", "parallel/multihost.py",
+                "parallel/data_parallel.py", "checkpoints/dcp_io.py", "utils/preemption.py"):
         assert os.path.join(ROOT, "tgsr_tpu_torch", *rel.split("/")) in files, rel
 
 

@@ -6,6 +6,7 @@ reset, the text-gradient clip, snapshots and attention grids.
   python -m tgsr_tpu_torch.cli.pretrain_damsm --cfg <DAMSM yml> --data_dir <root> \\
       [--out_dir ../output] [--simple-cnn] [--bf16] [--inception_ckpt zoo.pth] \\
       [--resume_from <run>/Model/text_encoder<N>.msgpack] [--device cpu]
+  torchrun --nproc_per_node N -m tgsr_tpu_torch.cli.pretrain_damsm ... --mesh Nx1
 
 JAX's flags, defaults and messages, plus `--device` (default "cuda"; "cpu"
 on request). A run writes `<out_dir>/<DATASET>_DAMSM_<time>/`:
@@ -19,9 +20,12 @@ batch, `utils/visualize.build_super_images`) and `Log/metrics.jsonl` (and
 and stops. `--resume_from text_encoder<N>` (with `image_encoder<N>` beside
 it, found by name) continues at epoch N + 1 and replays the uninterrupted
 run exactly: the optimizer restarts every epoch, the loader is (seed,
-epoch)-deterministic and the dropout is seeded by the global step. --mesh
-and --tensorboard exit with the ROADMAP item that ports them. `main`
-returns a summary of the run.
+epoch)-deterministic and the dropout is seeded by the global step. `--mesh
+DATAx1` trains data parallel over a launcher's ranks, one process per GPU
+(the step is the single-process step on the global batch; only rank 0
+writes snapshots and logs, and the attention grid is drawn by a single
+process only, as JAX's). `--tensorboard` mirrors the metrics to `Log/tb`
+where the tensorboard package is. `main` returns a summary of the run.
 """
 
 from __future__ import annotations
@@ -35,12 +39,6 @@ import re
 
 import numpy as np
 import torch
-
-REFUSED = {
-    "mesh": "ROADMAP A 10 (parallel/mesh.py as torch.distributed)",
-    "tensorboard": "ROADMAP A 10 (utils/observability.py's TensorBoard mirror)",
-}
-
 
 def check_encoder_family(snap_inception: bool, live_inception: bool, img_path: str) -> None:
     """Refuse a --resume_from image encoder of the other family than the run
@@ -73,11 +71,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "image_encoder<N> file is loaded by name substitution and "
                              "training continues at epoch N+1)")
     parser.add_argument("--tensorboard", action="store_true",
-                        help="mirror metrics to TensorBoard (not ported yet)")
+                        help="mirror metrics to TensorBoard event files under Log/tb")
     parser.add_argument("--csv", action="store_true",
                         help="mirror metrics to Log/metrics.csv")
     parser.add_argument("--mesh", default="",
-                        help="data-parallel training over a device mesh (not ported yet)")
+                        help="data-parallel training over a device mesh, 'DATAx1' (e.g. "
+                             "8x1), one process per GPU under torchrun; "
+                             "cfg.TRAIN.BATCH_SIZE must be divisible by DATA")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (the card) or cpu")
     return parser
@@ -95,11 +95,41 @@ def _datasets(cfg):
                  for split in ("train", "test"))
 
 
+def _make_mesh(parser, args, cfg):
+    """--mesh -> a mesh or None, with JAX's messages; a mesh over more ranks
+    than the launcher started exits naming torchrun."""
+    from tgsr_tpu_torch.parallel.mesh import make_mesh, parse_mesh_arg
+    from tgsr_tpu_torch.parallel.multihost import process_count
+
+    if not args.mesh:
+        if process_count() > 1:
+            parser.error(f"{process_count()} ranks under a launcher train together only with "
+                         f"--mesh (e.g. --mesh {process_count()}x1)")
+        return None
+    try:
+        n_data, n_model = parse_mesh_arg(args.mesh)
+    except ValueError:
+        parser.error(f"--mesh expects DATAx1 (e.g. 8x1), got {args.mesh!r}")
+    if n_model != 1:
+        parser.error("DAMSM training has no model-parallel axis; use --mesh DATAx1")
+    if cfg.TRAIN.BATCH_SIZE % n_data:
+        parser.error(f"cfg.TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} is not divisible by the "
+                     f"mesh data axis ({n_data})")
+    try:
+        return make_mesh(n_data, n_model, device=args.device)
+    except ValueError as e:
+        parser.error(str(e))
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    for flag, item in REFUSED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: not ported to tgsr_tpu_torch yet; {item}")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    from tgsr_tpu_torch.parallel.multihost import initialize_distributed, is_main_process
+
+    # join the launcher's process group before anything touches the card
+    initialize_distributed(args.device)
+    is_main = is_main_process()
 
     from tgsr_tpu_torch.checkpoints.from_jax import is_inception_state_dict
     from tgsr_tpu_torch.checkpoints.io import save_variables
@@ -109,13 +139,15 @@ def main(argv=None):
     from tgsr_tpu_torch.data.codec import encode_png
     from tgsr_tpu_torch.data.pipeline import BatchLoader
     from tgsr_tpu_torch.engine.damsm_trainer import DAMSMTrainer
+    from tgsr_tpu_torch.parallel.mesh import batch_shards
     from tgsr_tpu_torch.utils.observability import MetricsLogger
     from tgsr_tpu_torch.utils.preemption import graceful_sigterm
 
     cfg = config_from_file(args.cfg_file, check_damsm)
     if args.data_dir:
         cfg = dataclasses.replace(cfg, DATA_DIR=args.data_dir)
-    pprint.pprint(cfg)
+    if is_main:
+        pprint.pprint(cfg)
     np.random.seed(args.manualSeed)
 
     # output dirs (= pretrain_DAMSM.py:221-229)
@@ -124,10 +156,11 @@ def main(argv=None):
     model_dir = os.path.join(out, "Model")
     image_dir = os.path.join(out, "Image")
     train_ds, val_ds = _datasets(cfg)
+    mesh = _make_mesh(parser, args, cfg)
 
     trainer = DAMSMTrainer(cfg, train_ds.n_words, use_inception=not args.simple_cnn,
                            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                           seed=args.manualSeed, device=args.device)
+                           seed=args.manualSeed, device=args.device, mesh=mesh)
     state = trainer.init_state(torch.Generator().manual_seed(args.manualSeed))
     if args.inception_ckpt:
         trainer.load_state(state, cnn_sd=load_image_encoder(args.inception_ckpt))
@@ -154,11 +187,20 @@ def main(argv=None):
 
     os.makedirs(model_dir, exist_ok=True)
     os.makedirs(image_dir, exist_ok=True)
-    logger = MetricsLogger(os.path.join(out, "Log"), csv=args.csv)
+    # rank 0 owns the metric files
+    logger = (MetricsLogger(os.path.join(out, "Log"), csv=args.csv,
+                            tensorboard=args.tensorboard) if is_main else None)
     train_loader = BatchLoader(train_ds, cfg.TRAIN.BATCH_SIZE, shuffle=True,
                                seed=args.manualSeed)
     val_batch = min(cfg.TRAIN.BATCH_SIZE, len(val_ds))
-    val_loader = (BatchLoader(val_ds, val_batch, shuffle=False, drop_last=False,
+    if mesh is not None:
+        # every batch must divide the data axis: round the val batch down
+        n_data = batch_shards(mesh)
+        val_batch = (val_batch // n_data) * n_data
+        if val_batch == 0:
+            print(f"val set ({len(val_ds)} items) smaller than the mesh data axis ({n_data}); "
+                  f"skipping validation")
+    val_loader = (BatchLoader(val_ds, val_batch, shuffle=False, drop_last=mesh is not None,
                               deterministic_captions=True) if val_batch else None)
     snapshots = []
 
@@ -167,10 +209,14 @@ def main(argv=None):
         (pretrain_DAMSM.py:100-129)."""
         text_vars, cnn_vars = state.snapshot_variables()
         path = os.path.join(model_dir, f"text_encoder{epoch}.msgpack")
-        save_variables(path, text_vars)
-        save_variables(os.path.join(model_dir, f"image_encoder{epoch}.msgpack"), cnn_vars)
         snapshots.append(path)
-        print(f"snapshot @ epoch {epoch} -> {model_dir}")
+        if is_main:  # the state is replicated; one rank writes
+            save_variables(path, text_vars)
+            save_variables(os.path.join(model_dir, f"image_encoder{epoch}.msgpack"), cnn_vars)
+            print(f"snapshot @ epoch {epoch} -> {model_dir}")
+        if mesh is not None and batch_shards(mesh) > 1:
+            # the grid's eval step is a collective; a single process draws it
+            return
         try:
             from tgsr_tpu_torch.utils.visualize import build_super_images
 
@@ -204,7 +250,8 @@ def main(argv=None):
         snapshot(state, -1)
         print("interrupted; snapshot saved")
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return {"out_dir": out, "epochs": epochs, "start_epoch": start_epoch, "history": history,
             "snapshots": snapshots, "state": state, "trainer": trainer}
 

@@ -2,21 +2,23 @@
 `BatchLoader`, images decoded and captions encoded on a background thread,
 numpy batches yielded in order; `device_preprocess`, the training batch's
 pyramid, LR and bicubic (and blurred) copies made on the device from the
-uint8 HR. `device_prefetch` is not ported (ROADMAP A 9): the trainer copies
-each batch when it takes it.
+uint8 HR; `device_prefetch`, the host-to-device copies of the next batches
+made on a side stream while the current step runs.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
-from typing import Any, Dict, Iterator
+from collections import deque
+from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 from tgsr_tpu_torch.data.datasets import prepare_batch
 from tgsr_tpu_torch.ops.image import build_pyramid, gaussian_blur, normalize_uint8, resize
+from tgsr_tpu_torch.parallel.multihost import land_batch
 
 
 def device_preprocess(hr_uint8: torch.Tensor, n_branches: int, base_size: int,
@@ -41,7 +43,11 @@ def device_preprocess(hr_uint8: torch.Tensor, n_branches: int, base_size: int,
 
 class BatchLoader:
     """A threaded host loader (the reference's DataLoader(num_workers) role):
-    one worker thread per epoch fills a queue of `prefetch` batches.
+    one worker thread per epoch fills a queue of `prefetch` batches. With
+    `mesh` each rank gets its rows of every global batch
+    (`parallel.multihost.process_local_slice`): every rank decodes the whole
+    batch, so that the random draws (captions, crops) are the
+    single-process stream's.
 
     Two guarantees: an exception in the worker (a decode error) reaches the
     consumer, raised from the generator; and a consumer that abandons the
@@ -50,7 +56,7 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_last: bool = True, deterministic_captions: bool = False,
-                 prefetch: int = 2):
+                 prefetch: int = 2, mesh=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -58,6 +64,7 @@ class BatchLoader:
         self.drop_last = drop_last
         self.deterministic_captions = deterministic_captions
         self.prefetch = prefetch
+        self.mesh = mesh
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -99,7 +106,10 @@ class BatchLoader:
                     examples = [self.dataset.__getitem__(
                         int(i), rng=rng, sent_ix=0 if self.deterministic_captions else None)
                         for i in sel]
-                    if not _put(prepare_batch(examples)):
+                    batch = prepare_batch(examples)
+                    if self.mesh is not None:
+                        batch = land_batch(batch, self.mesh)
+                    if not _put(batch):
                         return
             except BaseException as e:  # noqa: BLE001 -- handed to the consumer, raised there
                 _put(e)
@@ -119,3 +129,87 @@ class BatchLoader:
         finally:
             # the generator closed or abandoned: release the worker
             stop.set()
+
+
+def _to_device(tree: Any, device: torch.device, stream) -> Any:
+    """numpy arrays and tensors of `tree` on `device` (from pinned host
+    memory, non-blocking, on `stream` where given); lists of strings and
+    other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device, stream) for k, v in tree.items()}
+    if isinstance(tree, list) and tree and isinstance(tree[0], str):
+        return tree
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device, stream) for v in tree)
+    if isinstance(tree, np.ndarray):
+        tree = torch.from_numpy(tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if device.type != "cuda":
+        return tree.to(device)
+    with torch.cuda.stream(stream):
+        return tree.pin_memory().to(device, non_blocking=True)
+
+
+def _tensors(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def device_prefetch(batches: Iterator[Dict[str, Any]], depth: int = 2,
+                    device: Optional[Union[str, torch.device]] = None,
+                    put: Optional[Callable[[Any], Any]] = None) -> Iterator[Dict[str, Any]]:
+    """The batches of `batches` with their arrays on `device`, each copied
+    `depth` batches ahead of its use (counterpart of
+    tgsr_tpu/data/pipeline.py:139; the role of torch's pin_memory +
+    non_blocking): on a card, from pinned host memory on a side stream, the
+    consumer's stream waiting for each batch's copies when it is handed out;
+    on the CPU the arrays become tensors that share their memory; with
+    `device` None the batches pass as they are. `put`: a per-batch landing of the caller's in place of the
+    copy (a rank's rows, `parallel.mesh.shard_batch`), also run `depth`
+    ahead. Lists of strings (prepare_batch's "keys") and scalars pass
+    through. Closing the iterator early drops what it holds."""
+    dev = None if device is None else torch.device(device)
+    stream = torch.cuda.Stream(dev) if dev is not None and dev.type == "cuda" else None
+    if put is None:
+        def put(tree):
+            return tree if dev is None else _to_device(tree, dev, stream)
+
+    def land(tree):
+        out = put(tree)
+        if stream is None:
+            return out, None
+        event = torch.cuda.Event()
+        event.record(stream)
+        return out, event
+
+    def hand_out(item):
+        out, event = item
+        if event is not None:
+            current = torch.cuda.current_stream(dev)
+            current.wait_event(event)
+            for t in _tensors(out):
+                if t.device.type == "cuda":
+                    t.record_stream(current)
+        return out
+
+    buf: deque = deque()
+    it = iter(batches)
+    try:
+        while True:
+            while len(buf) < depth:
+                try:
+                    buf.append(land(next(it)))
+                except StopIteration:
+                    while buf:
+                        yield hand_out(buf.popleft())
+                    return
+            yield hand_out(buf.popleft())
+    finally:
+        buf.clear()

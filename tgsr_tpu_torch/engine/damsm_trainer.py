@@ -28,8 +28,17 @@ trainer:
   process's switches say.
 
 Where JAX returns a new state from a jitted step, the port updates the
-state in place and returns the metrics, 0-d tensors on the device. Not
-ported: `mesh` (ROADMAP A 10).
+state in place and returns the metrics, 0-d tensors on the device.
+
+`mesh` (JAX's data parallelism, :167 and :354; a `parallel.mesh` mesh, one
+process per GPU): `device_batch` takes each rank's rows of the global host
+batch (which must divide the data axis, JAX's message), the CNN's BN
+moments are the global batch's, the words and sentence losses run over
+every caption-image pair of the global batch (the ranks' features,
+embeddings, lengths and class ids gathered with their gradient), the
+dropout draws the global batch's mask and each rank takes its rows, and the
+ranks' gradients are summed (one flat bucket) before the clip and Adam: the
+step is the single-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -51,6 +60,9 @@ from tgsr_tpu_torch.losses.damsm import sent_loss, words_loss
 from tgsr_tpu_torch.models.image_encoder import CNNEncoder, make_image_encoder
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.image import normalize_uint8
+from tgsr_tpu_torch.parallel import data_parallel
+from tgsr_tpu_torch.parallel.mesh import batch_group, batch_shards
+from tgsr_tpu_torch.parallel.multihost import device_of_rank, land_batch
 
 ADAM_BETAS = (0.5, 0.999)  # pretrain_DAMSM.py:270
 EVAL_BATCHES = 50  # the batches `evaluate` reads (pretrain_DAMSM.py:133-163)
@@ -78,11 +90,12 @@ class DAMSMState:
 class DAMSMTrainer:
     def __init__(self, cfg: Config, vocab_size: int, use_inception: bool = True,
                  compute_dtype: torch.dtype = torch.float32, seed: int = 0,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         """`use_inception`: CNNEncoder, its backbone frozen (JAX's default
         freeze_backbone), else SimpleCNNEncoder, all of it trained. `seed`
         seeds the dropout of every step with the global step. `device` is
-        the card unless the caller asks for the CPU."""
+        the card unless the caller asks for the CPU (under a launcher, this
+        rank's card). `mesh`: data parallel over its batch axes."""
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the DAMSM trainer computes in "
                              f"{COMPUTE_DTYPES}")
@@ -91,7 +104,9 @@ class DAMSMTrainer:
         self.use_inception = use_inception
         self.compute_dtype = compute_dtype
         self.seed = seed
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else device_of_rank(device))
+        self.mesh = mesh
+        self.group = None if mesh is None else batch_group(mesh)
         self.base_lr = cfg.TRAIN.ENCODER_LR
         self.grad_clip = cfg.TRAIN.RNN_GRAD_CLIP
         s = cfg.TRAIN.SMOOTH
@@ -174,15 +189,31 @@ class DAMSMTrainer:
         return feat.float(), code.float()
 
     def _loss(self, state: DAMSMState, batch: Mapping[str, torch.Tensor], train: bool):
+        """The loss, its metrics and the attention maps; under a mesh this
+        rank's part of the global batch's loss (each rank computes it whole
+        over the gathered batch, weighted by 1 / ranks), the maps the global
+        batch's."""
+        group = data_parallel.data_group()
         feat, code = self._apply_cnn(state, batch["imgs"], train)
         state.text.train(train)
         gen = self.dropout_generator(state.step) if train else None
-        words, sent = state.text(batch["captions"], batch["cap_lens"], generator=gen)
+        rows = None
+        if group is not None:
+            b, ranks = batch["captions"].shape[0], data_parallel.group_size(group)
+            rows = (data_parallel.rank_in(group) * b, ranks * b)
+        words, sent = state.text(batch["captions"], batch["cap_lens"], generator=gen, rows=rows)
         g1, g2, g3 = self.gammas
         class_ids = batch.get("class_ids")
-        w0, w1, attn = words_loss(feat, words, batch["cap_lens"], class_ids, g1, g2, g3)
+        cap_lens = batch["cap_lens"]
+        if group is not None:
+            feat, code, words, sent, cap_lens, class_ids = data_parallel.gather_batch(
+                [feat, code, words, sent, cap_lens, class_ids], group)
+        w0, w1, attn = words_loss(feat, words, cap_lens, class_ids, g1, g2, g3)
         s0, s1 = sent_loss(code, sent, class_ids, g3)
         total = w0 + w1 + s0 + s1
+        if group is not None:
+            w0, w1, s0, s1, total = (t * data_parallel.share(group)
+                                     for t in (w0, w1, s0, s1, total))
         return total, {"w_loss": w0 + w1, "s_loss": s0 + s1, "loss": total}, attn
 
     @float32_math()
@@ -191,8 +222,11 @@ class DAMSMTrainer:
         """One Adam step at `lr` on a device batch (`device_batch`), in
         place. Returns the metrics."""
         names, params = zip(*self.trainable(state.text, state.cnn))
-        loss, metrics, _ = self._loss(state, batch, True)
-        grads = list(torch.autograd.grad(loss, params))
+        with data_parallel.data_parallel(self.group):
+            loss, metrics, _ = self._loss(state, batch, True)
+            grads = list(torch.autograd.grad(loss, params))
+        grads = data_parallel.sum_tensors(grads, self.group)
+        metrics = self._sum_metrics(metrics)
         n_text = sum(n.startswith("text.") for n in names)
         tnorm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g) for g in grads[:n_text]]))
@@ -214,8 +248,14 @@ class DAMSMTrainer:
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Eval-mode losses and the words loss's attention maps [B, T, R];
         nothing moves."""
-        _, metrics, attn = self._loss(state, batch, False)
-        return metrics, attn
+        with data_parallel.data_parallel(self.group):
+            _, metrics, attn = self._loss(state, batch, False)
+        return self._sum_metrics(metrics), attn
+
+    def _sum_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The ranks' parts of the metrics summed (the global batch's)."""
+        keys = list(metrics)
+        return dict(zip(keys, data_parallel.sum_tensors([metrics[k] for k in keys], self.group)))
 
     @torch.no_grad()
     @float32_math()
@@ -284,7 +324,18 @@ class DAMSMTrainer:
     def device_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch (`prepare_batch`'s) -> the step's: images NHWC in
         [-1, 1] (uint8 normalised on the device), captions, lengths and
-        class ids."""
+        class ids. Under a mesh, this rank's rows of the global batch, whose
+        size must divide the data axis (JAX's message)."""
+        if self.mesh is not None:
+            n_data = batch_shards(self.mesh)
+            b = len(batch["captions"])
+            if b % n_data:
+                raise ValueError(
+                    f"DP batch {b} does not divide the mesh data axis ({n_data}); use a "
+                    f"drop_last loader (the reference semantics, pretrain_DAMSM.py:248) or pad "
+                    f"the host batch with parallel.mesh.pad_to_multiple")
+            batch = land_batch({k: np.asarray(v) for k, v in batch.items()
+                                if k in ("hr", "captions", "cap_lens", "class_ids")}, self.mesh)
         dev = self.device
         imgs = normalize_uint8(torch.as_tensor(np.asarray(batch["hr"]), device=dev))
         return {"imgs": imgs,

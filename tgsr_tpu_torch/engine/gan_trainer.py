@@ -56,14 +56,36 @@ state in place (its modules, optimizers and EMA) and returns the metrics,
 0-d tensors on the device (no host sync). JAX's CANet draws a c_code that
 nothing on the SR path reads; the port draws nothing, so a step uses no
 random numbers. `plan_batch` bisects capped probe runs where JAX bisects
-XLA's compile-time memory, and refuses the CPU (ROADMAP Queue C). Not
-ported (ROADMAP): `mesh` / `fsdp` (A 10), `train_steps` and
-`clip_by_global_norm` (A 8).
+XLA's compile-time memory, and refuses the CPU (ROADMAP Queue C).
+
+Scale-out (JAX's `mesh` and `fsdp`, :66-108): with `mesh` (a
+`parallel.mesh` DeviceMesh; one process per GPU) each rank steps on its own
+rows of the global batch and the step is the single-process step on the
+global batch, as JAX's ("Math is unchanged vs DP"): train-mode BN takes the
+global moments, the losses that couple samples read the other ranks' rows
+(`parallel/data_parallel.py`), each per-sample mean is weighted by B_local /
+B_global, and the ranks' parameter gradients and metrics are summed (one
+flat bucket a dtype). The gradients are never DDP's: `torch.autograd.grad`
+bypasses its hooks. `fsdp` (which needs a mesh) stores every parameter, both
+Adams' moments, the G EMA and the grad_accum buffers sharded by
+`parallel.mesh.fsdp_spec` between steps: the step all-gathers the
+parameters, reduce-scatters their gradients and updates each rank's shard
+(Adam and the EMA are elementwise, so a shard's update is the same
+arithmetic); D is gathered again after its update, for G's step against
+it. Under a mesh of one rank every collective is a copy and the step is the
+plain step bit for bit.
+
+`GANTrainState.state_dict()` / `load_state_dict()` are the whole train
+state (JAX's orbax tree) for `checkpoints/dcp_io.py`: a sharded leaf a
+DTensor. `train_steps` runs K steps over a stacked batch;
+`clip_norm` (`clip_by_global_norm`, :618) clips each optimizer's gradient
+by its global norm, optax's rule, before it is accumulated or applied.
 """
 
 from __future__ import annotations
 
 import gc
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -82,6 +104,10 @@ from tgsr_tpu_torch.models.image_encoder import CNNEncoder, SimpleCNNEncoder
 from tgsr_tpu_torch.models.models16 import make_generators
 from tgsr_tpu_torch.models.text_encoder import TextEncoder
 from tgsr_tpu_torch.ops.blocks import nchw, nhwc
+from tgsr_tpu_torch.parallel import data_parallel
+from tgsr_tpu_torch.parallel.mesh import (axis_sizes, batch_group, local_shard, placements,
+                                          shard_dim)
+from tgsr_tpu_torch.parallel.multihost import device_of_rank
 from tgsr_tpu_torch.ops.image import denormalize_to_uint8, psnr_batch, rgb2y, ssim
 from tgsr_tpu_torch.utils import memory
 from tgsr_tpu_torch.utils.remat import remat_policy
@@ -90,6 +116,66 @@ LOSS_TERMS = ("adv", "pixel", "kl", "damsm")
 TRAIN_DTYPES = COMPUTE_DTYPES + (torch.float64,)  # float64: the reference precision
 A_INIT = 0.5  # the JAX NetGHighWeight's init of params['a']
 EMA_DECAY = 0.999  # the JAX trainer's default, which its CLI keeps
+ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
+
+
+def gather_dim(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor of the ranks' equal shards along `dim`, in rank order."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    out = shard.new_empty((n * shard.shape[0], *shard.shape[1:]))
+    dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+    return torch.cat(out.view(n, *shard.shape).unbind(0), dim=dim)
+
+
+def reduce_grads(grads: List[torch.Tensor], dims: List[Optional[int]], group
+                 ) -> List[torch.Tensor]:
+    """The ranks' gradients summed: a whole tensor where dims[i] is None (one
+    all-reduce bucket a dtype), else this rank's shard along dims[i] (one
+    reduce-scatter over a bucket that holds each rank's chunks in turn)."""
+    import torch.distributed as dist
+
+    out = list(grads)
+    whole = [i for i, d in enumerate(dims) if d is None]
+    for i, g in zip(whole, data_parallel.sum_tensors([grads[i] for i in whole], group)):
+        out[i] = g
+    cut = [i for i, d in enumerate(dims) if d is not None]
+    if not cut:
+        return out
+    n = dist.get_world_size(group)
+    for dtype in dict.fromkeys(grads[i].dtype for i in cut):
+        idx = [i for i in cut if grads[i].dtype == dtype]
+        parts = [grads[i].chunk(n, dims[i]) for i in idx]
+        bucket = torch.cat([c[k].reshape(-1) for k in range(n) for c in parts])
+        mine = bucket.new_empty(bucket.numel() // n)
+        data_parallel.reduce_scatter(mine, bucket, group)
+        at = 0
+        for i, c in zip(idx, parts):
+            out[i] = mine[at:at + c[0].numel()].view(c[0].shape)
+            at += c[0].numel()
+    return out
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded: Optional[List[bool]] = None, group=None
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """optax.clip_by_global_norm (the JAX trainer's `clip_by_global_norm`
+    chains it before the optimizer): the global norm sqrt(sum of each
+    tensor's sum of squares), and each gradient as it is where the norm is
+    below `max_norm`, else (g / norm) * max_norm. (`torch.nn.utils.
+    clip_grad_norm_` scales by max_norm / (norm + 1e-6), another function.)
+    `sharded[i]`: gradient i is this rank's shard of a tensor sharded over
+    `group`, whose squares are summed across the ranks; the others are
+    whole on every rank. Returns (clipped gradients, norm)."""
+    sharded = sharded or [False] * len(grads)
+    whole = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if not s)
+    if any(sharded):
+        part = torch.stack([torch.sum(g * g) for g, s in zip(grads, sharded) if s]).sum()
+        whole = whole + data_parallel.sum_tensors([part], group)[0]
+    norm = torch.sqrt(torch.as_tensor(whole))
+    trigger = norm < max_norm
+    return [torch.where(trigger, g, (g / norm.to(g.dtype)) * max_norm) for g in grads], norm
 
 
 @dataclass
@@ -114,6 +200,85 @@ class GANTrainState:
     mini_step: int = 0
     g_acc: List[torch.Tensor] = field(default_factory=list)
     d_acc: List[torch.Tensor] = field(default_factory=list)
+    mesh: Any = None  # the trainer's mesh under --fsdp
+    shards: Dict[str, int] = field(default_factory=dict)  # parameter -> its sharded dim
+    group: Any = None  # the batch group the shards span
+
+    def d_named_parameters(self) -> List[Tuple[str, torch.Tensor]]:
+        return [(f"dnets.{n}", p) for n, p in self.dnets.named_parameters()]
+
+    def _place(self, name: str, t: torch.Tensor):
+        """A tensor of parameter `name`'s layout: a DTensor where it is
+        stored sharded."""
+        if name not in self.shards:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, self.mesh, placements(self.mesh, self.shards[name]),
+                                  run_check=False)
+
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter `name`'s shard `t` (a collective
+        where it is sharded; `t` itself otherwise)."""
+        if name not in self.shards:
+            return t
+        return gather_dim(t, self.shards[name], self.group)
+
+    def full_ema(self) -> Dict[str, torch.Tensor]:
+        """The G EMA, every tensor whole (a collective under --fsdp)."""
+        return {n: self.full(n, t) for n, t in self.g_ema.items()}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The whole train state (JAX's orbax tree), flat, for
+        `checkpoints/dcp_io.py`: step and mini_step; netg, netgh and the
+        dnets (parameters and BN stats) by name; the trained `a`; the G EMA
+        (`g_ema.<name>`); both Adams' state by parameter name
+        (`g_opt.<name>.step`, `.exp_avg`, `.exp_avg_sq`); the grad_accum
+        buffers (`g_acc.<name>`, `d_acc.<name>`). The tensors are the live
+        ones (a checkpoint restores into them in place), a sharded one as a
+        DTensor of this rank's shard."""
+        out: Dict[str, Any] = {"step": torch.tensor(self.step),
+                               "mini_step": torch.tensor(self.mini_step)}
+        for key, module in (("netg", self.netg), ("netgh", self.netgh), ("dnets", self.dnets)):
+            for n, b in module.named_buffers():
+                out[f"{key}.{n}"] = b
+        g_named, d_named = self.g_named_parameters(), self.d_named_parameters()
+        for name, p in g_named + d_named:
+            out["a" if name == "netgh.a" else name] = self._place(name, p.data)
+        for name, t in self.g_ema.items():
+            out[f"g_ema.{name}"] = self._place(name, t)
+        for tag, opt, named, acc in (("g", self.g_opt, g_named, self.g_acc),
+                                     ("d", self.d_opt, d_named, self.d_acc)):
+            for name, p in named:
+                st = opt.state[p]
+                out[f"{tag}_opt.{name}.step"] = st["step"]
+                for k in ADAM_KEYS[1:]:
+                    out[f"{tag}_opt.{name}.{k}"] = self._place(name, st[k])
+            for (name, _), t in zip(named, acc):
+                out[f"{tag}_acc.{name}"] = self._place(name, t)
+        return out
+
+    def load_state_dict(self, sd: Mapping[str, Any]) -> None:
+        """Copies a `state_dict()` (whole tensors, or DTensors of this
+        layout) into the live state, in place."""
+        from torch.distributed.tensor import DTensor
+
+        mine = self.state_dict()
+        missing = set(mine) - set(sd)
+        if missing:
+            raise KeyError(f"train state without {sorted(missing)[:4]}")
+        with torch.no_grad():
+            for k, t in mine.items():
+                v = sd[k]
+                if v is t:
+                    continue
+                local = t.to_local() if isinstance(t, DTensor) else t
+                src = v.to_local() if isinstance(v, DTensor) else torch.as_tensor(v)
+                if isinstance(t, DTensor) and not isinstance(v, DTensor):
+                    src = local_shard(src, self.mesh, t.placements[0].dim)
+                local.copy_(src)
+        self.step = int(sd["step"])
+        self.mini_step = int(sd["mini_step"])
 
     def g_named_parameters(self) -> List[Tuple[str, torch.Tensor]]:
         return ([(f"netg.{n}", p) for n, p in self.netg.named_parameters()]
@@ -126,13 +291,14 @@ class GANTrainState:
         (x16's h_net3, img_net2, ...) carry its EMA too. Under a weight map
         the maps' EMA is in the netgh state dict and a is None."""
         out = []
+        ema = self.full_ema()
         for prefix, module in (("netg", self.netg), ("netgh", self.netgh)):
             sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
             first = {id(p): name for name, p in module.named_parameters()}
             for name, p in module.named_parameters(remove_duplicate=False):
-                sd[name] = self.g_ema[f"{prefix}.{first[id(p)]}"].detach().cpu().clone()
+                sd[name] = ema[f"{prefix}.{first[id(p)]}"].detach().cpu().clone()
             out.append(sd)
-        return out[0], out[1], None if self.a is None else float(self.g_ema["netgh.a"])
+        return out[0], out[1], None if self.a is None else float(ema["netgh.a"])
 
     def snapshot_variables(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """The (netG, netGH) flax trees a snapshot writes: the JAX trainer
@@ -148,7 +314,8 @@ class GANTrainer:
                  grad_accum: int = 1,
                  loss_weights: Optional[Mapping[str, float]] = None,
                  d_lr: Optional[float] = None, remat=False,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None, fsdp: bool = False,
+                 clip_norm: Optional[float] = None):
         """`text_sd` the frozen text encoder's weights (a RNN_ENCODER state
         dict). `image_encoder`: a DAMSM `CNNEncoder` or `SimpleCNNEncoder`
         with its weights, frozen here, whose terms join adv (on the finest
@@ -159,13 +326,21 @@ class GANTrainer:
         True / 'all' / 'low' / 'high' (ValueError with JAX's message
         otherwise). `device` is the card unless
         the caller asks for the CPU, where every kernel site runs its plain
-        version."""
+        version. `mesh`: a `parallel.mesh` mesh, the batch this rank's rows
+        of the global batch (data parallel; under a launcher `device` is this
+        rank's card); `fsdp` (needs a mesh, JAX's message) the sharded
+        storage. `clip_norm`: clip each optimizer's gradients to this global
+        norm (`clip_by_global_norm`)."""
         check_trained(cfg)
         remat_policy(remat)
         if image_encoder is not None and not isinstance(image_encoder,
                                                         (CNNEncoder, SimpleCNNEncoder)):
             raise TypeError(f"image_encoder: a CNNEncoder or SimpleCNNEncoder module, not "
                             f"{type(image_encoder).__name__}")
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True requires a mesh")
+        if fsdp and "dcn" in mesh.mesh_dim_names:
+            raise ValueError("fsdp shards over a flat ('data', 'model') mesh's 'data' axis")
         if compute_dtype not in TRAIN_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the port trains in {TRAIN_DTYPES}")
         if grad_accum < 1:
@@ -175,7 +350,11 @@ class GANTrainer:
             raise ValueError(f"loss_weights {sorted(unknown)}: the terms are {LOSS_TERMS}")
         self.cfg = cfg
         self.vocab_size = vocab_size
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else device_of_rank(device))
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.group = None if mesh is None else batch_group(mesh)
+        self.clip_norm = clip_norm
         self.compute_dtype = compute_dtype
         # outputs, logits and losses: float32, or float64 for the reference
         self.loss_dtype = torch.promote_types(compute_dtype, torch.float32)
@@ -214,7 +393,28 @@ class GANTrainer:
         state = GANTrainState(
             step=0, netg=netg, netgh=netgh, a=a, dnets=dnets, g_ema={},
             g_opt=torch.optim.Adam(g_params, lr=self.cfg.TRAIN.GENERATOR_LR, betas=(0.5, 0.999)),
-            d_opt=torch.optim.Adam(dnets.parameters(), lr=self.d_lr, betas=(0.5, 0.999)))
+            d_opt=torch.optim.Adam(dnets.parameters(), lr=self.d_lr, betas=(0.5, 0.999)),
+            mesh=self.mesh if self.fsdp else None, group=self.group)
+        if self.fsdp:
+            n = data_parallel.storage_shards(axis_sizes(self.mesh)["data"])
+            with torch.no_grad():
+                for name, p in state.g_named_parameters() + state.d_named_parameters():
+                    dim = shard_dim(p.shape, n)
+                    if dim is not None:
+                        state.shards[name] = dim
+                        p.data = local_shard(p.data, self.mesh, dim)
+        # the optimizers' and grad_accum's state made now, as their first
+        # update would make it, so that a fresh state is a checkpoint's
+        # template (torch's Adam: a float32 step count on the CPU)
+        for opt, params, acc in ((state.g_opt, g_params, state.g_acc),
+                                 (state.d_opt, list(dnets.parameters()), state.d_acc)):
+            for p in params:
+                opt.state[p] = {"step": torch.tensor(0.0),
+                                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                                "exp_avg_sq": torch.zeros_like(
+                                    p, memory_format=torch.preserve_format)}
+            if self.grad_accum > 1:
+                acc.extend(torch.zeros_like(p) for p in params)
         self._reset_ema(state)
         return state
 
@@ -225,8 +425,8 @@ class GANTrainer:
         `a` into `state` (a weight map's maps come in netgh_sd, and `a` is
         not read), and the discriminators' ({"d64": sd, ...}) where given;
         the EMA restarts from the loaded weights (JAX's --init_netg). The
-        optimizer state is left as it is."""
-        with torch.no_grad():
+        optimizer state is left as it is. Under --fsdp a collective."""
+        with self._whole(state), torch.no_grad():
             state.netg.load_state_dict(netg_sd, strict=True)
             state.netgh.load_state_dict(netgh_sd, strict=True)
             if state.a is not None:
@@ -238,6 +438,39 @@ class GANTrainer:
     @staticmethod
     def _reset_ema(state: GANTrainState) -> None:
         state.g_ema = {n: p.detach().clone() for n, p in state.g_named_parameters()}
+
+    # -- sharded storage (--fsdp) ----------------------------------------------------
+
+    def _gather(self, state: GANTrainState, named) -> Dict[str, torch.Tensor]:
+        """Each sharded parameter of `named` made whole (p.data the gathered
+        tensor); returns its shard by name."""
+        kept = {}
+        for name, p in named:
+            if name in state.shards:
+                kept[name] = p.data
+                p.data = gather_dim(p.data, state.shards[name], self.group)
+        return kept
+
+    @staticmethod
+    def _release(named, kept: Mapping[str, torch.Tensor]) -> None:
+        for name, p in named:
+            if name in kept:
+                p.data = kept[name]
+
+    @contextmanager
+    def _whole(self, state: GANTrainState):
+        """Within: every parameter whole; after: each rank's shard taken
+        back from the whole tensor, which the body may have changed."""
+        named = state.g_named_parameters() + state.d_named_parameters()
+        kept = self._gather(state, named)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for name, p in named:
+                    if name in kept:
+                        kept[name].copy_(local_shard(p.data, self.mesh, state.shards[name]))
+            self._release(named, kept)
 
     # -- the step -------------------------------------------------------------------
 
@@ -288,10 +521,20 @@ class GANTrainer:
         backbone frozen, as JAX's trainer applies it (freeze_backbone)."""
         return call_cast(self.image_encoder, self.loss_dtype, nhwc(img), buffers=True)
 
-    def _apply(self, opt, params, grads, acc: List[torch.Tensor], mini_step: int) -> bool:
-        """One optimizer update, or (grad_accum > 1) the running mean of the
-        micro-steps' gradients as optax.MultiSteps keeps it, applied on the
-        last micro-step. Returns whether the parameters moved."""
+    def _apply(self, state: GANTrainState, opt, named, grads, acc: List[torch.Tensor]) -> bool:
+        """The ranks' gradients summed (this rank's shard of each sharded
+        one, the shards then put back in the parameters), clipped by
+        `clip_norm`, then one optimizer update, or (grad_accum > 1) the
+        running mean of the micro-steps' gradients as optax.MultiSteps keeps
+        it, applied on the last micro-step. Returns whether the parameters
+        moved."""
+        names, params = [n for n, _ in named], [p for _, p in named]
+        if self.group is not None:
+            grads = reduce_grads(list(grads), [state.shards.get(n) for n in names], self.group)
+        if self.clip_norm is not None:
+            grads, _ = clip_by_global_norm(list(grads), self.clip_norm,
+                                           [n in state.shards for n in names], self.group)
+        mini_step = state.mini_step
         if self.grad_accum > 1:
             if not acc:
                 acc.extend(torch.zeros_like(p) for p in params)
@@ -315,7 +558,21 @@ class GANTrainer:
         3] and 'real_pyramid' (a list of [B, s, s, 3]), NHWC in [-1, 1] as
         `data.pipeline.device_preprocess` makes them, 'captions' [B, T],
         'cap_lens' [B] and, for the DAMSM terms, 'class_ids' [B] (optional).
-        Returns the metrics (JAX's keys)."""
+        Returns the metrics (JAX's keys). Under a mesh the batch is this
+        rank's rows of the global batch and the metrics the global batch's
+        (summed over the ranks)."""
+        with data_parallel.data_parallel(self.group):
+            metrics = self._step(state, batch)
+        if self.group is not None:
+            keys = list(metrics)
+            metrics = dict(zip(keys, data_parallel.sum_tensors([metrics[k] for k in keys],
+                                                               self.group)))
+        return metrics
+
+    def _step(self, state: GANTrainState, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        g_named, d_named = state.g_named_parameters(), state.d_named_parameters()
+        g_kept = self._gather(state, g_named)
+        d_kept = self._gather(state, d_named)
         lr, words, sent, mask = self._inputs(batch)
         real = [nchw(torch.as_tensor(x, device=self.device, dtype=self.loss_dtype))
                 for x in batch["real_pyramid"]]
@@ -324,17 +581,20 @@ class GANTrainer:
         fake, fine, mu, logvar = self._generate(state, lr, words, sent, mask)
 
         # D, on the detached fine pyramid (discriminator_loss detaches)
-        d_params = list(state.dnets.parameters())
+        d_params = [p for _, p in d_named]
         d_loss = 0.0
         for s, r, f in zip(self.sizes, real, fine):
             d_loss = d_loss + discriminator_loss(*self._d_closures(state.dnets[f"d{s}"]),
                                                  r, f, sent)
         d_grads = torch.autograd.grad(d_loss, d_params)
-        self._apply(state.d_opt, d_params, d_grads, state.d_acc, state.mini_step)
+        self._release(d_named, d_kept)
+        self._apply(state, state.d_opt, d_named, d_grads, state.d_acc)
+        d_kept = self._gather(state, d_named)  # G steps against the updated D
 
         # G, against the updated D, through the same forward
         ds = [self._d_closures(state.dnets[f"d{s}"]) for s in self.sizes]
         lt = self.loss_dtype
+        share = data_parallel.share(data_parallel.data_group())
         cap_lens = torch.as_tensor(batch["cap_lens"], device=self.device)
         class_ids = batch.get("class_ids")
         if class_ids is not None:
@@ -345,11 +605,15 @@ class GANTrainer:
                                    self.gammas, self.cfg.TRAIN.SMOOTH.LAMBDA, w=dw, s=dw)
         kl = kl_loss(mu, logvar)
         pix = mse_pyramid(fake, real) + mse_pyramid(fine, real)
+        if data_parallel.data_group() is not None:  # this rank's part of the global means
+            kl, pix = kl * share, pix * share
         w = self.loss_weights
         g_loss = w.get("adv", 1.0) * adv + w.get("kl", 1.0) * kl + w.get("pixel", 1.0) * pix
-        names, g_params = zip(*state.g_named_parameters())
+        names, g_params = zip(*g_named)
         g_grads = torch.autograd.grad(g_loss, g_params)
-        applied = self._apply(state.g_opt, g_params, g_grads, state.g_acc, state.mini_step)
+        self._release(g_named, g_kept)
+        self._release(d_named, d_kept)
+        applied = self._apply(state, state.g_opt, g_named, g_grads, state.g_acc)
         if applied:
             with torch.no_grad():
                 d = EMA_DECAY
@@ -360,6 +624,21 @@ class GANTrainer:
         metrics = {"d_loss": d_loss, "g_loss": g_loss, **logs, "kl": kl, "pixel": pix,
                    "adv": adv}
         return {k: v.detach() for k, v in metrics.items()}
+
+    def train_steps(self, state: GANTrainState, batches: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+        """K steps over a stacked batch (JAX's `train_steps`, :546): every
+        leaf of `batches` (and each scale of 'real_pyramid') has a leading
+        [K] axis. Bit for bit K `train_step` calls; returns the metrics
+        stacked [K]. (JAX scans one compiled step; a captured step is the
+        port's counterpart, ROADMAP A 8.)"""
+        k = len(batches["captions"])
+        steps = []
+        for i in range(k):
+            b = {key: ([x[i] for x in v] if key == "real_pyramid" else v[i])
+                 for key, v in batches.items()}
+            steps.append(self.train_step(state, b))
+        return {key: torch.stack([m[key] for m in steps]) for key in steps[0]}
 
     # -- evaluation -------------------------------------------------------------------
 
@@ -374,7 +653,7 @@ class GANTrainer:
         state.netgh.eval()
         try:
             _, fine, _, _ = self._generate(state, lr, words, sent, mask,
-                                           params=state.g_ema, buffers=True)
+                                           params=state.full_ema(), buffers=True)
         finally:
             state.netg.train()
             state.netgh.train()

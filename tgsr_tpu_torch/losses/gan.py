@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from tgsr_tpu_torch.losses.damsm import sent_loss, words_loss
+from tgsr_tpu_torch.parallel import data_parallel
 
 DClosures = Tuple[Callable, Callable, Optional[Callable]]
 
@@ -53,7 +54,18 @@ def discriminator_loss(d_features: Callable, d_cond: Callable, d_uncond: Optiona
     """= discriminator_loss (losses.py:290-316): real, fake, cond-real,
     cond-fake and cond-wrong (image i against caption i + 1, the first b - 1
     images) with (real + cond_real) / 2 + (fake + cond_fake + cond_wrong) / 3.
-    The fake images are detached here (the reference's .detach())."""
+    The fake images are detached here (the reference's .detach()).
+
+    Inside a data-parallel step (`parallel/data_parallel`) the rows are this
+    rank's share of the global batch: each mean is the global batch's, this
+    rank contributing its rows' part, and the mismatched pairs run over the
+    global batch (this rank's last image against the next rank's first
+    caption; the last rank's last image has none), their mean over
+    B_global - 1 pairs."""
+    group = data_parallel.data_group()
+    if group is not None:
+        return _discriminator_loss_dp(d_features, d_cond, d_uncond, real_imgs, fake_imgs,
+                                      conditions, group)
     b = real_imgs.shape[0]
     ones = torch.ones(b, device=real_imgs.device)
     zeros = torch.zeros(b, device=real_imgs.device)
@@ -65,6 +77,38 @@ def discriminator_loss(d_features: Callable, d_cond: Callable, d_uncond: Optiona
     if d_uncond is not None:
         real_err = bce_with_logits(d_uncond(real_features), ones)
         fake_err = bce_with_logits(d_uncond(fake_features), zeros)
+        return (real_err + cond_real) / 2.0 + (fake_err + cond_fake + cond_wrong) / 3.0
+    return cond_real + (cond_fake + cond_wrong) / 2.0
+
+
+def _bce_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The sum of `bce_with_logits`'s terms."""
+    return torch.sum(torch.clamp(logits, min=0) - logits * targets
+                     + torch.log1p(torch.exp(-logits.abs())))
+
+
+def _discriminator_loss_dp(d_features, d_cond, d_uncond, real_imgs, fake_imgs, conditions,
+                           group) -> torch.Tensor:
+    """`discriminator_loss` on this rank's rows of a global batch: this
+    rank's part of the global loss (the ranks' parts sum to it)."""
+    b = real_imgs.shape[0]
+    ranks, rank = data_parallel.group_size(group), data_parallel.rank_in(group)
+    w = data_parallel.share(group)
+    ones = torch.ones(b, device=real_imgs.device)
+    zeros = torch.zeros(b, device=real_imgs.device)
+    real_features = d_features(real_imgs)
+    fake_features = d_features(fake_imgs.detach())
+    cond_real = bce_with_logits(d_cond(real_features, conditions), ones) * w
+    cond_fake = bce_with_logits(d_cond(fake_features, conditions), zeros) * w
+    # image i against caption i + 1 over the global batch
+    captions = data_parallel.gather_rows(conditions, group)
+    lo = rank * b + 1
+    hi = min(lo + b, ranks * b)
+    wrong = d_cond(real_features[:hi - lo], captions[lo:hi])
+    cond_wrong = _bce_sum(wrong, zeros[:hi - lo]) / (ranks * b - 1)
+    if d_uncond is not None:
+        real_err = bce_with_logits(d_uncond(real_features), ones) * w
+        fake_err = bce_with_logits(d_uncond(fake_features), zeros) * w
         return (real_err + cond_real) / 2.0 + (fake_err + cond_fake + cond_wrong) / 3.0
     return cond_real + (cond_fake + cond_wrong) / 2.0
 
@@ -84,7 +128,15 @@ def generator_loss(ds: Sequence[DClosures], image_encoder: Optional[Callable],
     words loss times w and the sentence loss times s, both times
     `smooth_lambda`; `word_scale` [B, T] reweights the words of the words
     loss (generator_re_weight_loss, losses.py:318-350). Returns (total,
-    {"g_loss{i}": ..., "w_loss", "s_loss"})."""
+    {"g_loss{i}": ..., "w_loss", "s_loss"}).
+
+    Inside a data-parallel step (`parallel/data_parallel`) the rows are this
+    rank's share of the global batch and the result this rank's part of the
+    global loss: each BCE mean weighted by B_local / B_global, the DAMSM
+    terms computed over every caption-image pair of the gathered global
+    batch (the encoder's outputs gathered with their gradient) and divided
+    by the number of ranks, each of which computes them whole."""
+    group = data_parallel.data_group()
     b = sent_emb.shape[0]
     ones = torch.ones(b, device=sent_emb.device)
     total = 0.0
@@ -95,6 +147,8 @@ def generator_loss(ds: Sequence[DClosures], image_encoder: Optional[Callable],
         if d_uncond is not None:
             loss = bce_with_logits(d_uncond(features), ones) + loss
         loss = g * loss
+        if group is not None:
+            loss = loss * data_parallel.share(group)
         total = total + loss
         logs[f"g_loss{i}"] = loss
     if image_encoder is not None:
@@ -102,11 +156,19 @@ def generator_loss(ds: Sequence[DClosures], image_encoder: Optional[Callable],
             raise ValueError("generator_loss with an image encoder: the DAMSM terms need "
                              "words_embs and cap_lens")
         region_features, cnn_code = image_encoder(fake_imgs[-1])
+        if group is not None:
+            (region_features, cnn_code, words_embs, sent_emb, cap_lens, class_ids,
+             word_scale) = data_parallel.gather_batch(
+                [region_features, cnn_code, words_embs, sent_emb, cap_lens, class_ids,
+                 word_scale], group)
         w0, w1, _ = words_loss(region_features, words_embs, cap_lens, class_ids, *gammas,
                                word_scale=word_scale)
         s0, s1 = sent_loss(cnn_code, sent_emb, class_ids, gammas[2])
         logs["w_loss"] = w * (w0 + w1) * smooth_lambda
         logs["s_loss"] = s * (s0 + s1) * smooth_lambda
+        if group is not None:
+            logs["w_loss"] = logs["w_loss"] * data_parallel.share(group)
+            logs["s_loss"] = logs["s_loss"] * data_parallel.share(group)
         total = total + logs["w_loss"] + logs["s_loss"]
     return total, logs
 

@@ -74,13 +74,21 @@ def _masked_gru(xs, lens, w_ih, w_hh, b_ih, b_hh, reverse: bool):
 RNN_TYPES = {"LSTM": nn.LSTM, "GRU": nn.GRU}
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None
-            ) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout as flax's `nn.Dropout`: keep an entry with
     probability 1 - p and scale it by 1 / (1 - p), else 0. The mask is drawn
-    on the CPU from `generator` (the default generator when None)."""
+    on the CPU from `generator` (the default generator when None). `rows`
+    (start, n_global): x holds rows start.. of a global batch of n_global
+    (a data-parallel rank's); the global batch's mask is drawn and these
+    rows taken, so that the ranks drop what one process would."""
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator) < keep
+    if rows is None:
+        mask = torch.rand(x.shape, generator=generator) < keep
+    else:
+        start, n_global = rows
+        mask = (torch.rand((n_global, *x.shape[1:]), generator=generator)
+                < keep)[start:start + x.shape[0]]
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
@@ -102,15 +110,17 @@ class TextEncoder(nn.Module):
                                        bidirectional=True)
 
     def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """captions [B, T] token ids (0 = pad), cap_lens [B] ->
         (words [B, T, nhidden], sent [B, nhidden]); the feature axis is
         [forward half, backward half]. `generator` (a CPU generator) draws
-        the train-mode dropout mask."""
+        the train-mode dropout mask; `rows` places these captions in a
+        global batch (`dropout`)."""
         emb = self.encoder(captions)
         if self.training and self.drop_prob > 0:
-            emb = dropout(emb, self.drop_prob, generator)
+            emb = dropout(emb, self.drop_prob, generator, rows)
         outs, finals = [], []
         for suffix, reverse in (("", False), ("_reverse", True)):
             p = {n: getattr(self.rnn, f"{n}_l0{suffix}")

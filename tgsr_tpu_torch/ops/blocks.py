@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tgsr_tpu_torch.parallel import data_parallel
 from tgsr_tpu_torch.utils import remat
 
 BN_EPS = 1e-5
@@ -63,8 +64,17 @@ class _FlaxTrainMode:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as flax
         dims = (0, *range(2, x.dim()))
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        group = data_parallel.data_group()
+        if group is None:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        else:  # the global batch's moments: sums and count over the ranks
+            c = x.shape[1]
+            sums = data_parallel.all_reduce_sum(torch.cat(
+                [xf.sum(dims), (xf * xf).sum(dims), xf.new_full((1,), xf.numel() // c)]),
+                group)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
         if not remat.recomputing():
             self._blend(mean, var)
         shape = (1, -1, *[1] * (x.dim() - 2))
@@ -95,7 +105,13 @@ class BatchNorm(_FlaxTrainMode, nn.BatchNorm2d):
     - not blended again in the backward's recompute of a rematerialised
       block (`utils/remat.recomputing()`), as flax's remat moves them once.
       The output reads the batch's moments only, never the running stats,
-      so the recompute gives the forward's output whatever they hold.
+      so the recompute gives the forward's output whatever they hold;
+    - inside a data-parallel step (`parallel/data_parallel.data_parallel`
+      over more than one rank) the moments are the global batch's: the
+      sum, the sum of squares and the count of each rank's rows are summed
+      across the ranks by a collective that carries the gradient, then the
+      same formula. Every rank runs the BNs in the same order, the
+      recompute of a remat block included, so the collectives line up.
 
     Eval mode is torch's, unchanged: every serving path runs it."""
 

@@ -2,10 +2,12 @@
 tgsr_tpu/utils/observability.py `StepTimer` and `MetricsLogger`, :37-145).
 
 `MetricsLogger` writes the JAX CLI's `Log/metrics.jsonl` rows ({"step",
-"time", metric: float}) and, with `csv`, `Log/metrics.csv`, whose header
-widens in place when a new key appears. JAX's TensorBoard mirror,
-`profile_trace` and `nan_guard` are not ported (the CLI refuses
---tensorboard; ROADMAP A 10).
+"time", metric: float}), with `csv` `Log/metrics.csv`, whose header widens
+in place when a new key appears, and with `tensorboard` mirrors every scalar
+to event files under `Log/tb` through `torch.utils.tensorboard` where that
+imports (it needs the `tensorboard` package), else it prints JAX's
+"tensorboard writer unavailable (...); JSONL only" and goes on.
+`profile_trace` and `nan_guard` are not ported (ROADMAP A 10).
 """
 
 from __future__ import annotations
@@ -43,8 +45,16 @@ class MetricsLogger:
     place (old rows padded) when a new key appears, and an existing file's
     header is adopted on append."""
 
-    def __init__(self, log_dir: str, csv: bool = False):
+    def __init__(self, log_dir: str, csv: bool = False, tensorboard: bool = False):
         os.makedirs(log_dir, exist_ok=True)
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(log_dir, "tb"))
+            except Exception as e:  # noqa: BLE001 -- a missing or broken optional package
+                print(f"tensorboard writer unavailable ({e}); JSONL only")
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self._f = open(self.path, "a", buffering=1, encoding="utf-8")
         self.latest: Dict[str, Any] = {}
@@ -70,6 +80,10 @@ class MetricsLogger:
                 row[k] = v
         self.latest.update(row)
         self._f.write(json.dumps(row) + "\n")
+        if self._tb is not None:
+            for k, v in row.items():
+                if k not in ("step", "time") and isinstance(v, float):
+                    self._tb.add_scalar(k, v, int(step))
         if self._csv is None:
             return
         if self._csv_cols is None:
@@ -89,6 +103,8 @@ class MetricsLogger:
         self._csv_writer.writerow([str(row.get(c, "")) for c in self._csv_cols])
 
     def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
         if self._csv is not None:
             self._csv.close()
         self._f.close()
