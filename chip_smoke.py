@@ -73,9 +73,10 @@ configs/train_faceSR_S16.yml at full width, 32 px -> 512 px): the
 attention forward and backward kernels at its four training sites (B = 16,
 up to 256 px) against their plain versions, GANTrainer.plan_batch() in
 float32 and bfloat16 with remat False and 'all' (a fresh run at each plan
-under its budget), ten steps of each at B = 16 with their launches, times,
-memory and a profile, the remat step against the plain one bit for bit
-under deterministic algorithms, one step against a float64 CPU step (remat
+under its budget; the face S8 training's CPU steps made beside them), five
+steps of each at B = 16 with their launches, times, memory and a profile,
+the remat step against the plain one bit for bit under deterministic
+algorithms, one step against a float64 CPU step (remat
 False and 'all'), and the CLI with --remat all, whose snapshot the x16
 SRPipeline serves equal to the run's EMA generator. DAMSM (damsm_phase; the DAMSM face
 configuration at full width: 299 px, T 18, nef 256): ten DAMSMTrainer steps
@@ -106,7 +107,13 @@ times a step, the train-state checkpoint's bytes, save, write and restore
 times and the step's time while a write is in flight, and cli.train_gan
 --mesh 1x1 stopped by SIGTERM and resumed, ending on the whole run's
 snapshot bytes; `--step-readings` also prints how many of its batches
-exceed the cuDNN-off median gate, ROADMAP C 6). Prints
+exceed the cuDNN-off median gate, ROADMAP C 6). The input side
+(data_phase, after the eval CLIs): the committed JPEG and PNG fixtures
+decoded bit for bit as PIL on the card's host, the host loader's img/s,
+cli.test on flower and coco JPEG example sets (configs/eval_flowerSR_attn2.yml,
+eval_cocoSR_attn2.yml at full width) in bfloat16 and float32 against the
+CPU, a JPEG POSTed to cli.serve in both modes, profile_trace naming the
+kernels of a forward, and nan_guard over one training step. Prints
 one JSON line of per-kernel numbers, then, as the last line, {"ok": true,
 "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
@@ -3170,11 +3177,22 @@ def step_against_cpu(torch, cfg, text_sd, batch, image_encoder=None,
     return readings
 
 
-def train_phase(torch, rng, card, tmp):
+def train_cpu_inputs(torch):
+    """train_phase's face S8 config and seeded text encoder."""
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.config import face_s8_config
+
+    cfg = face_s8_config()
+    return cfg, seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(14))
+
+
+def train_phase(torch, rng, card, tmp, cpu_batch, cpu_runs):
     """GAN training of the face S8 model at full width on the card (seeded
-    weights, noise images). (1) One float32 step at B = 4 on the card, with
-    cuDNN off and on, against the CPU's, both held against the same step in
-    float64 on the CPU (`step_against_cpu`, TF32 off). (2) Ten steps
+    weights, noise images). (1) One float32 step at B = 4 (`cpu_batch`) on
+    the card, with cuDNN off and on, against the CPU's, both held against
+    the same step in float64 on the CPU (`step_against_cpu`, TF32 off; the
+    CPU steps `cpu_runs` made beside x16_train_phase's plans, from
+    `train_cpu_inputs`). (2) Ten steps
     at B = 16 in float32 and in bfloat16: finite metrics, bf16's first-step
     metrics within 15 % of f32's, 3 attention forward and 3 backward
     launches a step, the step's ms (host clock, synchronised), img/s, peak
@@ -3186,18 +3204,16 @@ def train_phase(torch, rng, card, tmp):
     generator eagerly on the same input. Returns the launches of each run."""
     from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
     from tgsr_tpu_torch.cli import train_gan
-    from tgsr_tpu_torch.config import face_s8_config
     from tgsr_tpu_torch.data.datasets import TextFaceDataset
     from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
     from tgsr_tpu_torch.engine.inference import SRPipeline
     from tgsr_tpu_torch.ops import _build
 
-    cfg = face_s8_config()
-    text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(14))
+    cfg, text_sd = train_cpu_inputs(torch)
     launches = {}
 
     # -- (1) one float32 step, card against CPU ------------------------------------
-    step_against_cpu(torch, cfg, text_sd, train_batch(torch, rng, 4, device="cpu"))
+    step_against_cpu(torch, cfg, text_sd, cpu_batch, cpu_runs=cpu_runs)
 
     # -- (2) ten steps at B = 16, float32 and bfloat16 ---------------------------------
     batches = [train_batch(torch, rng, TRAIN_B) for _ in range(10)]
@@ -3649,6 +3665,7 @@ def train_scale_phase(torch, rng, card, tmp):
 X16_TRAIN_SITES = (32, 64, 128, 256)  # the attention's four sites in an x16 step
 X16_SIZES = (64, 128, 256, 512)
 X16_CPU_B = 2  # the card's x16 step held against a float64 CPU step
+X16_STEPS = 3  # timed steps a path and policy, three to keep the script within its limit
 # plan_batch's upper end in x16_train_phase: the four plans lie at 40-88 (PERF.md)
 X16_PLAN_HI = 128
 # the face S16 training config (configs/train_faceSR_S16.yml at full width)
@@ -3707,7 +3724,7 @@ def x16_train_kernel_rows(torch) -> dict:
             for e in entries}
 
 
-def x16_train_phase(torch, rng, card, tmp):
+def x16_train_phase(torch, rng, card, tmp, cpu_jobs):
     """GAN training of the x16 family at full width on the card
     (configs/train_faceSR_S16.yml: BRANCH_NUM 5, 32 px -> 512 px, GF_DIM 32,
     DF_DIM 64, EMBEDDING_DIM 256, T 18; seeded weights, noise images).
@@ -3715,10 +3732,13 @@ def x16_train_phase(torch, rng, card, tmp):
     with remat False and 'all' (while (4)'s CPU steps run in a thread beside
     them): the four answers and their probes' peaks; a fresh
     run at each nonzero plan peaks under its budget, and 'all' plans at least
-    the batch False plans. (2) Ten steps at B = 16 (the plan where 16 does
+    the batch False plans. The same thread then makes the CPU steps of
+    `cpu_jobs` ({name: (cfg, text_sd, batch)}: train_phase's and
+    eval_variants_phase's), as the plans and then (5) wait on the card and
+    leave the host's cores free. (2) X16_STEPS steps at B = 16 (the plan where 16 does
     not fit) per path and policy that fits: finite metrics, 4 attention
     forward launches a step (8 with 'all', whose recompute runs each stage
-    again) and 4 backward, ms a step (host clock, synchronised, steps 2-10),
+    again) and 4 backward, ms a step (host clock, synchronised, steps 2 on),
     img/s, peak reserved memory, one profiled step; bf16's first-step
     metrics within 15 % of f32's. (3) The remat='all' step against the
     remat=False step at that B under torch.use_deterministic_algorithms: bit
@@ -3727,7 +3747,9 @@ def x16_train_phase(torch, rng, card, tmp):
     float64 CPU step (`step_against_cpu`), the card with remat False and
     'all'. (5) The CLI with --remat all for 2 steps; its snapshot pair served
     by the x16 SRPipeline on the card equal to the run's EMA generator.
-    Returns the launches of each run."""
+    (5) runs before (2)-(4), beside the thread's last CPU steps; (2) starts
+    when they are done, so that no CPU step runs beside a timed step.
+    Returns (the launches of each run, {name: the CPU steps of cpu_jobs})."""
     import warnings
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3752,36 +3774,83 @@ def x16_train_phase(torch, rng, card, tmp):
     # (4)'s CPU steps, float32 and float64 (about 100 s of the host's CPU), run in
     # a thread of their own beside the plans, which wait on the card
     cpu_batch = train_batch(torch, rng, X16_CPU_B, device="cpu", sizes=X16_SIZES)
-    with ThreadPoolExecutor(1) as pool:
-        cpu_runs = pool.submit(cpu_reference_steps, torch, cfg, text_sd, cpu_batch)
-        for dtype in dtypes:
-            for remat in policies:
-                tag = name(dtype, remat)
-                t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
-                t0 = time.perf_counter()
-                # the four plans lie at 40-88 at full width (PERF.md)
-                plans[dtype, remat] = plan = t.plan_batch(hi=X16_PLAN_HI)
-                bp = t.batch_plan
-                gib = lambda x: "OOM" if x is None else f"{x / 2 ** 30:.2f} GiB"
-                print(f"  {tag}: plan_batch(hi={X16_PLAN_HI}) = {plan} in "
-                      f"{time.perf_counter() - t0:.1f} s (budget {gib(bp['budget_bytes'])}; "
-                      f"probes' peaks, in the order measured: "
-                      f"{', '.join(f'B={b}: {gib(v)}' for b, v in bp['probes'].items())}) "
-                      f"on {card}", flush=True)
-                if plan:
-                    need = t.step_peak_bytes(plan, bp["budget_bytes"])
-                    check(need is not None and need <= bp["budget_bytes"],
-                          f"{tag}: a fresh run at the plan, B = {plan}, with the allocator "
-                          f"capped at the budget {gib(bp['budget_bytes'])}, completes (peak "
-                          f"{gib(need)})")
-                del t
-                free()
-            check(plans[dtype, "all"] >= max(1, plans[dtype, False]),
-                  f"x16 train {str(dtype).split('.')[-1]}: remat 'all' plans B = "
-                  f"{plans[dtype, 'all']} >= remat False's {plans[dtype, False]}, and at least 1")
-        cpu_runs = cpu_runs.result()
+    pool = ThreadPoolExecutor(1)
+    cpu_runs = pool.submit(cpu_reference_steps, torch, cfg, text_sd, cpu_batch)
+    job_runs = {name: pool.submit(cpu_reference_steps, torch, *job)
+                for name, job in cpu_jobs.items()}
+    for dtype in dtypes:
+        for remat in policies:
+            tag = name(dtype, remat)
+            t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
+            t0 = time.perf_counter()
+            # the four plans lie at 40-88 at full width (PERF.md)
+            plans[dtype, remat] = plan = t.plan_batch(hi=X16_PLAN_HI)
+            bp = t.batch_plan
+            gib = lambda x: "OOM" if x is None else f"{x / 2 ** 30:.2f} GiB"
+            print(f"  {tag}: plan_batch(hi={X16_PLAN_HI}) = {plan} in "
+                  f"{time.perf_counter() - t0:.1f} s (budget {gib(bp['budget_bytes'])}; "
+                  f"probes' peaks, in the order measured: "
+                  f"{', '.join(f'B={b}: {gib(v)}' for b, v in bp['probes'].items())}) "
+                  f"on {card}", flush=True)
+            if plan:
+                need = t.step_peak_bytes(plan, bp["budget_bytes"])
+                check(need is not None and need <= bp["budget_bytes"],
+                      f"{tag}: a fresh run at the plan, B = {plan}, with the allocator "
+                      f"capped at the budget {gib(bp['budget_bytes'])}, completes (peak "
+                      f"{gib(need)})")
+            del t
+            free()
+        check(plans[dtype, "all"] >= max(1, plans[dtype, False]),
+              f"x16 train {str(dtype).split('.')[-1]}: remat 'all' plans B = "
+              f"{plans[dtype, 'all']} >= remat False's {plans[dtype, False]}, and at least 1")
+    # -- (5) the CLI, beside the thread's last CPU steps --------------------------------------
+    data = os.path.join(tmp, "face_train16")
+    face_train_set(rng, data, 5)
+    yml = os.path.join(tmp, "train_faceSR_S16.yml")
+    with open(yml, "w") as f:
+        f.write(FACE_S16_TRAIN_YAML)
+    n_words = TextFaceDataset(data, split="train", words_num=T, imsize=512).n_words
+    te = os.path.join(tmp, "train16_text_encoder.pth")
+    torch.save(seeded_text_state_dict(cfg, n_words, torch.Generator().manual_seed(17)), te)
+    out = os.path.join(tmp, "train16_out")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_gan.main(["--cfg", yml, "--data_dir", data, "--out_dir", out,
+                              "--text_encoder", te, "--remat", "all", "--log_every", "1"])
+    dt = time.perf_counter() - t0
+    launches["train x16 cli"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                 for k in _build.LAUNCHES}
+    snaps = sorted(os.listdir(os.path.join(out, "Model")))
+    print(f"  train x16 cli (--remat all): {summary['steps']} steps in {dt:.2f} s (host clock, "
+          f"whole run); snapshots {snaps}", flush=True)
+    run = launches["train x16 cli"]
+    check(summary["steps"] == 2 and snaps == ["netGH_it2.msgpack", "netG_it2.msgpack"]
+          and run["word_pixel_attention"] == 16 and run["word_pixel_attention_bwd"] == 8,
+          f"train x16 cli: 2 steps, a snapshot pair at 2, 16 attention forward and 8 backward "
+          f"launches ({run['word_pixel_attention']}, {run['word_pixel_attention_bwd']})")
+    state, trainer = summary["state"], summary["trainer"]
+    pipe = SRPipeline.from_reference_checkpoints(
+        trainer.cfg, n_words, os.path.join(out, "Model", "netG_it2.msgpack"),
+        text_encoder_path=te)
+    b = train_batch(torch, rng, 2, vocab=n_words, sizes=X16_SIZES)
+    served = pipe(b["lr"].cpu().numpy(), b["captions"].cpu().numpy(),
+                  b["cap_lens"].cpu().numpy())["sr"]
+    eager = trainer.super_resolve(state, b)
+    err = (served.to(eager.device) - eager).abs().max().item()
+    check(tuple(served.shape) == (2, 512, 512, 3) and err <= 1e-3,
+          f"train x16 cli: its snapshot pair served by the x16 SRPipeline on the card == the "
+          f"run's EMA generator eagerly, 512 px (max abs err {err:.3e} <= 1e-3)")
+    del pipe, summary, state, trainer
+    free()
+    t_wait = time.perf_counter()
+    cpu_runs = cpu_runs.result()
+    job_runs = {name: f.result() for name, f in job_runs.items()}
+    pool.shutdown()
+    print(f"  x16 train: waited {time.perf_counter() - t_wait:.1f} s for the CPU steps "
+          f"({', '.join(['x16', *cpu_jobs])}) after the plans and the CLI", flush=True)
 
-    # -- (2) ten steps a path and policy ------------------------------------------------
+    # -- (2) X16_STEPS steps a path and policy ------------------------------------------------
     first, steps_b = {}, {}
     for dtype in dtypes:
         for remat in policies:
@@ -3792,7 +3861,7 @@ def x16_train_phase(torch, rng, card, tmp):
                 continue
             steps_b[dtype, remat] = b
             batches = [train_batch(torch, np.random.default_rng(160 + i), b, sizes=X16_SIZES)
-                       for i in range(10)]
+                       for i in range(X16_STEPS)]
             t = GANTrainer(cfg, 41, text_sd, compute_dtype=dtype, remat=remat)
             s = t.init_state(torch.Generator().manual_seed(0))
             torch.cuda.synchronize()
@@ -3809,8 +3878,8 @@ def x16_train_phase(torch, rng, card, tmp):
             vals = [{k: float(v) for k, v in m.items()} for m in metrics]
             first[dtype, remat] = vals[0]
             check(all(np.isfinite(v) for m in vals for v in m.values()),
-                  f"{tag}: 10 steps at B = {b}, every metric finite")
-            per = {k: launches[tag][k] / 10
+                  f"{tag}: {X16_STEPS} steps at B = {b}, every metric finite")
+            per = {k: launches[tag][k] / X16_STEPS
                    for k in ("word_pixel_attention", "word_pixel_attention_bwd")}
             want = {"word_pixel_attention": 8 if remat else 4, "word_pixel_attention_bwd": 4}
             check(per == want, f"{tag}: {want['word_pixel_attention']} attention forward (4 a "
@@ -3819,8 +3888,8 @@ def x16_train_phase(torch, rng, card, tmp):
             ms = 1e3 * float(np.mean(times[1:]))
             TRAIN_MS[tag] = ms
             print(f"  {tag}: step {ms:.2f} ms at B = {b} (host clock, synchronised, mean of "
-                  f"steps 2-10; first {1e3 * times[0]:.1f}), {b * 1e3 / ms:.1f} img/s, peak "
-                  f"reserved {peak:.2f} GiB, on {card}; d_loss {vals[0]['d_loss']:.4f} -> "
+                  f"steps 2-{X16_STEPS}; first {1e3 * times[0]:.1f}), {b * 1e3 / ms:.1f} img/s, "
+                  f"peak reserved {peak:.2f} GiB, on {card}; d_loss {vals[0]['d_loss']:.4f} -> "
                   f"{vals[-1]['d_loss']:.4f}, pixel {vals[0]['pixel']:.4f} -> "
                   f"{vals[-1]['pixel']:.4f}", flush=True)
             profile_step(torch, lambda: t.train_step(s, batches[0]), tag, b=b)
@@ -3876,47 +3945,7 @@ def x16_train_phase(torch, rng, card, tmp):
                      cpu_runs=cpu_runs)
     free()
 
-    # -- (5) the CLI -------------------------------------------------------------------------
-    data = os.path.join(tmp, "face_train16")
-    face_train_set(rng, data, 5)
-    yml = os.path.join(tmp, "train_faceSR_S16.yml")
-    with open(yml, "w") as f:
-        f.write(FACE_S16_TRAIN_YAML)
-    n_words = TextFaceDataset(data, split="train", words_num=T, imsize=512).n_words
-    te = os.path.join(tmp, "train16_text_encoder.pth")
-    torch.save(seeded_text_state_dict(cfg, n_words, torch.Generator().manual_seed(17)), te)
-    out = os.path.join(tmp, "train16_out")
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    summary = train_gan.main(["--cfg", yml, "--data_dir", data, "--out_dir", out,
-                              "--text_encoder", te, "--remat", "all", "--log_every", "1"])
-    dt = time.perf_counter() - t0
-    launches["train x16 cli"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
-                                 for k in _build.LAUNCHES}
-    snaps = sorted(os.listdir(os.path.join(out, "Model")))
-    print(f"  train x16 cli (--remat all): {summary['steps']} steps in {dt:.2f} s (host clock, "
-          f"whole run); snapshots {snaps}", flush=True)
-    run = launches["train x16 cli"]
-    check(summary["steps"] == 2 and snaps == ["netGH_it2.msgpack", "netG_it2.msgpack"]
-          and run["word_pixel_attention"] == 16 and run["word_pixel_attention_bwd"] == 8,
-          f"train x16 cli: 2 steps, a snapshot pair at 2, 16 attention forward and 8 backward "
-          f"launches ({run['word_pixel_attention']}, {run['word_pixel_attention_bwd']})")
-    state, trainer = summary["state"], summary["trainer"]
-    pipe = SRPipeline.from_reference_checkpoints(
-        trainer.cfg, n_words, os.path.join(out, "Model", "netG_it2.msgpack"),
-        text_encoder_path=te)
-    b = train_batch(torch, rng, 2, vocab=n_words, sizes=X16_SIZES)
-    served = pipe(b["lr"].cpu().numpy(), b["captions"].cpu().numpy(),
-                  b["cap_lens"].cpu().numpy())["sr"]
-    eager = trainer.super_resolve(state, b)
-    err = (served.to(eager.device) - eager).abs().max().item()
-    check(tuple(served.shape) == (2, 512, 512, 3) and err <= 1e-3,
-          f"train x16 cli: its snapshot pair served by the x16 SRPipeline on the card == the "
-          f"run's EMA generator eagerly, 512 px (max abs err {err:.3e} <= 1e-3)")
-    del pipe, summary, state, trainer
-    free()
-    return launches
+    return launches, job_runs
 
 
 # -- DAMSM (the image encoder, the DAMSM trainer and CLI, the GAN trainer's
@@ -4569,6 +4598,7 @@ VARIANTS = (  # (name, EVAL fields, per-forward table, paths)
 )
 VARIANT_B = 64
 VARIANT_TRAIN_B = 16
+VARIANT_CPU_SEED = 181  # the stream of the weight-map step's CPU batch
 # the 256 px site of the weight-map path: upscale8x + conv_output + a3 * srb
 MAP_SITE = (32, 64, 5, True, True, "upscale8x+conv_output+a3*srb")
 
@@ -4703,7 +4733,20 @@ def library_modules_on_card(torch):
               f"<= 1e-3, {len(got)} scales)")
 
 
-def eval_variants_phase(torch, rng, card, tmp):
+def variants_train_inputs(torch):
+    """eval_variants_phase's (5) weight-map training config and seeded text
+    encoder."""
+    import dataclasses
+
+    from tgsr_tpu_torch.checkpoints.from_jax import seeded_text_state_dict
+    from tgsr_tpu_torch.config import EvalConfig, face_s8_config
+
+    tcfg = dataclasses.replace(face_s8_config(), EVAL=dataclasses.replace(
+        EvalConfig(), INPUT_NETGH="lr-lrblur", WEIGHTMAP=True))
+    return tcfg, seeded_text_state_dict(tcfg, 41, torch.Generator().manual_seed(20))
+
+
+def eval_variants_phase(torch, rng, card, tmp, cpu_batch, cpu_runs):
     """The EVAL switches on the card (face S8 full width, seeded weights;
     weight maps a1..a3 (x16 a1..a4) drawn 1 + U(-0.5, 0.5)):
     (1) x8 'lr-lrblur' with weight maps in float32, bfloat16 and int8 (scales
@@ -4719,8 +4762,9 @@ def eval_variants_phase(torch, rng, card, tmp):
     with the map and the scalar (`weight_map_kernel_rows`); (4) the x8
     weight-map program exported (bfloat16, symbolic batch) and loaded, bit
     for bit the live pipeline at B = 1 and 64; (5) GAN training with
-    'lr-lrblur' and weight maps: the x8 step at B = 4 held by
-    `step_against_cpu`, steps at B = 16 in float32 and bfloat16 (finite,
+    'lr-lrblur' and weight maps: the x8 step at B = 4 (`cpu_batch`, from a
+    stream of its own) held by `step_against_cpu` against the CPU steps
+    `cpu_runs` made beside x16_train_phase's plans, steps at B = 16 in float32 and bfloat16 (finite,
     bfloat16's first-step metrics within 15 % of float32's, 3 attention
     forward and backward launches a step, the step's ms), an x16 bfloat16
     step at B = 4, a
@@ -4869,9 +4913,9 @@ def eval_variants_phase(torch, rng, card, tmp):
     torch.cuda.empty_cache()
 
     # -- (5) GAN training with the blur and weight maps -------------------------------------
-    tcfg = variant(face_s8_config(), INPUT_NETGH="lr-lrblur", WEIGHTMAP=True)
-    text_sd = seeded_text_state_dict(tcfg, vocab, torch.Generator().manual_seed(20))
-    step_against_cpu(torch, tcfg, text_sd, train_batch(torch, rng, 4, device="cpu"))
+    # the CPU steps on `cpu_batch` were made beside x16_train_phase's plans
+    tcfg, text_sd = variants_train_inputs(torch)
+    step_against_cpu(torch, tcfg, text_sd, cpu_batch, cpu_runs=cpu_runs)
     first = {}
     tb = [train_batch(torch, rng, VARIANT_TRAIN_B) for _ in range(3)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -5265,6 +5309,310 @@ def library_phase(torch):
     return {"library": library}
 
 
+# -- the input side: JPEG and every PNG form, the host loader, the flower
+# and coco example sets through the eval CLI, serve, profile_trace, nan_guard ------
+
+FIXTURES = os.path.join(HERE, "tests", "torch_fixtures")
+DATA_IMAGES = 8  # JPEGs in each example set
+DATA_WORDS = ("this flower has petals that are red yellow white purple with green stamen "
+              "and a bird beak wings brown black dog person table").split()
+LOADER_N = 64  # crops of the loader's throughput figure
+# the kernel symbol each launch count's wrapper launches, as a trace names it
+KERNEL_SYMBOLS = {"word_pixel_attention": "word_pixel_attention_kernel",
+                  "up_head": "up_head_kernel", "up_head_packed": "up_head_packed_"}
+
+
+def jpeg_example_set(rng, root, cfg_path):
+    """The example set of the flower / coco eval configs in `root`, built
+    from the committed JPEG fixtures: testset.txt (DATA_IMAGES names), one
+    caption of one word per <name>.txt, the JPEGs under Img/changetxt_im1,
+    and the train split the vocabulary comes from (train/filenames.pickle,
+    CAPTIONS_PER_IMAGE captions per text/<name>.txt). Returns the
+    vocabulary size."""
+    import shutil
+
+    from tgsr_tpu_torch.config import config_from_file
+    from tgsr_tpu_torch.data.datasets import TextSRDataset
+
+    jpegs = sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
+    names = [f"example_{i:03d}" for i in range(DATA_IMAGES)]
+    per = config_from_file(cfg_path).TEXT.CAPTIONS_PER_IMAGE
+    os.makedirs(os.path.join(root, "Img", "changetxt_im1"))
+    os.makedirs(os.path.join(root, "text"))
+    os.makedirs(os.path.join(root, "train"))
+    for i, name in enumerate(names):
+        # the 500 x 375 photograph first, then the smaller fixtures
+        src = jpegs[(jpegs.index("photo_500x375_420.jpg") + i) % len(jpegs)]
+        shutil.copy(os.path.join(FIXTURES, src),
+                    os.path.join(root, "Img", "changetxt_im1", name + ".jpg"))
+        caps = [str(rng.choice(DATA_WORDS)) for _ in range(per)]  # a word: one map a grid
+        with open(os.path.join(root, name + ".txt"), "w") as f:
+            f.write(caps[0] + "\n")
+        with open(os.path.join(root, "text", name + ".txt"), "w") as f:
+            f.write("\n".join(caps) + "\n")
+    with open(os.path.join(root, "testset.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(root, "train", "filenames.pickle"), "wb") as f:
+        pickle.dump(names, f, protocol=2)
+    n_words = TextSRDataset(root, split="train", embeddings_num=per).n_words
+    os.remove(os.path.join(root, "captions5450.pickle"))  # the CLI builds its own
+    return n_words
+
+
+def trace_kernels(path: str) -> set:
+    """The names of the kernel events in a `profile_trace` file."""
+    with open(path) as f:
+        return {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+
+
+def data_phase(torch, rng, card, tmp):
+    """The input side on the card machine. (1) Every committed fixture
+    (tests/torch_fixtures: JPEG baseline, progressive, restarts, 4:4:4 to
+    4:1:1, grey, CMYK, YCCK; PNG of every colour type and bit depth, Adam7)
+    decoded on the host by data/codec.py, bit for bit PIL's committed array.
+    (2) `native.load_batch` against stacked `native.load_image` on LOADER_N
+    crops of the 500 x 375 JPEG at 256 px (72/64 enlarge), its img/s at 1 and
+    8 threads (host clock, warm page cache). (3) `cli.test` on a flower and a
+    coco example set of DATA_IMAGES JPEGs (configs/eval_flowerSR_attn2.yml,
+    eval_cocoSR_attn2.yml at full width, seeded .pth weights): the bf16
+    default and --no-bf16 on the card against --no-bf16 --device cpu (run in a
+    thread beside them), f32 within 1 level, bf16 >= 40 dB; rows 1 and 3
+    (bf16), 1 and 2 (f32) launched; on the flower set also --int8 (rows 1,
+    8, 9, X1, X2; >= 40 dB against the CPU's float32). (4) `cli.serve` on
+    the flower weights: a JPEG POSTed in fixed and in native mode answered
+    with the bytes the same pixels get as a PNG.
+    (5) `profile_trace` around one bf16 and one f32 forward: the trace names
+    each hand-written kernel the forward launched. (6) `nan_guard` over one
+    f32 training step (D and G) at B = 4 under deterministic algorithms:
+    bit for bit the unguarded step; a NaN in one G weight raises. Returns the
+    launches of each CLI run."""
+    import shutil
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tgsr_tpu_torch import native
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded, seeded_text_state_dict
+    from tgsr_tpu_torch.cli import serve
+    from tgsr_tpu_torch.cli import test as test_cli
+    from tgsr_tpu_torch.config import config_from_file, face_s8_config
+    from tgsr_tpu_torch.data import codec
+    from tgsr_tpu_torch.engine.gan_trainer import GANTrainer
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.utils.observability import FloatCheckError, nan_guard, profile_trace
+
+    # -- (1) the fixtures -------------------------------------------------------------
+    t0 = time.perf_counter()
+    with np.load(os.path.join(FIXTURES, "pil_rgb.npz")) as z:
+        want = {name: z[name] for name in z.files}
+    bad = [name for name, arr in want.items()
+           if not np.array_equal(codec.load_image_rgb(os.path.join(FIXTURES, name)), arr)]
+    check(len(want) >= 28 and not bad,
+          f"data: {len(want)} fixtures ({sum(n.endswith('.jpg') for n in want)} JPEG) decode "
+          f"bit for bit as PIL's committed arrays on the card's host "
+          f"({time.perf_counter() - t0:.2f} s, the JPEG decoder's build included; {bad})")
+
+    # -- (2) the host loader --------------------------------------------------------------
+    photo = os.path.join(FIXTURES, "photo_500x375_420.jpg")
+    paths = [photo] * LOADER_N
+    one = native.load_image(photo, 256, 72 / 64)
+    rates = {}
+    for threads in (1, 8):
+        native.load_batch(paths[:8], 256, 72 / 64, threads)  # warm
+        t0 = time.perf_counter()
+        got = native.load_batch(paths, 256, 72 / 64, threads)
+        rates[threads] = LOADER_N / (time.perf_counter() - t0)
+        check(all(np.array_equal(g, one) for g in got),
+              f"data: load_batch(threads={threads}) == stacked load_image ({LOADER_N} crops)")
+    print(f"  data loader: {LOADER_N} crops of a 500 x 375 JPEG to 256 px: "
+          f"{rates[1]:.1f} img/s at 1 thread, {rates[8]:.1f} img/s at 8 threads "
+          f"({rates[8] / rates[1]:.2f}x; host clock, {os.cpu_count()} host cores, warm page "
+          f"cache) on the host of {card}", flush=True)
+
+    # -- (3) the eval CLI on the flower and coco sets -----------------------------------------
+    # the CPU's runs (on a copy of each set: a run writes its caches there) in a
+    # thread beside the card's, whose launches they do not touch
+    launches, sets = {}, {}
+    for dataset in ("flower", "coco"):
+        yml = os.path.join(HERE, "configs", f"eval_{dataset}SR_attn2.yml")
+        data = os.path.join(tmp, dataset)
+        n_words = jpeg_example_set(rng, data, yml)
+        shutil.copytree(data, data + "_cpu")
+        cfg = config_from_file(yml)
+        text_sd, netg_sd, netgh_sd, _ = init_seeded(cfg, n_words,
+                                                    torch.Generator().manual_seed(21))
+        ckpt = os.path.join(tmp, f"{dataset}_ckpt")
+        os.makedirs(ckpt)
+        for name, sd in (("netG_epoch_7.pth", netg_sd), ("netGH_epoch_7.pth", netgh_sd),
+                         ("text_encoder.pth", text_sd)):
+            torch.save(sd, os.path.join(ckpt, name))
+        sets[dataset] = dict(cfg=cfg, n_words=n_words, data=data,
+                             netg=os.path.join(ckpt, "netG_epoch_7.pth"),
+                             te=os.path.join(ckpt, "text_encoder.pth"),
+                             base=["--cfg", yml, "--ckpt_dir", ckpt, "--text_encoder",
+                                   os.path.join(ckpt, "text_encoder.pth"), "--batch",
+                                   str(DATA_IMAGES)])
+
+    def cli_run(dataset, tag, argv):
+        t0 = time.perf_counter()
+        summary = test_cli.main(sets[dataset]["base"] + argv + ["--out_dir", os.path.join(
+            tmp, f"{dataset}_out_{tag.replace(' ', '_')}")])
+        if "--device" not in argv:
+            torch.cuda.synchronize()
+        srs = [codec.load_image_rgb(os.path.join(summary["out_dir"], f"example_{i:03d}_SR.png"))
+               for i in range(DATA_IMAGES)]
+        return summary, srs, time.perf_counter() - t0
+
+    srs = {}
+    with ThreadPoolExecutor(1) as pool:
+        cpu = {d: pool.submit(cli_run, d, "cpu float32", ["--no-bf16", "--device", "cpu",
+                                                           "--data_dir", sets[d]["data"] + "_cpu"])
+               for d in sets}
+        for dataset in sets:
+            # --int8 (rows 1, 8, 9, X1, X2) on the flower set; the coco run differs in
+            # its data alone
+            for tag, argv in (("float32", ["--no-bf16"]), ("bf16", []),
+                              *((("int8", ["--int8"]),) if dataset == "flower" else ())):
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                summary, srs[dataset, tag], dt = cli_run(
+                    dataset, tag, argv + ["--data_dir", sets[dataset]["data"]])
+                launches[f"data {dataset} {tag}"] = {k: _build.LAUNCHES[k] + _build.REPLAYED[k]
+                                                     for k in _build.LAUNCHES}
+                ran = {k: v for k, v in launches[f"data {dataset} {tag}"].items() if v}
+                print(f"  data cli {dataset} {tag}: {summary['images']} images, "
+                      f"{summary['grids']} grids in {dt:.2f} s (host clock, whole run, the "
+                      f"CPU's run beside it); launches {ran} on {card}", flush=True)
+                check(summary["images"] == summary["grids"] == DATA_IMAGES and all(
+                    x.shape == (256, 256, 3) for x in srs[dataset, tag]),
+                    f"data cli {dataset} {tag}: {DATA_IMAGES} JPEGs in, {DATA_IMAGES} 256 px "
+                    f"SR PNGs and grids out")
+        for dataset in sets:
+            summary, srs[dataset, "cpu"], dt = cpu[dataset].result()
+            print(f"  data cli {dataset} cpu float32: {summary['images']} images in {dt:.2f} s "
+                  f"(host clock, beside the card's runs)", flush=True)
+    for dataset in sets:
+        worst = max(int(np.abs(a.astype(int) - b).max())
+                    for a, b in zip(srs[dataset, "float32"], srs[dataset, "cpu"]))
+        check(worst <= 1, f"data cli {dataset} float32: every SR within 1 uint8 level of the "
+                          f"CPU's float32 run (max {worst})")
+        db = min(10 * np.log10(255.0 ** 2 / max(np.mean((a.astype(float) - b) ** 2), 1e-12))
+                 for a, b in zip(srs[dataset, "bf16"], srs[dataset, "cpu"]))
+        check(db >= 40, f"data cli {dataset} bf16: every SR >= 40 dB against the CPU's float32 "
+                        f"(worst {db:.2f} dB)")
+        f32, bf16 = launches[f"data {dataset} float32"], launches[f"data {dataset} bf16"]
+        check(f32["word_pixel_attention"] > 0 and f32["up_head"] > 0
+              and bf16["word_pixel_attention"] > 0 and bf16["up_head_packed"] > 0,
+              f"data cli {dataset}: float32 through rows 1 and 2, bf16 through rows 1 and 3")
+    q = {k: v for k, v in launches["data flower int8"].items() if v}
+    db = min(10 * np.log10(255.0 ** 2 / max(np.mean((a.astype(float) - b) ** 2), 1e-12))
+             for a, b in zip(srs["flower", "int8"], srs["flower", "cpu"]))
+    check(db >= 40 and all(k in q for k in ("word_pixel_attention", "int8_conv", "glu_requant_one",
+                                            "glu_requant_pair", "requant")),
+          f"data cli flower int8: through rows 1, 8, 9, X1 and X2 ({q}), every SR >= 40 dB "
+          f"against the CPU's float32 (worst {db:.2f} dB)")
+    flower = dict(sets["flower"], vocab_pickle=os.path.join(sets["flower"]["data"],
+                                                            "testset.pickle"))
+
+    # -- (4) serve: a JPEG POST in both modes ----------------------------------------------------
+    pipe, vocab, args = serve.boot(["--cfg", os.path.join(HERE, "configs",
+                                                          "eval_flowerSR_attn2.yml"),
+                                    "--netg", flower["netg"], "--text_encoder", flower["te"],
+                                    "--vocab_pickle", flower["vocab_pickle"]])
+    httpd = serve.make_server(pipe, vocab, port=0, max_batch=1, max_delay_ms=1)
+    httpd.batcher.warmup()
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+
+    def post(body, query):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/sr{query}", data=body,
+                                     headers={"X-Caption": "a red flower"}, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+
+    try:
+        for name, query in (("photo_500x375_420.jpg", ""),
+                            ("prog_opt_422_61x45.jpg", "?mode=native")):
+            with open(os.path.join(FIXTURES, name), "rb") as f:
+                body = f.read()
+            png = codec.encode_png(want[name])
+            (s1, b1), (s2, b2) = post(body, query), post(png, query)
+            shape = codec.decode_png(b1).shape if s1 == 200 else None
+            check(s1 == s2 == 200 and b1 == b2,
+                  f"data serve {query or 'fixed'}: {name} POSTed as JPEG answered with the bytes "
+                  f"of the same pixels as PNG (SR {shape})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.close()
+        server.join(timeout=30)
+    del pipe, httpd
+
+    # -- (5) profile_trace around one forward a path ------------------------------------------------
+    lr = np.random.default_rng(21).uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    caps = np.random.default_rng(21).integers(1, flower["n_words"], (4, T)).astype(np.int64)
+    lens = np.full(4, T, np.int64)
+    for dtype in (torch.float32, torch.bfloat16):
+        p = SRPipeline.from_reference_checkpoints(flower["cfg"], flower["n_words"],
+                                                  flower["netg"], text_encoder_path=flower["te"],
+                                                  compute_dtype=dtype)
+        p(lr, caps, lens)  # warm: the kernels are loaded before the trace
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with profile_trace(os.path.join(tmp, f"trace_{dtype}")) as path:
+            p(lr, caps, lens)
+            torch.cuda.synchronize()
+        ran = [k for k, v in _build.LAUNCHES.items() if v]
+        names = trace_kernels(path)
+        missing = [k for k in ran if not any(KERNEL_SYMBOLS.get(k, k) in n for n in names)]
+        check(ran and not missing,
+              f"data profile_trace {str(dtype).split('.')[-1]}: {os.path.basename(path)} "
+              f"({os.path.getsize(path)} bytes, {len(names)} kernel names) names every "
+              f"hand-written kernel the forward launched ({ran}; missing {missing})")
+        del p
+
+    # -- (6) nan_guard over one f32 training step -------------------------------------------------
+    cfg = face_s8_config()
+    text_sd = seeded_text_state_dict(cfg, 41, torch.Generator().manual_seed(21))
+    batch = train_batch(torch, np.random.default_rng(21), 4)
+
+    def step(guard, poison=False):
+        t = GANTrainer(cfg, 41, text_sd)
+        s = t.init_state(torch.Generator().manual_seed(0))
+        if poison:
+            with torch.no_grad():
+                s.g_named_parameters()[0][1].view(-1)[0] = float("nan")
+        t0 = time.perf_counter()
+        m = (nan_guard(t.train_step) if guard else t.train_step)(s, batch)
+        torch.cuda.synchronize()
+        out = ({k: float(v) for k, v in m.items()}, trainer_readout(torch, s))
+        return out, time.perf_counter() - t0
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (plain, dt_plain), (plain2, _), (guarded, dt_guard) = step(False), step(False), step(True)
+        raised = ""
+        try:
+            step(True, poison=True)
+        except FloatCheckError as e:
+            raised = str(e)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    twice, diff = same_bits(torch, plain, plain2), same_bits(torch, plain, guarded)
+    print(f"  data nan_guard: an f32 step at B = 4 {dt_plain * 1e3:.1f} ms unguarded, "
+          f"{dt_guard * 1e3:.1f} ms guarded (host clock, first step of a fresh state) on {card}",
+          flush=True)
+    check(not twice and not diff, f"data nan_guard: the guarded f32 step == the unguarded step "
+                                  f"bit for bit (metrics, parameters, Adam moments, BN stats; "
+                                  f"two unguarded steps differ in {twice[:3]}, guarded {diff[:3]})")
+    check(bool(raised), f"data nan_guard: a NaN in one G weight raises ({raised})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def step_readings(torch, seeds: list, out_path: str, damsm: bool = False) -> int:
     """`step_against_cpu` on the face S8 batches of `seeds`: per card step,
     the 10th, 50th and 90th percentiles and the largest relative L2 error on
@@ -5415,12 +5763,26 @@ def main() -> int:
     print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(train_phase(torch, rng, card, tmp))
-    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        # a stream of its own: the other phases' data does not depend on it
+        launches.update(data_phase(torch, np.random.default_rng(21), card, tmp))
+    print(f"data phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the CPU steps of train_phase (its batch drawn where train_phase drew it)
+    # and of eval_variants_phase (a batch of its own stream) run in
+    # x16_train_phase's thread, beside its plans, which wait on the card
+    cpu_jobs = {"train": (*train_cpu_inputs(torch), train_batch(torch, rng, 4, device="cpu")),
+                "variants": (*variants_train_inputs(torch), train_batch(
+                    torch, np.random.default_rng(VARIANT_CPU_SEED), 4, device="cpu"))}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(x16_train_phase(torch, np.random.default_rng(16), card, tmp))
+        x16_launches, cpu_runs = x16_train_phase(torch, np.random.default_rng(16), card, tmp,
+                                                 cpu_jobs)
+    launches.update(x16_launches)
     print(f"x16 train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(train_phase(torch, rng, card, tmp, cpu_jobs["train"][2],
+                                    cpu_runs["train"]))
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     # under PyTorch's default TF32 switches (cuDNN's on), as a user's run of
     # the CLIs has them: the trainers and the ranking turn TF32 off
@@ -5431,8 +5793,9 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # a stream of its own: the other phases' data does not depend on it
-        variant_launches, map_rows = eval_variants_phase(torch, np.random.default_rng(18), card,
-                                                         tmp)
+        variant_launches, map_rows = eval_variants_phase(
+            torch, np.random.default_rng(18), card, tmp, cpu_jobs["variants"][2],
+            cpu_runs["variants"])
     launches.update(variant_launches)
     print(f"eval variants phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()

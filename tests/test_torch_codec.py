@@ -1,6 +1,6 @@
 """tgsr_tpu_torch/data/codec.py against PIL: the PNG decoder equal to
-PIL's `.convert("RGB")` on every supported colour type and all five row
-filters; PIL decodes the port's encoder's PNG equal; `resize_pil_bicubic`
+PIL's `.convert("RGB")` on every colour type and all five row filters (the
+other bit depths and interlacing: tests/test_torch_png_forms.py); PIL decodes the port's encoder's PNG equal; `resize_pil_bicubic`
 bit for bit `Image.resize(..., Image.BICUBIC)`; what the decoder refuses.
 All gates are equality."""
 
@@ -155,10 +155,13 @@ def test_refusals():
     with pytest.raises(ValueError, match="JPEG"):
         decode_png(buf.getvalue())
     px = rng.integers(0, 256, (4, 4, 3)).astype(np.uint8)
-    with pytest.raises(ValueError, match="interlaced"):
-        decode_png(_png(px, 2, [0], interlace=1))
-    with pytest.raises(ValueError, match="16-bit"):
-        decode_png(_png(np.repeat(px, 2, axis=1), 2, [0], depth=16))
+    # interlaced and 16-bit PNGs decode (tests/test_torch_png_forms.py); an
+    # unknown interlace method and a depth the colour type does not allow
+    # are refused
+    with pytest.raises(ValueError, match="interlace method 2"):
+        decode_png(_png(px, 2, [0], interlace=2))
+    with pytest.raises(ValueError, match="bit depth 16 is not valid"):
+        decode_png(_png(px[..., :1], 3, [0], palette=np.zeros((4, 3), np.uint8), depth=16))
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"not an image")
     good = _png(px, 2, [0])

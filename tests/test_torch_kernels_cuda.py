@@ -1824,3 +1824,41 @@ def test_variants_on_the_card_match_the_cpu(cuda_device, name):
     ref, got = (x if isinstance(x, tuple) else (x,) for x in (ref, got))
     for g, r in zip(got, ref):
         assert (g.cpu() - r).abs().max().item() <= 1e-3
+
+
+def test_decoder_reads_every_fixture_as_pil_on_the_card_machine(cuda_device):
+    """The committed JPEG and PNG fixtures (tests/torch_fixtures/), decoded on
+    the card machine's host by data/codec.py (the JPEG decoder built there
+    by its C compiler), bit for bit PIL's arrays committed beside them."""
+    import os
+
+    from tgsr_tpu_torch.data import codec
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures")
+    with np.load(os.path.join(d, "pil_rgb.npz")) as z:
+        assert len(z.files) >= 28
+        for name in z.files:
+            np.testing.assert_array_equal(codec.load_image_rgb(os.path.join(d, name)), z[name],
+                                          err_msg=name)
+
+
+def test_profile_trace_names_the_launched_kernels(cuda_device, tmp_path):
+    """`profile_trace` around the attention kernel: the trace's kernel events
+    name it."""
+    import json
+
+    from tgsr_tpu_torch.utils.observability import profile_trace
+
+    rng = np.random.default_rng(0)
+    px = torch.from_numpy(rng.normal(size=(2, 32 * 32, 32)).astype(np.float32)).to(cuda_device)
+    wd = torch.from_numpy(rng.normal(size=(2, 18, 32)).astype(np.float32)).to(cuda_device)
+    mask = torch.zeros(2, 18, dtype=torch.bool, device=cuda_device)
+    word_pixel_attention(px, wd, mask)  # built and loaded before the trace
+    torch.cuda.synchronize()
+    with profile_trace(str(tmp_path)) as path:
+        word_pixel_attention(px, wd, mask)
+        torch.cuda.synchronize()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any("word_pixel_attention_kernel" in k for k in kernels), sorted(kernels)[:20]

@@ -23,7 +23,8 @@ from tests.torch_parity import VOCAB, configs, jax_trees, jax_trees16
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the card machine has none of these: msgpack files are read by the port's
-# own checkpoints/msgpack_io.py, PNGs by data/codec.py (zlib), YAML configs
+# own checkpoints/msgpack_io.py, PNGs and JPEGs by data/codec.py (zlib and the
+# port's C decoder, csrc/jpeg_decode.c), YAML configs
 # by config.py's own reader, the stopwords are a built-in list, and the
 # attention grids resize, blend and draw text in numpy and scipy
 # (utils/visualize.py, utils/skimage_compat.py)
@@ -42,7 +43,7 @@ def test_walk_covers_every_port_package():
     """The walk reaches each subpackage of the port, the CLIs included."""
     dirs = {os.path.relpath(os.path.dirname(p), ROOT) for p in _port_files()}
     for sub in ("cli", "data", "engine", "ops", "checkpoints", "models", "utils", "probes",
-                "losses", "parallel"):
+                "losses", "parallel", "native"):
         assert os.path.join("tgsr_tpu_torch", sub) in dirs
     files = _port_files()
     for rel in ("cli/serve.py", "cli/test.py", "cli/calibrate.py", "data/datasets.py",
@@ -52,7 +53,8 @@ def test_walk_covers_every_port_package():
                 "cli/export_aot.py", "cli/export_torch.py", "checkpoints/export_torch.py",
                 "ops/library.py", "ops/quantize.py", "models/variants.py", "models/vgg.py",
                 "losses/mani.py", "utils/init.py", "parallel/mesh.py", "parallel/multihost.py",
-                "parallel/data_parallel.py", "checkpoints/dcp_io.py", "utils/preemption.py"):
+                "parallel/data_parallel.py", "checkpoints/dcp_io.py", "utils/preemption.py",
+                "native/__init__.py", "utils/observability.py", "data/codec.py"):
         assert os.path.join(ROOT, "tgsr_tpu_torch", *rel.split("/")) in files, rel
 
 
@@ -158,6 +160,26 @@ def test_ctypes_signatures_match_sources(name):
              for m in re.finditer(r'extern "C"[^(]*?\b(\w+)\(([^)]*)\)', src)}
     want = {fn: len(argtypes) for fn, (argtypes, _) in _build.SIGNATURES[name].items()}
     assert found == want
+
+
+HOST_LIBRARIES = ("png_unfilter", "jpeg_decode", "loader")
+
+
+@pytest.mark.parametrize("name", HOST_LIBRARIES)
+def test_host_ctypes_signatures_match_sources(name):
+    """The argtypes `_build.host_library` sets name every exported (not
+    static) function of the host source `csrc/<name>.c`, with its number of
+    parameters, and the source includes no library header but the C
+    standard library's (the card machine promises no libjpeg, libpng or
+    zlib headers)."""
+    with open(_build.CSRC / f"{name}.c") as f:
+        src = f.read()
+    found = {m.group(1): len([p for p in m.group(2).split(",") if p.strip()])
+             for m in re.finditer(r"^(?:int|void) (\w+)\(([^)]*)\)", src, re.M)}
+    want = {fn: len(argtypes) for fn, (argtypes, _) in _build.SIGNATURES[name].items()}
+    assert found == want
+    headers = set(re.findall(r"#include <([^>]+)>", src))
+    assert headers <= {"setjmp.h", "stdint.h", "stdio.h", "stdlib.h", "string.h"}, headers
 
 
 def test_chip_smoke_alone_prints_no_result(tmp_path):

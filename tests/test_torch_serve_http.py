@@ -1,7 +1,8 @@
 """The port's HTTP serving CLI (tgsr_tpu_torch/cli/serve.py) on the CPU, the
 counterpart of tests/test_serve_http.py: concurrent POSTs batch through
 BatchingServer and come back as PNGs of the direct pipeline path; bad
-requests; native mode; main's argument checks; the boot paths
+requests; JPEG and every PNG form answered as their pixels; native mode;
+main's argument checks; the boot paths
 (--cfg/--netg/--vocab_pickle, --artifact); resolve_net_e's priority order
 against tgsr_tpu's.
 
@@ -42,6 +43,8 @@ from tgsr_tpu_torch.data.codec import resize_pil_bicubic
 from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.inference import SRPipeline
 from tgsr_tpu_torch.utils.preemption import graceful_sigterm
+from tests.test_torch_image_fixtures import photo
+from tests.torch_png_writer import write_png
 
 torch.set_num_threads(1)
 T, SIZE = 6, 8  # caption slots and LR size of the narrow x8 tree
@@ -165,9 +168,11 @@ def test_http_bad_requests(http_srv):
     rng = np.random.default_rng(6)
     code, err = _post_error(port, b"not an image")
     assert code == 400 and "not a PNG" in err
-    code, err = _post_error(port, _png(rng.integers(0, 256, (16, 16, 3)).astype(np.uint8),
-                                       "JPEG"))
-    assert code == 400 and "JPEG" in err
+    jpeg = _png(rng.integers(0, 256, (16, 16, 3)).astype(np.uint8), "JPEG")
+    code, err = _post_error(port, jpeg[:len(jpeg) // 2])  # JPEG is served; a truncated one not
+    assert code == 400 and "truncated JPEG" in err
+    code, err = _post_error(port, _png(np.zeros((16, 16, 3), np.uint8), "GIF"))
+    assert code == 400 and "GIF" in err
     good = _png(np.zeros((16, 16, 3), np.uint8))
     bad_ihdr = good[:8] + struct.pack(">I", 12) + good[12:28] + struct.pack(
         ">I", zlib.crc32(good[12:28])) + good[33:]
@@ -189,6 +194,33 @@ def test_http_bad_requests(http_srv):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(f"http://127.0.0.1:{port}/nope", timeout=30)
     assert e.value.code == 404
+
+
+@pytest.mark.parametrize("query", ["", "?mode=native"])
+def test_http_jpeg_and_png_forms_answer_as_their_pixels(http_srv, query):
+    """A JPEG (baseline and progressive), a 16-bit RGB PNG and an Adam7
+    interlaced palette PNG are answered with the bytes the same pixels
+    (PIL's reading of the body) get when sent as an 8-bit PNG, in fixed and
+    in native mode. The requests go one at a time, so that each is a batch
+    of one."""
+    port = http_srv.server_address[1]
+    rng = np.random.default_rng(21)
+    img = photo(rng, 43, 37)
+    bodies = {}
+    for name, kw in (("baseline", {}), ("progressive", {"progressive": True})):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=85, **kw)
+        bodies[name] = buf.getvalue()
+    px16 = img.astype(np.int64) * 257 + rng.integers(0, 256, img.shape)
+    bodies["png16"] = write_png(px16, 2, 16)
+    bodies["palette_adam7"] = write_png(rng.integers(0, 16, (43, 37, 1)), 3, 4, interlace=True,
+                                        palette=rng.integers(0, 256, (16, 3)))
+    for name, body in bodies.items():
+        pixels = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        got = _post(port, body, "a big nose", query)
+        want = _post(port, _png(pixels), "a big nose", query)
+        assert got[0] == want[0] == 200
+        assert got[2] == want[2], name
 
 
 @pytest.mark.parametrize("text", ["A big UNKNOWN nose", "", "Smiling, big-nose!",

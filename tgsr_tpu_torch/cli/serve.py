@@ -6,8 +6,10 @@
       --vocab_pickle <testset.pickle> [--int8 | --scales s.json | --f32]
   python -m tgsr_tpu_torch.cli.serve --aot <cli.export_aot dir> --vocab_pickle <pickle>
 
-Protocol (stdlib http.server; images through data/codec.py, PNG only):
-  POST /sr     body = a PNG; bicubic-resized (PIL's filter) to the model's
+Protocol (stdlib http.server; images through data/codec.py):
+  POST /sr     body = a PNG (any colour type, bit depth, interlace) or a
+               JPEG (baseline or progressive), read as PIL's
+               convert("RGB") reads it; bicubic-resized (PIL's filter) to the model's
                LR size and batched with concurrent requests through
                engine/serving.py's BatchingServer. Caption in the
                `X-Caption` header (or `?caption=`). Response: image/png.
@@ -19,8 +21,9 @@ Protocol (stdlib http.server; images through data/codec.py, PNG only):
                and answers 400, as does a pipeline with weight maps
                (EVAL.WEIGHTMAP) at an LR size its maps do not fit.
   GET /healthz JSON: request and batch counts, latency percentiles.
-A body that is not an 8-bit, non-interlaced PNG is answered 400 with the
-reason; an unknown path 404; a failed forward 500.
+A body that is not a PNG or JPEG the codec reads (GIF, BMP, TIFF, WebP,
+arithmetic-coded or 12-bit JPEG, a corrupt or truncated file) is answered
+400 with the reason; an unknown path 404; a failed forward 500.
 
 ThreadingHTTPServer runs each request on its own thread: fixed-size
 requests wait on their futures while BatchingServer's collector thread
@@ -44,8 +47,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from tgsr_tpu_torch.data.codec import (decode_png, encode_png, resize_pil_bicubic,
-                                       unfilter_library)
+from tgsr_tpu_torch.data.codec import (decode_image, encode_png, jpeg_library,
+                                       resize_pil_bicubic, unfilter_library)
 from tgsr_tpu_torch.data.tokenizer import Vocab, encode_caption, tokenize_caption
 from tgsr_tpu_torch.engine.serving import BatchingServer
 from tgsr_tpu_torch.models.generator_hf import WeightMapSizeError
@@ -82,7 +85,8 @@ def make_server(pipeline, vocab: Vocab, host: str = "127.0.0.1", port: int = 871
     scale = pipeline.cfg.scale
     batcher = BatchingServer(pipeline, max_batch=max_batch, max_delay_ms=max_delay_ms,
                              lr_shape=(size, size, 3))
-    unfilter_library()  # the PNG decoder's C helper, built before the first request
+    unfilter_library()  # the decoders' C code, built before the first request
+    jpeg_library()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet by default
@@ -115,7 +119,7 @@ def make_server(pipeline, vocab: Vocab, host: str = "127.0.0.1", port: int = 871
             caption = self.headers.get("X-Caption", "") or query.get("caption", [""])[0]
             try:
                 n = int(self.headers.get("Content-Length", "0"))
-                img = decode_png(self.rfile.read(n))
+                img = decode_image(self.rfile.read(n))
             except Exception as e:  # whatever the body holds, the client gets an answer
                 return self._json(400, {"error": f"bad image: {e}"})
             cap, length = encode_caption_text(caption, vocab, T)

@@ -1,27 +1,40 @@
-"""PNG in and out, and PIL's resizes, without PIL: what the serving CLI
-needs to take an image from a request and give one back, and what the eval
+"""Images in and out, and PIL's resizes, without PIL: what the serving CLI
+needs to take an image from a request and give one back, and what the
 datasets need to read their images.
 
-- `decode_png(data)`: 8-bit PNGs of colour types 0 (grey), 2 (RGB),
-  3 (palette), 4 (grey + alpha) and 6 (RGBA), not interlaced, all five row
-  filters, to uint8 RGB [H, W, 3] exactly as PIL's `.convert("RGB")`: grey
-  replicated, palette looked up, alpha dropped; the row filters undone by a
-  C helper (csrc/png_unfilter.c, built by the system's C compiler), or in
-  Python where there is none. JPEG, other bit depths,
-  interlaced PNGs and images of more than MAX_IMAGE_PIXELS are refused with
-  ValueError saying why; image data is inflated no further than the
+- `decode_image(data)`: a PNG or a JPEG, told apart by its signature, to
+  uint8 RGB [H, W, 3] exactly as PIL's `Image.open(...).convert("RGB")`
+  gives it. Other formats PIL reads (GIF, BMP, TIFF, WebP) raise
+  ValueError; they are queued as ROADMAP.md A 6.
+- `decode_png(data)`: every PNG form: colour types 0 (grey), 2 (RGB),
+  3 (palette), 4 (grey + alpha) and 6 (RGBA) at every bit depth each
+  allows (1, 2, 4, 8, 16), Adam7 interlaced or not, all five row filters,
+  as PIL converts them: grey replicated (1-bit to 0 / 255, 2- and 4-bit
+  scaled to 8 bits, 16-bit grey clamped at 255 as PIL's `I;16` -> RGB
+  clamps it), palette looked up (indices past the palette read black),
+  16-bit colour by its high byte, alpha and tRNS dropped. The row filters
+  are undone by a C helper (csrc/png_unfilter.c, built by the system's C
+  compiler) or in Python where there is none. Images of more than
+  MAX_IMAGE_PIXELS are refused; image data is inflated no further than the
   header's size.
+- `decode_jpeg(data)`: baseline and progressive JPEG by the port's own
+  decoder (csrc/jpeg_decode.c, built by the system's C compiler, no
+  libjpeg): bit for bit what PIL reads through libjpeg (ISLOW IDCT, fancy
+  upsampling, libjpeg's colour tables; Adobe CMYK / YCCK as PIL converts
+  them). Without a C compiler it raises RuntimeError: there is no Python
+  JPEG path. Arithmetic coding and 12-bit samples raise ValueError.
 - `encode_png(rgb, filter_rows=False)`: uint8 [H, W, 3] to an 8-bit RGB
   PNG, rows raw or filtered adaptively as PNG encoders filter them.
 - `resize_pil(img, (h, w), "bicubic" | "bilinear")`: uint8 [H, W, C] resized
   bit for bit as `Image.resize((w, h), Image.BICUBIC / BILINEAR)`
   (Pillow's libImaging/Resample.c); `resize_pil_bicubic` is its bicubic form.
-- `load_image_rgb(path)`: an image file as uint8 RGB [H, W, 3], as PIL's
-  `Image.open(path).convert("RGB")` gives a PNG; other formats raise.
+- `load_image_rgb(path)`: an image file through `decode_image`; a file it
+  cannot read raises ValueError naming the file (PIL raises OSError there).
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from typing import Tuple
@@ -29,11 +42,19 @@ from typing import Tuple
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 # the most pixels a decoded image may have (PIL's MAX_IMAGE_PIXELS), checked
 # against the header before anything is inflated
 MAX_IMAGE_PIXELS = 89478485
 # colour type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths it allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# formats PIL reads that the port does not, by signature
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
 
 def _chunks(data: bytes):
@@ -116,12 +137,25 @@ def _unfilter_python(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(px: np.ndarray, w: int, n: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, n] (uint16 at 16 bits,
+    uint8 else; sub-byte samples unpacked, most significant bits first)."""
+    h = px.shape[0]
+    if depth == 16:
+        return px.view(">u2")[:, :w * n].astype(np.uint16).reshape(h, w, n)
+    if depth == 8:
+        return px[:, :w * n].reshape(h, w, n)
+    bits = np.unpackbits(px, axis=1)[:, :w * n * depth].reshape(h, w * n, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, n)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """uint8 RGB [H, W, 3] of an 8-bit, non-interlaced PNG of colour type 0,
-    2, 3, 4 or 6, as PIL's `Image.open(...).convert("RGB")` gives it.
-    Raises ValueError for anything else, saying what it is."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise ValueError("JPEG input is not supported: send a PNG")
+    """uint8 RGB [H, W, 3] of a PNG of any colour type, bit depth and
+    interlace method, as PIL's `Image.open(...).convert("RGB")` gives it.
+    Raises ValueError for what is not a valid PNG, saying what it is."""
+    if data[:3] == JPEG_SIGNATURE:
+        raise ValueError("JPEG data, not a PNG (decode_image reads both)")
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG image")
     header, palette, idat = None, None, []
@@ -131,7 +165,7 @@ def decode_png(data: bytes) -> np.ndarray:
                 raise ValueError(f"PNG IHDR chunk of {len(body)} bytes, not 13")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -140,21 +174,45 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG without an IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} is not supported")
-    if depth != 8:
-        raise ValueError(f"{depth}-bit PNGs are not supported: send an 8-bit PNG")
-    if interlace:
-        raise ValueError("interlaced PNGs are not supported")
+        raise ValueError(f"PNG colour type {ctype} is not valid")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"PNG bit depth {depth} is not valid for colour type {ctype}")
+    if interlace > 1:
+        raise ValueError(f"PNG interlace method {interlace} is not valid")
     if w == 0 or h == 0:
         raise ValueError("PNG of size zero")
     if w * h > MAX_IMAGE_PIXELS:
         raise ValueError(f"PNG of {w} x {h} pixels, more than {MAX_IMAGE_PIXELS}")
     n = _CHANNELS[ctype]
+    bpp = max(1, n * depth // 8)  # the filters' byte distance
+    passes = [(0, 0, 1, 1)] if not interlace else _ADAM7
+    dims = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
+    strides = [-(-pw * n * depth // 8) for _, pw in dims]
+    size = sum(ph * (st + 1) for (ph, pw), st in zip(dims, strides) if ph and pw)
     try:  # inflated no further than the header's size
-        raw = zlib.decompressobj().decompress(b"".join(idat), h * (w * n + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), size)
     except zlib.error as e:
         raise ValueError(f"PNG image data does not inflate: {e}") from None
-    px = _unfilter(raw, h, w * n, n).reshape(h, w, n)
+    if len(raw) < size:
+        raise ValueError("PNG image data is shorter than its size")
+    dtype = np.uint16 if depth == 16 else np.uint8
+    out = np.empty((h, w, n), dtype) if interlace else None
+    pos = 0
+    for (x0, y0, dx, dy), (ph, pw), st in zip(passes, dims, strides):
+        if not ph or not pw:  # an empty pass has no bytes, not even filter bytes
+            continue
+        px = _unfilter(memoryview(raw)[pos:pos + ph * (st + 1)], ph, st, bpp)
+        pos += ph * (st + 1)
+        if not interlace:
+            out = _samples(px, w, n, depth)
+        else:
+            out[y0::dy, x0::dx] = _samples(px, pw, n, depth)
+    return _to_rgb(out, ctype, depth, palette)
+
+
+def _to_rgb(px: np.ndarray, ctype: int, depth: int, palette) -> np.ndarray:
+    """Samples [h, w, n] -> uint8 RGB as PIL's convert("RGB") of the mode
+    PIL opens the PNG in."""
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG without a PLTE chunk")
@@ -162,9 +220,69 @@ def decode_png(data: bytes) -> np.ndarray:
         full = np.zeros((256, 3), np.uint8)
         full[:len(palette)] = palette[:256]
         return full[px[..., 0]]
-    if n <= 2:  # grey (+ alpha)
+    if depth == 16:  # colour: the high byte; grey (PIL's I;16): clamped at 255
+        px = np.minimum(px, 255).astype(np.uint8) if ctype == 0 else (px >> 8).astype(np.uint8)
+    elif depth < 8:  # grey at 1, 2 or 4 bits, scaled to 8 (1-bit: 0 / 255)
+        px = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if ctype in (0, 4):  # grey (+ alpha)
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
+
+
+def jpeg_library():
+    """The JPEG decoder (csrc/jpeg_decode.c), compiled on first use; None
+    without a C compiler."""
+    from tgsr_tpu_torch.ops._build import host_library
+
+    return host_library("jpeg_decode")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of a JPEG, as PIL's `Image.open(...)
+    .convert("RGB")` gives it. ValueError for what is not a JPEG the
+    decoder reads (corrupt, truncated, arithmetic-coded, 12-bit);
+    RuntimeError where there is no C compiler to build the decoder."""
+    data = bytes(data)
+    h, w = jpeg_size(data)
+    if w * h > MAX_IMAGE_PIXELS:
+        raise ValueError(f"JPEG of {w} x {h} pixels, more than {MAX_IMAGE_PIXELS}")
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if jpeg_library().jpeg_decode_rgb(data, len(data), out.ctypes.data, out.size, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def jpeg_size(data: bytes) -> Tuple[int, int]:
+    """(height, width) from a JPEG's frame header; ValueError where there is
+    none, RuntimeError without a C compiler."""
+    lib = jpeg_library()
+    if lib is None:
+        raise RuntimeError("decoding a JPEG needs a C compiler (cc or gcc) to build "
+                           "tgsr_tpu_torch/csrc/jpeg_decode.c; none was found")
+    w, h, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_info(bytes(data), len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(n),
+                     err, len(err)):
+        raise ValueError(err.value.decode())
+    return h.value, w.value
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """uint8 RGB [H, W, 3] of a PNG or a JPEG, told apart by signature."""
+    head = bytes(data[:12])
+    if head[:8] == PNG_SIGNATURE:
+        return decode_png(data)
+    if head[:3] == JPEG_SIGNATURE:
+        return decode_jpeg(data)
+    for sig, name in _OTHER_FORMATS:
+        if head.startswith(sig):
+            raise ValueError(f"{name} images are not supported (PNG and JPEG only; the other "
+                             "formats PIL reads are queued as ROADMAP.md A 6)")
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise ValueError("WebP images are not supported (PNG and JPEG only; the other "
+                         "formats PIL reads are queued as ROADMAP.md A 6)")
+    raise ValueError("not a PNG or JPEG image")
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -209,16 +327,15 @@ def _png_rgb(w: int, h: int, rows: np.ndarray) -> bytes:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """uint8 RGB [H, W, 3] of the image file at `path`, as PIL's
-    `Image.open(path).convert("RGB")`. PNG only (8-bit, not interlaced):
-    JPEG, 16-bit and interlaced images raise ValueError, naming the file."""
+    """uint8 RGB [H, W, 3] of the PNG or JPEG file at `path`, as PIL's
+    `Image.open(path).convert("RGB")`; a file `decode_image` cannot read
+    raises ValueError naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return decode_png(data)
+        return decode_image(data)
     except ValueError as e:
-        raise ValueError(f"{path}: {e} (the port reads 8-bit non-interlaced PNG only; "
-                         "other image formats are queued as ROADMAP.md A 6)") from None
+        raise ValueError(f"{path}: {e}") from None
 
 
 # -- Pillow's resampling resize (libImaging/Resample.c, 8 bits a channel) -------
@@ -261,7 +378,9 @@ def _coeffs(in_size: int, out_size: int, method: str = "bicubic") -> np.ndarray:
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
         w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
-        ww = sum(w)
+        ww = 0.0
+        for v in w:  # summed in order, as Pillow sums (not Python's compensated sum)
+            ww += v
         for x, v in enumerate(w):
             if ww != 0.0:
                 v /= ww

@@ -1,24 +1,28 @@
-"""Dataset adapters of the eval and calibration CLIs (counterpart of the parts
-of tgsr_tpu/data/datasets.py they reach): file discovery, caption indexing
-and the decode + crop + resize of each image on the host, producing
-(hr uint8, tokens, length, class id, key) examples.
+"""Dataset adapters of the eval, calibration and training CLIs (counterpart
+of tgsr_tpu/data/datasets.py): file discovery, caption indexing and the
+decode + crop + resize of each image on the host, producing (hr uint8,
+tokens, length, class id, key) examples.
 
 Ported: `Example`, the shared caption base, `TextDataset` and `TextSRDataset`
-(the train vocabulary the example sets of bird, flower and coco are encoded
-with), `TextFaceDataset` (CelebA attribute captions, and the sentence-caption
-variant), `TextExampleSRDataset` (the filename-list + caption-pickle eval set),
-`TextSRGTDataset` (generated SR images and their captions, which
-`cli/eval_rank.py` ranks), `prepare_batch` and `load_arbitrary_eval_image`. Images are read by
-data/codec.py (PNG only; the face eval set is PNG) and resized by its PIL-exact
-filters, so every crop and resize equals the JAX package's PIL path bit for
-bit. The JAX package prefers its native C++ loader for the eval crop when that
-library is built (within 1/255 of PIL); the port follows the PIL path.
+(bird layout, the train vocabulary the example sets of bird, flower and coco
+are encoded with), `TextFlowerDataset` (Oxford-102: text_c10/class_*/
+caption files, the last 3 files of a class the test split), `TextCocoDataset`
+(train2014 / val2014 images), `TextFaceDataset` (CelebA attribute captions,
+and the sentence-caption variant), `TextExampleSRDataset` (the filename-list
++ caption-pickle eval set), `TextSRGTDataset` (generated SR images and their
+captions, which `cli/eval_rank.py` ranks), `prepare_batch` and
+`load_arbitrary_eval_image`. Images are PNG or JPEG, read by data/codec.py;
+the deterministic eval crop goes through the host loader (native/, C), the
+training crop through codec's PIL-exact filters in numpy. Both equal the
+JAX package's PIL path bit for bit. (The JAX package prefers its own native
+loader for the eval crop when that library is built, within 1/255 of PIL.)
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import re
 import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -34,11 +38,13 @@ def _load_and_resize(path: str, size: int, enlarge: float, rng=None) -> np.ndarr
     """Decode + antialiased resize of the short side to size * enlarge, then
     a centre crop of size, or with `rng` (train augmentation) a random crop
     and a coin-flip mirror: Resize(int(imsize * enlarge)) + RandomCrop(imsize)
-    + RandomHorizontalFlip."""
-    img = load_image_rgb(path)
+    + RandomHorizontalFlip. The centre crop runs in the host loader
+    (`native.load_image`, equal to `_center_crop_resize` bit for bit)."""
     if rng is not None:
-        return _random_crop_flip(img, size, enlarge, rng)
-    return _center_crop_resize(img, size, enlarge)
+        return _random_crop_flip(load_image_rgb(path), size, enlarge, rng)
+    from tgsr_tpu_torch import native
+
+    return native.load_image(path, size, enlarge)
 
 
 def _resize_short_side(img: np.ndarray, target: int) -> np.ndarray:
@@ -236,7 +242,9 @@ class TextDataset(_CaptionDatasetBase):
             img = load_image_rgb(f"{self.data_dir}/images/{key}.jpg")
         if rng is not None:
             return _random_crop_flip(img, self.imsize, 76 / 64, rng)
-        return _center_crop_resize(img, self.imsize, enlarge=76 / 64)
+        from tgsr_tpu_torch import native
+
+        return native.crop_resize(img, self.imsize, enlarge=76 / 64)
 
 
 class TextFaceDataset(_CaptionDatasetBase):
@@ -330,6 +338,96 @@ class TextFaceDataset(_CaptionDatasetBase):
                                 rng=rng)
 
 
+class TextFlowerDataset(_CaptionDatasetBase):
+    """Oxford-102: per-class text_c10/class_*/ caption files, the last 3
+    files of each class the test split; images jpg/<name>.jpg."""
+
+    def __init__(self, data_dir: str, split: str = "train", words_num: int = 18,
+                 imsize: int = 256, embeddings_num: int = 10,
+                 cache_name: str = "captions_flower_v2.pickle"):
+        # cache v2: a '{}' first line duplicates the previous file's caption
+        # (not dropped), so caches of the older scan carry misaligned flat
+        # caption addressing; the new name forces a rescan
+        self.data_dir = data_dir
+        self.split = split
+        self.augment = split == "train"
+        self.words_num = words_num
+        self.imsize = imsize
+        self.embeddings_num = embeddings_num
+        cache = os.path.join(data_dir, cache_name)
+        if os.path.isfile(cache):
+            with open(cache, "rb") as f:
+                (train_caps, test_caps, ix2w, w2ix, train_names, test_names, train_cls,
+                 test_cls) = pickle.load(f)
+            self.vocab = Vocab(ix2w, w2ix)
+        else:
+            (train_tok, train_names, train_cls, test_tok, test_names,
+             test_cls) = self._scan(data_dir)
+            train_caps, test_caps, self.vocab = build_dictionary(train_tok, test_tok)
+            with open(cache, "wb") as f:
+                pickle.dump([train_caps, test_caps, self.vocab.ixtoword, self.vocab.wordtoix,
+                             train_names, test_names, train_cls, test_cls], f, protocol=2)
+        if split == "train":
+            self.filenames, self.captions = train_names, train_caps
+            self.class_id = np.asarray(train_cls)
+        else:
+            # the reference eval protocol: one image per class triple
+            # (filenames[::3]) with one deterministic caption per kept image
+            # (flat captions[::embeddings_num * 3], caption index = image
+            # index): embeddings_num 1 reproduces that addressing
+            self.filenames = test_names[::3]
+            self.captions = test_caps[::self.embeddings_num * 3]
+            self.class_id = np.asarray(test_cls[::3])
+            self.embeddings_num = 1
+
+    def _scan(self, data_dir):
+        train_tok, train_names, train_cls = [], [], []
+        test_tok, test_names, test_cls = [], [], []
+        last_cap = None  # one flat list: '{}' opening a file repeats the previous file's last caption
+        root = os.path.join(data_dir, "text_c10")
+        for cls_dir in sorted(os.listdir(root)):
+            m = re.match(r"class_(\d+)", cls_dir)
+            if not m:
+                continue
+            cls = int(m.group(1))
+            files = sorted(f for f in os.listdir(os.path.join(root, cls_dir)) if f.endswith(".txt"))
+            for i, fn in enumerate(files):
+                is_test = i >= len(files) - 3  # the last 3 of a class are the test split
+                with open(os.path.join(root, cls_dir, fn), "rb") as f:
+                    caps = f.read().decode("utf8").split("\n")
+                toks = []
+                for cap in caps:
+                    if cap == "{}":
+                        # the reference's placeholder line repeats the previous
+                        # caption, so every file still yields embeddings_num
+                        # captions and the flat addressing stays aligned
+                        prev = toks[-1] if toks else last_cap
+                        if prev is not None:
+                            toks.append(prev)
+                    elif cap:
+                        t = tokenize_caption(cap)
+                        if t:
+                            toks.append(t)
+                    if toks:
+                        last_cap = toks[-1]
+                    if len(toks) == self.embeddings_num:
+                        break
+                name = fn[:-4]
+                if is_test:
+                    test_tok.extend(toks)
+                    test_names.append(name)
+                    test_cls.append(cls)
+                else:
+                    train_tok.extend(toks)
+                    train_names.append(name)
+                    train_cls.append(cls)
+        return train_tok, train_names, train_cls, test_tok, test_names, test_cls
+
+    def _image(self, index, rng=None):
+        return _load_and_resize(f"{self.data_dir}/jpg/{self.filenames[index]}.jpg",
+                                self.imsize, enlarge=76 / 64, rng=rng)
+
+
 class TextExampleSRDataset(_CaptionDatasetBase):
     """The eval set driven by a filename list and a prebuilt caption pickle
     ([captions, ixtoword, wordtoix]; testset.pickle of the face x8 eval)."""
@@ -412,6 +510,17 @@ class TextSRDataset(TextDataset):
         if self.split != "train" and sent_ix is None:
             sent_ix = 0  # the deterministic test caption
         return super().__getitem__(index, rng, sent_ix)
+
+
+class TextCocoDataset(TextDataset):
+    """COCO: the TextDataset layout with images/train2014 and
+    images/val2014 JPEGs."""
+
+    def _image(self, index, rng=None):
+        key = self.filenames[index]
+        sub = "train2014" if self.split == "train" else "val2014"
+        return _load_and_resize(f"{self.data_dir}/images/{sub}/{key}.jpg", self.imsize,
+                                enlarge=76 / 64, rng=rng)
 
 
 class TextSRGTDataset(_CaptionDatasetBase):

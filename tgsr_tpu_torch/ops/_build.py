@@ -88,6 +88,17 @@ SIGNATURES = {
         # rows, out, h, stride, bytes per pixel
         "png_unfilter": ([_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I], None),
     },
+    "jpeg_decode": {
+        # data, n, &w, &h, &components, err, err length
+        "jpeg_info": ([ctypes.c_char_p, ctypes.c_longlong, _P, _P, _P, ctypes.c_char_p, _I], _I),
+        # data, n, out (h x w x 3), out capacity, err, err length
+        "jpeg_decode_rgb": ([ctypes.c_char_p, ctypes.c_longlong, _P, ctypes.c_longlong,
+                             ctypes.c_char_p, _I], _I),
+    },
+    "loader": {
+        # src, h, w, resized h, resized w, top, left, crop h, crop w, out
+        "resize_crop_bilinear": ([_P] + [_I] * 8 + [_P], _I),
+    },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
