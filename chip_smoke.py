@@ -113,9 +113,17 @@ decoded bit for bit as PIL on the card's host, the host loader's img/s,
 cli.test on flower and coco JPEG example sets (configs/eval_flowerSR_attn2.yml,
 eval_cocoSR_attn2.yml at full width) in bfloat16 and float32 against the
 CPU, a JPEG POSTed to cli.serve in both modes, profile_trace naming the
-kernels of a forward, and nan_guard over one training step. Prints
-one JSON line of per-kernel numbers, then, as the last line, {"ok": true,
-"device": {...}}.
+kernels of a forward, and nan_guard over one training step. The fused
+upsample and the multi-device paths: the kernel X3
+(int8_upconv_phases, the int8 UpBlock by phases) against its plain version
+at the six UpBlock sites in the kernel phases, the int8 forward with every
+UpBlock by phases (fused_up_forward, at the end of pipeline_phase),
+vis_layer in library_phase, and multirank_phase: mesh serving (float32,
+bfloat16, int8), sr_spatial (float32, 'lrblur', bfloat16, int8, int8 by
+phases) and pipeline_apply as two processes on the one card in a gloo group
+(`--multirank-worker` runs one rank), against the unsharded forward on the
+card. Prints one JSON line of per-kernel numbers, then, as the last line,
+{"ok": true, "device": {...}}.
 Exits non-zero without that line when there is no CUDA card, when the
 package is missing, or when any check fails.
 """
@@ -209,6 +217,24 @@ GLU_SITES = (
 # requests, each reading twice; its only origin is the text encoder's
 # cuBLAS GEMMs, which change kernel with the batch (float32 and bfloat16: 1)
 INT8_BATCH_LEVELS = 2
+# one full-width int8 forward's UpBlock sites, run by phases (X3,
+# `int8_upconv_phases`) when every site is in `fused_up`: (site, H, W, Cin,
+# Cout before the GLU, the output requantized for its int8 head)
+UPCONV_SITES = (
+    ("h_net1/upsample/conv", 32, 32, 64, 64, False),
+    ("h_net2/upsample/conv", 64, 64, 64, 64, False),
+    ("h_net3/upsample/conv", 128, 128, 64, 64, True),
+    ("upscale2x/conv", 32, 32, 32, 64, False),
+    ("upscale4x/conv", 64, 64, 32, 64, False),
+    ("upscale8x/conv", 128, 128, 32, 64, True),
+)
+FUSED_UP_ALL = frozenset(site for site, *_ in UPCONV_SITES)
+# one int8 forward's launches with every UpBlock site by phases: the six
+# UpBlock convs leave int8_conv for X3, the two head-feeding sites' GLU
+# requantize leaves glu_requant_pair, and their heads requantize the
+# dequantized output themselves (two more requant)
+FUSED_UP_PER_FORWARD = {"word_pixel_attention": 3, "int8_conv": 36, "int8_upconv_phases": 6,
+                        "glu_requant_one": 6, "glu_requant_pair": 8, "requant": 28}
 # the two up-head sites of one forward: (Cin, C2, k, tanh, blend, site)
 UP_HEAD_SITES = ((64, 64, 3, False, False, "h_net3.upsample+img_net3"),
                  (32, 64, 5, True, True, "upscale8x+conv_output+a*srb"))
@@ -658,6 +684,80 @@ def int8_conv_phase(torch, convs=INT8_CONVS):
                       "CUDA events with the host's launches queued behind a spin kernel; "
                       "cudnn_bf16_* is cuDNN's bf16 conv on the same shapes, "
                       "for scale, not the same function"}
+
+
+def int8_upconv_phase(torch, sites=UPCONV_SITES):
+    """`int8_upconv_phases` (X3) against its plain version (four float64
+    phase convs on the int8 values, exact, then the float32 epilogue) at
+    every UpBlock site of one full-width B = 64 int8 forward, in bfloat16
+    (the timed instance) and float32, with the head's output step where the
+    site has one (`int8_upconv.matches_plain`). Times are CUDA events (`ms`,
+    `plain_ms`) and the calls behind a spin kernel (`device_ms`); `cudnn_bf16_ms` is
+    cuDNN's bfloat16 2 x 2 conv to 4 Cout channels on the same source, for
+    scale, not the same function (no PyTorch call computes an int8 conv)."""
+    import torch.nn.functional as F
+
+    from tgsr_tpu_torch.ops.int8_upconv import (int8_upconv_phases, int8_upconv_plain,
+                                                matches_plain, pack_phase_weight)
+    from tgsr_tpu_torch.ops.quantize import act_step
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for site, h, w, cin, cout, head in sites:
+        x = torch.randint(-127, 128, (B, h, w, cin), generator=g, device="cuda",
+                          dtype=torch.int8)
+        wt = pack_phase_weight(torch.randint(-127, 128, (2, 2, cin, 4 * cout), generator=g,
+                                             device="cuda", dtype=torch.int8))
+        scale = torch.rand(4 * cout, generator=g, device="cuda") * 1e-5 + 1e-6
+        bn = (1 + 0.1 * torch.randn(cout, generator=g, device="cuda"),
+              0.1 * torch.randn(cout, generator=g, device="cuda"))
+        out_scale = 3.0 if head else None
+        step = act_step(out_scale) if head else None
+        errs, oks = [], []
+        pre = int8_upconv_plain(x, wt, scale, bn, None, torch.float32) if head else None
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (x, wt, scale, bn, out_scale, dtype)
+            ok, err = matches_plain(int8_upconv_phases(*args), int8_upconv_plain(*args),
+                                    step, pre)
+            oks.append(ok)
+            errs.append(err)
+        check(all(oks), f"int8_upconv_phases == plain at {site} [{B},{h},{w},{cin}]->{cout} "
+                        f"(bf16 within 1 ulp: max abs err {errs[0]:.3e}; f32 within 4 ulps: "
+                        f"{errs[1]:.3e}{'; one step only at a near-half' if head else ''})")
+        args = (x, wt, scale, bn, out_scale, torch.bfloat16)
+        ms = cuda_ms(lambda: int8_upconv_phases(*args), iters=5)
+        d_ms = device_ms(torch, lambda: int8_upconv_phases(*args))
+        p_ms = cuda_ms(lambda: int8_upconv_plain(*args), iters=2, warmup=1)
+        xb = F.pad(x.permute(0, 3, 1, 2).bfloat16(), (1, 1, 1, 1)).contiguous(
+            memory_format=torch.channels_last)
+        wb = torch.randn(4 * cout, cin, 2, 2, device="cuda").bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        conv = lambda: F.conv2d(xb, wb)  # noqa: E731
+        c_ms, cd_ms = cuda_ms(conv, iters=5), device_ms(torch, conv)
+        del xb, wb
+        nbytes = x.numel() + wt.packed.numel() + 4 * (4 * cout + 2 * cout) \
+            + B * 2 * h * 2 * w * (cout // 2) * 2
+        ops = 2 * B * h * w * 4 * 4 * cin * cout
+        bms, by = bound_ms(nbytes, ops, INT8_OP_PER_S)
+        print(f"  int8_upconv_phases {site}: kernel {ms:.4f} ms (device time {d_ms:.4f}), plain "
+              f"{p_ms:.4f} ms, cuDNN bf16 2x2 conv (for scale) {c_ms:.4f} ms (device time "
+              f"{cd_ms:.4f}), bound {bms:.4f} ms ({by}, {bms / ms:.1%} of it reached, "
+              f"{bms / d_ms:.1%} by device time), {ops / ms / 1e9:.1f} TOP/s", flush=True)
+        rows.append(dict(ms=ms, device_ms=d_ms, plain_ms=p_ms, cudnn_bf16_ms=c_ms,
+                         cudnn_bf16_device_ms=cd_ms, bound_ms=bms, nbytes=nbytes, flops=ops,
+                         err=max(errs)))
+    tot = sums(rows, keys=("ms", "device_ms", "plain_ms", "cudnn_bf16_ms", "cudnn_bf16_device_ms",
+                           "bound_ms", "nbytes", "flops"))
+    tot["bound_by"] = bound_ms(tot.pop("nbytes"), tot.pop("flops"), INT8_OP_PER_S)[1]
+    return {"name": "int8_upconv_phases", "route": "cuda",
+            "source": "tgsr_tpu_torch/csrc/int8_upconv.cu",
+            "replaces": "tgsr_tpu/engine/quant.py:284 (_fused_up_int8's XLA int8 conv per "
+                        "phase; no Pallas kernel)",
+            **tot, "library_ms": None,
+            "shapes": f"B {B}, the {len(sites)} UpBlock sites of one int8 forward by phases, "
+                      "bfloat16 out; ms, plain_ms and cudnn_bf16_ms by CUDA events, device_ms "
+                      "behind a spin kernel; cudnn_bf16_* is cuDNN's bf16 2x2 conv to 4 Cout "
+                      "channels on the same source, for scale, not the same function"}
 
 
 def glu_requant_phase(torch, sites=GLU_SITES, sweep=True):
@@ -1184,7 +1284,41 @@ def pipeline_phase(torch, rng, card):
             print(f"  calibrate_quant on the card, B=16: {time.perf_counter() - t0:.1f} s, "
                   f"{sum(len(v) for v in scales.values())} scales", flush=True)
         del kern
+    launches["int8 fused_up"] = fused_up_forward(torch, cfg, vocab, sds, scales,
+                                                 (lr8f, cap8, lens8), ref)
     return launches, scales
+
+
+def fused_up_forward(torch, cfg, vocab, sds, scales, batch, ref):
+    """The int8 forward (bfloat16 compute, the int8 path's scales) with every
+    UpBlock site by phases (`fused_up=FUSED_UP_ALL`, X3), through
+    SRPipeline's `__call__`: its launches (FUSED_UP_PER_FORWARD), >= 40 dB
+    against the same pipeline on the CPU (B = 2) and >= INT8_PSNR_FLOOR
+    against the float32 reference `ref` on the CPU. Returns its launches."""
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.ops import _build
+
+    kw = dict(compute_dtype=torch.bfloat16, quant_scales=scales, fused_up=FUSED_UP_ALL)
+    kern = SRPipeline(cfg, vocab, *sds, device="cuda", **kw)
+    _build.reset_launches()
+    got = kern(*batch)["sr"]
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    want = {name: FUSED_UP_PER_FORWARD.get(name, 0) for name in counts}
+    check(counts == want, f"one int8 forward with every UpBlock by phases launches "
+                          f"{FUSED_UP_PER_FORWARD} ({ {k: v for k, v in counts.items() if v} })")
+    check(tuple(got.shape) == (len(batch[0]), 256, 256, 3) and bool(torch.isfinite(got).all()),
+          f"int8 fused_up SR is finite, shape {tuple(got.shape)}")
+    t0 = time.perf_counter()
+    cref = SRPipeline(cfg, vocab, *sds, device="cpu", **kw)(*(x[:2] for x in batch))["sr"]
+    print(f"  int8 fused_up plain reference on the CPU, B=2: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    psnr_cpu, psnr = psnr_u8(got[:2], cref), psnr_u8(got, ref)
+    check(psnr_cpu >= 40, f"uint8 SR int8 fused_up on the card vs the same on the CPU: PSNR "
+                          f"{psnr_cpu:.2f} dB >= 40")
+    check(psnr >= INT8_PSNR_FLOOR, f"uint8 SR int8 fused_up on the card vs f32 plain on the CPU: "
+                                   f"PSNR {psnr:.2f} dB >= {INT8_PSNR_FLOOR}")
+    return counts
 
 
 def x16_inputs(torch):
@@ -5172,7 +5306,9 @@ def library_phase(torch):
     every module of models/variants.py at GF_DIM 32 and nef 256 (the stages
     that attend, InitStageGImg and NextStageGLR, through row 1's kernel,
     their launches counted under the path "library"); ESRGANDNet (ndf 64,
-    128 px); VGG16Features (64 px); orthogonal_reinit (the same draw on the
+    128 px); VGG16Features (64 px) and the deconvnet's vis_layer over it
+    (layers 3 and 6: uint8 within 1 level, the same max activation);
+    orthogonal_reinit (the same draw on the
     card as on the CPU); the loss families of losses/gan.py and
     losses/mani.py on small closures (VGG16Features as the Mani loss's VGG).
     Returns {"library": launches}."""
@@ -5187,6 +5323,7 @@ def library_phase(torch):
     from tgsr_tpu_torch.ops import _build
     from tgsr_tpu_torch.ops import attention as att
     from tgsr_tpu_torch.ops import blocks
+    from tgsr_tpu_torch.utils.deconv_viz import vis_layer
     from tgsr_tpu_torch.utils.init import orthogonal_reinit
 
     gen = torch.Generator().manual_seed(21)
@@ -5255,6 +5392,14 @@ def library_phase(torch):
     vgg = VGG16Features()
     _seed_module(vgg, gen)
     vggs = {"cpu": vgg.eval(), "cuda": copy.deepcopy(vgg).cuda().eval()}
+    image = (torch.rand((64, 64, 3), generator=gen) * 2 - 1).numpy()
+    for layer, mode in ((3, "four"), (6, "max")):
+        (ref, ref_max), (got, got_max) = (vis_layer(vggs[dev], image, layer, mode)
+                                          for dev in ("cpu", "cuda"))
+        d = np.abs(got.astype(int) - ref.astype(int)).max()
+        check(d <= 1 and got_max == ref_max and got.shape == (64, 64, 3),
+              f"library vis_layer layer {layer} '{mode}' on the card == the CPU's (uint8 within "
+              f"{d} <= 1 level, max activation {got_max} == {ref_max})")
     losses = {
         "generator_loss word_scale": lambda ds, en, fk, rl, s, w, ln, ci, ws, vg: lg.generator_loss(
             ds, en, fk, s, w, ln, ci, word_scale=ws),
@@ -5307,6 +5452,263 @@ def library_phase(torch):
               f"library loss {name} on the card == the CPU's ({len(vals['cpu'])} terms, max "
               f"abs err {err:.3e} <= 1e-3{'; NaN in both, as JAX' if both_nan else ''})")
     return {"library": library}
+
+
+# -- multi-device serving: mesh serving, sr_spatial and pipeline_apply over two
+# ranks (two processes on the one card over gloo) ------------------------------
+
+MULTIRANK_WORLD = 2
+MULTIRANK_B = 8  # mesh serving's batch: 4 images a rank
+# what rank 1 holds on the card, beyond rank 0, when it plans its microbatch
+PLAN_BALLAST_GIB = 16
+# per-forward launches of each path on every rank (mesh: its rows; spatial:
+# its row tile with halos), as one unsharded forward's
+MULTIRANK_PER_FORWARD = {
+    "float32": {"word_pixel_attention": 3, "up_head": 2},
+    "lrblur": {"word_pixel_attention": 3, "up_head": 2},
+    "bfloat16": {"word_pixel_attention": 3, "up_head_packed": 2},
+    "int8": {"word_pixel_attention": 3, "int8_conv": 42, "glu_requant_one": 6,
+             "glu_requant_pair": 10, "requant": 26},
+    "int8 fused_up": FUSED_UP_PER_FORWARD,
+}
+
+
+def multirank_worker(spec_path: str, rank: int, world: int, port: int) -> int:
+    """One rank of multirank_phase (`chip_smoke.py --multirank-worker SPEC
+    RANK WORLD PORT`): joins a gloo group on localhost, runs the jobs of
+    SPEC on the card and writes what they gave, with each run's launches,
+    to SPEC's "out" + ".RANK"."""
+    sys.path.insert(0, HERE)
+    import inspect
+
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
+    from tgsr_tpu_torch.ops import _build
+    from tgsr_tpu_torch.ops.blocks import ResBlock
+    from tgsr_tpu_torch.parallel.mesh import make_mesh
+    from tgsr_tpu_torch.parallel.pipeline import extract_chain, make_stage_mesh, pipeline_apply
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    spec = torch.load(spec_path, weights_only=False)
+    # gloo groups (NCCL refuses two ranks on one card); the pipelines run on the card
+    mesh = make_mesh(world, 1, device="cpu")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: _build.LAUNCHES[k] + _build.REPLAYED[k] for k in _build.LAUNCHES}
+
+    out = {}
+    cfg, vocab, sds = spec["cfg"], spec["vocab"], spec["sds"]
+    for tag, kw in spec["mesh"].items():
+        pipe = SRPipeline(cfg, vocab, *sds, mesh=mesh, **kw)
+        call, n = counted(lambda: pipe(*spec["batch"])["sr"].cpu())
+        scan = pipe.forward_scan(*(x[None] for x in spec["batch_u8"])).cpu()
+        batched = pipe.sr_batched(*spec["batch_u8"], microbatch=MULTIRANK_B)
+        out[f"mesh {tag}"] = dict(sr=call, scan=scan[0], batched=torch.from_numpy(batched),
+                                  launches=n)
+        if tag == "bfloat16":
+            # sr_batched with no microbatch, each rank planning from its own free
+            # memory: rank 0 plans first (plan_microbatch's own arguments, kept
+            # in memory_plan), then rank 1 with PLAN_BALLAST_GIB more held
+            if rank == 0:
+                pipe._local_microbatch(*(p.default for p in inspect.signature(
+                    pipe.plan_microbatch).parameters.values()))
+            dist.barrier()
+            ballast = torch.empty(PLAN_BALLAST_GIB << 30, dtype=torch.uint8,
+                                  device="cuda") if rank == 1 else None
+            planned = pipe.sr_batched(*spec["batch_u8"])
+            out[f"mesh {tag}"].update(planned=torch.from_numpy(planned),
+                                      plan=torch.tensor(pipe.plan_microbatch()),
+                                      local_plan=pipe.memory_plan.microbatch)
+            del ballast
+        del pipe
+    for tag, (c, kw) in spec["spatial"].items():
+        pipe = SRPipeline(c, vocab, *sds, **kw)
+        res, n = counted(lambda: pipe.sr_spatial(*spec["one"], mesh=mesh))
+        out[f"spatial {tag}"] = dict(pyramid=[x.cpu() for x in res["pyramid"]], launches=n)
+        del pipe
+    net = NetGHighWeight(cfg.GAN.GF_DIM)
+    net.load_state_dict(sds[2], strict=True)
+    net = net.cuda().eval()
+    block = ResBlock(cfg.GAN.GF_DIM).cuda().eval()
+    stacked = extract_chain(net, [f"residual.{i}" for i in range(6)])
+    with torch.no_grad():
+        out["pipeline"] = pipeline_apply(
+            lambda v, h: functional_call(block, v, (h,)), stacked, spec["chain_x"].cuda(),
+            make_stage_mesh(world, device="cpu"), n_micro=4).cpu()
+    torch.save(out, f"{spec['out']}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def multirank_phase(torch, rng, card, scales, tmp):
+    """Mesh serving, sr_spatial and pipeline_apply over two ranks: two
+    processes on the one card in a gloo group (NCCL refuses two ranks on one
+    device; gloo takes host tensors, so the port stages each exchange through
+    host memory), each running the face S8 pipeline at full width with
+    seeded weights (`multirank_worker`). Two ranks on one card, not two
+    cards: the exchange code, the halos, the pipeline's send / recv and the
+    batch all-gather run as they would across cards, and the kernels run on
+    each rank's rows. This process makes the unsharded references on the
+    card meanwhile. Gates (JAX's tests'): float32 rtol = atol = 2e-4;
+    bfloat16 >= 50 dB (the CPU tests' bfloat16 gate); int8 within one quant
+    step (max < 0.02, mean < 1e-3); the uint8 SR of forward_scan /
+    sr_batched within 1 level (float32) or 3 (int8, one step); the chain
+    rtol = atol = 1e-5 against the sequential one; both ranks the same
+    result; each run's launches on each rank those of one unsharded forward
+    (MULTIRANK_PER_FORWARD). bfloat16 mesh serving also runs `sr_batched`
+    with no microbatch, each rank planning from its own free memory (rank 1
+    with PLAN_BALLAST_GIB more held): both take the least plan and give what
+    the given microbatch gave. Returns {"multirank <run>": launches summed
+    over the ranks}."""
+    import dataclasses
+
+    from tgsr_tpu_torch.checkpoints.from_jax import init_seeded
+    from tgsr_tpu_torch.config import face_s8_config
+    from tgsr_tpu_torch.engine.inference import SRPipeline
+    from tgsr_tpu_torch.models.generator_hf import NetGHighWeight
+    from tgsr_tpu_torch.parallel.multihost import free_port
+
+    cfg, vocab = face_s8_config(), 41
+    sds = init_seeded(cfg, vocab, torch.Generator().manual_seed(0))[:3]
+    lr_u8 = rng.integers(0, 256, (MULTIRANK_B, 32, 32, 3)).astype("uint8")
+    lens = rng.integers(1, T + 1, MULTIRANK_B)
+    cap = rng.integers(1, vocab, (MULTIRANK_B, T))
+    cap[np.arange(T)[None, :] >= lens[:, None]] = 0
+    lr = lr_u8.astype("float32") / 127.5 - 1.0
+    bf16 = dict(compute_dtype=torch.bfloat16)
+    int8 = dict(bf16, quant_scales=scales)
+    blur = dataclasses.replace(cfg, EVAL=dataclasses.replace(cfg.EVAL, INPUT_NETGH="lrblur"))
+    paths = {"float32": {}, "bfloat16": bf16, "int8": int8}
+    spatial = {"float32": (cfg, {}), "lrblur": (blur, {}), "bfloat16": (cfg, bf16),
+               "int8": (cfg, int8), "int8 fused_up": (cfg, dict(int8, fused_up=FUSED_UP_ALL))}
+    as_t = lambda *xs: tuple(torch.as_tensor(x) for x in xs)  # noqa: E731
+    spec = dict(cfg=cfg, vocab=vocab, sds=sds, mesh=paths, spatial=spatial,
+                batch=as_t(lr, cap, lens), batch_u8=as_t(lr_u8, cap, lens),
+                one=as_t(lr[:1], cap[:1], lens[:1]),
+                chain_x=torch.randn(8, cfg.GAN.GF_DIM, 32, 32,
+                                    generator=torch.Generator().manual_seed(24)),
+                out=os.path.join(tmp, "multirank"))
+    spec_path = os.path.join(tmp, "multirank_spec.pt")
+    torch.save(spec, spec_path)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multirank-worker",
+                               spec_path, str(r), str(MULTIRANK_WORLD), str(port)], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(MULTIRANK_WORLD)]
+    # the unsharded references on the card, while the ranks run
+    refs = {}
+    for tag, kw in paths.items():
+        pipe = SRPipeline(cfg, vocab, *sds, **kw)
+        refs[f"mesh {tag}"] = dict(sr=pipe(lr, cap, lens)["sr"].cpu(),
+                                   scan=pipe.forward_scan(lr_u8[None], cap[None], lens[None])[0]
+                                   .cpu())
+        del pipe
+    for tag, (c, kw) in spatial.items():
+        res = SRPipeline(c, vocab, *sds, **kw)(lr[:1], cap[:1], lens[:1])
+        refs[f"spatial {tag}"] = [x.cpu() for x in res["pyramid"]]
+    net = NetGHighWeight(cfg.GAN.GF_DIM)
+    net.load_state_dict(sds[2], strict=True)
+    net = net.cuda().eval()
+    with torch.no_grad():
+        seq = spec["chain_x"].cuda()
+        for blk in net.residual:
+            seq = blk(seq)
+    seq = seq.cpu()
+    results = []
+    for r, p in enumerate(procs):
+        try:
+            log = p.communicate(timeout=300)[0].decode()
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log = p.communicate()[0].decode()
+        ok = p.returncode == 0
+        check(ok, f"multirank rank {r} ran to its end (exit {p.returncode})")
+        if not ok:
+            print(log[-4000:], flush=True)
+            return {}
+        results.append(torch.load(f"{spec['out']}.{r}", weights_only=False))
+    print(f"  multirank: {MULTIRANK_WORLD} ranks (gloo, one card) and the references: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def same(a, b):
+        if isinstance(a, list):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    def close(tag, got, ref, what):
+        path = tag.split(" ", 1)[1]
+        if path in ("float32", "lrblur"):
+            err = (got - ref).abs().max().item()
+            ok = bool(((got - ref).abs() <= 2e-4 + 2e-4 * ref.abs()).all())
+            check(ok, f"{tag} {what} == unsharded on the card (max abs err {err:.3e}, rtol = "
+                      f"atol = 2e-4)")
+        elif path == "bfloat16":
+            p = psnr_u8(got, ref)
+            check(p >= 50, f"{tag} {what} vs unsharded on the card: {p:.2f} dB >= 50")
+        else:
+            d = (got - ref).abs()
+            check(d.max().item() < 0.02 and d.mean().item() < 1e-3,
+                  f"{tag} {what} within one quant step of unsharded on the card (max "
+                  f"{d.max().item():.4f} < 0.02, mean {d.mean().item():.2e} < 1e-3)")
+
+    launches = {}
+    for tag in results[0]:
+        if tag == "pipeline":
+            continue
+        got = results[0][tag]
+        check(all(same(r[tag][k], got[k]) for r in results[1:] for k in got
+                  if k not in ("launches", "local_plan")),
+              f"{tag}: both ranks hold the same whole result")
+        path = tag.split(" ", 1)[1]
+        want = {k: MULTIRANK_PER_FORWARD[path].get(k, 0) for k in got["launches"]}
+        for r, res in enumerate(results):
+            got_n = {k: v for k, v in res[tag]["launches"].items() if v}
+            check(res[tag]["launches"] == want, f"{tag}: rank {r} launched one forward's "
+                                                f"kernels {MULTIRANK_PER_FORWARD[path]} ({got_n})")
+        launches[f"multirank {tag}"] = {k: sum(res[tag]["launches"][k] for res in results)
+                                        for k in want}
+        if tag.startswith("mesh"):
+            ref = refs[tag]
+            close(tag, got["sr"], ref["sr"], f"__call__ B = {MULTIRANK_B}")
+            for what in ("scan", "batched"):
+                d = (got[what].int() - ref["scan"].int()).abs().max().item()
+                if path == "bfloat16":
+                    p = psnr_u8(got[what].float() / 127.5 - 1, ref["scan"].float() / 127.5 - 1)
+                    check(p >= 50, f"{tag} {what} uint8 vs unsharded: {p:.2f} dB >= 50")
+                else:
+                    lim = 1 if path == "float32" else 3
+                    check(d <= lim, f"{tag} {what} uint8 within {lim} of unsharded ({d})")
+            if "planned" in got:
+                own = [res[tag]["local_plan"] for res in results]
+                agreed = int(got["plan"])
+                check(agreed == min(own) and own[1] < own[0],
+                      f"{tag} plan_microbatch: the ranks' own plans {own} (rank 1 planned with "
+                      f"{PLAN_BALLAST_GIB} GiB more held), {agreed} on both")
+                check(torch.equal(got["planned"], got["batched"]),
+                      f"{tag} sr_batched with the agreed plan == with microbatch {MULTIRANK_B}")
+        else:
+            for level, (g, r) in enumerate(zip(got["pyramid"], refs[tag])):
+                close(tag, g, r, f"pyramid level {level}")
+    err = (results[0]["pipeline"] - seq).abs().max().item()
+    check(all(torch.equal(r["pipeline"], results[0]["pipeline"]) for r in results[1:])
+          and bool(((results[0]["pipeline"] - seq).abs() <= 1e-5 + 1e-5 * seq.abs()).all()),
+          f"pipeline_apply over {MULTIRANK_WORLD} stages (residual.0..5, B = 8, 4 microbatches) "
+          f"== the sequential chain on the card (max abs err {err:.3e}, rtol = atol = 1e-5)")
+    return launches
 
 
 # -- the input side: JPEG and every PNG form, the host loader, the flower
@@ -5680,6 +6082,9 @@ def step_readings(torch, seeds: list, out_path: str, damsm: bool = False) -> int
 
 def main() -> int:
     sys.path.insert(0, HERE)
+    if "--multirank-worker" in sys.argv:
+        spec, rank, world, port = sys.argv[sys.argv.index("--multirank-worker") + 1:][:4]
+        return multirank_worker(spec, int(rank), int(world), int(port))
     import torch
 
     if not torch.cuda.is_available():
@@ -5720,7 +6125,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = [attention_phase(torch, rng), attention_bwd_phase(torch, rng),
                *up_head_phase(torch), *glu_requant_phase(torch),
-               requant_phase(torch), int8_conv_phase(torch), *glu_requant_f32_phase(torch),
+               requant_phase(torch), int8_conv_phase(torch), int8_upconv_phase(torch),
+               *glu_requant_f32_phase(torch),
                requant_f32_phase(torch), int8_conv_f32_phase(torch)]
     print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -5806,6 +6212,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(library_phase(torch))
     print(f"library phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a stream of its own: the other phases' data does not depend on it
+        launches.update(multirank_phase(torch, np.random.default_rng(22), card, scales, tmp))
+    print(f"multirank phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # a stream of its own: the other phases' data does not depend on it

@@ -21,7 +21,11 @@ elements (a gate or product on a bfloat16 rounding boundary), at main-path
 widths and over every finite bfloat16 gate and value; `requant` against
 `requant_plain` (`quantize_act`) bit for bit over every finite bfloat16; the
 int8 pipeline on the card against the same pipeline and scales on the CPU,
-uint8 PSNR >= 40 dB.
+uint8 PSNR >= 40 dB. X3, `int8_upconv_phases` (the UpBlock as four int8
+phase convs, csrc/int8_upconv.cu), against its plain version: float32
+within 4 ulps, bfloat16 within one ulp, one quant step where the value sits
+within 2^-20 of a half-step; the int8 forward with every UpBlock by phases
+on the card >= 40 dB against the CPU's.
 
 The conv probe's four tensor-core kernels (`tap9`, `im2col`, `pair5`,
 `dotceil`) against their plain versions on the same bfloat16 inputs: within
@@ -65,10 +69,13 @@ from tgsr_tpu_torch.ops.fused_attention import word_pixel_attention
 from tgsr_tpu_torch.ops.glu_requant import (INSTANCES, glu_requant, glu_requant_plain, requant,
                                             requant_plain)
 from tgsr_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain, pack_int8_weight
+from tgsr_tpu_torch.ops.int8_upconv import (int8_upconv_phases, int8_upconv_plain,
+                                            matches_plain, pack_phase_weight)
 from tgsr_tpu_torch.ops.packed_tail import pack_up_head, packed_up_head
 from tgsr_tpu_torch.ops.up_head import (fold_bn, fused_up_head, prepare_up_head,
                                         reference_up_head, up_head_folded)
 from tgsr_tpu_torch.ops.up_head_packed import fused_up_head_packed, prepare_up_head_packed
+from tgsr_tpu_torch.utils import memory
 
 pytestmark = pytest.mark.cuda
 ZERO = {name: 0 for name in _build.LAUNCH_NAMES}
@@ -1120,6 +1127,25 @@ def test_second_graph_leaves_the_first(cuda_device):
     assert torch.equal(again, a) and g2.replays == 2
 
 
+def test_plan_microbatch_takes_jax_arguments(cuda_device):
+    """`budget_bytes` replaces the measured budget, `hi` caps the plan and
+    `quantum` sets the probes; a budget below what lo needs raises."""
+    pipe = _serving_pipe(cuda_device, "bfloat16")
+    default = pipe.plan_microbatch()
+    probes = dict(pipe.memory_plan.probes)
+    capped = pipe.plan_microbatch(budget_bytes=pipe.memory_plan.budget_bytes, hi=48)
+    assert capped == 32 and pipe.memory_plan.budget_bytes > 0 and default >= 256
+    fixed, per_image = pipe.memory_plan.fixed_bytes, pipe.memory_plan.per_image_bytes
+    budget = memory.GRAPH_COPIES * (fixed + per_image * 100) + \
+        pipe.memory_plan.held_per_image_bytes * 100
+    b = pipe.plan_microbatch(budget_bytes=budget, quantum=32)
+    assert pipe.memory_plan.budget_bytes == budget and sorted(pipe.memory_plan.probes) == [32, 128]
+    assert 32 <= b <= 128 and b % 32 == 0
+    with pytest.raises(RuntimeError, match="at least"):
+        pipe.plan_microbatch(budget_bytes=1, lo=8)
+    assert sorted(probes) == [64, 256]
+
+
 def test_sr_batched_keeps_few_graphs(cuda_device):
     """sr_batched(microbatch=None) at every N = 1..200 (one microbatch of N
     each) captures ten graphs, at 1, 2, 4, ..., 64, 128, 192 and 256, and
@@ -1528,6 +1554,8 @@ def _op_cases(device):
                                         dtype=torch.int8))
     scale = torch.rand(128, generator=g, device=device) * 1e-5 + 1e-6
     h = (1.5 * r(2, 32, 32, 128)).bfloat16()
+    pw = pack_phase_weight(torch.randint(-127, 128, (2, 2, 64, 256), generator=g, device=device,
+                                         dtype=torch.int8))
 
     def close(tol):
         return lambda got, ref: torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
@@ -1567,11 +1595,18 @@ def _op_cases(device):
         "glu_requant": (torch.ops.tgsr.glu_requant, (h, 3.0), glu_requant_plain, int8_steps),
         "requant": (torch.ops.tgsr.requant, (h, 3.0), requant_plain,
                     lambda got, ref: torch.equal(got, ref)),
+        "int8_upconv_phases": (torch.ops.tgsr.int8_upconv_phases,
+                               (xq, pw.q, pw.packed, scale.repeat(2), mul, add, 3.0,
+                                torch.bfloat16),
+                               lambda x, q, p, s, bm, ba, o, dt: int8_upconv_plain(
+                                   x, type(pw)(q, p), s, (bm, ba), o, dt),
+                               lambda got, ref: torch.equal(got, ref)),
     }
 
 
 @pytest.mark.parametrize("name", ["word_pixel_attention", "word_pixel_attention_bwd", "up_head",
-                                  "up_head_packed", "int8_conv", "glu_requant", "requant"])
+                                  "up_head_packed", "int8_conv", "glu_requant", "requant",
+                                  "int8_upconv_phases"])
 def test_custom_op_matches_plain_and_fake(cuda_device, name):
     """Each tgsr:: op on the card, called through torch.ops, against its
     plain version on the same inputs (the gates of the kernels' own tests),
@@ -1850,7 +1885,7 @@ def test_profile_trace_names_the_launched_kernels(cuda_device, tmp_path):
     from tgsr_tpu_torch.utils.observability import profile_trace
 
     rng = np.random.default_rng(0)
-    px = torch.from_numpy(rng.normal(size=(2, 32 * 32, 32)).astype(np.float32)).to(cuda_device)
+    px = torch.from_numpy(rng.normal(size=(2, 32, 32, 32)).astype(np.float32)).to(cuda_device)
     wd = torch.from_numpy(rng.normal(size=(2, 18, 32)).astype(np.float32)).to(cuda_device)
     mask = torch.zeros(2, 18, dtype=torch.bool, device=cuda_device)
     word_pixel_attention(px, wd, mask)  # built and loaded before the trace
@@ -1862,3 +1897,80 @@ def test_profile_trace_names_the_launched_kernels(cuda_device, tmp_path):
         events = json.load(f)["traceEvents"]
     kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any("word_pixel_attention_kernel" in k for k in kernels), sorted(kernels)[:20]
+
+
+@pytest.mark.parametrize("cfg", [
+    # (B, H, W, Cin, Cout, BN, output step): the face S8 UpBlock sites at
+    # B = 2, a ragged pixel count (35, not a multiple of the block's 64), no
+    # BN, the widest Cin / Cout the kernel takes, and the narrowest
+    (2, 32, 32, 64, 64, True, None), (2, 64, 64, 32, 64, True, None),
+    (2, 128, 128, 64, 64, True, 3.0), (1, 5, 7, 32, 64, True, 3.0),
+    (1, 8, 8, 32, 64, False, None), (1, 9, 6, 128, 128, True, None), (3, 4, 4, 32, 16, True, 1.0),
+])
+def test_int8_upconv_phases_matches_plain(cuda_device, cfg):
+    """X3 (csrc/int8_upconv.cu, one launch for the four phases) against the
+    plain version (four float64 phase convs on the int8 values, then the
+    float32 epilogue), bfloat16 and float32 outputs."""
+    b, h, w, cin, cout, bn, out_scale = cfg
+    g = torch.Generator(device=cuda_device).manual_seed(h * cin + cout)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    wt = pack_phase_weight(torch.randint(-127, 128, (2, 2, cin, 4 * cout), generator=g,
+                                         device=cuda_device, dtype=torch.int8))
+    scale = torch.rand(4 * cout, generator=g, device=cuda_device) * 1e-5 + 1e-6
+    affine = ((1 + 0.1 * torch.randn(cout, generator=g, device=cuda_device),
+               0.1 * torch.randn(cout, generator=g, device=cuda_device)) if bn else None)
+    step = act_step(out_scale) if out_scale else None
+    pre = int8_upconv_plain(x, wt, scale, affine, None, torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        before = _build.LAUNCHES["int8_upconv_phases"]
+        got = int8_upconv_phases(x, wt, scale, affine, out_scale, dtype)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["int8_upconv_phases"] == before + 1
+        ref = int8_upconv_plain(x, wt, scale, affine, out_scale, dtype)
+        assert got.shape == ref.shape == (b, 2 * h, 2 * w, cout // 2) and got.dtype == dtype
+        assert matches_plain(got, ref, step, pre)[0]
+
+
+def test_int8_upconv_phases_refusals(cuda_device):
+    """Shapes the kernel does not take raise before any launch."""
+    before = dict(_build.LAUNCHES)
+    for cin, cout in ((16, 64), (32, 24), (160, 64)):
+        x = torch.zeros(1, 4, 4, cin, dtype=torch.int8, device=cuda_device)
+        wt = pack_phase_weight(torch.zeros(2, 2, cin, 4 * cout, dtype=torch.int8,
+                                           device=cuda_device))
+        with pytest.raises(ValueError, match="int8_upconv_phases"):
+            int8_upconv_phases(x, wt, torch.ones(4 * cout, device=cuda_device))
+    assert _build.LAUNCHES == before
+
+
+def test_pipeline_fused_up_int8_card_matches_cpu(cuda_device):
+    """The int8 forward with every UpBlock site by phases (`fused_up`) on the
+    card against the same pipeline and scales on the CPU, >= 40 dB; per
+    forward 6 X3 launches, 36 int8 convs, 6 + 8 GLU-requant passes, 28
+    requantized conv inputs (the two head-feeding sites' heads requantize
+    their input), 3 attention launches."""
+    from tgsr_tpu_torch.engine.quant import FUSED_UP_OUT_CONSUMER
+
+    cfg = Config(TREE=TreeConfig(4, 8), GAN=GanConfig(32, 10, 2), TEXT=TextConfig(32, 6))
+    sds = init_seeded(cfg, 41, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    lr = rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)
+    cap = rng.integers(1, 41, (2, 6))
+    cap[1, 3:] = 0
+    lens = np.array([6, 3])
+    scales = SRPipeline(cfg, 41, *sds, device=cuda_device, compute_dtype=torch.bfloat16
+                        ).calibrate_quant(lr, cap, lens)
+    sites = frozenset({"h_net1/upsample/conv", "h_net2/upsample/conv", "upscale2x/conv",
+                       "upscale4x/conv", *FUSED_UP_OUT_CONSUMER}) - {"upscale16x/conv"}
+    kw = dict(compute_dtype=torch.bfloat16, quant_scales=scales, fused_up=sites)
+    ref = SRPipeline(cfg, 41, *sds, device="cpu", **kw)(lr, cap, lens)
+    kern = SRPipeline(cfg, 41, *sds, device=cuda_device, **kw)
+    _build.reset_launches()
+    got = kern(lr, cap, lens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == dict(ZERO, word_pixel_attention=3, int8_conv=36,
+                                   int8_upconv_phases=6, glu_requant_one=6,
+                                   glu_requant_pair=8, requant=28)
+    d = to_uint8(got["sr"].cpu()).double() - to_uint8(ref["sr"]).double()
+    assert 10 * np.log10(255 ** 2 / max(d.square().mean().item(), 1e-12)) >= 40

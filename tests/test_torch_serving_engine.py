@@ -152,6 +152,34 @@ def test_memory_fit_and_plan():
     assert memory.plan(need, budget, 64, held_per_image=200).microbatch == 448  # 500
 
 
+def test_memory_plan_lo_hi():
+    """JAX's `lo` and `hi` (`plan_microbatch(budget_bytes, quantum, lo,
+    hi)`): the plan never goes above hi, takes lo itself where lo fits but
+    no multiple of the quantum at or above it does, and raises where not
+    even lo fits; on the CPU the pipeline plans CPU_MICROBATCH whatever the
+    arguments."""
+    budget = 2 * (1000 + 30 * 700)  # room for 700 images
+    assert memory.max_microbatch(1000, 30, budget, 64, hi=300) == 256
+    assert memory.max_microbatch(1000, 30, budget, 64, lo=650) == 650
+    assert memory.max_microbatch(1000, 30, budget, 64, lo=700) == 700
+    with pytest.raises(RuntimeError, match="at least 701"):
+        memory.max_microbatch(1000, 30, budget, 64, lo=701)
+    calls = []
+
+    def need(b):
+        calls.append(b)
+        return 1000 + 30 * b
+
+    plan = memory.plan(need, budget, 32, lo=1, hi=100)
+    assert calls == [32, 32 * memory.PROBE_SPAN] and plan.microbatch == 96
+
+
+def test_plan_microbatch_arguments_on_the_cpu(pipes):
+    _, tpipe = pipes
+    assert tpipe.plan_microbatch(budget_bytes=10 ** 6, quantum=8, lo=2, hi=16) == \
+        inference.CPU_MICROBATCH
+
+
 @pytest.mark.parametrize("path, probes, budget, microbatch", [
     ("float32", {64: 12807307264, 256: 54395928576}, 64790219980, 128),
     ("bfloat16", {64: 5419040768, 256: 22552772608}, 73066630348, 320),

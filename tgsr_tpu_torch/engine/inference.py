@@ -68,6 +68,12 @@ an eager forward never overlap. Weights come from seeded or JAX state
 dicts, from the reference's checkpoints (`from_reference_checkpoints`), or
 from a deployment bundle (`save_artifact` / `load_artifact`, the JAX
 package's bundle layout; JAX's own bundles load too).
+
+Over several processes (`mesh`, one rank per GPU): each rank runs its rows
+of every batch and gathers the whole result, as the JAX pipeline's
+batch-sharded program; `sr_spatial` splits one image's rows over the ranks
+instead (`parallel/spatial.py`). `fused_upsample` and `fused_up` are JAX's
+fused-upsample switches, off by default (see `SRPipeline`).
 """
 
 from __future__ import annotations
@@ -91,8 +97,8 @@ from tgsr_tpu_torch.data.tokenizer import Vocab
 from tgsr_tpu_torch.engine.graphs import (MAX_GRAPHS, MICROBATCH_QUANTUM, ForwardGraph,
                                           GraphCache, graph_batch)
 from tgsr_tpu_torch.engine.precision import COMPUTE_DTYPES, cast_floats, pin_float32_math
-from tgsr_tpu_torch.engine.quant import (SCALES_META_KEY, SPLIT_RES_GLU_SITES, check_scales,
-                                         effective_split_glu, record_absmax,
+from tgsr_tpu_torch.engine.quant import (FUSED_UP_SITES, SCALES_META_KEY, SPLIT_RES_GLU_SITES,
+                                         check_scales, effective_split_glu, record_absmax,
                                          split_scales_meta, weights_fingerprint)
 from tgsr_tpu_torch.models.models16 import make_generators, unused_blocks
 from tgsr_tpu_torch.models.quantized import quantize_generator
@@ -101,6 +107,9 @@ from tgsr_tpu_torch.ops.blocks import nchw, nhwc
 from tgsr_tpu_torch.ops.image import bucket_shape
 from tgsr_tpu_torch.ops.up_head import UpHeadSite, up_head_site
 from tgsr_tpu_torch.ops.up_head_packed import prepare_up_head_packed, up_head_packed_site
+from tgsr_tpu_torch.parallel import spatial
+from tgsr_tpu_torch.parallel.mesh import batch_group, batch_shards, data_index
+from tgsr_tpu_torch.parallel.multihost import all_gather_cat, all_reduce_min
 from tgsr_tpu_torch.utils import memory
 
 # sr_batched's microbatch on the CPU, where no memory plan runs
@@ -170,7 +179,23 @@ class SRPipeline:
     the blend weight `a`, which the reference state dict does not carry
     (None for 0.5; not read under EVAL.WEIGHTMAP, whose maps are netGH
     state-dict entries). `quant_scales` ({"netg": {...}, "netgh": {...}},
-    optionally with '_meta') selects int8 serving."""
+    optionally with '_meta') selects int8 serving.
+
+    `fused_upsample` (JAX's switch; the x8 family alone, x16 ignores it):
+    every UpBlock runs as one 2x2 conv at the source resolution and a
+    depth-to-space (`UpBlock(fused=True)`); the up-head sites fuse their
+    upsample either way. Under int8 a fused UpBlock stays in the compute
+    dtype, as JAX's interceptor leaves it. `fused_up`: the UpBlock convs (JAX
+    keys) that int8 serving runs by phases (`int8_upconv_phases`), by
+    default engine/quant.py FUSED_UP_SITES, which is empty.
+
+    `mesh` (a `parallel.mesh.make_mesh` DeviceMesh, one process per GPU):
+    every rank passes the whole batch and runs its own rows of it (the batch
+    padded by replicas to a multiple of the data shards); `__call__`,
+    `forward_scan` and `sr_batched` return the whole batch, in order, on
+    every rank (an all-gather over the batch group). `sr_spatial` splits one
+    image's height over the mesh's 'data' axis instead. Both are collectives:
+    every rank makes the same calls, in the same order."""
 
     def __init__(self, cfg: Config, vocab_size: int,
                  text_sd: Mapping[str, Any], netg_sd: Mapping[str, Any],
@@ -178,7 +203,9 @@ class SRPipeline:
                  device: Union[str, torch.device] = "cuda",
                  return_attn: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 quant_scales: Optional[Mapping[str, Any]] = None):
+                 quant_scales: Optional[Mapping[str, Any]] = None,
+                 fused_upsample: bool = False, fused_up: Optional[frozenset] = None,
+                 mesh=None):
         check_served(cfg)
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: the port serves "
@@ -188,12 +215,16 @@ class SRPipeline:
         self.device = resolve_device(device)
         self.return_attn = return_attn
         self.compute_dtype = compute_dtype
+        self.fused_upsample = fused_upsample and cfg.TREE.BRANCH_NUM == 4
+        self.fused_up = FUSED_UP_SITES if fused_up is None else frozenset(fused_up)
+        self.mesh = mesh
         # the float32 weights as given, for save_artifact
         self.state_dicts = tuple({k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
                                  for sd in (text_sd, netg_sd, netgh_sd))
         # the scalar blend weight; None under a weight map
         self.a = None if cfg.EVAL.WEIGHTMAP else DEFAULT_A if a is None else float(a)
-        self.text_encoder, self.netg, self.netgh = _modules(cfg, vocab_size, *self.state_dicts)
+        self.text_encoder, self.netg, self.netgh = _modules(cfg, vocab_size, *self.state_dicts,
+                                                            fused_upsample=self.fused_upsample)
         for module in (self.text_encoder, self.netg, self.netgh):
             # serving only: no parameter takes a gradient (a tracer then sees
             # the kernels' ops, not the autograd around them)
@@ -227,7 +258,7 @@ class SRPipeline:
         self.serve_netg, self.serve_netgh = (
             quantize_generator(module, sites[group], self.quant_scales[group],
                                effective_split_glu(self.quant_scales[group]),
-                               SPLIT_RES_GLU_SITES)
+                               SPLIT_RES_GLU_SITES, self.fused_up)
             if self.quant_scales.get(group) else module
             for group, module in (("netg", self.netg), ("netgh", self.netgh)))
         self.serving = self.serving_forward()
@@ -245,6 +276,9 @@ class SRPipeline:
         # on the card: the captured forwards (`_graph`) and the memory plan
         self.graphs = GraphCache()
         self.memory_plan: Optional[memory.MemoryPlan] = None
+        self._plan_key: Optional[tuple] = None  # plan_microbatch's arguments of memory_plan
+        # sr_spatial's forward over row shards, made at its first call per mesh
+        self._spatial: Optional[Tuple[Any, ServingForward]] = None
 
     # -- construction from files -------------------------------------------
 
@@ -405,14 +439,68 @@ class SRPipeline:
         images NHWC (64, 128, 256 px at face S8; 64 to 512 px at S16), and
         'attn': [B, T, H, W] per stage when return_attn}."""
         with self.lock:
-            fine, att = self.serving.pyramid(self._tensor(lr, torch.float32),
-                                             self._tensor(captions, torch.long),
-                                             self._tensor(cap_lens, torch.long),
-                                             self.return_attn)
+            lr = self._tensor(lr, torch.float32)
+            captions = self._tensor(captions, torch.long)
+            cap_lens = self._tensor(cap_lens, torch.long)
+            n = lr.shape[0]
+            if self.mesh is not None:
+                rows = self._mesh_rows(n)
+                lr, captions, cap_lens = lr[rows], captions[rows], cap_lens[rows]
+            fine, att = self.serving.pyramid(lr, captions, cap_lens, self.return_attn)
             pyramid = [nhwc(f).float() for f in fine]
+            attn = [a.float() for a in att] if self.return_attn else []
+            if self.mesh is not None:
+                pyramid = [self._gather_rows(x, n) for x in pyramid]
+                attn = [self._gather_rows(x, n) for x in attn]
             out = {"sr": pyramid[-1], "pyramid": pyramid}
             if self.return_attn:
-                out["attn"] = [a.float() for a in att]
+                out["attn"] = attn
+        return out
+
+    def _mesh_rows(self, n: int) -> torch.Tensor:
+        """This rank's rows of a batch of n under `mesh`: its data shard of
+        the batch padded by replicas to a multiple of the shards (padded row
+        i is row i % n)."""
+        if n == 0:
+            raise ValueError("mesh serving needs a batch of at least one image")
+        per = -(-n // batch_shards(self.mesh))
+        start = data_index(self.mesh) * per
+        return torch.arange(start, start + per, device=self.device) % n
+
+    def _gather_rows(self, x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of x along `dim` (the batch group's, rank
+        order), the padding dropped: the whole batch of n."""
+        return all_gather_cat(x, batch_group(self.mesh), dim).narrow(dim, 0, n)
+
+    @torch.inference_mode()
+    def sr_spatial(self, lr, captions, cap_lens, mesh=None) -> Dict[str, Any]:
+        """The forward with the image height split over the 'data' axis of
+        `mesh` (or the pipeline's), counterpart of the JAX package's
+        `sr_spatial` (tgsr_tpu/engine/inference.py:374-407): every rank
+        passes the whole batch and runs its rows of every activation, each
+        convolution (and the kernel sites, and the blur of INPUT_NETGH
+        'lrblur' / 'lr-lrblur') on its rows and the halo rows it needs from
+        its neighbours, exchanged point to point (`parallel/spatial.py`); the
+        text path runs whole on every rank. Returns `__call__`'s dict, whole,
+        on every rank. The LR height must divide by the shards."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None:
+            raise ValueError("sr_spatial needs a mesh: pass mesh= or construct the "
+                             "pipeline with one")
+        with self.lock:
+            if self._spatial is None or self._spatial[0] is not mesh:
+                self._spatial = (mesh, spatial.shard_serving(self.serving, spatial.RowShards(
+                    mesh, self.device)))
+            forward = self._spatial[1]
+            shards = forward.rows
+            lr = self._tensor(lr, torch.float32)
+            fine, att = forward.pyramid(shards.local(lr, dim=1),
+                                        self._tensor(captions, torch.long),
+                                        self._tensor(cap_lens, torch.long), self.return_attn)
+            pyramid = [nhwc(shards.gather(f.float(), dim=2)) for f in fine]
+            out = {"sr": pyramid[-1], "pyramid": pyramid}
+            if self.return_attn:
+                out["attn"] = [shards.gather(a.float(), dim=2) for a in att]
         return out
 
     def _serve(self, lr: torch.Tensor, captions: torch.Tensor,
@@ -450,24 +538,35 @@ class SRPipeline:
         that shape), each microbatch padded by replicas of its own images
         and cropped; on the CPU, the same forward run eagerly at B. Holds
         `lock` throughout: the capture, and each replay from its copy-in to
-        the copy of its output into the result."""
+        the copy of its output into the result. Under `mesh` each rank runs
+        its rows of every microbatch, and the result is gathered whole."""
         with self.lock:
             lr = self._tensor(lr)
             captions = self._tensor(captions, torch.long)
             cap_lens = self._tensor(cap_lens, torch.long)
-            s = self.cfg.scale
-            m, b, h, w, _ = lr.shape
-            serve = self._serve
-            if self.device.type == "cuda":
-                bg = self.graph_batch(b)
-                if bg > b:
-                    sel = torch.arange(bg, device=self.device) % b
-                    lr, captions, cap_lens = lr[:, sel], captions[:, sel], cap_lens[:, sel]
-                serve = self._graph(bg, h, w, captions.shape[-1], lr.dtype)
-            out = torch.empty((m, b, h * s, w * s, 3), dtype=torch.uint8, device=self.device)
-            for i in range(m):
-                out[i] = serve(lr[i], captions[i], cap_lens[i])[:b]
-            return out
+            if self.mesh is None:
+                return self._scan(lr, captions, cap_lens)
+            n = lr.shape[1]
+            rows = self._mesh_rows(n)
+            return self._gather_rows(self._scan(lr[:, rows], captions[:, rows],
+                                                cap_lens[:, rows]), n, dim=1)
+
+    def _scan(self, lr: torch.Tensor, captions: torch.Tensor,
+              cap_lens: torch.Tensor) -> torch.Tensor:
+        """`forward_scan` of this rank's rows. The caller holds `lock`."""
+        s = self.cfg.scale
+        m, b, h, w, _ = lr.shape
+        serve = self._serve
+        if self.device.type == "cuda":
+            bg = self.graph_batch(b)
+            if bg > b:
+                sel = torch.arange(bg, device=self.device) % b
+                lr, captions, cap_lens = lr[:, sel], captions[:, sel], cap_lens[:, sel]
+            serve = self._graph(bg, h, w, captions.shape[-1], lr.dtype)
+        out = torch.empty((m, b, h * s, w * s, 3), dtype=torch.uint8, device=self.device)
+        for i in range(m):
+            out[i] = serve(lr[i], captions[i], cap_lens[i])[:b]
+        return out
 
     @torch.inference_mode()
     def _probe_need(self, b: int) -> int:
@@ -479,30 +578,59 @@ class SRPipeline:
         cap_lens = torch.full((b,), t, dtype=torch.long, device=self.device)
         return memory.peak_bytes(lambda: self._serve(lr, captions, cap_lens), self.device)
 
-    def plan_microbatch(self) -> int:
-        """The largest microbatch (a multiple of MICROBATCH_QUANTUM, or a
-        power of two below it; at most memory.MAX_MICROBATCH) that fits the
-        card: its forward twice over, as a graph's pool and an eager forward
-        of the same size beside it (the warm-up before a capture), plus the
-        static inputs and outputs of the MAX_GRAPHS - 1 other graphs the
-        pipeline may keep, each at most that size (utils/memory.py). The
-        forward's need is measured at two probe batches and fitted linearly,
-        against the card's free memory times memory.BUDGET_FRACTION. Planned
-        once per pipeline, kept with its fitted bytes in `memory_plan`. On
-        the CPU: CPU_MICROBATCH. The counterpart of the JAX package's plan
-        from XLA's memory analysis, and of its v5e constant
-        DEFAULT_MICROBATCH."""
+    def plan_microbatch(self, budget_bytes: Optional[int] = None,
+                        quantum: int = MICROBATCH_QUANTUM, lo: int = 1,
+                        hi: int = memory.MAX_MICROBATCH) -> int:
+        """The largest microbatch in [lo, hi] (a multiple of `quantum`, or a
+        power of two below it, or lo itself) that fits the card: its forward
+        twice over, as a graph's pool and an eager forward of the same size
+        beside it (the warm-up before a capture), plus the static inputs and
+        outputs of the MAX_GRAPHS - 1 other graphs the pipeline may keep,
+        each at most that size (utils/memory.py). The forward's need is
+        measured at two probe batches (`quantum` and PROBE_SPAN times it)
+        and fitted linearly, against `budget_bytes`, by default the card's
+        free memory times memory.BUDGET_FRACTION; RuntimeError where not even
+        lo fits. Planned once per set of arguments, kept with its fitted
+        bytes in `memory_plan`. On the CPU: CPU_MICROBATCH, whatever the
+        arguments. The counterpart of the JAX package's plan from XLA's
+        memory analysis (JAX's arguments; its lo defaults to 64, and where lo
+        does not fit it returns its v5e constant DEFAULT_MICROBATCH).
+
+        Under `mesh` a collective over the batch group, which every rank
+        calls: each rank plans from its own free memory and probes
+        (`memory_plan` is that rank's), and all get the least of the plans,
+        so that they run microbatches of one shape (JAX plans once for the
+        global program). Where lo fits on no rank's card, every rank raises
+        RuntimeError."""
+        if self.mesh is None:
+            return self._local_microbatch(budget_bytes, quantum, lo, hi)
+        try:
+            local, fault = self._local_microbatch(budget_bytes, quantum, lo, hi), None
+        except RuntimeError as e:  # the other ranks must not wait in the collective
+            local, fault = 0, e
+        agreed = all_reduce_min(local, batch_group(self.mesh))
+        if agreed == 0:
+            raise RuntimeError(f"plan_microbatch: a microbatch of {lo} does not fit the "
+                               "card of every rank") from fault
+        return agreed
+
+    def _local_microbatch(self, budget_bytes: Optional[int], quantum: int, lo: int,
+                          hi: int) -> int:
+        """`plan_microbatch` on this rank alone."""
         if self.device.type != "cuda":
             return CPU_MICROBATCH
+        key = (budget_bytes, quantum, lo, hi)
         with self.lock:
-            if self.memory_plan is None:
+            if self.memory_plan is None or self._plan_key != key:
                 t, size, s = self.cfg.TEXT.WORDS_NUM, self.cfg.TREE.BASE_SIZE, self.cfg.scale
                 # a graph's float32 LR, token ids and lengths, and uint8 SR
                 graph_bytes = size * size * 3 * 4 + (t + 1) * 8 + (size * s) ** 2 * 3
                 torch.cuda.empty_cache()
-                self.memory_plan = memory.plan(self._probe_need,
-                                               memory.device_memory_budget(self.device),
-                                               MICROBATCH_QUANTUM, (MAX_GRAPHS - 1) * graph_bytes)
+                if budget_bytes is None:
+                    budget_bytes = memory.device_memory_budget(self.device)
+                self.memory_plan = memory.plan(self._probe_need, budget_bytes, quantum,
+                                               (MAX_GRAPHS - 1) * graph_bytes, lo, hi)
+                self._plan_key = key
             return self.memory_plan.microbatch
 
     @staticmethod
@@ -519,9 +647,11 @@ class SRPipeline:
     def sr_batched(self, lr, captions, cap_lens,
                    microbatch: Optional[int] = None) -> np.ndarray:
         """Any number N of images, in microbatches (`plan_batches`); the
-        microbatch defaults to `plan_microbatch()`. The tail is padded by
-        replicating images from the start and stripped after. Peak memory is
-        set by the microbatch, not N (the device output is N uint8 images).
+        microbatch defaults to `plan_microbatch()` (under `mesh`, the ranks'
+        agreed plan times the data shards: each rank runs its share of it).
+        The tail is padded by replicating images from the start and stripped
+        after. Peak memory is set by the microbatch, not N (the device output
+        is N uint8 images).
         Returns uint8 [N, H, W, 3] on the host."""
         lr = np.asarray(lr)
         captions = np.asarray(captions)
@@ -531,7 +661,7 @@ class SRPipeline:
         if n == 0:
             return np.empty((0, lr.shape[1] * s, lr.shape[2] * s, 3), np.uint8)
         if microbatch is None:
-            microbatch = self.plan_microbatch()
+            microbatch = self.plan_microbatch() * (batch_shards(self.mesh) if self.mesh else 1)
         if microbatch < 1:
             raise ValueError(f"microbatch must be >= 1, got {microbatch}")
         m, b = self.plan_batches(n, microbatch)
@@ -574,11 +704,12 @@ class SRPipeline:
 
 
 def _modules(cfg: Config, vocab_size: int, text_sd: Mapping[str, Any],
-             netg_sd: Mapping[str, Any], netgh_sd: Mapping[str, Any]):
+             netg_sd: Mapping[str, Any], netgh_sd: Mapping[str, Any],
+             fused_upsample: bool = False):
     """(TextEncoder, netG, netGH of cfg's family) on the CPU in float32,
     with the state dicts loaded strictly."""
     modules = (TextEncoder(vocab_size, 300, cfg.TEXT.EMBEDDING_DIM, rnn_type=cfg.RNN_TYPE),
-               *make_generators(cfg, unused_blocks(netgh_sd)))
+               *make_generators(cfg, unused_blocks(netgh_sd), fused_upsample=fused_upsample))
     for module, sd in zip(modules, (text_sd, netg_sd, netgh_sd)):
         module.load_state_dict(sd, strict=True)
     return modules

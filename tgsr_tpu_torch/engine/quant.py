@@ -39,6 +39,11 @@ SPLIT_GLU_INT8_CONSUMERS = frozenset({
 HEAD_FEEDING_UPBLOCKS = frozenset({
     "h_net3/upsample/conv", "upscale8x/conv", "upscale16x/conv",
 })
+# UpBlock convs served by phases (models/quantized.QuantUpBlockPhases, JAX's
+# `_fused_up_int8`): one 2x2 int8 conv per output parity class at the source
+# resolution, the transformed kernel quantized per phase and output channel.
+# Empty, as JAX's: an opt-in (SRPipeline's `fused_up`)
+FUSED_UP_SITES = frozenset()
 # the one int8 consumer of a head-feeding UpBlock: with the heads quantized,
 # the block's GLU output is quantized with this conv's scale (glu_requant)
 # and the head takes it as it is

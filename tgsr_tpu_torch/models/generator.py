@@ -48,13 +48,15 @@ class CANet(nn.Module):
 class NextStageG(nn.Module):
     """= NEXT_STAGE_G (util.py:781-823): attend, concat, R_NUM ResBlocks on
     2*ngf, then an UpBlock to ngf; without BN (`use_bn` False, stage 1's
-    first stage) the ResBlocks and the UpBlock have none."""
+    first stage) the ResBlocks and the UpBlock have none. `fused`: the
+    UpBlock's fused form (`UpBlock(fused=True)`)."""
 
-    def __init__(self, ngf: int, cdf: int, r_num: int, use_bn: bool = True):
+    def __init__(self, ngf: int, cdf: int, r_num: int, use_bn: bool = True,
+                 fused: bool = False):
         super().__init__()
         self.att = WordPixelAttention(ngf, cdf)
         self.residual = nn.Sequential(*[ResBlock(ngf * 2, use_bn) for _ in range(r_num)])
-        self.upsample = UpBlock(ngf * 2, ngf) if use_bn else UpBlockNoBN(ngf * 2, ngf)
+        self.upsample = UpBlock(ngf * 2, ngf, fused) if use_bn else UpBlockNoBN(ngf * 2, ngf)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -75,8 +77,9 @@ class InitStageGImgUp(NextStageG):
     ngf channels, then as NextStageG; `use_bn` False drops every BN
     (im2f is then Sequential(conv3x3, GLU))."""
 
-    def __init__(self, ngf: int, cdf: int, r_num: int, use_bn: bool = True):
-        super().__init__(ngf, cdf, r_num, use_bn)
+    def __init__(self, ngf: int, cdf: int, r_num: int, use_bn: bool = True,
+                 fused: bool = False):
+        super().__init__(ngf, cdf, r_num, use_bn, fused)
         self.im2f = (nn.Sequential(conv3x3(3, ngf * 2), batch_norm(ngf * 2), GLU()) if use_bn
                      else nn.Sequential(conv3x3(3, ngf * 2), GLU()))
 
@@ -111,7 +114,9 @@ class GSRNetLow(nn.Module):
     `remat` (JAX's remat 'low', tgsr_tpu/models/generator.py:155-163): in
     train mode each stage call is rematerialised (`utils/remat.py`), so
     only the stage-boundary features are kept for the backward; CANet and
-    the image heads run as they are."""
+    the image heads run as they are. `fused_upsample` (JAX's, tgsr_tpu/
+    models/generator.py:141): every stage's UpBlock in its fused form; the
+    last stage's served up-head site fuses its upsample either way."""
 
     tied = False  # one module under several stage names (the x16 family, models16.py)
     # UpBlock convs (JAX paths) whose output feeds only the image head
@@ -119,14 +124,15 @@ class GSRNetLow(nn.Module):
     has_up_head_site = True  # the last stage runs as one fused up-head site when served
 
     def __init__(self, ngf: int = 32, cdf: int = 256, c_dim: int = 100,
-                 n_stages: int = 3, r_num: int = 2, remat: bool = False):
+                 n_stages: int = 3, r_num: int = 2, remat: bool = False,
+                 fused_upsample: bool = False):
         super().__init__()
         self.n_stages = n_stages
         self.remat = remat
         self.ca_net = CANet(cdf, c_dim)
-        self.h_net1 = InitStageGImgUp(ngf, cdf, r_num)
+        self.h_net1 = InitStageGImgUp(ngf, cdf, r_num, fused=fused_upsample)
         for s in range(2, n_stages + 1):
-            setattr(self, f"h_net{s}", NextStageG(ngf, cdf, r_num))
+            setattr(self, f"h_net{s}", NextStageG(ngf, cdf, r_num, fused=fused_upsample))
         for s in range(1, n_stages + 1):
             setattr(self, f"img_net{s}", GetImageG(ngf))
 

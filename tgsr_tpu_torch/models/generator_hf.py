@@ -36,7 +36,7 @@ from torch import nn
 from tgsr_tpu_torch.config import SERVED_INPUT_NETGH
 from tgsr_tpu_torch.ops.blocks import (GLU, ResBlock, UpBlock, batch_norm, conv3x3,
                                        depth_to_space, nchw, nhwc, space_to_depth)
-from tgsr_tpu_torch.ops.image import gaussian_blur
+from tgsr_tpu_torch.ops.image import blur_half_support, gaussian_blur
 from tgsr_tpu_torch.ops.up_head import UpHeadWeights, fold_up_head
 from tgsr_tpu_torch.utils.remat import remat
 
@@ -98,14 +98,18 @@ class NetGHighWeight(nn.Module):
     EVAL.WEIGHTMAP. `remat` (JAX's remat 'high',
     tgsr_tpu/models/generator_hf.py:110-113): in train mode every ResBlock,
     residual sequence and UpBlock call is rematerialised
-    (`utils/remat.py`); convin and the shared head run as they are."""
+    (`utils/remat.py`); convin and the shared head run as they are.
+    `fused_upsample` (JAX's, tgsr_tpu/models/generator_hf.py:135-144): the
+    three UpBlocks in their fused form (the served 256 px up-head site
+    fuses its upsample either way)."""
 
     # UpBlock convs (JAX paths) whose output feeds only the image head
     head_only_upblocks = frozenset({"upscale8x/conv"})
     has_up_head_site = True  # the last scale runs as one fused up-head site when served
 
     def __init__(self, ngf: int = 32, n_res: int = 6, remat: bool = False, low: str = "lr",
-                 weightmap: bool = False, sizes: Sequence[int] = X8_MAP_SIZES):
+                 weightmap: bool = False, sizes: Sequence[int] = X8_MAP_SIZES,
+                 fused_upsample: bool = False):
         super().__init__()
         if low not in SERVED_INPUT_NETGH:
             raise ValueError(f"INPUT_NETGH {low!r}: one of {SERVED_INPUT_NETGH}")
@@ -114,11 +118,11 @@ class NetGHighWeight(nn.Module):
         self.weightmap = weightmap
         self.convin = _conv_in(ngf)
         self.residual = nn.Sequential(*[ResBlock(ngf) for _ in range(n_res)])
-        self.upscale2x = UpBlock(ngf, ngf)
+        self.upscale2x = UpBlock(ngf, ngf, fused_upsample)
         self.residual24 = _residual_seq(ngf)
-        self.upscale4x = UpBlock(ngf, ngf)
+        self.upscale4x = UpBlock(ngf, ngf, fused_upsample)
         self.residual48 = _residual_seq(ngf)
-        self.upscale8x = UpBlock(ngf, ngf)
+        self.upscale8x = UpBlock(ngf, ngf, fused_upsample)
         self.conv_output = _conv_output(ngf)
         if weightmap:  # a1, a2, ... at `sizes`, ones (JAX's init)
             for i, size in enumerate(sizes, 1):
@@ -143,9 +147,20 @@ class NetGHighWeight(nn.Module):
         """module(x), rematerialised where `remat` says so."""
         return remat(module, x) if self.remat and self.training else module(x)
 
+    def low_input(self, lr: torch.Tensor) -> torch.Tensor:
+        """The input `low` names (`hf_input`); parallel/spatial.py runs a
+        row-sharded copy's on its rows and `low_input_halo` more each way."""
+        return hf_input(self.low, lr)
+
+    @property
+    def low_input_halo(self) -> int:
+        """The rows above and below a row that `low_input` reads: the blur's
+        half support, none for 'lr'."""
+        return 0 if self.low == "lr" else blur_half_support(BLUR_RADIUS)
+
     def trunk(self, lr: torch.Tensor) -> torch.Tensor:
         """The input `low` names, convin, then the ResBlocks."""
-        out = self.convin(hf_input(self.low, lr))
+        out = self.convin(self.low_input(lr))
         for res in self.residual:
             out = self.block(res, out)
         return out

@@ -153,8 +153,8 @@ class NetGHigh16(nn.Module):
         return ims
 
 
-def make_generators(cfg: Config, unused: Tuple[str, ...] = (), remat=False
-                    ) -> Tuple[nn.Module, nn.Module]:
+def make_generators(cfg: Config, unused: Tuple[str, ...] = (), remat=False,
+                    fused_upsample: bool = False) -> Tuple[nn.Module, nn.Module]:
     """(netG, netGH) of cfg's family, fresh, float32 on the CPU: the
     reference's family switch (trainer_objective.py:74-88) as JAX's
     SRPipeline makes it (tgsr_tpu/engine/inference.py:80-108): BRANCH_NUM 4
@@ -163,7 +163,9 @@ def make_generators(cfg: Config, unused: Tuple[str, ...] = (), remat=False
     EVAL.INPUT_NETGH and EVAL.WEIGHTMAP (x8 maps at X8_MAP_SIZES whatever the
     base size, x16 maps at the pyramid's sizes). `unused`: the x16 netGH's
     declared blocks that the weights carry. `remat`: the JAX trainer's
-    policy, False / True / 'all' / 'low' / 'high' (`utils/remat.remat_policy`)."""
+    policy, False / True / 'all' / 'low' / 'high' (`utils/remat.remat_policy`).
+    `fused_upsample`: the x8 generators' UpBlocks in their fused form (JAX's
+    SRPipeline passes it to the x8 family alone; x16 and stage 1 ignore it)."""
     ngf, emb, ev = cfg.GAN.GF_DIM, cfg.TEXT.EMBEDDING_DIM, cfg.EVAL
     low, high = remat_policy(remat)
     hf = {"low": ev.INPUT_NETGH, "weightmap": ev.WEIGHTMAP}
@@ -175,8 +177,9 @@ def make_generators(cfg: Config, unused: Tuple[str, ...] = (), remat=False
         netg = GSRNetLowStage1(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.GAN.R_NUM)
     else:
         netg = GSRNetLow(ngf, emb, cfg.GAN.CONDITION_DIM, cfg.n_stages, cfg.GAN.R_NUM,
-                         remat=low)
-    return netg, NetGHighWeight(ngf, remat=high, sizes=X8_MAP_SIZES, **hf)
+                         remat=low, fused_upsample=fused_upsample)
+    return netg, NetGHighWeight(ngf, remat=high, sizes=X8_MAP_SIZES,
+                                fused_upsample=fused_upsample, **hf)
 
 
 def unused_blocks(netgh_sd) -> Tuple[str, ...]:

@@ -28,6 +28,18 @@ buffers:
   feeds residual48), glu_requant with the head's scale, so the int8 leaves
   the block and the head skips its own quantize step (the same function as
   JAX's v*sigmoid(g), then the head's quantize_act).
+- `QuantUpBlockPhases` (an UpBlock site of `fused_up`, JAX's
+  `_fused_up_int8`): the 3x3 kernel made into the 2x2 phase kernel
+  (`fuse_upconv_weight`) in float32 and quantized per phase and output
+  channel, the input quantized at the source resolution, then the four phase
+  convs, BN, GLU and the depth-to-space in one `int8_upconv_phases`; where
+  the block's output has one int8 consumer with a scale
+  (FUSED_UP_OUT_CONSUMER) the GLU output is quantized with that scale and
+  dequantized, as JAX's, and the consumer requantizes it exactly.
+
+An UpBlock in its float fused form (`UpBlock.fused`, SRPipeline's
+`fused_upsample`) is not quantized: JAX's interceptor skips it
+(`_eligible`), so it runs in the compute dtype whatever the scales hold.
 
 Modules run NCHW views of NHWC tensors, as the rest of the generators.
 """
@@ -35,7 +47,7 @@ Modules run NCHW views of NHWC tensors, as the rest of the generators.
 from __future__ import annotations
 
 import copy
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,8 +55,11 @@ from torch import nn
 from tgsr_tpu_torch.engine.quant import (FUSED_UP_OUT_CONSUMER, act_step, bn_affine,
                                          quantize_kernel)
 from tgsr_tpu_torch.ops.blocks import UpBlock, UpBlockNoBN, glu, nchw, nhwc
+from tgsr_tpu_torch.ops.fused_upsample import fuse_upconv_weight
 from tgsr_tpu_torch.ops.glu_requant import glu_requant, requant
 from tgsr_tpu_torch.ops.int8_conv import Int8Weight, int8_conv, pack_int8_weight
+from tgsr_tpu_torch.ops.int8_upconv import (Int8PhaseWeight, int8_upconv_phases,
+                                            pack_phase_weight)
 
 
 class _Int8Conv(nn.Module):
@@ -68,6 +83,12 @@ class _Int8Conv(nn.Module):
     def weight(self) -> Int8Weight:
         return Int8Weight(self.q, self.packed)
 
+    @property
+    def row_halo(self) -> Tuple[int, int]:
+        """(source rows read above and below a row, output rows a source
+        row) of the SAME conv, for a row-sharded forward (parallel/spatial.py)."""
+        return self.q.shape[0] // 2, 1
+
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW input -> int8 NHWC (an int8 input is taken as it is; the
         compute dtype's input goes through `requant`, the kernel on the card)."""
@@ -89,6 +110,8 @@ class QuantResBlock(nn.Module):
     """conv1 -> BN -> GLU -> conv2 -> BN [+ x] of a Sequential(conv, BN, GLU,
     conv, BN) (`block` of a ResBlock, or a residual sequence), or conv1 ->
     GLU -> conv2 [+ x] of a Sequential(conv, GLU, conv) (a no-BN ResBlock)."""
+
+    row_halo = (2, 1)  # two 3x3 convs, one after the other (parallel/spatial.py)
 
     def __init__(self, seq: nn.Sequential, scale1: float, scale2: float, skip: bool):
         super().__init__()
@@ -120,6 +143,8 @@ class QuantUpBlock(nn.Module):
     """nearest x2 -> int8 conv3x3 -> [BN] -> GLU; with `out_scale`, the GLU
     output leaves as int8 quantized with that (its head's) scale."""
 
+    row_halo = UpBlock.row_halo
+
     def __init__(self, up: nn.Sequential, scale: float, out_scale: Optional[float] = None):
         super().__init__()
         self.conv = _Int8Conv(up.conv, scale)
@@ -139,12 +164,43 @@ class QuantUpBlock(nn.Module):
         return nchw(glu(y, dim=-1))
 
 
+class QuantUpBlockPhases(nn.Module):
+    """An UpBlock as four int8 2x2 phase convs at the source resolution, BN
+    and GLU (JAX's `_fused_up_int8`); with `out_scale`, the GLU output
+    quantized with that scale and dequantized."""
+
+    row_halo = UpBlock.row_halo
+
+    def __init__(self, up: UpBlock, scale: float, out_scale: Optional[float] = None):
+        super().__init__()
+        w = fuse_upconv_weight(up.conv.weight.detach().float().permute(2, 3, 1, 0))
+        wq, w_step = quantize_kernel(w.permute(3, 2, 0, 1))  # per phase and channel
+        pw = pack_phase_weight(wq.permute(2, 3, 1, 0).contiguous())
+        self.in_scale = float(scale)
+        self.register_buffer("q", pw.q)
+        self.register_buffer("packed", pw.packed)
+        x_step = torch.tensor(act_step(scale), dtype=torch.float32, device=w_step.device)
+        self.register_buffer("scale", x_step * w_step)
+        mul, add = bn_affine(up.bn)
+        self.register_buffer("bn_mul", mul.detach())
+        self.register_buffer("bn_add", add.detach())
+        self.out_scale = out_scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = nhwc(x)
+        xq = x if x.dtype == torch.int8 else requant(x, self.in_scale)
+        return nchw(int8_upconv_phases(xq, Int8PhaseWeight(self.q, self.packed), self.scale,
+                                       (self.bn_mul, self.bn_add), self.out_scale, x.dtype))
+
+
 def quantize_generator(generator: nn.Module, sites: Mapping[str, str],
                        scales: Mapping[str, float], split_glu: frozenset,
-                       split_res: frozenset) -> nn.Module:
+                       split_res: frozenset, fused_up: frozenset = frozenset()) -> nn.Module:
     """A copy of `generator` with its calibrated convs in int8. `sites` is
     the generator's table from JAX conv paths to module paths
-    (`checkpoints.from_jax.conv_sites`); `scales` its scales group. The
+    (`checkpoints.from_jax.conv_sites`); `scales` its scales group;
+    `fused_up` the UpBlock convs (JAX keys) that run by phases
+    (`QuantUpBlockPhases`; engine/quant.py FUSED_UP_SITES). The
     compute dtype is that of the generator's weights. A module bound under
     several names (the x16 family's tied stage and head) stays one module in
     the copy (`deepcopy` keeps the aliases), quantized once."""
@@ -168,7 +224,13 @@ def quantize_generator(generator: nn.Module, sites: Mapping[str, str],
             continue
         parent_path = path.rsplit(".", 1)[0]
         parent = gen.get_submodule(parent_path)
-        if isinstance(parent, (UpBlock, UpBlockNoBN)):
+        if isinstance(parent, UpBlock) and parent.fused:
+            continue  # JAX's interceptor leaves a fused UpBlock in the compute dtype
+        if isinstance(parent, UpBlock) and key in fused_up:
+            head = FUSED_UP_OUT_CONSUMER.get(key)
+            gen.set_submodule(parent_path, QuantUpBlockPhases(
+                parent, scales[key], scales.get(head) if head else None))
+        elif isinstance(parent, (UpBlock, UpBlockNoBN)):
             head = FUSED_UP_OUT_CONSUMER.get(key)
             out_scale = (scales[head] if key in split_glu and head in scales
                          and key in head_only else None)

@@ -27,7 +27,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "int8_conv",
-           "conv_probe")
+           "int8_upconv", "conv_probe")
 # the kernels a run counts: one name per library, but the attention's
 # backward, the instances of glu_requant.cu (GLU at c = 64 and c = 32,
 # requantization alone; bfloat16 and float32 inputs), the bfloat16 and float32
@@ -35,7 +35,7 @@ KERNELS = ("word_pixel_attention", "up_head", "up_head_packed", "glu_requant", "
 LAUNCH_NAMES = ("word_pixel_attention", "word_pixel_attention_bwd", "up_head", "up_head_packed",
                 "glu_requant_one", "glu_requant_pair", "requant", "int8_conv",
                 "glu_requant_one_f32", "glu_requant_pair_f32", "requant_f32", "int8_conv_f32",
-                "conv_tap9", "conv_im2col", "conv_pair5", "conv_dotceil")
+                "int8_upconv_phases", "conv_tap9", "conv_im2col", "conv_pair5", "conv_dotceil")
 # element type codes of the kernels that take more than float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,6 +74,11 @@ SIGNATURES = {
         # x, w, scale, mul, add, residual, out, B, H, W, Cin, Cout, k, up2,
         # out dtype, stream
         "int8_conv_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    },
+    "int8_upconv": {
+        # x, w, scale, mul, add, out, B, H, W, Cin, Cout, out step (0: none),
+        # out dtype, stream
+        "int8_upconv_launch": ([_P] * 6 + [_I] * 5 + [_F, _I, _P], _I),
     },
     "conv_probe": {
         # x, w (HWIO) or wp (packed), out, B, H, W, stream

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tgsr_tpu_torch.ops.fused_upsample import fuse_upconv_weight, upconv2x_fused
 from tgsr_tpu_torch.parallel import data_parallel
 from tgsr_tpu_torch.utils import remat
 
@@ -128,15 +129,31 @@ def batch_norm(ch: int) -> BatchNorm:
 
 
 class UpBlock(nn.Sequential):
-    """nearest x2 -> conv3x3(in -> 2*out) -> BN -> GLU (= util.py:74-80)."""
+    """nearest x2 -> conv3x3(in -> 2*out) -> BN -> GLU (= util.py:74-80).
+
+    With `fused` (JAX's `UpBlock(fused=True)`, tgsr_tpu/ops/blocks.py:138-170)
+    the upsample and the conv run as one 2x2 conv at the source resolution
+    and a depth-to-space (`ops/fused_upsample.upconv2x_fused`), on the 2x2
+    kernel made from the 3x3 one in the compute dtype at every call. The
+    parameter stays the 3x3 kernel, so checkpoints load either way."""
 
     # the JAX module's names of the parameterised children
     # (`checkpoints/from_jax.flax_leaves`)
     flax_names = {"1": "conv", "2": "bn"}
+    # (source rows read above and below a row, output rows a source row):
+    # what a row-sharded forward exchanges (parallel/spatial.py)
+    row_halo = (1, 2)
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, fused: bool = False):
         super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),
                          conv3x3(cin, cout * 2), batch_norm(cout * 2), GLU())
+        self.fused = fused
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fused:
+            return super().forward(x)
+        w = fuse_upconv_weight(self.conv.weight.permute(2, 3, 1, 0).to(x.dtype))
+        return glu(self.bn(upconv2x_fused(x, w)), dim=1)
 
     @property
     def conv(self) -> nn.Conv2d:
@@ -149,6 +166,8 @@ class UpBlock(nn.Sequential):
 
 class UpBlockNoBN(nn.Sequential):
     """nearest x2 -> conv3x3(in -> 2*out) -> GLU (= upBlocknoBN, util.py:83-88)."""
+
+    row_halo = (1, 2)  # as UpBlock's
 
     def __init__(self, cin: int, cout: int):
         super().__init__(nn.Upsample(scale_factor=2, mode="nearest"),

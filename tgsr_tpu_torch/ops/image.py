@@ -174,12 +174,17 @@ def _depthwise(z: torch.Tensor, k: torch.Tensor, dim: int) -> torch.Tensor:
     return F.conv2d(z, k.reshape(shape[1:]).expand(shape), groups=c)
 
 
+def blur_half_support(radius: float) -> int:
+    """The pixels beside a pixel, each way, that `gaussian_blur` reads."""
+    return int(math.ceil(float(radius) * 2.0))
+
+
 def gaussian_blur(x: torch.Tensor, radius: float = 2.0) -> torch.Tensor:
     """Separable depthwise gaussian blur, sigma = radius, support
     2 * ceil(2 * sigma) + 1, edge-replicated borders, NHWC float:
     horizontal, then vertical."""
     sigma = float(radius)
-    half = int(math.ceil(sigma * 2.0))
+    half = blur_half_support(radius)
     k = _gauss(half, sigma, x.device).to(x.dtype)
     z = x.permute(0, 3, 1, 2)
     z = _depthwise(F.pad(z, (half, half, 0, 0), mode="replicate"), k, 3)

@@ -20,6 +20,7 @@ wrapper, with three implementations:
 | tgsr::glu_requant | glu_requant.cu (GLU + requantize) | ops/glu_requant.py |
 | tgsr::requant | glu_requant.cu (requantize) | ops/glu_requant.py |
 | tgsr::int8_conv | int8_conv.cu | ops/int8_conv.py |
+| tgsr::int8_upconv_phases | int8_upconv.cu | ops/int8_upconv.py |
 
 The conv probe's kernels (`ops/conv_probe.py`) never run in a serving
 program and stay on ctypes alone.
@@ -28,8 +29,8 @@ program and stay on ctypes alone.
 from __future__ import annotations
 
 from tgsr_tpu_torch.ops import (fused_attention, glu_requant, int8_conv,  # noqa: F401 (registers)
-                                up_head, up_head_packed)
+                                int8_upconv, up_head, up_head_packed)
 
 NAMESPACE = "tgsr"
 OPS = ("word_pixel_attention", "word_pixel_attention_bwd", "up_head", "up_head_packed",
-       "glu_requant", "requant", "int8_conv")
+       "glu_requant", "requant", "int8_conv", "int8_upconv_phases")

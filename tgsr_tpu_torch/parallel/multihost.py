@@ -67,6 +67,38 @@ def initialize_single(device: str = "cuda") -> None:
                             init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
 
 
+def host_staged(x: torch.Tensor, group) -> bool:
+    """True where `group`'s backend takes no CUDA tensor (gloo, as on the
+    CPU or for two ranks sharing one card): the tensor then crosses through
+    host memory."""
+    return x.is_cuda and "nccl" not in str(dist.get_backend(group))
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's x (the same shape on each), concatenated along `dim` in
+    the group's rank order, on every rank (through host memory on gloo)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    staged = host_staged(x, group)
+    wire = (x.cpu() if staged else x).contiguous()
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=group)
+    out = torch.cat(parts, dim)
+    return out.to(x.device) if staged else out
+
+
+def all_reduce_min(value: int, group) -> int:
+    """The least of every rank's integer `value` over `group`, on every rank
+    (on the current card for NCCL, on the host otherwise)."""
+    if dist.get_world_size(group) == 1:
+        return value
+    nccl = "nccl" in str(dist.get_backend(group))
+    t = torch.tensor([value], dtype=torch.int64, device="cuda" if nccl else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return int(t.item())
+
+
 def device_of_rank(device: str = "cuda") -> torch.device:
     """The device this rank drives: `cuda:LOCAL_RANK` under a launcher (one
     process per GPU), `device` as given otherwise."""

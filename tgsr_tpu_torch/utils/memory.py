@@ -86,25 +86,27 @@ def fit(probes: Dict[int, int]):
 
 
 def max_microbatch(fixed: int, per_image: int, budget: int, quantum: int,
-                   held_per_image: int = 0) -> int:
-    """Largest b <= MAX_MICROBATCH with GRAPH_COPIES * (fixed + per_image *
-    b) + held_per_image * b <= budget, rounded down to a multiple of
-    `quantum` when it is at least that, else to a power of two. Raises when
-    not even b = 1 fits."""
+                   held_per_image: int = 0, lo: int = 1, hi: int = MAX_MICROBATCH) -> int:
+    """Largest b <= hi with GRAPH_COPIES * (fixed + per_image * b) +
+    held_per_image * b <= budget, rounded down to a multiple of `quantum`
+    when it is at least that, else to a power of two, and never below lo
+    (JAX's bisection tries lo itself first). Raises when not even lo fits."""
     room = budget - GRAPH_COPIES * fixed
     per = GRAPH_COPIES * per_image + held_per_image
-    b = 0 if room < 0 else min(MAX_MICROBATCH, room // per if per else MAX_MICROBATCH)
-    if b < 1:
-        raise RuntimeError(f"no microbatch fits: {GRAPH_COPIES} x ({fixed} + {per_image} x b) "
-                           f"+ {held_per_image} x b bytes against a budget of {budget}")
-    return b - b % quantum if b >= quantum else 1 << (b.bit_length() - 1)
+    b = 0 if room < 0 else min(hi, room // per if per else hi)
+    lo = max(lo, 1)
+    if b < lo:
+        raise RuntimeError(f"no microbatch of at least {lo} fits: {GRAPH_COPIES} x ({fixed} + "
+                           f"{per_image} x b) + {held_per_image} x b bytes against a budget of "
+                           f"{budget}")
+    return max(lo, b - b % quantum if b >= quantum else 1 << (b.bit_length() - 1))
 
 
 def plan(need: Callable[[int], int], budget: int, quantum: int,
-         held_per_image: int = 0) -> MemoryPlan:
+         held_per_image: int = 0, lo: int = 1, hi: int = MAX_MICROBATCH) -> MemoryPlan:
     """Measures `need(b)` (bytes) at b = quantum and PROBE_SPAN * quantum
-    and plans the microbatch against `budget`."""
+    and plans the microbatch in [lo, hi] against `budget`."""
     measured = {b: need(b) for b in (quantum, PROBE_SPAN * quantum)}
     fixed, per_image = fit(measured)
-    return MemoryPlan(max_microbatch(fixed, per_image, budget, quantum, held_per_image),
+    return MemoryPlan(max_microbatch(fixed, per_image, budget, quantum, held_per_image, lo, hi),
                       fixed, per_image, held_per_image, budget, measured)
